@@ -1,0 +1,517 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (paddle_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Needs one CUDA device and the CUDA toolkit (nvcc); exits non-zero, and
+prints no result, without them or when run outside the repository.
+Phases (any failure exits non-zero):
+
+  1. print the card's name and power limit (nvidia-smi) and build the
+     paged-attention kernel from paddle_tpu_torch/csrc with nvcc;
+  2. hold the kernel against its plain PyTorch version through all three
+     wrappers (decode, verify, prefill chunk) at the serving shapes
+     (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a 128-token
+     chunk at start > 0, a 4-row verify window) in bf16 and f32, at one
+     odd shape (Dh=32, Bt=8, R=3), with -1 table tails (bit-identical to
+     a full table) and a parked row; time the kernel and the plain
+     version at the decode and prefill shapes with a cold L2;
+  3. serve a fixed-seed trace of 12 requests through ServingEngine at
+     full width in bf16 (vocab 32000, dim 512, 8 heads, 8 layers,
+     max_len 1024; 16 slots, 16-token blocks, 128-token chunks, an
+     8192-token prefix cache): a shared 128-token header, prompts of
+     64-512 tokens, 32-128 new tokens, some sampled, one resubmitted
+     whole-block prompt (copy-on-write). The kernel launch counters are
+     zeroed just before and read just after; decode launches must equal
+     layers x decode steps and prefill launches layers x prefill chunks;
+  4. the same weights in f32: greedy engine output equals the port's
+     sequential generate() token for token for 4 requests, one retiring
+     on EOS, through a pool small enough to force backpressure;
+  5. print the kernels' JSON line, then the device line last.
+
+With --profile, torch.profiler also reads the device-busy share and the
+top kernels over the bf16 trace's first steps and steady decode steps.
+
+Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
+atol/rtol 2e-2 against the plain version computed in f32 on the same
+bf16 inputs (bf16 rounds the output to ~3 significant digits).
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and dense
+# bf16 tensor-core FLOP/s; float32 outside the tensor cores
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TPU_KERNEL = "paddle_tpu/parallel/paged_attention.py:79"
+SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+
+FULL = dict(vocab=32000, dim=512, heads=8, layers=8, max_len=1024)
+ENGINE = dict(max_slots=16, kv_block_tokens=16, prefill_chunk_tokens=128,
+              prefix_cache_tokens=8192)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def check(cond, msg):
+    """A phase's gate: raise (and so exit non-zero) when it fails."""
+    if not cond:
+        raise AssertionError(msg)
+
+
+def gpu_line():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------
+# phase 2: kernel vs plain version
+# ---------------------------------------------------------------------
+
+
+def make_case(rng, torch, dtype, S, R, H, Dh, Bt, MAXB, NB, parked=False,
+              base=None, dev="cuda"):
+    """Random pools, per-slot tables of distinct blocks with a -1 tail
+    past each slot's deepest attended depth, and the same tables with
+    the tail filled by valid blocks."""
+    k = torch.from_numpy(rng.randn(NB, Bt, H, Dh).astype(np.float32))
+    v = torch.from_numpy(rng.randn(NB, Bt, H, Dh).astype(np.float32))
+    k, v = k.to(dev, dtype), v.to(dev, dtype)
+    q = torch.from_numpy(rng.randn(S, R, H, Dh).astype(np.float32))
+    q = q.to(dev, dtype)
+    full = np.stack([rng.choice(NB, MAXB, replace=False)
+                     for _ in range(S)]).astype(np.int32)
+    if base is None:
+        base = rng.randint(0, MAXB * Bt - R + 1, size=S).astype(np.int32)
+    base = np.asarray(base, np.int32).reshape(S)
+    if parked:
+        base[-1] = MAXB * Bt
+    part = full.copy()
+    for s in range(S):
+        need = min(-(-(int(base[s]) + R) // Bt), MAXB)
+        part[s, need:] = -1
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return dict(q=q, k=k, v=v, part=t(part), full=t(full), base=t(base),
+                base_np=base)
+
+
+def attended_tokens(c, R, Bt, MAXB):
+    return [min(int(b) + r + 1, MAXB * Bt) for b in c["base_np"]
+            for r in range(R)]
+
+
+def run_wrapper(tpa, which, c, table, plain=False):
+    """Call one wrapper (or the plain version on f32 copies) on a case."""
+    q, k, v, base = c["q"], c["k"], c["v"], c["base"]
+    if plain:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        out = tpa.paged_attention_plain(q.float(), k.float(), v.float(),
+                                        table, base, scale=scale,
+                                        scale_in_q=which != "decode")
+        return out[:, 0] if which == "decode" else (
+            out[0] if which == "prefill" else out)
+    if which == "decode":
+        return tpa.paged_decode_attention(q[:, 0], k, v, table, base)
+    if which == "verify":
+        return tpa.paged_verify_attention(q, k, v, table, base)
+    return tpa.paged_prefill_attention(q[0], k, v, table[0],
+                                       int(c["base_np"][0]))
+
+
+def check_case(torch, tpa, which, c, label):
+    tol = 1e-4 if c["q"].dtype == torch.float32 else 2e-2
+    got = run_wrapper(tpa, which, c, c["part"])
+    got_full = run_wrapper(tpa, which, c, c["full"])
+    if got.is_cuda:
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+    want = run_wrapper(tpa, which, c, c["part"], plain=True)
+    err = float((got.float() - want).abs().max())
+    ok = torch.allclose(got.float(), want, atol=tol, rtol=tol)
+    same = torch.equal(got, got_full)
+    log("  %-34s max_abs_err %.3e (tol %.0e) %s; -1 tail bit-identical: %s"
+        % (label, err, tol, "ok" if ok else "FAIL", same))
+    if not (ok and same and torch.isfinite(got).all()):
+        raise AssertionError("kernel disagrees with its plain version: "
+                             + label)
+    return err
+
+
+def time_ms(torch, fn, iters=30):
+    """Mean device ms per call with a cold L2: a 64 MiB buffer is
+    rewritten before each timed call, as the serving step finds the pool
+    (8 layers x 32 MiB) cold. A GPU spin queued first keeps the device
+    busy while the host enqueues the call, so the events bracket device
+    time, not the wrapper's Python."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda._sleep(4_000_000)  # ~2 ms of device spin
+        flush.zero_()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / iters
+
+
+def bound_ms(c, tokens, dtype_name):
+    """Least time for the same work: each input byte read once (the K/V
+    rows attended, q, tables, positions), the output written once, vs
+    4*Dh flops per (row, head, attended depth) at the peak rate."""
+    q = c["q"]
+    H, Dh = q.shape[2], q.shape[3]
+    esize = q.element_size()
+    uniq = {}  # K/V rows are shared by a slot's window rows
+    R = q.shape[1]
+    for i, t in enumerate(tokens):
+        s = i // R
+        uniq[s] = max(uniq.get(s, 0), t)
+    kv = sum(uniq.values()) * H * Dh * 2 * esize
+    qo = 2 * q.numel() * esize
+    meta = c["part"].numel() * 4 + c["base"].numel() * 4
+    flops = sum(tokens) * H * 4 * Dh
+    t_bytes = (kv + qo + meta) / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def phase_kernels(torch, tpa):
+    rng = np.random.RandomState(0)
+    shapes = dict(H=8, Dh=64, Bt=16, MAXB=64, NB=1024)
+    errs, timing = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cases = {
+            "decode": make_case(rng, torch, dtype, S=16, R=1, parked=True,
+                                **shapes),
+            "verify": make_case(rng, torch, dtype, S=16, R=4, **shapes),
+            "prefill": make_case(rng, torch, dtype, S=1, R=128, base=[256],
+                                 **shapes),
+        }
+        for which, c in cases.items():
+            errs[(which, name)] = check_case(
+                torch, tpa, which, c, "%s %s full width" % (which, name))
+        if dtype == torch.bfloat16:
+            for which in ("decode", "prefill"):
+                c = cases[which]
+                R = c["q"].shape[1]
+                ms = time_ms(torch, lambda: run_wrapper(tpa, which, c,
+                                                        c["part"]))
+                plain = time_ms(torch, lambda: run_wrapper(
+                    tpa, which, c, c["part"], plain=True), iters=10)
+                b, by = bound_ms(c, attended_tokens(c, R, 16, 64), name)
+                timing[which] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                     bound_by=by)
+                log("  %-8s bf16: kernel %.4f ms, plain %.4f ms, bound "
+                    "%.4f ms (%s), no single PyTorch call computes paged "
+                    "attention" % (which, ms, plain, b, by))
+    odd = dict(H=4, Dh=32, Bt=8, MAXB=16, NB=60)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        check_case(torch, tpa, "decode", make_case(
+            rng, torch, dtype, S=5, R=1, parked=True, **odd),
+            "decode %s Dh=32 Bt=8" % name)
+        check_case(torch, tpa, "verify", make_case(
+            rng, torch, dtype, S=5, R=3, **odd),
+            "verify %s Dh=32 Bt=8 R=3" % name)
+        check_case(torch, tpa, "prefill", make_case(
+            rng, torch, dtype, S=1, R=13, base=[21], **odd),
+            "prefill %s Dh=32 Bt=8 C=13" % name)
+    return errs, timing
+
+
+# ---------------------------------------------------------------------
+# phases 3-4: the serving engine at full width
+# ---------------------------------------------------------------------
+
+
+def trace(cfg, n=12, seed=0):
+    rng = np.random.RandomState(seed)
+    header = rng.randint(0, cfg.vocab, 128).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        T0 = int(rng.randint(64, 513))
+        if T0 >= 160:  # the shared header leads every long prompt
+            tail = rng.randint(0, cfg.vocab, T0 - 128).astype(np.int32)
+            prompt = np.concatenate([header, tail])
+        else:
+            prompt = rng.randint(0, cfg.vocab, T0).astype(np.int32)
+        reqs.append(dict(prompt=prompt,
+                         max_new_tokens=int(rng.randint(32, 129)),
+                         temperature=0.8 if i % 3 == 1 else 0.0,
+                         seed=1000 + i, publish_len=128))
+    # a whole-block prompt served twice: the resubmit aliases every
+    # block and copies the last one on write
+    cow = np.concatenate(
+        [header, rng.randint(0, cfg.vocab, 128).astype(np.int32)])
+    reqs.append(dict(prompt=cow, max_new_tokens=32, seed=7))
+    reqs.append(dict(prompt=cow, max_new_tokens=32, seed=7))
+    return reqs
+
+
+def _sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_serve(torch, T, tpa, ServingEngine, params, cfg, dev="cuda"):
+    warm = ServingEngine(params, cfg, device=dev, **ENGINE)
+    warm.submit(np.arange(40) % cfg.vocab, 4)
+    warm.run()
+    del warm
+    eng = ServingEngine(params, cfg, device=dev, **ENGINE)
+    reqs = trace(cfg)
+    _sync(torch, dev)
+    tpa.paged_decode_attention.launches = 0
+    tpa.paged_prefill_attention.launches = 0
+    tpa.paged_verify_attention.launches = 0
+    t0 = time.monotonic()
+    hs = [eng.submit(**r) for r in reqs[:-1]]
+    eng.run()
+    hs.append(eng.submit(**reqs[-1]))  # after the first copy published
+    eng.run()
+    _sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = {"decode": tpa.paged_decode_attention.launches,
+                "prefill": tpa.paged_prefill_attention.launches,
+                "verify": tpa.paged_verify_attention.launches}
+    rep = eng.metrics.report()
+    check(all(h.done for h in hs), "a request did not finish")
+    for h in hs:
+        check(h.finish_reason in ("budget", "eos"),
+              "request %d finished %r" % (h.rid, h.finish_reason))
+        check(all(0 <= t < cfg.vocab for t in h.tokens),
+              "request %d emitted a token outside the vocab" % h.rid)
+        if h.finish_reason == "budget":
+            check(len(h.tokens) == h.max_new_tokens,
+                  "request %d stopped short of its budget" % h.rid)
+    want_dec = cfg.layers * rep["decode_steps"]
+    want_pre = cfg.layers * rep["prefill_chunks"]
+    log("  launches: decode %d (layers x decode steps = %d), prefill %d "
+        "(layers x chunks = %d), verify %d"
+        % (launches["decode"], want_dec, launches["prefill"], want_pre,
+           launches["verify"]))
+    if dev == "cuda":
+        check(launches["decode"] == want_dec and want_dec > 0,
+              "decode kernel launches != layers x decode steps")
+        check(launches["prefill"] == want_pre and want_pre > 0,
+              "prefill kernel launches != layers x prefill chunks")
+    check(rep["prefix_cache"]["hits"] >= 1 and rep["cow_blocks"] >= 1,
+          "the trace made no prefix hit or no copy-on-write")
+    toks = rep["tokens_out"]
+    log("  served %d requests, %d tokens in %.3f s: %.1f tokens/s; TTFT "
+        "mean %.4f s max %.4f s; decode steps %d (mean occupancy %.3f); "
+        "prefill chunks %d; prefix hits %d, cow blocks %d"
+        % (len(hs), toks, wall, toks / wall, rep["mean_ttft_s"],
+           max(h.ttft_s for h in hs), rep["decode_steps"],
+           rep["mean_occupancy"], rep["prefill_chunks"],
+           rep["prefix_cache"]["hits"], rep["cow_blocks"]))
+    eng.metrics.print_report()
+    return launches, dict(tokens_per_s=toks / wall, wall_s=wall,
+                          tokens=toks, mean_ttft_s=rep["mean_ttft_s"],
+                          decode_steps=rep["decode_steps"],
+                          prefill_chunks=rep["prefill_chunks"])
+
+
+def phase_generate(torch, T, ServingEngine, params, cfg, dev="cuda"):
+    p32 = _tree_map(lambda t: t.float(), params)
+    cfg32 = T.TransformerConfig(vocab=cfg.vocab, dim=cfg.dim,
+                                heads=cfg.heads, layers=cfg.layers,
+                                max_len=cfg.max_len)
+    reqs = trace(cfg32, n=4, seed=1)[:4]
+    for r in reqs:
+        r.update(temperature=0.0, max_new_tokens=min(r["max_new_tokens"],
+                                                      48))
+    oracle = []
+    for r in reqs:
+        p = torch.from_numpy(r["prompt"][None]).long().to(dev)
+        oracle.append(T.generate(p32, p, cfg32, r["max_new_tokens"])
+                      [0, len(r["prompt"]):].tolist())
+    # the last request retires on EOS: its 5th greedy token
+    eos = oracle[-1][4]
+    reqs[-1]["eos_id"] = eos
+    oracle[-1] = oracle[-1][:oracle[-1].index(eos) + 1]
+    # a pool two blocks over the largest request's worst case: the four
+    # requests cannot all hold their reservations at once
+    blocks = 2 + max(-(-(len(r["prompt"]) + r["max_new_tokens"]) // 16)
+                     for r in reqs)
+    eng = ServingEngine(p32, cfg32, device=dev, max_slots=4,
+                        kv_block_tokens=16, prefill_chunk_tokens=128,
+                        prefix_cache_tokens=8192, kv_pool_blocks=blocks)
+    hs = [eng.submit(**r) for r in reqs]
+    held = False
+    while eng.step():
+        held |= bool(eng.queue_depth
+                     and eng.live_slots + eng.prefilling_slots < 4)
+    for h, want in zip(hs, oracle):
+        if h.tokens != want:
+            raise AssertionError("f32 engine diverged from generate() for "
+                                 "request %d: %s vs %s"
+                                 % (h.rid, h.tokens[:16], want[:16]))
+    check(hs[-1].finish_reason == "eos", "the EOS request did not retire "
+          "on EOS")
+    log("  f32 engine == generate() for %d requests (%d tokens); EOS "
+        "retirement ok; backpressure (queued beside a free slot): %s"
+        % (len(hs), sum(len(w) for w in oracle), held))
+    check(held, "the small pool did not hold a request back")
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return getattr(evt, name)
+    return 0.0
+
+
+def _kernel_class(name):
+    if "paged_attention" in name:
+        return "paged_attention kernel"
+    if any(k in name for k in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
+        return "GEMM (cuBLAS)"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy/memset"
+    return "elementwise, reduce, index"
+
+
+def phase_profile(torch, ServingEngine, params, cfg, windows=(6, 24)):
+    """torch.profiler over the serving trace: the first steps (admission
+    and prefill chunks beside decode) and then steady decode steps. For
+    each window: wall ms per step, the device-busy share (summed
+    device-side kernel, copy and memset time over wall; one stream, so
+    they do not overlap), device ms per step by kernel class, and the
+    kernels that take the most device time. The profiler's own host
+    cost inflates the wall; the unprofiled step time is phase 3's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ServingEngine(params, cfg, device="cuda", **ENGINE)
+    for r in trace(cfg)[:-1]:
+        eng.submit(**r)
+    for label, n in zip(("first %d steps" % windows[0],
+                         "next %d steps" % windows[1]), windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        evts = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA
+                and _device_us(e) > 0]
+        busy = sum(_device_us(e) for e in evts) / 1e6
+        classes = {}
+        for e in evts:
+            c = _kernel_class(e.key)
+            classes[c] = classes.get(c, 0.0) + _device_us(e) / 1e3 / n
+        log("  profile %s: %.3f ms/step wall (profiled), device busy "
+            "%.4f ms/step = %.4f of wall, %d device ops"
+            % (label, wall / n * 1e3, busy / n * 1e3, busy / wall,
+               sum(e.count for e in evts)))
+        for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+            log("    class %-28s %.4f ms/step device" % (c, ms))
+        for e in sorted(evts, key=_device_us, reverse=True)[:6]:
+            log("    %-60s %6d calls %9.3f ms device"
+                % (e.key[:60], e.count, _device_us(e) / 1e3))
+    eng.run()
+
+
+def _tree_map(fn, x):
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_tree_map(fn, v) for v in x]
+    return fn(x)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import paged_attention as tpa
+    from paddle_tpu_torch.serving import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+    log(card)
+    log("torch %s, CUDA %s, %s x %d" % (
+        torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
+        torch.cuda.device_count()))
+
+    log("phase 1: build")
+    t0 = time.monotonic()
+    _build.build(["paged_attention"])
+    log("  built paged_attention in %.1f s" % (time.monotonic() - t0))
+    for line in _build.BUILD_LOG.get("paged_attention", (0, 0, ""))[2] \
+            .splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log("  ptxas: " + line.strip())
+
+    log("phase 2: kernel vs plain version")
+    errs, timing = phase_kernels(torch, tpa)
+
+    log("phase 3: serve at full width, bf16")
+    cfg = T.TransformerConfig(dtype=torch.bfloat16, **FULL)
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    launches, serve = phase_serve(torch, T, tpa, ServingEngine, params, cfg)
+
+    log("phase 4: f32 engine vs generate()")
+    phase_generate(torch, T, ServingEngine, params, cfg)
+
+    if "--profile" in sys.argv[1:]:
+        log("profile: bf16 serving trace under torch.profiler")
+        phase_profile(torch, ServingEngine, params, cfg)
+
+    kernels = []
+    for which, wrapper in (("decode", "paged_decode_attention"),
+                           ("prefill", "paged_prefill_attention")):
+        tm = timing[which]
+        kernels.append({
+            "name": "paged_attention (%s, %s)" % (which, wrapper),
+            "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
+            "launches": launches[which],
+            "max_abs_err": errs[(which, "bfloat16")],
+            "max_abs_err_f32": errs[(which, "float32")],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes paged "
+                            "attention",
+            "card": card,
+        })
+    log("kernels: " + ", ".join("%s launches=%d" % (k["name"], k["launches"])
+                                for k in kernels))
+    log("serving: %s" % json.dumps(serve))
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,556 @@
+"""Decoder-only transformer LM (counterpart of
+paddle_tpu/models/transformer.py): the dense forward pass, cached
+decode and generation, and the paged-KV serving primitives the serving
+engine drives.
+
+Parameters are a plain dictionary of tensors with the JAX package's
+pytree layout — {"embed", "pos", "blocks": [{"ln1", "wq", "wk", "wv",
+"wo", "ln2", "w1", "w2"}], "ln_f"} — so `params_from_numpy` carries a
+JAX checkpoint (converted to numpy by the caller) over unchanged and
+the tests compare like with like.
+
+Numerics kept from the reference: LayerNorm with eps 1e-5 and biased
+variance, tanh-approximated GELU (jax.nn.gelu's default), a
+weight-tied output head, and two attention scaling families — cached
+decode scales the scores AFTER QK^T (`_cached_attention`), while the
+chunked prefill and verify paths fold the scale into q first and mask
+with the finite NEG_INF fill (`reference_attention`'s family).
+
+Differences from JAX that the port makes explicit:
+  * the cache primitives UPDATE THE CACHE IN PLACE and return it (JAX
+    returns a new pytree and donates the old one);
+  * JAX drops out-of-range scatter writes and clamps out-of-range
+    gathers silently. Here parked rows (dead decode slots, padded chunk
+    rows, past-budget verify rows — all resolved to block NB by
+    `_phys_rows`) are masked out before the write, and gathers of the
+    positional table clamp their index explicitly. The pool is never
+    grown by a sentinel block, so `kv_block_bytes` stays the pool's
+    true cost.
+
+The MoE, mesh (sequence-parallel), LoRA-adapter and quantized-KV
+branches of the reference are not ported yet and raise
+NotImplementedError when asked for.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from ..parallel.attention import reference_attention
+from ..parallel.kernel_utils import NEG_INF
+from ..utils import prng
+
+__all__ = ["TransformerConfig", "init_params", "params_from_numpy",
+           "forward", "init_kv_cache", "decode_step", "prefill",
+           "generate", "init_paged_kv_cache", "kv_block_bytes",
+           "paged_decode_step", "paged_prefill_chunk",
+           "paged_verify_step", "logits_trap", "logit_amax"]
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError("%s is not ported yet — ROADMAP: %s"
+                              % (what, item))
+
+
+class TransformerConfig:
+    def __init__(self, vocab=256, dim=128, heads=4, layers=2, mlp_mult=4,
+                 max_len=1024, dtype=torch.float32, moe_experts=0):
+        if moe_experts:
+            _not_ported("the Switch-MoE FFN (moe_experts > 0)",
+                        "the parallel slice (expert-parallel MoE)")
+        self.vocab = vocab
+        self.dim = dim
+        self.heads = heads
+        self.layers = layers
+        self.mlp_mult = mlp_mult
+        self.max_len = max_len
+        self.dtype = dtype
+
+
+def init_params(cfg: TransformerConfig, generator: torch.Generator,
+                device=None) -> Dict[str, Any]:
+    """Random parameters with the reference's shapes and law (dense
+    weights N(0, 1) / sqrt(dim), LayerNorm gains 1 and biases 0), drawn
+    from `generator` on its own device and placed on `device` (CUDA by
+    default). The numbers differ from the JAX init of the same seed;
+    use `params_from_numpy` to carry JAX weights over."""
+    dev = resolve_device(device)
+    d = cfg.dim
+    scale = 1.0 / math.sqrt(d)
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=generator, device=generator.device)
+        return (scale * w).to(device=dev, dtype=cfg.dtype)
+
+    def ln():
+        return {"g": torch.ones(d, device=dev, dtype=cfg.dtype),
+                "b": torch.zeros(d, device=dev, dtype=cfg.dtype)}
+
+    params = {"embed": dense(cfg.vocab, d), "pos": dense(cfg.max_len, d),
+              "blocks": [], "ln_f": ln()}
+    for _ in range(cfg.layers):
+        params["blocks"].append({
+            "ln1": ln(), "wq": dense(d, d), "wk": dense(d, d),
+            "wv": dense(d, d), "wo": dense(d, d), "ln2": ln(),
+            "w1": dense(d, cfg.mlp_mult * d),
+            "w2": dense(cfg.mlp_mult * d, d),
+        })
+    return params
+
+
+def params_from_numpy(tree, device=None, dtype=None):
+    """Carry a parameter pytree of numpy arrays (a JAX checkpoint after
+    `jax.tree_util.tree_map(np.asarray, params)`) into the port's
+    parameters: the same nesting of dicts and lists, each leaf a tensor
+    on `device` (CUDA by default), cast to `dtype` when given."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":  # ml_dtypes: no torch view
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))  # a writable copy
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    return conv(tree)
+
+
+def _ln(x, p):
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + 1e-5) * p["g"] + p["b"]
+
+
+def _mlp(x, blk):
+    h = _ln(x, blk["ln2"])
+    return x + F.gelu(h @ blk["w1"], approximate="tanh") @ blk["w2"]
+
+
+def _pos_rows(params, positions):
+    """Positional-table rows for an int or an index tensor, the index
+    clamped to the table as JAX's gather clamps it (parked rows carry
+    out-of-range positions)."""
+    table = params["pos"]
+    if isinstance(positions, int):
+        return table[min(max(positions, 0), table.shape[0] - 1)]
+    return table[positions.long().clamp(0, table.shape[0] - 1)]
+
+
+def forward(params, tokens, cfg: TransformerConfig, mesh=None,
+            attn_impl: str = "ring", kv_sink=None, last_only=False,
+            last_index=None):
+    """tokens [B, T] int -> logits [B, T, vocab] (or [B, vocab] of the
+    final position with `last_only`, or of position `last_index`). With
+    `kv_sink` (a list), each block appends its (k, v) [B, T, H, Dh].
+    Without a mesh every `attn_impl` but "flash" is the plain causal
+    attention, as in the reference."""
+    if mesh is not None:
+        _not_ported("mesh (sequence-parallel) attention",
+                    "the parallel slice")
+    if attn_impl == "flash":
+        _not_ported("flash attention (forward(attn_impl='flash'))",
+                    "the training slice (flash kernels 1-3)")
+    B, T = tokens.shape
+    H, dh = cfg.heads, cfg.dim // cfg.heads
+    x = params["embed"][tokens.long()] + params["pos"][:T][None]
+    for blk in params["blocks"]:
+        h = _ln(x, blk["ln1"])
+        q = (h @ blk["wq"]).reshape(B, T, H, dh)
+        k = (h @ blk["wk"]).reshape(B, T, H, dh)
+        v = (h @ blk["wv"]).reshape(B, T, H, dh)
+        if kv_sink is not None:
+            kv_sink.append((k, v))
+        o = reference_attention(q, k, v, causal=True)
+        x = x + o.reshape(B, T, cfg.dim) @ blk["wo"]
+        x = _mlp(x, blk)
+    if last_index is not None:
+        x = x[:, min(max(int(last_index), 0), T - 1)]
+    elif last_only:
+        x = x[:, -1]
+    x = _ln(x, params["ln_f"])
+    return x @ params["embed"].T  # weight-tied output head
+
+
+# ---------------------------------------------------------------------
+# incremental decoding: per-layer contiguous KV cache + one-token steps
+# ---------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len=None,
+                  dtype=None, device=None):
+    """Per-layer K/V buffers [B, L, H, Dh], zero-initialised."""
+    dev = resolve_device(device)
+    L = int(max_len or cfg.max_len)
+    shape = (batch, L, cfg.heads, cfg.dim // cfg.heads)
+    dt = dtype or cfg.dtype
+    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in range(cfg.layers)]
+
+
+def _cached_attention(q, cache_k, cache_v, pos):
+    """q [B, H, Dh] against the cache [B, L, H, Dh]; depths > pos masked
+    with -inf. `pos` is a scalar (every row at one depth) or a [B]
+    vector of per-row positions. Decode family: scores / sqrt(Dh) after
+    the matmul, softmax in f32."""
+    B, L, H, dh = cache_k.shape
+    scores = torch.einsum("bhd,blhd->bhl", q, cache_k) / math.sqrt(dh)
+    depth = torch.arange(L, device=q.device)
+    if isinstance(pos, int) or pos.dim() == 0:
+        mask = (depth <= pos)[None, None, :]
+    else:
+        mask = (depth[None, :] <= pos[:, None])[:, None, :]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhl,blhd->bhd", probs, cache_v)
+
+
+def _write_kv(buf, new, pos):
+    """Write one new K or V row [B, H, Dh] into the cache [B, L, H, Dh]
+    at position `pos` (scalar: every row; [B]: per row, out-of-range
+    rows dropped as JAX's scatter drops them). In place."""
+    if isinstance(pos, int) or pos.dim() == 0:
+        buf[:, int(pos)] = new.to(buf.dtype)
+        return buf
+    rows = torch.nonzero((pos >= 0) & (pos < buf.shape[1]),
+                         as_tuple=True)[0]
+    buf[rows, pos[rows].long()] = new[rows].to(buf.dtype)
+    return buf
+
+
+def decode_step(params, token, pos, cache, cfg: TransformerConfig):
+    """One decode step: token [B] at position `pos` (scalar or [B]) ->
+    (logits [B, vocab], cache updated in place)."""
+    B = token.shape[0]
+    dh = cfg.dim // cfg.heads
+    x = params["embed"][token.long()] + _pos_rows(params, pos)
+    for blk, kv in zip(params["blocks"], cache):
+        h = _ln(x, blk["ln1"])
+        q = (h @ blk["wq"]).reshape(B, cfg.heads, dh)
+        k = (h @ blk["wk"]).reshape(B, cfg.heads, dh)
+        v = (h @ blk["wv"]).reshape(B, cfg.heads, dh)
+        _write_kv(kv["k"], k, pos)
+        _write_kv(kv["v"], v, pos)
+        o = _cached_attention(q, kv["k"], kv["v"], pos).reshape(B, cfg.dim)
+        x = x + o @ blk["wo"]
+        x = _mlp(x, blk)
+    x = _ln(x, params["ln_f"])
+    return x @ params["embed"].T, cache
+
+
+def prefill(params, tokens, cfg: TransformerConfig, max_len=None):
+    """Run the prompt [B, T0] once through forward() (kv_sink hook),
+    filling a fresh cache; returns (logits of the last prompt position
+    [B, vocab], cache)."""
+    B, T0 = tokens.shape
+    cache = init_kv_cache(cfg, B, max_len=max_len,
+                          dtype=params["embed"].dtype,
+                          device=tokens.device)
+    sink: list = []
+    logits = forward(params, tokens, cfg, attn_impl="reference",
+                     kv_sink=sink, last_only=True)
+    for kv, (k, v) in zip(cache, sink):
+        kv["k"][:, :T0] = k.to(kv["k"].dtype)
+        kv["v"][:, :T0] = v.to(kv["v"].dtype)
+    return logits, cache
+
+
+def generate(params, prompt, cfg: TransformerConfig, max_new_tokens,
+             temperature=0.0, key=None, max_len=None, eos_id=None):
+    """Autoregressive generation: prefill the prompt [B, T0], then
+    `max_new_tokens` cached decode steps. temperature <= 0 is greedy;
+    otherwise softmax sampling with `key` (a utils.prng key), split
+    once per step exactly like the reference. With `eos_id`, a row that
+    emits it keeps re-emitting it and the loop stops once every row
+    has. Returns [B, T0 + max_new]."""
+    B, T0 = prompt.shape
+    L = min(int(max_len or cfg.max_len), int(params["pos"].shape[0]))
+    if T0 + max_new_tokens > L:
+        raise ValueError(
+            "generate needs T0+max_new <= max_len (%d + %d > %d, "
+            "positional table %d)"
+            % (T0, max_new_tokens, L, int(params["pos"].shape[0])))
+    if temperature > 0 and key is None:
+        raise ValueError("sampling (temperature > 0) requires `key`")
+    logits, cache = prefill(params, prompt, cfg, max_len=L)
+    key = key if key is not None else prng.PRNGKey(0, prompt.device)
+    alive = torch.ones(B, dtype=torch.bool, device=prompt.device)
+    out = []
+    for i in range(max_new_tokens):
+        if eos_id is not None and not bool(alive.any()):
+            break
+        if temperature <= 0:
+            tok = torch.argmax(logits, dim=-1)
+        else:  # the reference splits every step; greedy never reads it
+            key, sub = prng.split(key)
+            tok = prng.categorical(sub, logits.float() / temperature)
+        tok = tok.to(prompt.dtype)
+        if eos_id is not None:
+            tok = torch.where(alive, tok, torch.full_like(tok, eos_id))
+            alive = alive & (tok != eos_id)
+        out.append(tok)
+        if i + 1 < max_new_tokens:
+            logits, cache = decode_step(params, tok, T0 + i, cache, cfg)
+    gen = (torch.stack(out, dim=1) if out
+           else prompt.new_zeros((B, 0)))
+    if gen.shape[1] < max_new_tokens:  # early exit: the tail is eos
+        pad = torch.full((B, max_new_tokens - gen.shape[1]), int(eos_id),
+                         dtype=prompt.dtype, device=prompt.device)
+        gen = torch.cat([gen, pad], dim=1)
+    return torch.cat([prompt, gen], dim=1)
+
+
+# ---------------------------------------------------------------------
+# paged KV cache (serving): a pool of fixed-size token BLOCKS
+# ([NB, Bt, H, Dh] per layer) and per-slot block TABLES of physical ids.
+# Each primitive takes kernel="gather"|"fused":
+#   gather — attend over a contiguous per-slot view `_paged_view`
+#            materialises (the reference numerics, verbatim);
+#   fused  — the paged-attention wrappers in parallel/paged_attention.py
+#            walk the block table inside the Hopper kernel (on a CPU
+#            tensor, its plain PyTorch version).
+# ---------------------------------------------------------------------
+
+
+def _check_paged(kernel, kv_quant, adapters):
+    if kernel not in ("gather", "fused"):
+        raise ValueError("paged kernel must be 'gather' or 'fused' (got %r)"
+                         % (kernel,))
+    if kv_quant != "none":
+        _not_ported("kv_quant=%r" % (kv_quant,),
+                    "quantized KV, the kernel's int8/fp8 dequant branch")
+    if adapters is not None:
+        _not_ported("LoRA adapters", "adapters")
+
+
+def kv_block_bytes(layers_n: int, heads: int, dh: int, block_tokens: int,
+                   kv_quant: str = "none", act_itemsize: int = 4) -> int:
+    """One physical KV block's device-memory cost: K + V rows over all
+    layers at the activation dtype."""
+    if kv_quant != "none":
+        _not_ported("kv_quant=%r" % (kv_quant,),
+                    "quantized KV, the kernel's int8/fp8 dequant branch")
+    return 2 * layers_n * block_tokens * heads * dh * int(act_itemsize)
+
+
+def init_paged_kv_cache(cfg: TransformerConfig, num_blocks: int,
+                        block_tokens: int, dtype=None, kv_quant="none",
+                        device=None):
+    """Per-layer pooled K/V block buffers [NB, Bt, H, Dh], zeros."""
+    if kv_quant != "none":
+        _not_ported("kv_quant=%r" % (kv_quant,),
+                    "quantized KV, the kernel's int8/fp8 dequant branch")
+    dev = resolve_device(device)
+    shape = (int(num_blocks), int(block_tokens), cfg.heads,
+             cfg.dim // cfg.heads)
+    dt = dtype or cfg.dtype
+    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+            for _ in range(cfg.layers)]
+
+
+def _paged_view(buf, tables):
+    """Gather a contiguous per-slot view [S, MAXB*Bt, H, Dh] out of the
+    pool [NB, Bt, H, Dh] through tables [S, MAXB]. Unallocated (-1)
+    entries clamp to block 0; every caller masks them by position."""
+    NB, Bt, H, dh = buf.shape
+    v = buf[tables.long().clamp(0, NB - 1)]
+    return v.reshape(tuple(tables.shape[:-1])
+                     + (tables.shape[-1] * Bt, H, dh))
+
+
+def _phys_rows(tables, wpos, NB, Bt):
+    """Map global write positions to (physical block, in-block offset).
+    A position past the table span (parked rows sit at MAXB*Bt) or on an
+    unallocated (-1) entry resolves to block NB: out of range, dropped
+    by `_scatter_rows`."""
+    tables = tables.long()
+    wpos = wpos.long()
+    maxb = tables.shape[-1]
+    bi = torch.div(wpos, Bt, rounding_mode="floor")
+    safe = bi.clamp(0, maxb - 1)
+    if tables.dim() == 1:
+        phys = tables[safe]
+    elif safe.dim() == tables.dim():
+        phys = torch.gather(tables, -1, safe)
+    else:  # one position per table row (the decode step's [S] case)
+        phys = torch.gather(tables, -1, safe[..., None])[..., 0]
+    phys = torch.where((bi < maxb) & (phys >= 0), phys,
+                       torch.full_like(phys, NB))
+    return phys, wpos % Bt
+
+
+class _RowWriter(object):
+    """The in-range rows of one primitive call's cache writes, selected
+    once (one device->host sync for the whole call, not per layer):
+    rows `_phys_rows` parked at block NB are never written."""
+
+    def __init__(self, pk, off, NB):
+        self.sel = torch.nonzero(pk < NB, as_tuple=True)
+        self.pk = pk[self.sel]
+        self.off = off[self.sel]
+
+    def write(self, buf, rows):
+        """rows [..., H, Dh] shaped like pk -> written into buf in place."""
+        buf[self.pk, self.off] = rows[self.sel].to(buf.dtype)
+
+
+def paged_decode_step(params, token, pos, tables, cache,
+                      cfg: TransformerConfig, adapters=None,
+                      adapter_idx=None, kernel="gather", kv_quant="none"):
+    """One decode step over the paged pool: token [S] at per-row
+    positions `pos` [S], block tables [S, MAXB] -> (logits [S, vocab],
+    cache updated in place). A parked row (pos >= MAXB*Bt) writes
+    nothing; its logits are garbage nothing reads."""
+    _check_paged(kernel, kv_quant, adapters)
+    B = token.shape[0]
+    dh = cfg.dim // cfg.heads
+    NB, Bt = cache[0]["k"].shape[0], cache[0]["k"].shape[1]
+    x = params["embed"][token.long()] + _pos_rows(params, pos)
+    writer = _RowWriter(*_phys_rows(tables, pos, NB, Bt), NB)
+    for blk, kv in zip(params["blocks"], cache):
+        h = _ln(x, blk["ln1"])
+        q = (h @ blk["wq"]).reshape(B, cfg.heads, dh)
+        k = (h @ blk["wk"]).reshape(B, cfg.heads, dh)
+        v = (h @ blk["wv"]).reshape(B, cfg.heads, dh)
+        writer.write(kv["k"], k)
+        writer.write(kv["v"], v)
+        if kernel == "fused":
+            from ..parallel.paged_attention import paged_decode_attention
+
+            o = paged_decode_attention(q, kv["k"], kv["v"], tables, pos)
+        else:
+            o = _cached_attention(q, _paged_view(kv["k"], tables),
+                                  _paged_view(kv["v"], tables), pos)
+        x = x + o.reshape(B, cfg.dim) @ blk["wo"]
+        x = _mlp(x, blk)
+    x = _ln(x, params["ln_f"])
+    return x @ params["embed"].T, cache
+
+
+def paged_prefill_chunk(params, cache, chunk, start_pos, table_row,
+                        cfg: TransformerConfig, true_len=None,
+                        adapters=None, adapter_idx=None, kernel="gather",
+                        kv_quant="none"):
+    """Extend the slot whose block table is `table_row` [MAXB] by a
+    [C]-token chunk whose first token sits at position `start_pos`
+    (tokens before it already cached). Each chunk row attends
+    cache[0:start_pos] plus the intra-chunk causal prefix, with
+    reference_attention's numerics (scale folded into q, NEG_INF mask).
+    `chunk` may be padded: `true_len` is the count of real tokens, and
+    padded rows park their writes past the table span. Returns (logits
+    [vocab] of the true last chunk row, cache updated in place)."""
+    _check_paged(kernel, kv_quant, adapters)
+    (C,) = chunk.shape
+    NB, Bt, H, dh = cache[0]["k"].shape
+    dev = chunk.device
+    Lv = table_row.shape[0] * Bt
+    true_len = C if true_len is None else int(true_len)
+    scale = 1.0 / math.sqrt(dh)
+    offs = torch.arange(C, device=dev)
+    positions = offs + start_pos  # [C] global rows of the chunk
+    wpos = torch.where(offs < true_len, positions,
+                       torch.full_like(positions, Lv))
+    x = params["embed"][chunk.long()][None] + _pos_rows(params, positions)[None]
+    writer = _RowWriter(*_phys_rows(table_row, wpos, NB, Bt), NB)
+    for blk, kv in zip(params["blocks"], cache):
+        h = _ln(x, blk["ln1"])
+        q = (h @ blk["wq"]).reshape(1, C, H, dh)
+        k = (h @ blk["wk"]).reshape(1, C, H, dh)
+        v = (h @ blk["wv"]).reshape(1, C, H, dh)
+        writer.write(kv["k"], k[0])
+        writer.write(kv["v"], v[0])
+        if kernel == "fused":
+            from ..parallel.paged_attention import paged_prefill_attention
+
+            o = paged_prefill_attention(q[0], kv["k"], kv["v"], table_row,
+                                        start_pos)[None]
+        else:
+            slot_k = _paged_view(kv["k"], table_row[None])  # [1, Lv, H, dh]
+            slot_v = _paged_view(kv["v"], table_row[None])
+            s = torch.einsum("bthd,bshd->bhts", q * scale, slot_k)
+            mask = torch.arange(Lv, device=dev)[None, :] <= positions[:, None]
+            s = s.masked_fill(~mask[None, None], NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhts,bshd->bthd", p, slot_v).to(x.dtype)
+        x = x + o.reshape(1, C, cfg.dim) @ blk["wo"]
+        x = _mlp(x, blk)
+    xl = x[:, min(max(true_len - 1, 0), C - 1)]  # [1, dim]
+    xl = _ln(xl, params["ln_f"])
+    return (xl @ params["embed"].T)[0], cache
+
+
+def paged_verify_step(params, cache, window, pos, wpos, tables,
+                      cfg: TransformerConfig, adapters=None,
+                      adapter_idx=None, kernel="gather", kv_quant="none"):
+    """Speculative-decoding verify: a K-token `window` [S, K] per slot
+    through the paged cache in one batched step -> (logits [S, K,
+    vocab], cache updated in place). Row (s, i) sits at position
+    pos[s] + i and attends the slot's cache up to and including itself;
+    `wpos` [S, K] are the write positions (parked rows >= MAXB*Bt are
+    dropped). Chunk-family numerics."""
+    _check_paged(kernel, kv_quant, adapters)
+    S, K = window.shape
+    NB, Bt, H, dh = cache[0]["k"].shape
+    dev = window.device
+    Lv = tables.shape[1] * Bt
+    scale = 1.0 / math.sqrt(dh)
+    positions = pos.long()[:, None] + torch.arange(K, device=dev)[None, :]
+    x = params["embed"][window.long()] + _pos_rows(params, positions)
+    writer = _RowWriter(*_phys_rows(tables, wpos, NB, Bt), NB)
+    for blk, kv in zip(params["blocks"], cache):
+        h = _ln(x, blk["ln1"])
+        q = (h @ blk["wq"]).reshape(S, K, H, dh)
+        k = (h @ blk["wk"]).reshape(S, K, H, dh)
+        v = (h @ blk["wv"]).reshape(S, K, H, dh)
+        writer.write(kv["k"], k)
+        writer.write(kv["v"], v)
+        if kernel == "fused":
+            from ..parallel.paged_attention import paged_verify_attention
+
+            o = paged_verify_attention(q, kv["k"], kv["v"], tables, pos)
+        else:
+            kview = _paged_view(kv["k"], tables)  # [S, Lv, H, dh]
+            vview = _paged_view(kv["v"], tables)
+            s = torch.einsum("bthd,bshd->bhts", q * scale, kview)
+            mask = (torch.arange(Lv, device=dev)[None, None, :]
+                    <= positions[:, :, None])
+            s = s.masked_fill(~mask[:, None], NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhts,bshd->bthd", p, vview).to(x.dtype)
+        x = x + o.reshape(S, K, cfg.dim) @ blk["wo"]
+        x = _mlp(x, blk)
+    x = _ln(x, params["ln_f"])
+    return x @ params["embed"].T, cache
+
+
+def logits_trap(logits):
+    """Per-row non-finite trap over final logits [..., V]: True where a
+    row holds any NaN/Inf or its softmax denominator is non-finite or
+    non-positive (a zero-mass distribution is as corrupt as a NaN)."""
+    finite = torch.isfinite(logits).all(dim=-1)
+    f32 = logits.float()
+    denom = torch.exp(f32 - f32.amax(dim=-1, keepdim=True)).sum(dim=-1)
+    return ~finite | ~torch.isfinite(denom) | (denom <= 0.0)
+
+
+def logit_amax(logits, mask=None):
+    """Scalar max-|logit| over the (optionally masked) rows — the
+    sentinel's spike signal. Masked rows contribute 0."""
+    a = logits.float().abs().amax(dim=-1)
+    if mask is not None:
+        while mask.dim() < a.dim():
+            mask = mask[..., None]
+        a = torch.where(mask, a, torch.zeros_like(a))
+    return a.max()

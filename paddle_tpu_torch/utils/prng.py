@@ -1,0 +1,121 @@
+"""Counter-based threefry2x32 PRNG, bit-exact with jax.random's default
+implementation (threefry2x32 with `jax_threefry_partitionable=True`).
+
+The serving engine samples with `categorical(fold_in(PRNGKey(seed),
+count), logits / T)`: a request's token i depends only on (seed, i),
+never on slot assignment or batching, so sampled requests reproduce
+across engines, slot counts and resumes. Porting the key schedule bit
+for bit keeps that contract across the two packages: the JAX engine and
+this one sample the same tokens from the same logits.
+
+Keys are int64 tensors of shape [..., 2] holding uint32 values (torch
+has little uint32 arithmetic, so the threefry rounds run in int64 masked
+to 32 bits). Functions work on any device the key lives on.
+
+What is ported (jax/_src/prng.py threefry_2x32 / threefry_seed /
+_threefry_fold_in / _threefry_split_foldlike /
+_threefry_random_bits_partitionable; jax/_src/random.py _uniform,
+_gumbel (mode "low") and categorical):
+  PRNGKey(seed)        -> [0, seed mod 2^32]
+  fold_in(key, data)   -> threefry(key, (0, data))
+  split(key, num)      -> threefry(key, (0, i)) for i < num
+  categorical(key, l)  -> argmax(gumbel(key, l.shape) + l)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["PRNGKey", "fold_in", "split", "uniform", "categorical"]
+
+_M = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block cipher, 20 rounds: keys (k1, k2) and
+    counters (x1, x2) are broadcastable int64 tensors of uint32 values;
+    returns the two uint32 output words as int64 tensors."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + k1) & _M
+    x2 = (x2 + k2) & _M
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M
+            x2 = x1 ^ _rotl(x2, r)
+        x1 = (x1 + ks[(i + 1) % 3]) & _M
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M
+    return x1, x2
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """jax.random.PRNGKey(seed) for an integer seed (32-bit mode: the
+    seed's low 32 bits, high word 0)."""
+    return torch.tensor([0, int(seed) & _M], dtype=torch.int64,
+                        device=device)
+
+
+def fold_in(key, data):
+    """jax.random.fold_in for keys [..., 2] and integer data broadcast
+    over the key batch (vmapped fold_in when both are batched)."""
+    data = torch.as_tensor(data, device=key.device).to(torch.int64) & _M
+    y1, y2 = threefry2x32(key[..., 0], key[..., 1],
+                          torch.zeros_like(data), data)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def split(key, num: int = 2):
+    """jax.random.split(key, num) for one key [2] -> [num, 2]."""
+    lo = torch.arange(num, dtype=torch.int64, device=key.device)
+    y1, y2 = threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def _bits32(key, n: int):
+    """32 random bits per element of a flat [n] counter range for each
+    key in the batch: keys [..., 2] -> [..., n] (partitionable layout:
+    counter i is the uint64 (hi, lo) = (i >> 32, i & 0xffffffff))."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], i >> 32, i & _M)
+    return b1 ^ b2
+
+
+def uniform(key, shape):
+    """jax.random.uniform(key, shape) (float32 in [0, 1)) for one key
+    [2]: the mantissa of 1.0 filled with the top 23 random bits."""
+    shape = tuple(shape)
+    bits = _bits32(key, int(np.prod(shape, dtype=np.int64)))
+    return _to_uniform(bits, 0.0, 1.0).reshape(shape)
+
+
+def _to_uniform(bits, minval, maxval):
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fb.view(torch.float32) - 1.0
+    lo = np.float32(minval)
+    span = np.float32(maxval) - lo  # float32 arithmetic, as in JAX
+    return (floats * float(span) + float(lo)).clamp_min(float(lo))
+
+
+def categorical(key, logits):
+    """Sample over the last axis of float32 `logits` with the Gumbel-max
+    trick, as jax.random.categorical(key, logits, axis=-1) (gumbel mode
+    "low"). `key` is one key [2] — the gumbel noise then spans the
+    whole logits shape, as in JAX — or per-row keys [*B, 2] for logits
+    [*B, V], which is `jax.vmap(categorical)` over the rows."""
+    V = logits.shape[-1]
+    if key.dim() == 1:
+        bits = _bits32(key, logits.numel()).reshape(logits.shape)
+    else:
+        if tuple(key.shape[:-1]) != tuple(logits.shape[:-1]):
+            raise ValueError("per-row keys %s do not match logits %s"
+                             % (tuple(key.shape), tuple(logits.shape)))
+        bits = _bits32(key, V)
+    u = _to_uniform(bits, _TINY_F32, 1.0)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(g + logits, dim=-1)

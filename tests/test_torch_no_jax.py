@@ -1,0 +1,68 @@
+"""The port stands alone: importing every paddle_tpu_torch module pulls in
+neither jax nor the JAX package, and no source of the port (nor
+chip_smoke.py) names either in an import."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "paddle_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _modules():
+    out = []
+    for dirpath, dirnames, files in os.walk(PKG):
+        dirnames[:] = sorted(d for d in dirnames if not d.startswith("_"))
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                out.append(mod[:-len(".__init__")]
+                           if mod.endswith(".__init__") else mod)
+    return out
+
+
+def test_importing_every_module_leaves_jax_out():
+    mods = _modules()
+    assert "paddle_tpu_torch.serving.engine" in mods
+    code = (
+        "import importlib, sys\n"
+        "for m in %r: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print(repr(bad))\n" % (mods, FORBIDDEN))
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def _sources():
+    for dirpath, _dirs, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_imports_jax_or_the_jax_package(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, (
+                "%s imports %s" % (os.path.relpath(path, ROOT), n))

@@ -1,0 +1,146 @@
+"""The port's paged attention (paddle_tpu_torch/parallel/paged_attention.py)
+against the JAX package's Pallas kernel run in interpret mode.
+
+On CPU tensors each wrapper runs its plain PyTorch version — the
+function the Hopper kernel is held against on the card — so these
+tests pin that version to the reference: decode, verify and prefill
+windows over random pools whose tables carry -1 tails, at the JAX
+suite's own pinned bar (atol/rtol 2e-5, tests/test_paged_kernel.py:
+the two sides differ only in reduction order — one-shot softmax here,
+online (max, sum, acc) in the Pallas kernel). The garbage-row
+invariant (a -1 table tail changes nothing) is checked bit for bit.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from paddle_tpu.parallel import paged_attention as jpa
+from paddle_tpu_torch.parallel import paged_attention as tpa
+
+torch.set_num_threads(2)
+
+_ATOL = 2e-5
+_RTOL = 2e-5
+
+NB, BT, H, DH = 10, 8, 4, 8
+
+
+def _pools(seed):
+    rng = np.random.RandomState(seed)
+    k = rng.randn(NB, BT, H, DH).astype(np.float32)
+    v = rng.randn(NB, BT, H, DH).astype(np.float32)
+    return k, v
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_decode_matches_jax_kernel():
+    k, v = _pools(0)
+    rng = np.random.RandomState(1)
+    tables = np.array([[0, 1, -1, -1], [2, 3, 4, -1], [5, -1, -1, -1]],
+                      np.int32)
+    pos = np.array([9, 20, 3], np.int32)
+    q = rng.randn(3, H, DH).astype(np.float32)
+    want = jpa.paged_decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), jnp.asarray(tables),
+                                      jnp.asarray(pos), interpret=True)
+    got = tpa.paged_decode_attention(_t(q), _t(k), _t(v), _t(tables),
+                                     _t(pos))
+    assert got.shape == (3, H, DH) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=_RTOL, atol=_ATOL)
+
+
+def test_verify_matches_jax_kernel():
+    k, v = _pools(2)
+    rng = np.random.RandomState(3)
+    tables = np.array([[0, 1, 2, -1], [3, 4, -1, -1]], np.int32)
+    pos = np.array([17, 9], np.int32)
+    q = rng.randn(2, 3, H, DH).astype(np.float32)
+    want = jpa.paged_verify_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), jnp.asarray(tables),
+                                      jnp.asarray(pos), interpret=True)
+    got = tpa.paged_verify_attention(_t(q), _t(k), _t(v), _t(tables),
+                                     _t(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=_RTOL, atol=_ATOL)
+
+
+@pytest.mark.parametrize("start", [0, 10])
+def test_prefill_matches_jax_kernel(start):
+    k, v = _pools(4)
+    rng = np.random.RandomState(5)
+    table_row = np.array([6, 1, 2, -1], np.int32)
+    q = rng.randn(8, H, DH).astype(np.float32)
+    want = jpa.paged_prefill_attention(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v),
+                                       jnp.asarray(table_row), start,
+                                       interpret=True)
+    got = tpa.paged_prefill_attention(_t(q), _t(k), _t(v), _t(table_row),
+                                      start)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=_RTOL, atol=_ATOL)
+
+
+def test_garbage_rows_bit_identical():
+    """A slot whose table tail is -1 gives output bit-identical to the
+    same slot over a fully allocated table, for decode and verify."""
+    k, v = _pools(6)
+    rng = np.random.RandomState(7)
+    partial = np.array([[0, 1, -1, -1], [2, -1, -1, -1]], np.int32)
+    full = np.array([[0, 1, 8, 9], [2, 7, 5, 3]], np.int32)
+    pos = np.array([9, 5], np.int32)
+    q = _t(rng.randn(2, H, DH).astype(np.float32))
+    a = tpa.paged_decode_attention(q, _t(k), _t(v), _t(partial), _t(pos))
+    b = tpa.paged_decode_attention(q, _t(k), _t(v), _t(full), _t(pos))
+    assert torch.equal(a, b)
+    qw = _t(rng.randn(2, 2, H, DH).astype(np.float32))
+    a = tpa.paged_verify_attention(qw, _t(k), _t(v), _t(partial), _t(pos))
+    b = tpa.paged_verify_attention(qw, _t(k), _t(v), _t(full), _t(pos))
+    assert torch.equal(a, b)
+
+
+def test_parked_row_reads_only_the_table():
+    """A parked decode row (pos >= MAXB*Bt) attends its whole table —
+    garbage nothing reads, but finite and in bounds."""
+    k, v = _pools(8)
+    tables = np.array([[0, -1, -1, -1]], np.int32)
+    pos = np.array([4 * BT], np.int32)
+    q = _t(np.ones((1, H, DH), np.float32))
+    out = tpa.paged_decode_attention(q, _t(k), _t(v), _t(tables), _t(pos))
+    assert torch.isfinite(out).all()
+
+
+def test_cpu_takes_plain_version_and_counts_no_launch():
+    k, v = _pools(9)
+    before = (tpa.paged_decode_attention.launches,
+              tpa.paged_verify_attention.launches,
+              tpa.paged_prefill_attention.launches)
+    tables = _t(np.array([[0, 1, -1, -1]], np.int32))
+    q = torch.zeros(1, H, DH)
+    tpa.paged_decode_attention(q, _t(k), _t(v), tables, _t(np.array([3])))
+    tpa.paged_verify_attention(q[:, None], _t(k), _t(v), tables,
+                               _t(np.array([3])))
+    tpa.paged_prefill_attention(q, _t(k), _t(v), tables[0], 2)
+    assert (tpa.paged_decode_attention.launches,
+            tpa.paged_verify_attention.launches,
+            tpa.paged_prefill_attention.launches) == before
+
+
+def test_refuses_quantized_pools_and_foreign_devices():
+    k, v = _pools(10)
+    tables = _t(np.array([[0, -1, -1, -1]], np.int32))
+    q = torch.zeros(1, H, DH)
+    sc = torch.ones(NB, H)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tpa.paged_decode_attention(q, _t(k), _t(v), tables,
+                                   _t(np.array([1])), k_scale=sc,
+                                   v_scale=sc)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tpa.paged_decode_attention(q.to("meta"), _t(k), _t(v), tables,
+                                   _t(np.array([1])))
