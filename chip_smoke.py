@@ -8,9 +8,11 @@ prints no result, without them or when run outside the repository.
 Phases (any failure exits non-zero):
 
   1. print the card's name and power limit (nvidia-smi) and build the
-     paged-attention kernel from paddle_tpu_torch/csrc with nvcc;
-  2. hold the kernel against its plain PyTorch version through all three
-     wrappers (decode, verify, prefill chunk) at the serving shapes
+     paged-attention and flash-attention kernels from
+     paddle_tpu_torch/csrc with nvcc (one process per source, in
+     parallel);
+  2. hold the paged kernel against its plain PyTorch version through all
+     three wrappers (decode, verify, prefill chunk) at the serving shapes
      (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a 128-token
      chunk at start > 0, a 4-row verify window) in bf16 and f32, at one
      odd shape (Dh=32, Bt=8, R=3), with -1 table tails (bit-identical to
@@ -21,20 +23,39 @@ Phases (any failure exits non-zero):
      max_len 1024; 16 slots, 16-token blocks, 128-token chunks, an
      8192-token prefix cache): a shared 128-token header, prompts of
      64-512 tokens, 32-128 new tokens, some sampled, one resubmitted
-     whole-block prompt (copy-on-write). The kernel launch counters are
+     whole-block prompt (copy-on-write). The paged launch counters are
      zeroed just before and read just after; decode launches must equal
      layers x decode steps and prefill launches layers x prefill chunks;
   4. the same weights in f32: greedy engine output equals the port's
      sequential generate() token for token for 4 requests, one retiring
      on EOS, through a pool small enough to force backpressure;
-  5. print the kernels' JSON line, then the device line last.
+  5. hold the three flash kernels (forward o and lse, dK/dV, dQ) against
+     their plain versions at the training shape (B 8, T 1024, H 8, D 64,
+     causal) in bf16 and f32 and at the JAX suite's odd shapes (cross
+     attention T 128 / S 384 with D 32, causal T 100 and T 768); time
+     each at the training shape in bf16 with a cold L2 beside its plain
+     version, its bound and scaled_dot_product_attention (forward, and
+     its backward for dK/dV and dQ together);
+  6. train the repo's training configuration (bench.py:913-931: the
+     model above, bf16, tokens [8, 1025], SGD lr 1e-3,
+     attn_impl="flash"): 2 warm-up steps, then 10 timed steps on one
+     fixed batch with the flash counters zeroed just before and read
+     just after; every loss finite, each counter = layers x steps;
+     tokens/s, ms/step and bench.py's FLOP share of 989 TFLOP/s;
+  7. f32 parity: 3 SGD steps (lr 1e-2) from the same weights and batch
+     through attn_impl="flash" and attn_impl="reference" agree;
+  8. print the kernels' JSON line, then the device line last.
 
 With --profile, torch.profiler also reads the device-busy share and the
-top kernels over the bf16 trace's first steps and steady decode steps.
+top kernels over the bf16 trace's first steps and steady decode steps,
+and over 3 train steps.
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
-bf16 inputs (bf16 rounds the output to ~3 significant digits).
+bf16 inputs (bf16 rounds the output to ~3 significant digits), for the
+flash kernels with atol scaled by the largest |value| (the gradients'
+scale varies with the shape); lse (f32 in both) at 1e-4; the f32
+training paths at rtol 1e-4 on losses and atol/rtol 1e-4 on parameters.
 """
 
 import json
@@ -51,10 +72,20 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TPU_KERNEL = "paddle_tpu/parallel/paged_attention.py:79"
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "forward": "paddle_tpu/parallel/flash_attention.py:86",
+    "backward_kv": "paddle_tpu/parallel/flash_attention.py:200",
+    "backward_q": "paddle_tpu/parallel/flash_attention.py:245",
+}
+# matrix products each flash kernel does per attended (q, k) pair
+FLASH_PRODUCTS = {"forward": 2, "backward_kv": 4, "backward_q": 3}
 
 FULL = dict(vocab=32000, dim=512, heads=8, layers=8, max_len=1024)
 ENGINE = dict(max_slots=16, kv_block_tokens=16, prefill_chunk_tokens=128,
               prefix_cache_tokens=8192)
+# the repo's training configuration (bench.py:913-931): tokens [8, 1025]
+TRAIN = dict(batch=8, seq=1024, lr=1e-3)
 
 
 def log(*a):
@@ -373,6 +404,259 @@ def phase_generate(torch, T, ServingEngine, params, cfg, dev="cuda"):
     check(held, "the small pool did not hold a request back")
 
 
+# ---------------------------------------------------------------------
+# phases 5-7: the flash-attention kernels and the training step
+# ---------------------------------------------------------------------
+
+
+def flash_case(rng, torch, dtype, B, T, S, H, D, dev="cuda"):
+    def mk(n):
+        a = rng.randn(B, n, H, D).astype(np.float32)
+        return torch.from_numpy(a).to(dev, dtype)
+
+    return dict(q=mk(T), k=mk(S), v=mk(S), g=mk(T))
+
+
+def flash_inputs(torch, tfa, c, causal):
+    """The f32 plain forward's (o, lse) and delta = rowsum(g * o) for a
+    case: the backward kernels and their plain versions both take these
+    same lse and delta."""
+    q, k, v = (c[n].float() for n in "qkv")
+    scale = c["q"].shape[-1] ** -0.5
+    o, lse = tfa.flash_attention_plain(q, k, v, scale, causal)
+    delta = (c["g"].float() * o).sum(-1).permute(0, 2, 1).contiguous()
+    return o, lse, delta
+
+
+def run_flash(tfa, which, c, causal, lse=None, delta=None, plain=False):
+    """One flash wrapper on a case (or its plain version on f32 copies
+    of the same inputs)."""
+    q, k, v, g = c["q"], c["k"], c["v"], c["g"]
+    if plain:
+        q, k, v, g = q.float(), k.float(), v.float(), g.float()
+    scale = q.shape[-1] ** -0.5
+    if which == "forward":
+        fn = tfa.flash_attention_plain if plain else tfa.flash_forward
+        return fn(q, k, v, scale, causal)
+    if which == "backward_kv":
+        fn = tfa.flash_backward_kv_plain if plain else tfa.flash_backward_kv
+    else:
+        fn = tfa.flash_backward_q_plain if plain else tfa.flash_backward_q
+    return fn(q, k, v, g, lse, delta, scale, causal)
+
+
+def _held(torch, got, want, f32):
+    """f32: atol/rtol 1e-4 (reduction order only). bf16: rtol 2e-2 and
+    atol 2e-2 x max|want| against the plain version in f32 on the same
+    bf16 inputs — the kernel rounds P or dS to bf16 before each product
+    and its output to bf16 (~3 significant digits each)."""
+    got = got.float()
+    err = float((got - want).abs().max())
+    tol = 1e-4 if f32 else 2e-2
+    atol = tol if f32 else tol * float(want.abs().max())
+    ok = torch.allclose(got, want, atol=atol, rtol=tol) and bool(
+        torch.isfinite(got).all())
+    return err, ok
+
+
+def check_flash(torch, tfa, c, causal, label):
+    """Hold the three flash kernels against their plain versions on one
+    case; returns {kernel: max abs error} (the forward's over o; its
+    lse, f32 in both dtypes, is held at 1e-4 on its own)."""
+    f32 = c["q"].dtype == torch.float32
+    o, lse, delta = flash_inputs(torch, tfa, c, causal)
+    got_o, got_lse = run_flash(tfa, "forward", c, causal)
+    got_kv = run_flash(tfa, "backward_kv", c, causal, lse, delta)
+    got_q = run_flash(tfa, "backward_q", c, causal, lse, delta)
+    _sync(torch, c["q"].device.type)  # a kernel fault surfaces here
+    want_kv = run_flash(tfa, "backward_kv", c, causal, lse, delta,
+                        plain=True)
+    want_q = run_flash(tfa, "backward_q", c, causal, lse, delta,
+                       plain=True)
+    errs, oks = {}, []
+    for name, got, want in (("forward", got_o, o),
+                            ("backward_kv", got_kv[0], want_kv[0]),
+                            ("backward_kv", got_kv[1], want_kv[1]),
+                            ("backward_q", got_q, want_q)):
+        err, ok = _held(torch, got, want, f32)
+        errs[name] = max(errs.get(name, 0.0), err)
+        oks.append(ok)
+    lse_err = float((got_lse - lse).abs().max())
+    oks.append(torch.allclose(got_lse, lse, atol=1e-4, rtol=1e-4))
+    log("  %-40s max_abs_err o %.3e lse %.3e dk/dv %.3e dq %.3e %s"
+        % (label, errs["forward"], lse_err, errs["backward_kv"],
+           errs["backward_q"], "ok" if all(oks) else "FAIL"))
+    if not all(oks):
+        raise AssertionError("flash kernel disagrees with its plain "
+                             "version: " + label)
+    return errs
+
+
+def flash_bound_ms(which, B, T, S, H, D, esize, causal, dtype_name):
+    """Least time for one flash kernel's work: every input read once and
+    every output written once over the HBM rate, vs 2*D flops per
+    attended (q, k) pair per matrix product at the peak rate."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * S)
+    flops = 2 * D * pairs * FLASH_PRODUCTS[which]
+    qs, ks, rows = B * T * H * D * esize, B * S * H * D * esize, B * H * T * 4
+    nbytes = {"forward": 2 * qs + 2 * ks + rows,          # q k v -> o lse
+              "backward_kv": 2 * qs + 4 * ks + 2 * rows,  # q g k v lse d -> dk dv
+              "backward_q": 3 * qs + 2 * ks + 2 * rows,   # q g k v lse d -> dq
+              }[which]
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations")
+
+
+def sdpa_ms(torch, c, causal):
+    """One PyTorch call computing the same function, timed as the
+    yardstick (never called by the port): scaled_dot_product_attention
+    forward, and its backward (dq, dk, dv together)."""
+    import torch.nn.functional as F
+
+    q, k, v, g = (c[n].transpose(1, 2).contiguous() for n in "qkvg")
+    fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (q, k, v), g, retain_graph=True))
+    return fwd, bwd
+
+
+def phase_flash(torch, tfa):
+    """Phase 5: the three flash kernels vs their plain versions at the
+    training shape (bf16 and f32, causal) and the JAX suite's odd shapes,
+    then bf16 timings at the training shape."""
+    rng = np.random.RandomState(5)
+    B, T, H, D = TRAIN["batch"], TRAIN["seq"], FULL["heads"], \
+        FULL["dim"] // FULL["heads"]
+    errs = {}
+    full = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        full[name] = flash_case(rng, torch, dtype, B, T, T, H, D)
+        errs[name] = check_flash(torch, tfa, full[name], True,
+                                 "%s causal B%d T%d H%d D%d" % (name, B, T,
+                                                                H, D))
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        # cross-attention T != S: dK/dV and dQ walk different extents
+        check_flash(torch, tfa, flash_case(rng, torch, dtype, 2, 128, 384,
+                                           2, 32), False,
+                    "%s cross T128 S384 D32" % name)
+        for t in (100, 768):  # ragged last tiles
+            check_flash(torch, tfa, flash_case(rng, torch, dtype, 2, t, t,
+                                               4, 64), True,
+                        "%s causal T%d D64" % (name, t))
+    del full["float32"]
+    c = full["bfloat16"]
+    o, lse, delta = flash_inputs(torch, tfa, c, True)
+    lib_fwd, lib_bwd = sdpa_ms(torch, c, True)
+    timing = {}
+    for which in ("forward", "backward_kv", "backward_q"):
+        ms = time_ms(torch, lambda: run_flash(tfa, which, c, True, lse,
+                                              delta))
+        plain = time_ms(torch, lambda: run_flash(
+            tfa, which, c, True, lse, delta, plain=True), iters=10)
+        b, by = flash_bound_ms(which, B, T, T, H, D, 2, True, "bfloat16")
+        lib = lib_fwd if which == "forward" else lib_bwd
+        timing[which] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                             library_ms=lib)
+        log("  %-11s bf16: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+            "(%s), SDPA %s %.4f ms" % (which, ms, plain, b, by,
+                                       "forward" if which == "forward"
+                                       else "backward (dq, dk, dv)", lib))
+    return errs, timing
+
+
+def _train_flops(B, T):
+    """bench.py:953-955's count for one forward (matmul parameters, the
+    tied head once, causal attention); a train step is 3x."""
+    L, d, V = FULL["layers"], FULL["dim"], FULL["vocab"]
+    p_mat = V * d + L * 12 * d * d
+    return 2.0 * B * T * p_mat + L * B * 2.0 * T * T * d
+
+
+def train_tokens(vocab, seed=0):
+    rng = np.random.RandomState(seed)
+    return rng.randint(0, vocab, (TRAIN["batch"], TRAIN["seq"] + 1))
+
+
+def phase_train(torch, T, tfa, steps=10, warm=2, dev="cuda", full=FULL):
+    """Phase 6: the training configuration in bf16 through
+    make_train_step(attn_impl="flash"): warm-up steps, then `steps`
+    timed steps on one fixed batch with the flash counters zeroed just
+    before and read just after."""
+    cfg = T.TransformerConfig(dtype=torch.bfloat16, **full)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = T.init_params(cfg, gen, device=dev)
+    toks = torch.from_numpy(train_tokens(cfg.vocab)).to(dev)
+    step = T.make_train_step(cfg, lr=TRAIN["lr"], attn_impl="flash")
+    for _ in range(warm):
+        step(params, toks)
+    _sync(torch, dev)
+    for key in tfa.launches:
+        tfa.launches[key] = 0
+    t0 = time.monotonic()
+    losses = [step(params, toks)[1] for _ in range(steps)]
+    _sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = dict(tfa.launches)
+    losses = [float(x) for x in losses]
+    check(all(math.isfinite(x) for x in losses), "a training loss is not "
+          "finite: %s" % losses)
+    want = cfg.layers * steps
+    log("  launches: %s (layers x steps = %d)" % (launches, want))
+    if dev == "cuda":
+        check(all(n == want for n in launches.values()),
+              "flash kernel launches != layers x steps")
+    B, Tn = toks.shape[0], toks.shape[1] - 1
+    dt = wall / steps
+    flop_share = 3.0 * _train_flops(B, Tn) / dt / PEAK_FLOPS["bfloat16"]
+    log("  losses %s" % ", ".join("%.4f" % x for x in losses))
+    log("  %d steps of [%d, %d] tokens: %.3f ms/step, %.1f tokens/s, "
+        "FLOP share %.4f of 989 TFLOP/s (bench.py's count)"
+        % (steps, B, Tn + 1, dt * 1e3, B * Tn / dt, flop_share))
+    return launches, dict(ms_per_step=dt * 1e3, tokens_per_s=B * Tn / dt,
+                          flop_share=flop_share, losses=losses), \
+        (step, params, toks)
+
+
+def phase_train_parity(torch, T, steps=3, lr=1e-2, dev="cuda", full=FULL):
+    """Phase 7: the same f32 weights and batch through 3 SGD steps of
+    attn_impl="flash" (the kernels) and attn_impl="reference" (plain
+    torch autograd). Losses agree within rtol 1e-4 and every final
+    parameter within atol/rtol 1e-4: f32 reduction order through 8
+    layers and 3 steps, the two paths scaling the scores at different
+    points (after QK^T vs folded into q)."""
+    cfg = T.TransformerConfig(dtype=torch.float32, **full)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    base = T.init_params(cfg, gen, device=dev)
+    toks = torch.from_numpy(train_tokens(cfg.vocab, seed=1)).to(dev)
+    runs = {}
+    for impl in ("flash", "reference"):
+        params = _tree_map(lambda t: t.detach().clone(), base)
+        step = T.make_train_step(cfg, lr=lr, attn_impl=impl)
+        losses = [float(step(params, toks)[1]) for _ in range(steps)]
+        runs[impl] = (losses, params)
+    (la, pa), (lb, pb) = runs["flash"], runs["reference"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    leaves = list(zip(T._leaves(pa), T._leaves(pb), T._leaves(base)))
+    with torch.no_grad():
+        p_err = max(float((a - b).abs().max()) for a, b, _ in leaves)
+        moved = max(float((a - p0).abs().max()) for a, _, p0 in leaves)
+        ok = loss_err <= 1e-4 and all(
+            torch.allclose(a, b, atol=1e-4, rtol=1e-4) for a, b, _ in leaves)
+    log("  f32 %d steps lr %g: losses flash %s vs reference %s; max rel "
+        "loss diff %.3e, max param diff %.3e (params moved up to %.3e) %s"
+        % (steps, lr, ["%.6f" % x for x in la], ["%.6f" % x for x in lb],
+           loss_err, p_err, moved, "ok" if ok else "FAIL"))
+    check(ok, "f32 flash training diverged from the reference path")
+    return dict(loss_rel_err=loss_err, param_abs_err=p_err)
+
+
 def _device_us(evt):
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -381,8 +665,10 @@ def _device_us(evt):
 
 
 def _kernel_class(name):
-    if "paged_attention" in name:
-        return "paged_attention kernel"
+    for kernel in ("paged_attention", "flash_forward", "flash_backward_kv",
+                   "flash_backward_q"):
+        if kernel in name:
+            return kernel + " kernel"
     if any(k in name for k in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
         return "GEMM (cuBLAS)"
     if "Memcpy" in name or "Memset" in name:
@@ -390,47 +676,52 @@ def _kernel_class(name):
     return "elementwise, reduce, index"
 
 
-def phase_profile(torch, ServingEngine, params, cfg, windows=(6, 24)):
-    """torch.profiler over the serving trace: the first steps (admission
-    and prefill chunks beside decode) and then steady decode steps. For
-    each window: wall ms per step, the device-busy share (summed
-    device-side kernel, copy and memset time over wall; one stream, so
-    they do not overlap), device ms per step by kernel class, and the
-    kernels that take the most device time. The profiler's own host
-    cost inflates the wall; the unprofiled step time is phase 3's."""
+def _profile_window(torch, run, n, label):
+    """torch.profiler over `run()` called n times: wall ms per call, the
+    device-busy share (summed device-side kernel, copy and memset time
+    over wall; one stream, so they do not overlap), device ms per call
+    by kernel class, and the kernels that take the most device time.
+    The profiler's own host cost inflates the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    evts = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and _device_us(e) > 0]
+    busy = sum(_device_us(e) for e in evts) / 1e6
+    classes = {}
+    for e in evts:
+        c = _kernel_class(e.key)
+        classes[c] = classes.get(c, 0.0) + _device_us(e) / 1e3 / n
+    log("  profile %s: %.3f ms/step wall (profiled), device busy "
+        "%.4f ms/step = %.4f of wall, %d device ops"
+        % (label, wall / n * 1e3, busy / n * 1e3, busy / wall,
+           sum(e.count for e in evts)))
+    for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        log("    class %-28s %.4f ms/step device" % (c, ms))
+    for e in sorted(evts, key=_device_us, reverse=True)[:6]:
+        log("    %-60s %6d calls %9.3f ms device"
+            % (e.key[:60], e.count, _device_us(e) / 1e3))
+
+
+def phase_profile(torch, ServingEngine, params, cfg, windows=(6, 24)):
+    """torch.profiler over the serving trace: the first steps (admission
+    and prefill chunks beside decode) and then steady decode steps. The
+    unprofiled step time is phase 3's."""
     eng = ServingEngine(params, cfg, device="cuda", **ENGINE)
     for r in trace(cfg)[:-1]:
         eng.submit(**r)
     for label, n in zip(("first %d steps" % windows[0],
                          "next %d steps" % windows[1]), windows):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.monotonic()
-            for _ in range(n):
-                eng.step()
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-        evts = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA
-                and _device_us(e) > 0]
-        busy = sum(_device_us(e) for e in evts) / 1e6
-        classes = {}
-        for e in evts:
-            c = _kernel_class(e.key)
-            classes[c] = classes.get(c, 0.0) + _device_us(e) / 1e3 / n
-        log("  profile %s: %.3f ms/step wall (profiled), device busy "
-            "%.4f ms/step = %.4f of wall, %d device ops"
-            % (label, wall / n * 1e3, busy / n * 1e3, busy / wall,
-               sum(e.count for e in evts)))
-        for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
-            log("    class %-28s %.4f ms/step device" % (c, ms))
-        for e in sorted(evts, key=_device_us, reverse=True)[:6]:
-            log("    %-60s %6d calls %9.3f ms device"
-                % (e.key[:60], e.count, _device_us(e) / 1e3))
+        _profile_window(torch, eng.step, n, label)
     eng.run()
 
 
@@ -448,11 +739,15 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    import importlib
+
     from paddle_tpu_torch import _build
     from paddle_tpu_torch.models import transformer as T
     from paddle_tpu_torch.parallel import paged_attention as tpa
     from paddle_tpu_torch.serving import ServingEngine
 
+    # the module (the package re-exports its function under this name)
+    tfa = importlib.import_module("paddle_tpu_torch.parallel.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
@@ -463,12 +758,13 @@ def main():
 
     log("phase 1: build")
     t0 = time.monotonic()
-    _build.build(["paged_attention"])
-    log("  built paged_attention in %.1f s" % (time.monotonic() - t0))
-    for line in _build.BUILD_LOG.get("paged_attention", (0, 0, ""))[2] \
-            .splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas: " + line.strip())
+    _build.build(["paged_attention", "flash_attention"])  # nvcc in parallel
+    log("  built paged_attention and flash_attention in %.1f s"
+        % (time.monotonic() - t0))
+    for name in ("paged_attention", "flash_attention"):
+        for line in _build.BUILD_LOG.get(name, (0, 0, ""))[2].splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log("  ptxas %s: %s" % (name, line.strip()))
 
     log("phase 2: kernel vs plain version")
     errs, timing = phase_kernels(torch, tpa)
@@ -485,6 +781,21 @@ def main():
     if "--profile" in sys.argv[1:]:
         log("profile: bf16 serving trace under torch.profiler")
         phase_profile(torch, ServingEngine, params, cfg)
+    del params
+
+    log("phase 5: flash kernels vs plain versions")
+    flash_errs, flash_timing = phase_flash(torch, tfa)
+
+    log("phase 6: train at full width, bf16, attn_impl='flash'")
+    flash_launches, train, (step, tparams, toks) = phase_train(torch, T, tfa)
+    if "--profile" in sys.argv[1:]:
+        log("profile: bf16 train steps under torch.profiler")
+        _profile_window(torch, lambda: step(tparams, toks), 3,
+                        "3 train steps")
+    del step, tparams, toks
+
+    log("phase 7: f32 train parity, flash kernels vs reference attention")
+    parity = phase_train_parity(torch, T)
 
     kernels = []
     for which, wrapper in (("decode", "paged_decode_attention"),
@@ -503,9 +814,27 @@ def main():
                             "attention",
             "card": card,
         })
+    for which in ("forward", "backward_kv", "backward_q"):
+        tm = flash_timing[which]
+        kernels.append({
+            "name": "flash_attention (%s, flash_%s)" % (which, which),
+            "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[which],
+            "launches": flash_launches[which],
+            "max_abs_err": flash_errs["bfloat16"][which],
+            "max_abs_err_f32": flash_errs["float32"][which],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+            "library_note": "scaled_dot_product_attention, is_causal=True"
+                            + (" (forward)" if which == "forward" else
+                               " (backward: dq, dk, dv together)"),
+            "card": card,
+        })
     log("kernels: " + ", ".join("%s launches=%d" % (k["name"], k["launches"])
                                 for k in kernels))
     log("serving: %s" % json.dumps(serve))
+    log("training: %s" % json.dumps(dict(train, **parity)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """Decoder-only transformer LM (counterpart of
-paddle_tpu/models/transformer.py): the dense forward pass, cached
-decode and generation, and the paged-KV serving primitives the serving
-engine drives.
+paddle_tpu/models/transformer.py): the dense forward pass, the training
+loss and SGD step (`loss_fn`, `make_train_step`; attn_impl="flash"
+trains through the flash-attention kernels), cached decode and
+generation, and the paged-KV serving primitives the serving engine
+drives.
 
 Parameters are a plain dictionary of tensors with the JAX package's
 pytree layout — {"embed", "pos", "blocks": [{"ln1", "wq", "wk", "wv",
@@ -25,7 +27,9 @@ Differences from JAX that the port makes explicit:
     `_phys_rows`) are masked out before the write, and gathers of the
     positional table clamp their index explicitly. The pool is never
     grown by a sentinel block, so `kv_block_bytes` stays the pool's
-    true cost.
+    true cost;
+  * `make_train_step`'s step updates the parameter tensors IN PLACE
+    (JAX returns a new pytree).
 
 The MoE, mesh (sequence-parallel), LoRA-adapter and quantized-KV
 branches of the reference are not ported yet and raise
@@ -42,12 +46,13 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..parallel.attention import reference_attention
+from ..parallel.attention import sequence_parallel_attention
 from ..parallel.kernel_utils import NEG_INF
 from ..utils import prng
 
 __all__ = ["TransformerConfig", "init_params", "params_from_numpy",
-           "forward", "init_kv_cache", "decode_step", "prefill",
+           "forward", "loss_fn", "make_train_step", "init_kv_cache",
+           "decode_step", "prefill",
            "generate", "init_paged_kv_cache", "kv_block_bytes",
            "paged_decode_step", "paged_prefill_chunk",
            "paged_verify_step", "logits_trap", "logit_amax"]
@@ -153,14 +158,12 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
     """tokens [B, T] int -> logits [B, T, vocab] (or [B, vocab] of the
     final position with `last_only`, or of position `last_index`). With
     `kv_sink` (a list), each block appends its (k, v) [B, T, H, Dh].
-    Without a mesh every `attn_impl` but "flash" is the plain causal
-    attention, as in the reference."""
+    Attention goes through `sequence_parallel_attention`: without a
+    mesh, attn_impl="flash" runs the flash kernels and every other impl
+    the plain causal attention, as in the reference."""
     if mesh is not None:
         _not_ported("mesh (sequence-parallel) attention",
                     "the parallel slice")
-    if attn_impl == "flash":
-        _not_ported("flash attention (forward(attn_impl='flash'))",
-                    "the training slice (flash kernels 1-3)")
     B, T = tokens.shape
     H, dh = cfg.heads, cfg.dim // cfg.heads
     x = params["embed"][tokens.long()] + params["pos"][:T][None]
@@ -171,7 +174,8 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
         v = (h @ blk["wv"]).reshape(B, T, H, dh)
         if kv_sink is not None:
             kv_sink.append((k, v))
-        o = reference_attention(q, k, v, causal=True)
+        o = sequence_parallel_attention(q, k, v, mesh=mesh, axis="seq",
+                                        impl=attn_impl, causal=True)
         x = x + o.reshape(B, T, cfg.dim) @ blk["wo"]
         x = _mlp(x, blk)
     if last_index is not None:
@@ -180,6 +184,50 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
         x = x[:, -1]
     x = _ln(x, params["ln_f"])
     return x @ params["embed"].T  # weight-tied output head
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None,
+            attn_impl: str = "ring"):
+    """Next-token cross entropy over tokens [B, T+1] (input/target
+    split): log-softmax of the f32 logits, mean over every position."""
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inp, cfg, mesh=mesh, attn_impl=attn_impl)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, tgt.long()[..., None])[..., 0]
+    return nll.mean()
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree, in jax.tree_util's leaf order
+    (dictionary keys sorted)."""
+    if isinstance(tree, dict):
+        return [t for key in sorted(tree) for t in _leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _leaves(x)]
+    return [tree]
+
+
+def make_train_step(cfg: TransformerConfig, lr=1e-2, mesh=None,
+                    attn_impl: str = "ring"):
+    """Plain SGD: step(params, tokens) -> (params, loss) with
+    p <- p - lr * g in the parameter dtype. Unlike the reference, which
+    returns a new pytree, the step UPDATES THE PARAMETER TENSORS IN
+    PLACE (under torch.no_grad) and returns the same dictionary. It
+    sets `requires_grad` on the tensors it is given (they must be leaf
+    tensors, as `init_params` and `params_from_numpy` make them)."""
+
+    def step(params, tokens):
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, tokens, cfg, mesh=mesh, attn_impl=attn_impl)
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for p, g in zip(leaves, grads):
+                p.sub_(g * lr)  # lr * g rounds to p's dtype, as in JAX
+        return params, loss.detach()
+
+    return step
 
 
 # ---------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """Single-device attention (counterpart of paddle_tpu/parallel/attention.py).
 
-Only `reference_attention` is ported: the plain full attention that
-`forward` takes when no mesh is given (the JAX package's `mesh=None`
-branch of `sequence_parallel_attention`). Ring, zigzag and Ulysses
-sequence parallelism wait for the parallel slice of the port.
+`reference_attention` is the plain full attention, and
+`sequence_parallel_attention` the entry point `forward` calls, ported
+for its single-device branch (the JAX package's `mesh=None` path):
+impl="flash" runs the flash kernels, any other impl the plain full
+attention. Ring, zigzag and Ulysses sequence parallelism over a mesh
+wait for the parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import torch
 
 from .kernel_utils import NEG_INF
 
-__all__ = ["reference_attention"]
+__all__ = ["reference_attention", "sequence_parallel_attention"]
 
 
 def reference_attention(q, k, v, causal: bool = False, scale=None):
@@ -31,3 +33,22 @@ def reference_attention(q, k, v, causal: bool = False, scale=None):
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p, v)
+
+
+def sequence_parallel_attention(q, k, v, mesh=None, axis: str = "seq",
+                                impl: str = "ring", causal: bool = False,
+                                scale=None):
+    """Global-view attention entry point over [B, T, H, D] tensors.
+    Without a mesh: impl="flash" runs `flash_attention` (the Hopper
+    kernels on CUDA tensors), anything else `reference_attention`."""
+    if impl == "zigzag" and not causal:
+        raise ValueError("impl='zigzag' is causal-only")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh (sequence-parallel) attention is not ported yet — "
+            "ROADMAP: the parallel slice")
+    if impl == "flash":
+        from .flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+    return reference_attention(q, k, v, causal=causal, scale=scale)

@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from .kernel_utils import NEG_INF, guarded_exp
+from .kernel_utils import NEG_INF, guarded_exp, on_cpu
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
            "paged_prefill_attention", "paged_attention_plain"]
@@ -83,17 +83,6 @@ def _kernel():
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
-
-
-def _on_cpu(*ts) -> bool:
-    devs = {t.device for t in ts if isinstance(t, torch.Tensor)}
-    if {d.type for d in devs} == {"cpu"}:
-        return True
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(
-            "paged attention needs all tensors on one CUDA device or all "
-            "on the CPU (got %s)" % sorted(str(d) for d in devs))
-    return False
 
 
 def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q):
@@ -162,7 +151,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
     garbage nothing reads — but never reads past the table or pool."""
     _no_quant(k_scale, v_scale)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q, k_pool, v_pool, tables, pos):
+    if on_cpu("paged attention", q, k_pool, v_pool, tables, pos):
         return paged_attention_plain(q[:, None], k_pool, v_pool, tables,
                                      pos, scale=scale,
                                      scale_in_q=False)[:, 0]
@@ -179,7 +168,7 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
     including itself. Chunk family (scale folded into q)."""
     _no_quant(k_scale, v_scale)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q, k_pool, v_pool, tables, pos):
+    if on_cpu("paged attention", q, k_pool, v_pool, tables, pos):
         return paged_attention_plain(q, k_pool, v_pool, tables, pos,
                                      scale=scale, scale_in_q=True)
     out = _launch(q, k_pool, v_pool, tables, pos, scale=scale,
@@ -196,7 +185,7 @@ def paged_prefill_attention(q, k_pool, v_pool, table_row, start, *,
     `table_row` [MAXB]. Chunk family (scale folded into q)."""
     _no_quant(k_scale, v_scale)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if _on_cpu(q, k_pool, v_pool, table_row, start):
+    if on_cpu("paged attention", q, k_pool, v_pool, table_row, start):
         base = torch.as_tensor(start, dtype=torch.int64).reshape(1)
         return paged_attention_plain(q[None], k_pool, v_pool,
                                      table_row[None], base, scale=scale,
