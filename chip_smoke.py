@@ -14,10 +14,10 @@ Phases (any failure exits non-zero):
   2. hold the paged kernel against its plain PyTorch version through all
      three wrappers (decode, verify, prefill chunk) at the serving shapes
      (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a 128-token
-     chunk at start > 0, a 4-row verify window) in bf16 and f32, at one
-     odd shape (Dh=32, Bt=8, R=3), with -1 table tails (bit-identical to
-     a full table) and a parked row; time the kernel and the plain
-     version at the decode and prefill shapes with a cold L2;
+     chunk at start > 0, a 4-row verify window over 32 slots) in bf16
+     and f32, at one odd shape (Dh=32, Bt=8, R=3), with -1 table tails
+     (bit-identical to a full table) and a parked row; time the kernel
+     and the plain version at each of the three shapes with a cold L2;
   3. serve a fixed-seed trace of 12 requests through ServingEngine at
      full width in bf16 (vocab 32000, dim 512, 8 heads, 8 layers,
      max_len 1024; 16 slots, 16-token blocks, 128-token chunks, an
@@ -44,11 +44,43 @@ Phases (any failure exits non-zero):
      tokens/s, ms/step and bench.py's FLOP share of 989 TFLOP/s;
   7. f32 parity: 3 SGD steps (lr 1e-2) from the same weights and batch
      through attn_impl="flash" and attn_impl="reference" agree;
-  8. print the kernels' JSON line, then the device line last.
+  8. the paged kernel's dequant branch: all three wrappers over int8 and
+     fp8 pools with q in bf16 and f32, held against the plain version on
+     the same codes and scales at the serving_quant shapes (H 8, Dh 64,
+     Bt 32, 32 slots, contexts up to 1024, a 128-row chunk at start 256,
+     a 4-row verify window), at phase 11's verify shape (Bt 16, 64
+     table entries) and at Dh 32, Bt 16, R 3, with -1 tails
+     (bit-identical) and a parked row; bf16 timings with a cold L2 beside
+     the plain version and the unquantized kernel at the same shape;
+  9. the repo's serving_quant configuration (bench.py:1783-1808: the
+     model above in bf16, 32 slots, 32-token blocks, 128-token chunks,
+     an 8192-token prefix cache, one KV byte budget of (max_len // Bt)
+     unquantized blocks) over bench.py's trace (64 requests arriving
+     Poisson at 2 per step, seed 0; a 128-token header, 32-128 suffix
+     tokens, 32-96 new tokens, greedy) through kv_quant none / int8 /
+     fp8 and weight_quant int8: decode and prefill launches = layers x
+     steps in each run, int8 strictly more resident slots than none;
+     slots resident, pool blocks, greedy-prefix agreement with the none
+     run and tokens/s per variant (agreement reported, not gated);
+ 10. f32, the trace's first 8 requests: int8 and fp8 engines through the
+     kernel emit the greedy tokens of engines through the gathered view;
+ 11. the serving_fused configuration (bench.py:1553-1562: 32 slots,
+     16-token blocks) over the same trace in bf16, through plain decode
+     and then with spec_draft_len 4 for kv_quant none / int8 / fp8:
+     verify launches = layers x verify steps, decode launches 0 (plain:
+     the reverse); accept rate and tokens/s;
+ 12. f32, the first 8 requests: spec tokens equal plain-decode tokens
+     for kv_quant none and int8;
+ 13. print the kernels' JSON line (every kernel must have launched on a
+     main path), then the device line last.
+
+No request count of phases 9 and 11 is cut; phases 10 and 12 run the
+trace's first 8 requests.
 
 With --profile, torch.profiler also reads the device-busy share and the
 top kernels over the bf16 trace's first steps and steady decode steps,
-and over 3 train steps.
+over 3 train steps, and over 24 steps of the serving_quant
+configuration with kv_quant none and int8.
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
@@ -111,14 +143,35 @@ def gpu_line():
 # ---------------------------------------------------------------------
 
 
+def _codes(rng, torch, kvq, shape, dev):
+    """Random int8 or e4m3 codes of a quantized pool (~N(0, 40) before
+    rounding or the cast, clipped to the format's range)."""
+    x = 40.0 * rng.randn(*shape).astype(np.float32)
+    if kvq == "int8":
+        return torch.from_numpy(np.clip(np.round(x), -127, 127)).to(
+            dev, torch.int8)
+    return torch.from_numpy(np.clip(x, -448, 448)).to(dev).to(
+        torch.float8_e4m3fn)
+
+
 def make_case(rng, torch, dtype, S, R, H, Dh, Bt, MAXB, NB, parked=False,
-              base=None, dev="cuda"):
+              base=None, dev="cuda", kvq=None):
     """Random pools, per-slot tables of distinct blocks with a -1 tail
     past each slot's deepest attended depth, and the same tables with
-    the tail filled by valid blocks."""
-    k = torch.from_numpy(rng.randn(NB, Bt, H, Dh).astype(np.float32))
-    v = torch.from_numpy(rng.randn(NB, Bt, H, Dh).astype(np.float32))
-    k, v = k.to(dev, dtype), v.to(dev, dtype)
+    the tail filled by valid blocks. With `kvq` ("int8" | "fp8") the
+    pools hold codes and per-(block, head) scales ks/vs [NB, H] that
+    bring the dequantized rows to about N(0, 1)."""
+    if kvq is None:
+        k = torch.from_numpy(rng.randn(NB, Bt, H, Dh).astype(np.float32))
+        v = torch.from_numpy(rng.randn(NB, Bt, H, Dh).astype(np.float32))
+        k, v = k.to(dev, dtype), v.to(dev, dtype)
+        ks = vs = None
+    else:
+        k = _codes(rng, torch, kvq, (NB, Bt, H, Dh), dev)
+        v = _codes(rng, torch, kvq, (NB, Bt, H, Dh), dev)
+        ks, vs = (torch.from_numpy(
+            ((0.5 + rng.rand(NB, H)) / 40.0).astype(np.float32)).to(dev)
+            for _ in range(2))
     q = torch.from_numpy(rng.randn(S, R, H, Dh).astype(np.float32))
     q = q.to(dev, dtype)
     full = np.stack([rng.choice(NB, MAXB, replace=False)
@@ -133,8 +186,8 @@ def make_case(rng, torch, dtype, S, R, H, Dh, Bt, MAXB, NB, parked=False,
         need = min(-(-(int(base[s]) + R) // Bt), MAXB)
         part[s, need:] = -1
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return dict(q=q, k=k, v=v, part=t(part), full=t(full), base=t(base),
-                base_np=base)
+    return dict(q=q, k=k, v=v, ks=ks, vs=vs, part=t(part), full=t(full),
+                base=t(base), base_np=base)
 
 
 def attended_tokens(c, R, Bt, MAXB):
@@ -143,21 +196,26 @@ def attended_tokens(c, R, Bt, MAXB):
 
 
 def run_wrapper(tpa, which, c, table, plain=False):
-    """Call one wrapper (or the plain version on f32 copies) on a case."""
+    """Call one wrapper (or the plain version on f32 copies of q and
+    unquantized pools; quantized pools pass their codes and scales as
+    they are) on a case."""
     q, k, v, base = c["q"], c["k"], c["v"], c["base"]
+    sc = dict(k_scale=c["ks"], v_scale=c["vs"])
     if plain:
+        if c["ks"] is None:
+            k, v = k.float(), v.float()
         scale = 1.0 / math.sqrt(q.shape[-1])
-        out = tpa.paged_attention_plain(q.float(), k.float(), v.float(),
-                                        table, base, scale=scale,
-                                        scale_in_q=which != "decode")
+        out = tpa.paged_attention_plain(q.float(), k, v, table, base,
+                                        scale=scale,
+                                        scale_in_q=which != "decode", **sc)
         return out[:, 0] if which == "decode" else (
             out[0] if which == "prefill" else out)
     if which == "decode":
-        return tpa.paged_decode_attention(q[:, 0], k, v, table, base)
+        return tpa.paged_decode_attention(q[:, 0], k, v, table, base, **sc)
     if which == "verify":
-        return tpa.paged_verify_attention(q, k, v, table, base)
+        return tpa.paged_verify_attention(q, k, v, table, base, **sc)
     return tpa.paged_prefill_attention(q[0], k, v, table[0],
-                                       int(c["base_np"][0]))
+                                       int(c["base_np"][0]), **sc)
 
 
 def check_case(torch, tpa, which, c, label):
@@ -203,8 +261,10 @@ def time_ms(torch, fn, iters=30):
 
 def bound_ms(c, tokens, dtype_name):
     """Least time for the same work: each input byte read once (the K/V
-    rows attended, q, tables, positions), the output written once, vs
-    4*Dh flops per (row, head, attended depth) at the peak rate."""
+    rows attended at the pool's storage size, a quantized pool's scales
+    of the attended blocks, q, tables, positions), the output written
+    once, vs 4*Dh flops per (row, head, attended depth) at q's peak
+    rate."""
     q = c["q"]
     H, Dh = q.shape[2], q.shape[3]
     esize = q.element_size()
@@ -213,7 +273,10 @@ def bound_ms(c, tokens, dtype_name):
     for i, t in enumerate(tokens):
         s = i // R
         uniq[s] = max(uniq.get(s, 0), t)
-    kv = sum(uniq.values()) * H * Dh * 2 * esize
+    kv = sum(uniq.values()) * H * Dh * 2 * c["k"].element_size()
+    if c["ks"] is not None:
+        Bt = c["k"].shape[1]
+        kv += sum(-(-n // Bt) for n in uniq.values()) * H * 4 * 2
     qo = 2 * q.numel() * esize
     meta = c["part"].numel() * 4 + c["base"].numel() * 4
     flops = sum(tokens) * H * 4 * Dh
@@ -223,16 +286,36 @@ def bound_ms(c, tokens, dtype_name):
             else "operations")
 
 
+def time_case(torch, tpa, which, c, label):
+    """Kernel and plain-version device ms with a cold L2, and the bound."""
+    R, Bt, MAXB = c["q"].shape[1], c["k"].shape[1], c["part"].shape[1]
+    ms = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"]))
+    plain = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"],
+                                               plain=True), iters=10)
+    b, by = bound_ms(c, attended_tokens(c, R, Bt, MAXB),
+                     str(c["q"].dtype).split(".")[-1])
+    log("  %-8s %-10s kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
+        "no single PyTorch call computes paged attention"
+        % (which, label, ms, plain, b, by))
+    return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+
+
+# the paged pools at the serving shapes with 16-token blocks: phase 3's
+# engine and phase 11's spec engine (SPEC_ENGINE)
+SPEC_SHAPES = dict(H=8, Dh=64, Bt=16, MAXB=64, NB=1024)
+
+
 def phase_kernels(torch, tpa):
     rng = np.random.RandomState(0)
-    shapes = dict(H=8, Dh=64, Bt=16, MAXB=64, NB=1024)
+    shapes = SPEC_SHAPES
     errs, timing = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         cases = {
             "decode": make_case(rng, torch, dtype, S=16, R=1, parked=True,
                                 **shapes),
-            "verify": make_case(rng, torch, dtype, S=16, R=4, **shapes),
+            # the spec phase's verify shape: 32 slots, a 4-row window
+            "verify": make_case(rng, torch, dtype, S=32, R=4, **shapes),
             "prefill": make_case(rng, torch, dtype, S=1, R=128, base=[256],
                                  **shapes),
         }
@@ -240,19 +323,8 @@ def phase_kernels(torch, tpa):
             errs[(which, name)] = check_case(
                 torch, tpa, which, c, "%s %s full width" % (which, name))
         if dtype == torch.bfloat16:
-            for which in ("decode", "prefill"):
-                c = cases[which]
-                R = c["q"].shape[1]
-                ms = time_ms(torch, lambda: run_wrapper(tpa, which, c,
-                                                        c["part"]))
-                plain = time_ms(torch, lambda: run_wrapper(
-                    tpa, which, c, c["part"], plain=True), iters=10)
-                b, by = bound_ms(c, attended_tokens(c, R, 16, 64), name)
-                timing[which] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                     bound_by=by)
-                log("  %-8s bf16: kernel %.4f ms, plain %.4f ms, bound "
-                    "%.4f ms (%s), no single PyTorch call computes paged "
-                    "attention" % (which, ms, plain, b, by))
+            for which, c in cases.items():
+                timing[which] = time_case(torch, tpa, which, c, "bf16")
     odd = dict(H=4, Dh=32, Bt=8, MAXB=16, NB=60)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -265,6 +337,65 @@ def phase_kernels(torch, tpa):
         check_case(torch, tpa, "prefill", make_case(
             rng, torch, dtype, S=1, R=13, base=[21], **odd),
             "prefill %s Dh=32 Bt=8 C=13" % name)
+    return errs, timing
+
+
+def phase_kernels_quant(torch, tpa):
+    """The dequant branch: all three wrappers over int8 and fp8 pools with
+    q in bf16 and f32 at the serving_quant shapes (H 8, Dh 64, Bt 32, 32
+    slots, contexts up to 1024, a 128-row chunk at start 256, a 4-row
+    verify window) and at one odd shape (Dh 32, Bt 16, R 3); then bf16
+    timings with a cold L2 of every wrapper over int8, fp8 and (the
+    unquantized kernel at the same shape) bf16 pools. Last, the verify
+    wrapper over int8 and fp8 pools at the spec engine's shape (Bt 16,
+    64 table entries, a parked row), where phase 11 launches it, checked
+    in bf16 and f32 and timed in bf16."""
+    rng = np.random.RandomState(3)
+    shapes = dict(H=8, Dh=64, Bt=32, MAXB=32, NB=1024)
+    odd = dict(H=4, Dh=32, Bt=16, MAXB=16, NB=60)
+    errs, timing = {}, {}
+    for kvq in (None, "int8", "fp8"):
+        kname = kvq or "none"
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            cases = {
+                "decode": make_case(rng, torch, dtype, S=32, R=1,
+                                    parked=True, kvq=kvq, **shapes),
+                "verify": make_case(rng, torch, dtype, S=32, R=4, kvq=kvq,
+                                    **shapes),
+                "prefill": make_case(rng, torch, dtype, S=1, R=128,
+                                     base=[256], kvq=kvq, **shapes),
+            }
+            for which, c in cases.items():
+                errs[(which, kname, name)] = check_case(
+                    torch, tpa, which, c, "%s %s q %s Bt=32" % (
+                        which, kname, name))
+            if kvq is not None:
+                for which, R, S, base in (("decode", 1, 5, None),
+                                          ("verify", 3, 5, None),
+                                          ("prefill", 13, 1, [21])):
+                    check_case(torch, tpa, which, make_case(
+                        rng, torch, dtype, S=S, R=R, base=base,
+                        parked=which == "decode", kvq=kvq, **odd),
+                        "%s %s q %s Dh=32 Bt=16 R=%d" % (which, kname, name,
+                                                         R))
+            if dtype == torch.bfloat16:
+                for which, c in cases.items():
+                    timing[(which, kname)] = time_case(
+                        torch, tpa, which, c, "%s pool" % kname)
+    # the verify launches run under spec decoding at SPEC_ENGINE's shape
+    # (Bt 16, MAXB 64): phase 2's verify case for the unquantized pool
+    for kvq in ("int8", "fp8"):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            c = make_case(rng, torch, dtype, S=32, R=4, parked=True, kvq=kvq,
+                          **SPEC_SHAPES)
+            errs[("verify_spec", kvq, name)] = check_case(
+                torch, tpa, "verify", c, "verify %s q %s Bt=16 (spec)"
+                % (kvq, name))
+            if dtype == torch.bfloat16:
+                timing[("verify_spec", kvq)] = time_case(
+                    torch, tpa, "verify", c, "%s Bt16" % kvq)
     return errs, timing
 
 
@@ -402,6 +533,261 @@ def phase_generate(torch, T, ServingEngine, params, cfg, dev="cuda"):
         "retirement ok; backpressure (queued beside a free slot): %s"
         % (len(hs), sum(len(w) for w in oracle), held))
     check(held, "the small pool did not hold a request back")
+
+
+# ---------------------------------------------------------------------
+# phases 9-12: quantized serving and speculative decoding at full width
+# ---------------------------------------------------------------------
+
+# the repo's serving_quant configuration at its chip shape
+# (bench.py:1783-1808) and serving_fused (bench.py:1553-1562): the model
+# above with 32 slots and 128-token chunks over an 8192-token prefix
+# cache; 32-token blocks for the quantized pools, 16 under spec decode
+QUANT_ENGINE = dict(max_slots=32, kv_block_tokens=32,
+                    prefill_chunk_tokens=128, prefix_cache_tokens=8192)
+SPEC_ENGINE = dict(max_slots=32, kv_block_tokens=16,
+                   prefill_chunk_tokens=128, prefix_cache_tokens=8192,
+                   spec_draft_len=4)
+# bench.py's trace: Poisson arrivals at 2 per step (seed 0), a 128-token
+# shared header, 32-128 suffix tokens, 32-96 new tokens, all greedy
+POISSON = dict(n=64, header=128, t_lo=32, t_hi=128, n_lo=32, n_hi=96,
+               rate=2.0)
+
+
+def poisson_trace(vocab, seed=0):
+    """bench.py's serving trace: [(prompt, max_new)] and arrival steps."""
+    p = POISSON
+    rng = np.random.RandomState(seed)
+    header = rng.randint(0, vocab, p["header"]).astype(np.int32)
+    arrive = np.floor(np.cumsum(
+        rng.exponential(1.0 / p["rate"], p["n"]))).astype(int)
+    reqs = [(np.concatenate([header, rng.randint(
+        0, vocab, int(rng.randint(p["t_lo"], p["t_hi"] + 1))).astype(
+            np.int32)]), int(rng.randint(p["n_lo"], p["n_hi"] + 1)))
+        for _ in range(p["n"])]
+    return reqs, arrive
+
+
+def run_poisson(torch, eng, reqs, arrive, dev="cuda"):
+    """bench.py's open-loop submission: a request enters at its arrival
+    step, and an idle engine jumps to the next arrival. Returns (handles,
+    wall seconds ending in a device sync, peak resident slots)."""
+    hs, peak = [], 0
+    t0 = time.monotonic()
+    i = step = 0
+    while i < len(reqs) or eng.live_slots or eng.queue_depth \
+            or eng.prefilling_slots:
+        while i < len(reqs) and arrive[i] <= step:
+            prompt, n = reqs[i]
+            hs.append(eng.submit(prompt, n, publish_len=POISSON["header"]))
+            i += 1
+        if not eng.step() and i < len(reqs):
+            step = max(step + 1, int(arrive[i]))
+            continue
+        peak = max(peak, eng.live_slots + eng.prefilling_slots)
+        step += 1
+    _sync(torch, dev)
+    return hs, time.monotonic() - t0, peak
+
+
+def greedy_agreement(outs, ref):
+    """bench.py:1697-1711: mean greedy-prefix agreement of `outs` with
+    `ref`, the longest common prefix over the longer length."""
+    num = den = 0
+    for a, b in zip(outs, ref):
+        m = 0
+        while m < min(len(a), len(b)) and a[m] == b[m]:
+            m += 1
+        num += m
+        den += max(len(a), len(b))
+    return num / den if den else 1.0
+
+
+def zero_launches(tpa):
+    for w in (tpa.paged_decode_attention, tpa.paged_prefill_attention,
+              tpa.paged_verify_attention):
+        w.launches = 0
+
+
+def read_launches(tpa):
+    return {"decode": tpa.paged_decode_attention.launches,
+            "prefill": tpa.paged_prefill_attention.launches,
+            "verify": tpa.paged_verify_attention.launches}
+
+
+def check_served(hs, vocab):
+    check(all(h.done for h in hs), "a request did not finish")
+    for h in hs:
+        check(h.finish_reason == "budget" and
+              len(h.tokens) == h.max_new_tokens,
+              "request %d finished %r after %d tokens"
+              % (h.rid, h.finish_reason, len(h.tokens)))
+        check(all(0 <= t < vocab for t in h.tokens),
+              "request %d emitted a token outside the vocab" % h.rid)
+
+
+def _serve_run(torch, tpa, ServingEngine, params, cfg, kw, reqs, arrive,
+               dev):
+    """One warmed engine over the trace with the paged counters zeroed
+    just before and read just after: (engine, handles, wall, peak,
+    launches)."""
+    warm = ServingEngine(params, cfg, device=dev, **kw)
+    warm.submit(np.arange(40) % cfg.vocab, 4)
+    warm.run()
+    del warm
+    eng = ServingEngine(params, cfg, device=dev, **kw)
+    _sync(torch, dev)
+    zero_launches(tpa)
+    hs, wall, peak = run_poisson(torch, eng, reqs, arrive, dev)
+    launches = read_launches(tpa)
+    check_served(hs, cfg.vocab)
+    return eng, hs, wall, peak, launches
+
+
+def phase_serve_quant(torch, T, tpa, ServingEngine, params, cfg,
+                      dev="cuda", n=None):
+    """Phase 9: the serving_quant trace at one KV byte budget, (max_len //
+    Bt) unquantized blocks, through kv_quant none / int8 / fp8 and
+    weight_quant int8 at the unquantized pool. Each run's decode and
+    prefill launches equal layers x steps; int8 holds strictly more
+    resident slots than none; greedy-prefix agreement with the none run
+    is reported."""
+    reqs, arrive = poisson_trace(cfg.vocab)
+    reqs, arrive = reqs[:n], arrive[:n]
+    Bt, dh = QUANT_ENGINE["kv_block_tokens"], cfg.dim // cfg.heads
+    item = params["embed"].element_size()
+    budget = (cfg.max_len // Bt) * T.kv_block_bytes(
+        cfg.layers, cfg.heads, dh, Bt, "none", act_itemsize=item)
+    out, ref = {}, None
+    for name, kvq, wq in (("none", "none", None), ("int8", "int8", None),
+                          ("fp8", "fp8", None),
+                          ("weight_int8", "none", "int8")):
+        bb = T.kv_block_bytes(cfg.layers, cfg.heads, dh, Bt, kvq,
+                              act_itemsize=item)
+        blocks = max(1, budget // bb)
+        kw = dict(QUANT_ENGINE, kv_pool_blocks=blocks, kv_quant=kvq,
+                  weight_quant=wq)
+        eng, hs, wall, peak, launches = _serve_run(
+            torch, tpa, ServingEngine, params, cfg, kw, reqs, arrive, dev)
+        rep = eng.metrics.report()
+        check(rep["kv_quant"] == kvq and rep["weight_quant"] == wq,
+              "%s run reports kv_quant %r weight_quant %r"
+              % (name, rep["kv_quant"], rep["weight_quant"]))
+        want_dec = cfg.layers * rep["decode_steps"]
+        want_pre = cfg.layers * rep["prefill_chunks"]
+        if dev == "cuda":
+            check(launches["decode"] == want_dec > 0 and
+                  launches["prefill"] == want_pre > 0 and
+                  launches["verify"] == 0,
+                  "%s launches %s != layers x steps (decode %d, prefill "
+                  "%d)" % (name, launches, want_dec, want_pre))
+        outs = [list(h.tokens) for h in hs]
+        ref = outs if ref is None else ref
+        toks = rep["tokens_out"]
+        out[name] = dict(
+            launches=launches, slots_resident=peak, kv_pool_blocks=blocks,
+            kv_block_bytes=bb, agreement_vs_none=greedy_agreement(outs, ref),
+            tokens=toks, wall_s=wall, tokens_per_s=toks / wall,
+            decode_steps=rep["decode_steps"],
+            prefill_chunks=rep["prefill_chunks"],
+            prefix_hits=rep["prefix_cache"]["hits"],
+            cow_blocks=rep["cow_blocks"])
+        log("  %-11s pool %d blocks of %d B: %d slots resident (peak), "
+            "agreement vs none %.4f, %d tokens in %.3f s = %.1f tokens/s; "
+            "decode steps %d, chunks %d; launches %s; prefix hits %d"
+            % (name, blocks, bb, peak, out[name]["agreement_vs_none"], toks,
+               wall, toks / wall, rep["decode_steps"], rep["prefill_chunks"],
+               launches, rep["prefix_cache"]["hits"]))
+    check(out["int8"]["slots_resident"] > out["none"]["slots_resident"],
+          "int8 KV did not hold more resident slots than none at the byte "
+          "budget: %d <= %d" % (out["int8"]["slots_resident"],
+                                out["none"]["slots_resident"]))
+    return out
+
+
+def phase_quant_identity(torch, T, ServingEngine, p32, cfg32, dev="cuda",
+                         n=8):
+    """Phase 10: f32, the first `n` requests of the trace: a quantized
+    engine through the kernel (paged_kernel="fused") emits the greedy
+    tokens of one through the plain gathered-view math ("gather"), for
+    int8 and fp8."""
+    reqs, arrive = poisson_trace(cfg32.vocab)
+    reqs, arrive = reqs[:n], arrive[:n]
+    for kvq in ("int8", "fp8"):
+        toks = {}
+        for pk in ("fused", "gather"):
+            eng = ServingEngine(p32, cfg32, device=dev, paged_kernel=pk,
+                                kv_quant=kvq, **QUANT_ENGINE)
+            hs, _, _ = run_poisson(torch, eng, reqs, arrive, dev)
+            check_served(hs, cfg32.vocab)
+            toks[pk] = [list(h.tokens) for h in hs]
+        same = toks["fused"] == toks["gather"]
+        log("  %s f32: kernel tokens == gather tokens for %d requests (%d "
+            "tokens): %s" % (kvq, n, sum(map(len, toks["fused"])), same))
+        check(same, "%s: fused tokens differ from gather tokens" % kvq)
+
+
+def phase_spec(torch, T, tpa, ServingEngine, params, cfg, dev="cuda",
+               n=None):
+    """Phase 11: the serving_fused trace with spec_draft_len 4 over
+    kv_quant none / int8 / fp8 in bf16, after the same trace through
+    plain decode (kv_quant none) for comparison. Verify launches equal
+    layers x verify steps and decode launches 0 (plain decode: decode
+    launches layers x decode steps, verify 0); prefill launches layers x
+    chunks."""
+    reqs, arrive = poisson_trace(cfg.vocab)
+    reqs, arrive = reqs[:n], arrive[:n]
+    out = {}
+    for kvq, spec in (("plain", None), ("none", 4), ("int8", 4),
+                      ("fp8", 4)):
+        eng, hs, wall, peak, launches = _serve_run(
+            torch, tpa, ServingEngine, params, cfg,
+            dict(SPEC_ENGINE, spec_draft_len=spec,
+                 kv_quant="none" if spec is None else kvq),
+            reqs, arrive, dev)
+        rep = eng.metrics.report()
+        steps = rep["decode_steps"]
+        want = {"verify": cfg.layers * steps if spec else 0,
+                "decode": 0 if spec else cfg.layers * steps,
+                "prefill": cfg.layers * rep["prefill_chunks"]}
+        if dev == "cuda":
+            check(launches == want and steps > 0,
+                  "%s launches %s != %s" % (kvq, launches, want))
+        toks = rep["tokens_out"]
+        out[kvq] = dict(launches=launches, tokens=toks, wall_s=wall,
+                        tokens_per_s=toks / wall,
+                        steps=steps,
+                        accept_rate=rep["spec_accept_rate"],
+                        spec_drafted=rep["spec_drafted"],
+                        spec_accepted=rep["spec_accepted"],
+                        slots_resident=peak)
+        log("  %-15s %d tokens in %.3f s = %.1f tokens/s; steps %d, "
+            "accept rate %s (%d of %d drafts); launches %s"
+            % ("plain decode:" if spec is None else "spec K=4 %s:" % kvq,
+               toks, wall, toks / wall, steps, rep["spec_accept_rate"],
+               rep["spec_accepted"], rep["spec_drafted"], launches))
+    return out
+
+
+def phase_spec_identity(torch, T, ServingEngine, p32, cfg32, dev="cuda",
+                        n=8):
+    """Phase 12: f32, the first `n` requests: spec decode emits the plain
+    decode's tokens for kv_quant none and int8 (the row-commit rule keeps
+    rejected drafts out of every block scale)."""
+    reqs, arrive = poisson_trace(cfg32.vocab)
+    reqs, arrive = reqs[:n], arrive[:n]
+    for kvq in ("none", "int8"):
+        toks = {}
+        for spec in (None, 4):
+            eng = ServingEngine(p32, cfg32, device=dev, kv_quant=kvq,
+                                **dict(SPEC_ENGINE, spec_draft_len=spec))
+            hs, _, _ = run_poisson(torch, eng, reqs, arrive, dev)
+            check_served(hs, cfg32.vocab)
+            toks[spec] = [list(h.tokens) for h in hs]
+        same = toks[4] == toks[None]
+        log("  %s f32: spec tokens == plain tokens for %d requests (%d "
+            "tokens): %s" % (kvq, n, sum(map(len, toks[None])), same))
+        check(same, "%s: spec tokens differ from plain tokens" % kvq)
 
 
 # ---------------------------------------------------------------------
@@ -725,6 +1111,24 @@ def phase_profile(torch, ServingEngine, params, cfg, windows=(6, 24)):
     eng.run()
 
 
+def phase_profile_quant(torch, ServingEngine, params, cfg, warm=8, n=24):
+    """torch.profiler over `n` decode-dominated steps of the serving_quant
+    configuration for kv_quant none and int8, at the same 12 requests of
+    the trace submitted at once and a pool that holds them all, after
+    `warm` unprofiled steps."""
+    reqs, _ = poisson_trace(cfg.vocab)
+    for kvq in ("none", "int8"):
+        eng = ServingEngine(params, cfg, device="cuda", kv_quant=kvq,
+                            **QUANT_ENGINE)
+        for prompt, m in reqs[:12]:
+            eng.submit(prompt, m, publish_len=POISSON["header"])
+        for _ in range(warm):
+            eng.step()
+        _profile_window(torch, eng.step, n, "kv_quant %s, %d steps"
+                        % (kvq, n))
+        eng.run()
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -797,23 +1201,71 @@ def main():
     log("phase 7: f32 train parity, flash kernels vs reference attention")
     parity = phase_train_parity(torch, T)
 
+    log("phase 8: the paged kernel's dequant branch vs plain version")
+    qerrs, qtiming = phase_kernels_quant(torch, tpa)
+
+    params = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    log("phase 9: quantized serving at full width, bf16")
+    quant = phase_serve_quant(torch, T, tpa, ServingEngine, params, cfg)
+
+    p32 = _tree_map(lambda t: t.float(), params)
+    cfg32 = T.TransformerConfig(**FULL)
+    log("phase 10: f32 quantized engines, kernel tokens vs gather tokens")
+    phase_quant_identity(torch, T, ServingEngine, p32, cfg32)
+
+    log("phase 11: spec decoding at full width, bf16 (plain decode first)")
+    spec = phase_spec(torch, T, tpa, ServingEngine, params, cfg)
+
+    log("phase 12: f32 spec tokens vs plain tokens")
+    phase_spec_identity(torch, T, ServingEngine, p32, cfg32)
+    if "--profile" in sys.argv[1:]:
+        log("profile: bf16 serving_quant steps under torch.profiler")
+        phase_profile_quant(torch, ServingEngine, params, cfg)
+    del params, p32
+
     kernels = []
-    for which, wrapper in (("decode", "paged_decode_attention"),
-                           ("prefill", "paged_prefill_attention")):
+    paged_note = "no single PyTorch call computes paged attention"
+    for which in ("decode", "prefill", "verify"):
         tm = timing[which]
         kernels.append({
-            "name": "paged_attention (%s, %s)" % (which, wrapper),
+            "name": "paged_attention (%s, paged_%s_attention)"
+                    % (which, which),
             "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
-            "launches": launches[which],
+            "launches": (spec["none"]["launches"]["verify"]
+                         if which == "verify" else launches[which]),
             "max_abs_err": errs[(which, "bfloat16")],
             "max_abs_err_f32": errs[(which, "float32")],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None,
-            "library_note": "no single PyTorch call computes paged "
-                            "attention",
-            "card": card,
+            "library_ms": None, "library_note": paged_note, "card": card,
         })
+    for kvq in ("int8", "fp8"):
+        for which in ("decode", "prefill", "verify"):
+            # each entry's numbers come from the shape its launches ran
+            # at: decode and prefill from phase 9 (Bt 32), verify from
+            # phase 11 (Bt 16)
+            if which == "verify":
+                key, n = ("verify_spec", kvq), spec[kvq]["launches"]["verify"]
+                unq = timing["verify"]["ms"]
+            else:
+                key, n = (which, kvq), quant[kvq]["launches"][which]
+                unq = qtiming[(which, "none")]["ms"]
+            tm = qtiming[key]
+            kernels.append({
+                "name": "paged_attention dequant (%s, %s pool, "
+                        "paged_%s_attention)" % (which, kvq, which),
+                "route": "cuda", "source": SOURCE,
+                "replaces": TPU_KERNEL + " (quant=True branch)",
+                "launches": n,
+                "max_abs_err": qerrs[key + ("bfloat16",)],
+                "max_abs_err_f32": qerrs[key + ("float32",)],
+                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "unquantized_ms_same_shape": unq,
+                "library_ms": None, "library_note": paged_note,
+                "card": card,
+            })
     for which in ("forward", "backward_kv", "backward_q"):
         tm = flash_timing[which]
         kernels.append({
@@ -833,7 +1285,11 @@ def main():
         })
     log("kernels: " + ", ".join("%s launches=%d" % (k["name"], k["launches"])
                                 for k in kernels))
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    check(not idle, "kernels never launched on a main path: %s" % idle)
     log("serving: %s" % json.dumps(serve))
+    log("quantized serving: %s" % json.dumps(quant))
+    log("spec decoding: %s" % json.dumps(spec))
     log("training: %s" % json.dumps(dict(train, **parity)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -8,9 +8,18 @@
 // paged_prefill_attention). Same function: row r of a window based at
 // base[s] attends depths <= base[s] + r, online softmax in f32 with the
 // NEG_INF exact no-op guards, two scaling families (decode scales the
-// scores after QK^T; verify/prefill fold the scale into q first). The
-// quantized (int8/fp8 + per-block scales) branch of the TPU kernel is
-// not ported yet.
+// scores after QK^T; verify/prefill fold the scale into q first).
+//
+// The quantized branch (`_pa_kernel` with quant=True,
+// paddle_tpu/parallel/paged_attention.py:116-118,158-183): the pools hold
+// int8 or float8_e4m3fn codes and per-(physical block, head) f32 scales
+// [NB, H] come beside them. Each staged table entry reads its two scales
+// once (with the clamped physical block, as the TPU kernel's index map
+// clamps), its rows arrive as 16-byte loads of 16 codes, convert to f32
+// exactly (int8 by cast, e4m3 through cuda_fp8.h) and are multiplied by
+// the scale in f32 before they reach the shared tiles, as the TPU kernel
+// multiplies before its dot. Everything after staging is the unquantized
+// path's; no dequantized pool ever exists in device memory.
 //
 // What bounds it on this card: HBM bytes. Per (slot, head) the kernel
 // reads every K/V row it attends exactly once and does 4*Dh flops per
@@ -37,6 +46,8 @@
 // (one CTA per (slot, head) leaves SMs idle when S*H < 132).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -63,6 +74,26 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 // one 16-byte chunk -> 16 / sizeof(T) floats
 template <typename T>
 __device__ void unpack16(const uint4& u, float* dst);
+
+template <>
+__device__ __forceinline__ void unpack16<int8_t>(const uint4& u, float* dst) {
+  int8_t b[16];
+  memcpy(b, &u, sizeof(b));
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(b[i]);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_fp8_e4m3>(const uint4& u,
+                                                       float* dst) {
+  __nv_fp8_storage_t b[16];
+  memcpy(b, &u, sizeof(b));
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    // e4m3 -> half is exact (every e4m3 value is a half), half -> float too
+    const __half h = __half(__nv_cvt_fp8_to_halfraw(b[i], __NV_E4M3));
+    dst[i] = __half2float(h);
+  }
+}
 
 template <>
 __device__ __forceinline__ void unpack16<float>(const uint4& u, float* dst) {
@@ -95,15 +126,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+// TQ: q and out (float or bf16); TP: the pools (TQ, or int8 / e4m3 codes,
+// which come with the per-(block, head) scales k_scale / v_scale [NB, H])
+template <typename TQ, typename TP>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
+                       const TP* __restrict__ v_pool,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const int* __restrict__ tables,
                        const int* __restrict__ base_arr, int base_scalar,
-                       T* __restrict__ out, int R, int H, int Dh, int NB,
+                       TQ* __restrict__ out, int R, int H, int Dh, int NB,
                        int Bt, int MAXB, int rt, int G, float scale,
                        int scale_in_q) {
+  constexpr bool kQuant = sizeof(TP) == 1;
   extern __shared__ float smem[];
   const int TT = G * Bt;
   float* sQ = smem;                   // [rt, Dh]
@@ -113,6 +149,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float* sM = sP + rt * TT;           // [rt] running max
   float* sL = sM + rt;                // [rt] running sum
   float* sA = sL + rt;                // [rt] this step's rescale factor
+  float* sKS = sA + rt;               // [G] this step's K scales (quant)
+  float* sVS = sKS + G;               // [G] this step's V scales (quant)
+  int* sPB = reinterpret_cast<int*>(sVS + G);  // [G] physical blocks (quant)
 
   const int s = blockIdx.z;
   const int h = blockIdx.y;
@@ -147,34 +186,55 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
   for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
 
-  constexpr int epc = 16 / sizeof(T);  // elements per 16-byte chunk
-  const int cpr = Dh / epc;            // chunks per token row
+  constexpr int epc = 16 / sizeof(TP);  // elements per 16-byte chunk
+  const int cpr = Dh / epc;             // chunks per token row
   const int* trow = tables + (size_t)s * MAXB;
   __syncthreads();
 
   for (int step = 0; step < n_steps; ++step) {
     const int j0 = step * G;
+    // -1 (unallocated) table entries clamp to block 0, masked by position
+    // below. A quantized pool reads the step's entries and their two
+    // scales once into shared memory; an unquantized pool reads its entry
+    // inline while staging and pays no extra barrier
+    if constexpr (kQuant) {
+      for (int jb = tid; jb < G; jb += kThreads) {
+        const int j = j0 + jb;
+        const int pb = j < nb ? min(max(trow[j], 0), NB - 1) : 0;
+        sPB[jb] = pb;
+        sKS[jb] = k_scale[(size_t)pb * H + h];
+        sVS[jb] = v_scale[(size_t)pb * H + h];
+      }
+      __syncthreads();
+    }
     // stage G table entries of K and V for head h in shared memory
     for (int c = tid; c < TT * cpr; c += kThreads) {
       const int t = c / cpr;
       const int part = c - t * cpr;
       const int jb = t / Bt;
-      const int j = j0 + jb;
-      float kf[8];
-      float vf[8];
-      if (j < nb) {
-        // -1 (unallocated) clamps to block 0: masked by position below
-        int pb = trow[j];
-        pb = min(max(pb, 0), NB - 1);
+      float kf[epc];
+      float vf[epc];
+      if (j0 + jb < nb) {
+        const int pb = kQuant ? sPB[jb]
+                              : min(max(trow[j0 + jb], 0), NB - 1);
         const size_t off =
             (((size_t)pb * Bt + (t - jb * Bt)) * H + h) * Dh + part * epc;
         const uint4 ku = *reinterpret_cast<const uint4*>(k_pool + off);
         const uint4 vu = *reinterpret_cast<const uint4*>(v_pool + off);
-        unpack16<T>(ku, kf);
-        unpack16<T>(vu, vf);
+        unpack16<TP>(ku, kf);
+        unpack16<TP>(vu, vf);
+        if constexpr (kQuant) {  // dequantize in f32, before the dot
+          const float ks = sKS[jb];
+          const float vs = sVS[jb];
+#pragma unroll
+          for (int e = 0; e < epc; ++e) {
+            kf[e] *= ks;
+            vf[e] *= vs;
+          }
+        }
       } else {
 #pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
+        for (int e = 0; e < epc; ++e) kf[e] = vf[e] = 0.f;
       }
 #pragma unroll
       for (int e = 0; e < epc; ++e) {
@@ -258,34 +318,65 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T>
+template <typename TQ, typename TP>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
+                   const float* k_scale, const float* v_scale,
                    const int* tables, const int* base, int base_scalar,
                    void* out, int S, int R, int H, int Dh, int NB, int Bt,
                    int MAXB, float scale, int scale_in_q,
                    cudaStream_t stream) {
-  if (Dh < 1 || Dh > kMaxDh || Dh % (16 / (int)sizeof(T)) != 0 || Bt < 1 ||
-      MAXB < 1 || NB < 1)
+  constexpr bool kQuant = sizeof(TP) == 1;
+  if (Dh < 1 || Dh > kMaxDh || Dh % (16 / (int)sizeof(TP)) != 0 || Bt < 1 ||
+      MAXB < 1 || NB < 1 || (kQuant && (k_scale == nullptr ||
+                                        v_scale == nullptr)))
     return cudaErrorInvalidValue;
   const int rt = R < kMaxRows ? R : kMaxRows;
   const int G = Bt >= kTileTokens ? 1 : kTileTokens / Bt;
   const int TT = G * Bt;
   const size_t smem =
       sizeof(float) * ((size_t)rt * Dh + (size_t)TT * (Dh + 1) +
-                       (size_t)TT * Dh + (size_t)rt * TT + 3 * (size_t)rt);
+                       (size_t)TT * Dh + (size_t)rt * TT + 3 * (size_t)rt +
+                       3 * (size_t)G);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>,
+        paged_attention_kernel<TQ, TP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((R + rt - 1) / rt, H, S);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, base, base_scalar,
-      static_cast<T*>(out), R, H, Dh, NB, Bt, MAXB, rt, G, scale,
-      scale_in_q);
+  paged_attention_kernel<TQ, TP><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
+      static_cast<const TP*>(v_pool), k_scale, v_scale, tables, base,
+      base_scalar, static_cast<TQ*>(out), R, H, Dh, NB, Bt, MAXB, rt, G,
+      scale, scale_in_q);
   return cudaGetLastError();
+}
+
+// pool_type: 0 = the pools hold TQ, 1 = int8 codes, 2 = e4m3 codes
+template <typename TQ>
+cudaError_t launch_pool(int pool_type, const void* q, const void* k_pool,
+                        const void* v_pool, const float* k_scale,
+                        const float* v_scale, const int* tables,
+                        const int* base, int base_scalar, void* out, int S,
+                        int R, int H, int Dh, int NB, int Bt, int MAXB,
+                        float scale, int scale_in_q, cudaStream_t stream) {
+  switch (pool_type) {
+    case 0:
+      return launch<TQ, TQ>(q, k_pool, v_pool, nullptr, nullptr, tables, base,
+                            base_scalar, out, S, R, H, Dh, NB, Bt, MAXB,
+                            scale, scale_in_q, stream);
+    case 1:
+      return launch<TQ, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                                base, base_scalar, out, S, R, H, Dh, NB, Bt,
+                                MAXB, scale, scale_in_q, stream);
+    case 2:
+      return launch<TQ, __nv_fp8_e4m3>(q, k_pool, v_pool, k_scale, v_scale,
+                                       tables, base, base_scalar, out, S, R,
+                                       H, Dh, NB, Bt, MAXB, scale, scale_in_q,
+                                       stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -293,22 +384,29 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
 // C interface bound with ctypes (parallel/paged_attention.py). Pointers
 // and the stream come from torch; `base` may be null, in which case
 // every slot's window starts at `base_scalar` (the one-slot prefill
-// chunk). Returns the cudaError_t of the launch (0 = launched).
+// chunk). q and out are f32 or bf16 (`is_bf16`); the pools hold q's type
+// (`pool_type` 0, scales null) or int8 (1) / e4m3 (2) codes with f32
+// scales [NB, H]. Returns the cudaError_t of the launch (0 = launched).
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* tables, const void* base, int base_scalar, void* out,
-    int is_bf16, int S, int R, int H, int Dh, int NB, int Bt, int MAXB,
-    float scale, int scale_in_q, int device, void* stream) {
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* base, int base_scalar, void* out, int is_bf16, int pool_type,
+    int S, int R, int H, int Dh, int NB, int Bt, int MAXB, float scale,
+    int scale_in_q, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (S == 0 || R == 0 || H == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ksc = static_cast<const float*>(k_scale);
+  const float* vsc = static_cast<const float*>(v_scale);
   const int* tbl = static_cast<const int*>(tables);
   const int* bs = static_cast<const int*>(base);
-  e = is_bf16 ? launch<__nv_bfloat16>(q, k_pool, v_pool, tbl, bs, base_scalar,
-                                      out, S, R, H, Dh, NB, Bt, MAXB, scale,
-                                      scale_in_q, st)
-              : launch<float>(q, k_pool, v_pool, tbl, bs, base_scalar, out, S,
-                              R, H, Dh, NB, Bt, MAXB, scale, scale_in_q, st);
+  e = is_bf16 ? launch_pool<__nv_bfloat16>(pool_type, q, k_pool, v_pool, ksc,
+                                           vsc, tbl, bs, base_scalar, out, S,
+                                           R, H, Dh, NB, Bt, MAXB, scale,
+                                           scale_in_q, st)
+              : launch_pool<float>(pool_type, q, k_pool, v_pool, ksc, vsc,
+                                   tbl, bs, base_scalar, out, S, R, H, Dh, NB,
+                                   Bt, MAXB, scale, scale_in_q, st);
   return (int)e;
 }

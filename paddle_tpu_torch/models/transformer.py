@@ -31,9 +31,13 @@ Differences from JAX that the port makes explicit:
   * `make_train_step`'s step updates the parameter tensors IN PLACE
     (JAX returns a new pytree).
 
-The MoE, mesh (sequence-parallel), LoRA-adapter and quantized-KV
-branches of the reference are not ported yet and raise
-NotImplementedError when asked for.
+Quantized KV pools (kv_quant="int8" | "fp8") store codes with
+per-(physical block, head) f32 scales; fp8 codes are gathered and
+scattered through a uint8 view of the pool.
+
+The MoE, mesh (sequence-parallel) and LoRA-adapter branches of the
+reference are not ported yet and raise NotImplementedError when asked
+for.
 """
 
 from __future__ import annotations
@@ -47,13 +51,15 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..parallel.attention import sequence_parallel_attention
-from ..parallel.kernel_utils import NEG_INF
+from ..parallel.kernel_utils import NEG_INF, raw_bytes
+from ..parallel.paged_attention import paged_view
 from ..utils import prng
 
 __all__ = ["TransformerConfig", "init_params", "params_from_numpy",
            "forward", "loss_fn", "make_train_step", "init_kv_cache",
            "decode_step", "prefill",
            "generate", "init_paged_kv_cache", "kv_block_bytes",
+           "kv_storage_dtype",
            "paged_decode_step", "paged_prefill_chunk",
            "paged_verify_step", "logits_trap", "logit_amax"]
 
@@ -253,7 +259,10 @@ def _cached_attention(q, cache_k, cache_v, pos):
     vector of per-row positions. Decode family: scores / sqrt(Dh) after
     the matmul, softmax in f32."""
     B, L, H, dh = cache_k.shape
-    scores = torch.einsum("bhd,blhd->bhl", q, cache_k) / math.sqrt(dh)
+    # a bf16 q over an f32 (dequantized) cache computes in f32, as JAX
+    # promotes; the probabilities still round to q's dtype
+    ct = torch.promote_types(q.dtype, cache_k.dtype)
+    scores = torch.einsum("bhd,blhd->bhl", q.to(ct), cache_k) / math.sqrt(dh)
     depth = torch.arange(L, device=q.device)
     if isinstance(pos, int) or pos.dim() == 0:
         mask = (depth <= pos)[None, None, :]
@@ -261,7 +270,7 @@ def _cached_attention(q, cache_k, cache_v, pos):
         mask = (depth[None, :] <= pos[:, None])[:, None, :]
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-    return torch.einsum("bhl,blhd->bhd", probs, cache_v)
+    return torch.einsum("bhl,blhd->bhd", probs.to(ct), cache_v)
 
 
 def _write_kv(buf, new, pos):
@@ -363,8 +372,9 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens,
 # paged KV cache (serving): a pool of fixed-size token BLOCKS
 # ([NB, Bt, H, Dh] per layer) and per-slot block TABLES of physical ids.
 # Each primitive takes kernel="gather"|"fused":
-#   gather — attend over a contiguous per-slot view `_paged_view`
-#            materialises (the reference numerics, verbatim);
+#   gather — attend over a contiguous per-slot view that `paged_view`
+#            (parallel/paged_attention.py) materialises (the reference
+#            numerics, verbatim);
 #   fused  — the paged-attention wrappers in parallel/paged_attention.py
 #            walk the block table inside the Hopper kernel (on a CPU
 #            tensor, its plain PyTorch version).
@@ -375,47 +385,128 @@ def _check_paged(kernel, kv_quant, adapters):
     if kernel not in ("gather", "fused"):
         raise ValueError("paged kernel must be 'gather' or 'fused' (got %r)"
                          % (kernel,))
-    if kv_quant != "none":
-        _not_ported("kv_quant=%r" % (kv_quant,),
-                    "quantized KV, the kernel's int8/fp8 dequant branch")
+    _kv_quant_check(kv_quant)
     if adapters is not None:
         _not_ported("LoRA adapters", "adapters")
 
 
+# ---------------------------------------------------------------------
+# per-block KV quantization: the pool stores int8/fp8 codes with a
+# per-(physical block, head) absmax scale side-band [NB, H] per layer
+# and band. Scales are keyed by PHYSICAL block id, so prefix aliasing
+# shares the scale and copy-on-write copies it with the payload. qmax is
+# the storage format's largest magnitude: 127 for int8, 448 for
+# float8_e4m3fn (no inf: writes clip to it before the cast).
+# ---------------------------------------------------------------------
+
+_KV_QMAX = {"int8": 127.0, "fp8": 448.0}
+
+
+def _kv_quant_check(kv_quant: str):
+    if kv_quant not in ("none", "int8", "fp8"):
+        raise ValueError("kv_quant must be 'none', 'int8', or 'fp8' (got %r)"
+                         % (kv_quant,))
+
+
 def kv_block_bytes(layers_n: int, heads: int, dh: int, block_tokens: int,
                    kv_quant: str = "none", act_itemsize: int = 4) -> int:
-    """One physical KV block's device-memory cost: K + V rows over all
-    layers at the activation dtype."""
+    """One physical KV block's device-memory cost at its storage dtype:
+    K + V rows over all layers, plus the per-(block, head) f32 scale
+    side-bands when quantized. The one formula: the engine's allocator
+    and chip_smoke.py's byte budget both call it."""
+    _kv_quant_check(kv_quant)
+    item = 1 if kv_quant != "none" else int(act_itemsize)
+    b = 2 * layers_n * block_tokens * heads * dh * item
     if kv_quant != "none":
-        _not_ported("kv_quant=%r" % (kv_quant,),
-                    "quantized KV, the kernel's int8/fp8 dequant branch")
-    return 2 * layers_n * block_tokens * heads * dh * int(act_itemsize)
+        b += 2 * layers_n * heads * 4
+    return b
+
+
+def kv_storage_dtype(kv_quant: str):
+    """Pool storage dtype for a kv_quant setting; None = the model dtype
+    (unquantized)."""
+    _kv_quant_check(kv_quant)
+    return {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(kv_quant)
 
 
 def init_paged_kv_cache(cfg: TransformerConfig, num_blocks: int,
                         block_tokens: int, dtype=None, kv_quant="none",
                         device=None):
-    """Per-layer pooled K/V block buffers [NB, Bt, H, Dh], zeros."""
-    if kv_quant != "none":
-        _not_ported("kv_quant=%r" % (kv_quant,),
-                    "quantized KV, the kernel's int8/fp8 dequant branch")
+    """Per-layer pooled K/V block buffers [NB, Bt, H, Dh], zeros. With
+    `kv_quant` ('int8' | 'fp8') the payload stores codes and each layer
+    gains per-(block, head) f32 scale side-bands 'k_scale'/'v_scale'
+    [NB, H] (committed when a block is opened, `_quant_scatter`);
+    'none' returns the unquantized structure."""
     dev = resolve_device(device)
-    shape = (int(num_blocks), int(block_tokens), cfg.heads,
-             cfg.dim // cfg.heads)
-    dt = dtype or cfg.dtype
-    return [{"k": torch.zeros(shape, dtype=dt, device=dev),
-             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    NB, H = int(num_blocks), cfg.heads
+    shape = (NB, int(block_tokens), H, cfg.dim // H)
+    st = kv_storage_dtype(kv_quant)
+    if st is None:
+        dt = dtype or cfg.dtype
+        return [{"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+                for _ in range(cfg.layers)]
+    return [{"k": torch.zeros(shape, dtype=st, device=dev),
+             "v": torch.zeros(shape, dtype=st, device=dev),
+             "k_scale": torch.zeros((NB, H), dtype=torch.float32, device=dev),
+             "v_scale": torch.zeros((NB, H), dtype=torch.float32, device=dev)}
             for _ in range(cfg.layers)]
 
 
-def _paged_view(buf, tables):
-    """Gather a contiguous per-slot view [S, MAXB*Bt, H, Dh] out of the
-    pool [NB, Bt, H, Dh] through tables [S, MAXB]. Unallocated (-1)
-    entries clamp to block 0; every caller masks them by position."""
-    NB, Bt, H, dh = buf.shape
-    v = buf[tables.long().clamp(0, NB - 1)]
-    return v.reshape(tuple(tables.shape[:-1])
-                     + (tables.shape[-1] * Bt, H, dh))
+def _quant_scatter(buf, scale, pk, off, vals, qmax, commit_from_call=False,
+                   writer=None):
+    """Quantize rows `vals` [..., H, Dh] and write them into the int8/fp8
+    pool `buf` [NB, Bt, H, Dh] at (pk, off) [...]; updates `buf` and
+    `scale` [NB, H] IN PLACE and returns them.
+
+    The absmax commit-at-open rule of the reference: a block is OPENED
+    when some row of this call writes its offset 0, and an opened block
+    (re)commits its per-head scale, erasing the stale scale a recycled
+    block carries. The commit source is the opening ROW's absmax
+    (row-commit: decode and verify, so rejected draft rows of a verify
+    window never reach a scale and quantized spec decode emits the
+    plain path's tokens), or with `commit_from_call` the absmax over
+    every row this call writes into the block (call-commit: prefill
+    chunks). Rows landing in a block this call did not open re-use its
+    committed scale and clip to it. Parked rows (pk == NB) drop payload,
+    scale commit and open marker alike. `writer` is the call's
+    `_RowWriter` for (pk, off) when the caller already made one."""
+    NB, H = scale.shape
+    dh = vals.shape[-1]
+    fpk = pk.reshape(-1).long()
+    n = fpk.shape[0]
+    opens = off.reshape(-1) == 0
+    fv = vals.reshape(n, H, dh).float()
+    amax = fv.abs().amax(dim=-1)  # [n, H]
+    # commit-source rows scatter-max into the candidate scales in an
+    # [NB + 1, H] buffer whose last row takes (and drops) the parked
+    # rows (pk == NB) and, in row-commit mode, the non-opening rows
+    src = fpk if commit_from_call else torch.where(
+        opens, fpk, torch.full_like(fpk, NB))
+    cand = torch.zeros((NB + 1, H), dtype=torch.float32, device=fv.device)
+    cand.scatter_reduce_(0, src[:, None].expand(n, H), amax / qmax, "amax")
+    opened = torch.zeros(NB + 1, dtype=torch.float32, device=fv.device)
+    opened.scatter_reduce_(0, fpk, opens.float(), "amax")
+    new_scale = torch.where(opened[:NB, None] > 0, cand[:NB], scale)
+    # each row quantizes with the post-commit scale of its block; a zero
+    # scale divides by 1, so exact 0 round-trips to exact 0
+    s_rows = new_scale[fpk.clamp(0, NB - 1)][..., None]  # [n, H, 1]
+    codes = fv / torch.where(s_rows > 0, s_rows, torch.ones_like(s_rows))
+    if buf.dtype == torch.int8:
+        codes = torch.round(codes)  # half to even, as jnp.round
+    # fp8: clip to the format's finite max BEFORE the cast
+    codes = codes.clamp(-qmax, qmax).reshape(tuple(pk.shape) + (H, dh))
+    (writer or _RowWriter(pk, off, NB)).write(buf, codes)
+    scale.copy_(new_scale)
+    return buf, scale
+
+
+def _slot_views(kv, ksc, vsc, tables):
+    """One layer's per-slot K/V views [S, MAXB*Bt, H, Dh] through
+    `tables`: the gathered pool, or its f32 dequantized view (the JAX
+    package's `_paged_deq_view`) when the layer holds codes (scales
+    given)."""
+    return paged_view(kv["k"], tables, ksc), paged_view(kv["v"], tables, vsc)
 
 
 def _phys_rows(tables, wpos, NB, Bt):
@@ -445,13 +536,30 @@ class _RowWriter(object):
     rows `_phys_rows` parked at block NB are never written."""
 
     def __init__(self, pk, off, NB):
+        self.pk_all, self.off_all = pk, off
         self.sel = torch.nonzero(pk < NB, as_tuple=True)
         self.pk = pk[self.sel]
         self.off = off[self.sel]
 
     def write(self, buf, rows):
-        """rows [..., H, Dh] shaped like pk -> written into buf in place."""
-        buf[self.pk, self.off] = rows[self.sel].to(buf.dtype)
+        """rows [..., H, Dh] shaped like pk -> written into buf in place
+        (cast to buf's dtype; fp8 codes through the byte view)."""
+        raw_bytes(buf)[self.pk, self.off] = raw_bytes(
+            rows[self.sel].to(buf.dtype))
+
+
+def _write_layer(kv, writer, k, v, qmax, commit_from_call=False):
+    """Write one layer's new K/V rows through `writer` (in place):
+    quantized at the scatter when the pool holds codes (`qmax` set).
+    Returns the layer's (k_scale, v_scale), None when unquantized."""
+    if qmax is None:
+        writer.write(kv["k"], k)
+        writer.write(kv["v"], v)
+        return None, None
+    for band, rows in (("k", k), ("v", v)):
+        _quant_scatter(kv[band], kv[band + "_scale"], writer.pk_all,
+                       writer.off_all, rows, qmax, commit_from_call, writer)
+    return kv["k_scale"], kv["v_scale"]
 
 
 def paged_decode_step(params, token, pos, tables, cache,
@@ -460,8 +568,11 @@ def paged_decode_step(params, token, pos, tables, cache,
     """One decode step over the paged pool: token [S] at per-row
     positions `pos` [S], block tables [S, MAXB] -> (logits [S, vocab],
     cache updated in place). A parked row (pos >= MAXB*Bt) writes
-    nothing; its logits are garbage nothing reads."""
+    nothing; its logits are garbage nothing reads. With `kv_quant`
+    ('int8' | 'fp8') writes quantize at the scatter (row-commit) and
+    reads dequantize in the kernel or on the gathered view."""
     _check_paged(kernel, kv_quant, adapters)
+    qmax = _KV_QMAX.get(kv_quant)
     B = token.shape[0]
     dh = cfg.dim // cfg.heads
     NB, Bt = cache[0]["k"].shape[0], cache[0]["k"].shape[1]
@@ -472,15 +583,17 @@ def paged_decode_step(params, token, pos, tables, cache,
         q = (h @ blk["wq"]).reshape(B, cfg.heads, dh)
         k = (h @ blk["wk"]).reshape(B, cfg.heads, dh)
         v = (h @ blk["wv"]).reshape(B, cfg.heads, dh)
-        writer.write(kv["k"], k)
-        writer.write(kv["v"], v)
+        ksc, vsc = _write_layer(kv, writer, k, v, qmax)
         if kernel == "fused":
             from ..parallel.paged_attention import paged_decode_attention
 
-            o = paged_decode_attention(q, kv["k"], kv["v"], tables, pos)
+            o = paged_decode_attention(q, kv["k"], kv["v"], tables, pos,
+                                       k_scale=ksc, v_scale=vsc)
         else:
-            o = _cached_attention(q, _paged_view(kv["k"], tables),
-                                  _paged_view(kv["v"], tables), pos)
+            # over an f32 dequantized view the output is f32: cast it back
+            # to the activation dtype (the kernel's output is q's already)
+            kview, vview = _slot_views(kv, ksc, vsc, tables)
+            o = _cached_attention(q, kview, vview, pos).to(x.dtype)
         x = x + o.reshape(B, cfg.dim) @ blk["wo"]
         x = _mlp(x, blk)
     x = _ln(x, params["ln_f"])
@@ -498,8 +611,12 @@ def paged_prefill_chunk(params, cache, chunk, start_pos, table_row,
     reference_attention's numerics (scale folded into q, NEG_INF mask).
     `chunk` may be padded: `true_len` is the count of real tokens, and
     padded rows park their writes past the table span. Returns (logits
-    [vocab] of the true last chunk row, cache updated in place)."""
+    [vocab] of the true last chunk row, cache updated in place). With
+    `kv_quant` a chunk commits the scale of every block it opens from
+    all its rows in that block (call-commit) and clips into blocks an
+    earlier chunk committed; reads dequantize as in paged_decode_step."""
     _check_paged(kernel, kv_quant, adapters)
+    qmax = _KV_QMAX.get(kv_quant)
     (C,) = chunk.shape
     NB, Bt, H, dh = cache[0]["k"].shape
     dev = chunk.device
@@ -517,17 +634,18 @@ def paged_prefill_chunk(params, cache, chunk, start_pos, table_row,
         q = (h @ blk["wq"]).reshape(1, C, H, dh)
         k = (h @ blk["wk"]).reshape(1, C, H, dh)
         v = (h @ blk["wv"]).reshape(1, C, H, dh)
-        writer.write(kv["k"], k[0])
-        writer.write(kv["v"], v[0])
+        ksc, vsc = _write_layer(kv, writer, k[0], v[0], qmax,
+                                commit_from_call=True)
         if kernel == "fused":
             from ..parallel.paged_attention import paged_prefill_attention
 
             o = paged_prefill_attention(q[0], kv["k"], kv["v"], table_row,
-                                        start_pos)[None]
+                                        start_pos, k_scale=ksc,
+                                        v_scale=vsc)[None]
         else:
-            slot_k = _paged_view(kv["k"], table_row[None])  # [1, Lv, H, dh]
-            slot_v = _paged_view(kv["v"], table_row[None])
-            s = torch.einsum("bthd,bshd->bhts", q * scale, slot_k)
+            slot_k, slot_v = _slot_views(kv, ksc, vsc, table_row[None])
+            s = torch.einsum("bthd,bshd->bhts",
+                             (q * scale).to(slot_k.dtype), slot_k)
             mask = torch.arange(Lv, device=dev)[None, :] <= positions[:, None]
             s = s.masked_fill(~mask[None, None], NEG_INF)
             p = torch.softmax(s, dim=-1)
@@ -547,8 +665,12 @@ def paged_verify_step(params, cache, window, pos, wpos, tables,
     vocab], cache updated in place). Row (s, i) sits at position
     pos[s] + i and attends the slot's cache up to and including itself;
     `wpos` [S, K] are the write positions (parked rows >= MAXB*Bt are
-    dropped). Chunk-family numerics."""
+    dropped). Chunk-family numerics. With `kv_quant` a window row
+    opening a block commits its scale alone (row-commit: rejected draft
+    rows never reach a scale) and reads dequantize as in
+    paged_decode_step."""
     _check_paged(kernel, kv_quant, adapters)
+    qmax = _KV_QMAX.get(kv_quant)
     S, K = window.shape
     NB, Bt, H, dh = cache[0]["k"].shape
     dev = window.device
@@ -562,16 +684,16 @@ def paged_verify_step(params, cache, window, pos, wpos, tables,
         q = (h @ blk["wq"]).reshape(S, K, H, dh)
         k = (h @ blk["wk"]).reshape(S, K, H, dh)
         v = (h @ blk["wv"]).reshape(S, K, H, dh)
-        writer.write(kv["k"], k)
-        writer.write(kv["v"], v)
+        ksc, vsc = _write_layer(kv, writer, k, v, qmax)
         if kernel == "fused":
             from ..parallel.paged_attention import paged_verify_attention
 
-            o = paged_verify_attention(q, kv["k"], kv["v"], tables, pos)
+            o = paged_verify_attention(q, kv["k"], kv["v"], tables, pos,
+                                       k_scale=ksc, v_scale=vsc)
         else:
-            kview = _paged_view(kv["k"], tables)  # [S, Lv, H, dh]
-            vview = _paged_view(kv["v"], tables)
-            s = torch.einsum("bthd,bshd->bhts", q * scale, kview)
+            kview, vview = _slot_views(kv, ksc, vsc, tables)
+            s = torch.einsum("bthd,bshd->bhts",
+                             (q * scale).to(kview.dtype), kview)
             mask = (torch.arange(Lv, device=dev)[None, None, :]
                     <= positions[:, :, None])
             s = s.masked_fill(~mask[:, None], NEG_INF)

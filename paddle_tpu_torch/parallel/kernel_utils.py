@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "guarded_exp", "causal_fill", "on_cpu"]
+__all__ = ["NEG_INF", "guarded_exp", "causal_fill", "on_cpu", "raw_bytes"]
 
 # Finite -inf stand-in for score masking. Finite on purpose: the
 # online-softmax no-op guards (`p = where(s <= NEG_INF, 0, p)`,
@@ -29,6 +29,14 @@ def guarded_exp(x, m):
     0 instead of whatever exp of a huge negative rounds to."""
     e = torch.exp(x - m)
     return torch.where(x <= NEG_INF, torch.zeros_like(e), e)
+
+
+def raw_bytes(t):
+    """`t` itself, or its uint8 view when it holds float8_e4m3fn codes:
+    not every CUDA indexing op (nor `torch.equal` on the CPU) takes
+    float8, so quantized pools are gathered, scattered and copied as
+    bytes."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
 def causal_fill(s, qi, kj, block_q, block_k):

@@ -23,8 +23,12 @@ the plain PyTorch version of the same function, which the CPU tests
 hold against the JAX package and chip_smoke.py holds the kernel
 against. There is no fallback: a CUDA tensor launches or raises.
 
-The quantized branch (int8/fp8 pools with per-block scales) is not
-ported yet: passing `k_scale`/`v_scale` raises NotImplementedError.
+Quantized pools: with `k_scale`/`v_scale` [NB, H] f32 (both or
+neither) the pools hold int8 or float8_e4m3fn codes, and each staged
+K/V row is dequantized as code * scale[physical block, head] in f32
+before it meets q — in the kernel's shared memory, or in the plain
+version's gathered view. No dequantized pool ever exists in device
+memory on the kernel path.
 """
 
 from __future__ import annotations
@@ -35,26 +39,50 @@ import math
 
 import torch
 
-from .kernel_utils import NEG_INF, guarded_exp, on_cpu
+from .kernel_utils import NEG_INF, guarded_exp, on_cpu, raw_bytes
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
-           "paged_prefill_attention", "paged_attention_plain"]
+           "paged_prefill_attention", "paged_attention_plain", "paged_view"]
+
+
+def _check_scales(k_scale, v_scale):
+    """True for a quantized pool; raises when only one scale is given."""
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    return quant
+
+
+def paged_view(pool, tables, scale=None):
+    """Gather a contiguous per-slot view [..., MAXB*Bt, H, Dh] out of the
+    pool [NB, Bt, H, Dh] through tables [..., MAXB], in the pool's dtype;
+    with `scale` [NB, H] the pool holds codes and the view is f32 codes
+    times each block's per-head scale, broadcast over its Bt rows — the
+    numerics the kernel applies while staging. -1 entries clamp to block
+    0 (scale included); every caller masks them by position. fp8 codes
+    are gathered through the pool's uint8 view."""
+    NB, Bt, H, dh = pool.shape
+    idx = tables.long().clamp(0, NB - 1)
+    rows = raw_bytes(pool)[idx].view(pool.dtype).reshape(
+        tuple(tables.shape[:-1]) + (tables.shape[-1] * Bt, H, dh))
+    if scale is None:
+        return rows
+    return rows.float() * scale[idx].repeat_interleave(Bt, dim=-2)[..., None]
 
 
 def paged_attention_plain(q, k_pool, v_pool, tables, base, *, scale,
-                          scale_in_q):
+                          scale_in_q, k_scale=None, v_scale=None):
     """The plain PyTorch version: q [S, R, H, Dh] windows based at
     `base` [S] over tables [S, MAXB] into pools [NB, Bt, H, Dh] ->
     out [S, R, H, Dh] in q's dtype. Gathers each slot's contiguous view
-    (-1 entries clamp to block 0), masks by position with the finite
-    NEG_INF fill, and takes one softmax in f32 with the exact guards."""
-    S, R, H, dh = q.shape
-    NB, Bt = k_pool.shape[0], k_pool.shape[1]
-    maxb = tables.shape[1]
-    L = maxb * Bt
-    idx = tables.long().clamp(0, NB - 1)
-    kv = k_pool[idx].reshape(S, L, H, dh).float()
-    vv = v_pool[idx].reshape(S, L, H, dh).float()
+    (-1 entries clamp to block 0; quantized pools dequantize with the
+    clamped entry's scales), masks by position with the finite NEG_INF
+    fill, and takes one softmax in f32 with the exact guards."""
+    _check_scales(k_scale, v_scale)
+    S, R = q.shape[0], q.shape[1]
+    L = tables.shape[1] * k_pool.shape[1]
+    kv = paged_view(k_pool, tables, k_scale).float()
+    vv = paged_view(v_pool, tables, v_scale).float()
     qf = q.float()
     if scale_in_q:
         qf = qf * scale
@@ -77,23 +105,38 @@ def _kernel():
     from .. import _build
 
     fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+                   + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q):
+# pool storage the kernel takes beside q's own dtype: its code in the C
+# interface (0 = q's dtype)
+_POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q,
+            k_scale=None, v_scale=None):
     """Launch the Hopper kernel on the current stream. `base` is an int32
-    CUDA tensor [S] or a Python int shared by every slot."""
+    CUDA tensor [S] or a Python int shared by every slot. Pools are q's
+    dtype, or int8 / float8_e4m3fn codes with f32 scales [NB, H]."""
+    quant = _check_scales(k_scale, v_scale)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("paged attention kernel takes float32 or bfloat16 "
                         "(got %s)" % q.dtype)
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("q and the K/V pools must share a dtype (got %s, "
-                        "%s, %s)" % (q.dtype, k_pool.dtype, v_pool.dtype))
+    if v_pool.dtype != k_pool.dtype:
+        raise TypeError("the K and V pools must share a dtype (got %s, %s)"
+                        % (k_pool.dtype, v_pool.dtype))
+    if quant != (k_pool.dtype in _POOL_CODES) or (
+            not quant and k_pool.dtype != q.dtype):
+        raise TypeError("pools of %s with q of %s%s: the kernel takes pools "
+                        "of q's dtype without scales, or int8 / "
+                        "float8_e4m3fn pools with k_scale and v_scale"
+                        % (k_pool.dtype, q.dtype,
+                           " and scales" if quant else ""))
     S, R, H, dh = q.shape
     NB, Bt = k_pool.shape[0], k_pool.shape[1]
     if tuple(k_pool.shape) != (NB, Bt, H, dh) or v_pool.shape != k_pool.shape:
@@ -104,10 +147,17 @@ def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q):
     if tables.dim() != 2 or tables.shape[0] != S:
         raise ValueError("tables must be [S=%d, MAXB] (got %s)"
                          % (S, tuple(tables.shape)))
-    epc = 16 // q.element_size()
+    epc = 16 // k_pool.element_size()  # elements per 16-byte load
     if dh > 128 or dh % epc:
         raise ValueError("kernel takes Dh <= 128 and a multiple of %d for "
-                         "%s (got %d)" % (epc, q.dtype, dh))
+                         "%s pools (got %d)" % (epc, k_pool.dtype, dh))
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (t.dtype != torch.float32 or tuple(t.shape) != (NB, H)
+                    or not t.is_contiguous() or t.device != q.device):
+                raise ValueError("%s must be a contiguous float32 [NB, H] "
+                                 "= [%d, %d] tensor on %s" % (
+                                     name, NB, H, q.device))
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
@@ -123,9 +173,11 @@ def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q):
     out = torch.empty_like(q)
     err = _kernel()(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
         tables.data_ptr(), base_ptr, base_scalar, out.data_ptr(),
-        int(q.dtype == torch.bfloat16), S, R, H, dh, NB, Bt,
-        tables.shape[1], float(scale), int(scale_in_q),
+        int(q.dtype == torch.bfloat16), _POOL_CODES.get(k_pool.dtype, 0),
+        S, R, H, dh, NB, Bt, tables.shape[1], float(scale), int(scale_in_q),
         q.device.index if q.device.index is not None
         else torch.cuda.current_device(),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -135,28 +187,23 @@ def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q):
     return out
 
 
-def _no_quant(k_scale, v_scale):
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized KV pools (k_scale/v_scale) are not ported yet — "
-            "ROADMAP: quantized KV, the kernel's int8/fp8 dequant branch")
-
-
 def paged_decode_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
                            v_scale=None):
     """Batched single-token decode: q [S, H, Dh] at per-slot positions
     `pos` [S] over tables [S, MAXB] into pools [NB, Bt, H, Dh] ->
     [S, H, Dh]. Decode family (scores / sqrt(Dh) after QK^T). A parked
     row (pos >= MAXB*Bt) attends everything its table clamps to —
-    garbage nothing reads — but never reads past the table or pool."""
-    _no_quant(k_scale, v_scale)
+    garbage nothing reads — but never reads past the table or pool.
+    `k_scale`/`v_scale` [NB, H] dequantize int8/fp8 pools."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if on_cpu("paged attention", q, k_pool, v_pool, tables, pos):
+    sc = dict(k_scale=k_scale, v_scale=v_scale)
+    if on_cpu("paged attention", q, k_pool, v_pool, tables, pos, k_scale,
+              v_scale):
         return paged_attention_plain(q[:, None], k_pool, v_pool, tables,
-                                     pos, scale=scale,
-                                     scale_in_q=False)[:, 0]
+                                     pos, scale=scale, scale_in_q=False,
+                                     **sc)[:, 0]
     out = _launch(q[:, None], k_pool, v_pool, tables, pos, scale=scale,
-                  scale_in_q=False)
+                  scale_in_q=False, **sc)
     paged_decode_attention.launches += 1
     return out[:, 0]
 
@@ -166,13 +213,14 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
     """K-row verify windows (the spec-decode path): q [S, K, H, Dh], row
     (s, i) at position pos[s] + i attending the slot's cache up to and
     including itself. Chunk family (scale folded into q)."""
-    _no_quant(k_scale, v_scale)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if on_cpu("paged attention", q, k_pool, v_pool, tables, pos):
+    sc = dict(k_scale=k_scale, v_scale=v_scale)
+    if on_cpu("paged attention", q, k_pool, v_pool, tables, pos, k_scale,
+              v_scale):
         return paged_attention_plain(q, k_pool, v_pool, tables, pos,
-                                     scale=scale, scale_in_q=True)
+                                     scale=scale, scale_in_q=True, **sc)
     out = _launch(q, k_pool, v_pool, tables, pos, scale=scale,
-                  scale_in_q=True)
+                  scale_in_q=True, **sc)
     paged_verify_attention.launches += 1
     return out
 
@@ -183,15 +231,16 @@ def paged_prefill_attention(q, k_pool, v_pool, table_row, start, *,
     first row sits at position `start` (an int or a 0-d tensor),
     attending cache[0:start] plus the intra-chunk causal prefix through
     `table_row` [MAXB]. Chunk family (scale folded into q)."""
-    _no_quant(k_scale, v_scale)
     scale = 1.0 / math.sqrt(q.shape[-1])
-    if on_cpu("paged attention", q, k_pool, v_pool, table_row, start):
+    sc = dict(k_scale=k_scale, v_scale=v_scale)
+    if on_cpu("paged attention", q, k_pool, v_pool, table_row, start,
+              k_scale, v_scale):
         base = torch.as_tensor(start, dtype=torch.int64).reshape(1)
         return paged_attention_plain(q[None], k_pool, v_pool,
                                      table_row[None], base, scale=scale,
-                                     scale_in_q=True)[0]
+                                     scale_in_q=True, **sc)[0]
     out = _launch(q[None], k_pool, v_pool, table_row.reshape(1, -1), start,
-                  scale=scale, scale_in_q=True)
+                  scale=scale, scale_in_q=True, **sc)
     paged_prefill_attention.launches += 1
     return out[0]
 

@@ -33,6 +33,20 @@ One engine serves many concurrent requests of a transformer LM:
   * Integrity traps (default on) — every decode and final prefill chunk
     also computes a per-slot non-finite trap and a max-|logit| scalar;
     a tripped slot raises `IntegrityError` instead of emitting.
+  * Self-drafting speculative decoding — with `spec_draft_len` = K, each
+    step verifies a K-token window per slot (the pending token plus K-1
+    drafts continuing the context's last bigram from its previous
+    occurrence) in one `paged_verify_step`, and emits the model's own
+    tokens up to the first draft mismatch plus the bonus token. Greedy
+    output is exactly the plain path's; sampled output too (window row
+    i samples with the key of token index counts+i).
+  * Quantized serving — `kv_quant` ("int8" | "fp8") stores the KV pool
+    as codes with per-(physical block, head) scales, quantized at the
+    scatter (decode and verify commit a block's scale from its opening
+    row, so quantized spec decode emits the quantized plain path's
+    tokens) and dequantized in the paged kernel; `weight_quant="int8"`
+    keeps the parameters as per-tensor int8 and dequantizes them at the
+    start of every step.
 
 Attention goes through `paged_kernel="fused"` by default on every
 device: on CUDA tensors the Hopper paged-attention kernel, on CPU
@@ -47,9 +61,8 @@ trace gives the same tokens per request, greedy and sampled, and the
 same prefix hits, copy-on-writes and block residency.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): speculative decoding, decode windows and async dispatch, LoRA
-adapters, quantized KV and weights, KV fingerprints and the durable KV
-store.
+item): decode windows and async dispatch, LoRA adapters, KV
+fingerprints and the durable KV store.
 """
 
 from __future__ import annotations
@@ -65,21 +78,23 @@ import torch
 from .. import resolve_device
 from ..distributed import fault_injection as _fi
 from ..models import transformer as tlm
+from ..parallel.kernel_utils import raw_bytes
 from ..utils import prng
 from .integrity import IntegrityError, ServingSentinel
 from .kv_blocks import KVBlockAllocator
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
+from .quantization import dequantize_params, quantize_params
 
 __all__ = ["ServingEngine", "ServingHandle", "EngineFailed",
            "IntegrityError"]
 
 # per-slot side-bands the decode step reads; kept device-resident and
 # re-uploaded only when a scheduler event dirties one
-_BANDS = ("tok", "pos", "alive", "temps", "counts", "base_keys", "tables")
+_BANDS = ("tok", "pos", "alive", "temps", "counts", "base_keys", "tables",
+          "limits")
 
-_ROADMAP_SPEC = "the engine's spec, window and async path"
-_ROADMAP_QUANT = "quantized KV, the kernel's int8/fp8 dequant branch"
+_ROADMAP_WINDOW = "the engine's decode-window and async path"
 _ROADMAP_STORE = "integrity fingerprints and the KV store"
 
 
@@ -179,8 +194,10 @@ class ServingEngine(object):
     None/0 disables reuse),
     `paged_kernel` ("fused" | "gather"), `integrity_traps`,
     `integrity_spike_factor`, `replica_id` and `fault_injector` as in
-    the reference. `params` must already live on `device` (CUDA by
-    default)."""
+    the reference; `spec_draft_len` (verify window K; None or < 2 = plain
+    decode), `kv_quant` ("none" | "int8" | "fp8") and `weight_quant`
+    (None | "int8") as in the reference. `params` must already live on
+    `device` (CUDA by default)."""
 
     def __init__(self, params, cfg, max_slots=8, max_len=None,
                  min_bucket=8, max_prefills_per_step=None,
@@ -192,18 +209,31 @@ class ServingEngine(object):
                  integrity_traps=True, kv_fingerprints=False,
                  integrity_spike_factor=None, kv_store=None,
                  decode_window=None, async_dispatch=False, device=None):
-        if spec_draft_len is not None and int(spec_draft_len) >= 2:
-            _refuse("spec_draft_len", _ROADMAP_SPEC)
+        if spec_draft_len is not None and int(spec_draft_len) < 0:
+            raise ValueError("spec_draft_len must be >= 0 or None")
+        # K < 2 means no drafts to verify: the plain decode step
+        self.spec_draft_len = (
+            int(spec_draft_len) if spec_draft_len and int(spec_draft_len) >= 2
+            else None)
+        if self.spec_draft_len is not None and (
+                decode_window not in (None, 1) or async_dispatch):
+            raise ValueError(
+                "spec_draft_len composes with neither decode_window>1 "
+                "nor async_dispatch: speculative acceptance is a host "
+                "decision after every verify step — run spec with "
+                "decode_window=1 and async_dispatch=False")
         if decode_window not in (None, 1):
-            _refuse("decode_window>1", _ROADMAP_SPEC)
+            _refuse("decode_window>1", _ROADMAP_WINDOW)
         if async_dispatch:
-            _refuse("async_dispatch", _ROADMAP_SPEC)
+            _refuse("async_dispatch", _ROADMAP_WINDOW)
         if adapter_registry is not None:
             _refuse("adapter_registry", "adapters")
-        if kv_quant != "none":
-            _refuse("kv_quant=%r" % (kv_quant,), _ROADMAP_QUANT)
-        if weight_quant is not None:
-            _refuse("weight_quant=%r" % (weight_quant,), _ROADMAP_QUANT)
+        tlm._kv_quant_check(kv_quant)
+        self.kv_quant = kv_quant
+        if weight_quant not in (None, "int8"):
+            raise ValueError("weight_quant must be None or 'int8' (got %r)"
+                             % (weight_quant,))
+        self.weight_quant = weight_quant
         if kv_store is not None:
             _refuse("kv_store", _ROADMAP_STORE)
         if kv_fingerprints:
@@ -253,10 +283,13 @@ class ServingEngine(object):
             spike_factor=integrity_spike_factor)  # guarded-by: scheduler
         self.metrics = ServingMetrics(S)
         self.metrics.paged_kernel = paged_kernel
+        self.metrics.kv_quant = kv_quant
+        self.metrics.weight_quant = weight_quant
+        self.metrics.spec = self.spec_draft_len is not None
         self.metrics.kv_blocks_total = NB
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         self.kv_block_bytes = tlm.kv_block_bytes(
-            cfg.layers, cfg.heads, cfg.dim // cfg.heads, Bt,
+            cfg.layers, cfg.heads, cfg.dim // cfg.heads, Bt, kv_quant,
             act_itemsize=itemsize)
         self._alloc = KVBlockAllocator(
             NB, Bt, block_bytes=self.kv_block_bytes)  # guarded-by: scheduler
@@ -267,7 +300,12 @@ class ServingEngine(object):
                 on_evict=self._alloc.decref)
             self.metrics.prefix_cache = self.prefix_cache
         self._cache = tlm.init_paged_kv_cache(cfg, NB, Bt, dtype=cfg.dtype,
+                                              kv_quant=kv_quant,
                                               device=self.device)
+        if weight_quant is not None:
+            # quantized once; the caller's tree stays theirs, the
+            # engine's resident copy is int8 + per-tensor scales
+            self._params = quantize_params(params)
         # host-side truth of the per-slot side-bands; device copies are
         # kept across steps and re-uploaded only when dirtied. All
         # scheduler state is confined to the thread driving step() and
@@ -283,6 +321,9 @@ class ServingEngine(object):
         # not yet allocated)
         self._tables = np.full((S, self.blocks_per_slot), -1,
                                np.int32)      # guarded-by: scheduler
+        # per-slot position limit (T0 + max_new): verify rows at or past
+        # it park their writes
+        self._limits = np.zeros(S, np.int32)  # guarded-by: scheduler
         self._n_alloc = np.zeros(S, np.int32)  # table entries >= 0  # guarded-by: scheduler
         self._reserved_tail = np.zeros(S, np.int32)  # guarded-by: scheduler
         self._dev: Dict[str, Any] = {}        # guarded-by: scheduler
@@ -291,6 +332,10 @@ class ServingEngine(object):
         # per-slot chunked-prefill cursors + FCFS order of pending slots
         self._prefill_state: Dict[int, dict] = {}  # guarded-by: scheduler
         self._prefill_q: collections.deque = collections.deque()  # guarded-by: scheduler
+        # per-slot self-drafting index (spec decode): the context tokens,
+        # a bigram -> end-of-last-occurrence map kept current per emitted
+        # token, and the tail bigram's PREVIOUS occurrence
+        self._spec_ctx: Dict[int, dict] = {}  # guarded-by: scheduler
         self._queue: collections.deque = collections.deque()  # guarded-by: scheduler
         self._next_rid = 0                    # guarded-by: scheduler
         # any request ever carried a deadline -> the per-step expiry
@@ -312,7 +357,7 @@ class ServingEngine(object):
                 stack.extend(x.values())
             elif isinstance(x, (list, tuple)):
                 stack.extend(x)
-            elif x.device.type != want.type or (
+            elif x.device.type != want.type or (  # tensor or QuantTensor
                     want.index is not None and x.device.index != want.index):
                 raise ValueError(
                     "params live on %s but the engine runs on %s: build "
@@ -321,6 +366,13 @@ class ServingEngine(object):
     # ------------------------------------------------------------------
     # model steps
     # ------------------------------------------------------------------
+    def _step_params(self):
+        """The parameters a step runs with: int8 weights dequantize here,
+        first thing in every decode, verify and chunk step."""
+        if self.weight_quant is None:
+            return self._params
+        return dequantize_params(self._params)
+
     def _decode_step(self, sample_rows):
         """One batched decode over every slot. Dead slots park their
         write past the table span (block NB after `_phys_rows`), so a
@@ -333,8 +385,8 @@ class ServingEngine(object):
         counts = self._band("counts")
         write_pos = torch.where(alive, pos, torch.full_like(pos, Lv))
         logits, _ = tlm.paged_decode_step(
-            self._params, tok, write_pos, tables, self._cache, self._cfg,
-            kernel=self.paged_kernel)
+            self._step_params(), tok, write_pos, tables, self._cache,
+            self._cfg, kernel=self.paged_kernel, kv_quant=self.kv_quant)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if len(sample_rows):
             # only the live sampled rows draw: their tokens depend on
@@ -349,6 +401,42 @@ class ServingEngine(object):
         live = alive.to(torch.int32)
         return nxt, pos + live, counts + live, trap, scale
 
+    def _verify_step(self, window, sample_rows):
+        """One batched speculative verify: every slot's K-token window
+        [S, K] written into its paged cache and attended in one
+        `paged_verify_step`. Dead slots and rows at or past a request's
+        limit park their writes. Returns device tensors (the model's
+        candidate after each window prefix [S, K], the per-slot trap,
+        max-|logit|)."""
+        K = self.spec_draft_len
+        Lv = self.blocks_per_slot * self.kv_block_tokens
+        pos, alive = self._band("pos"), self._band("alive")
+        rows = pos[:, None] + torch.arange(K, device=self.device)[None, :]
+        ok = alive[:, None] & (rows < self._band("limits")[:, None])
+        wpos = torch.where(ok, rows, torch.full_like(rows, Lv))
+        logits, _ = tlm.paged_verify_step(
+            self._step_params(), self._cache, window, pos, wpos,
+            self._band("tables"), self._cfg, kernel=self.paged_kernel,
+            kv_quant=self.kv_quant)
+        cand = torch.argmax(logits, dim=-1).to(torch.int32)
+        if len(sample_rows):
+            # window row i samples token index counts + i: the plain
+            # path's fold_in schedule, so sampled output is spec-invariant
+            rows_t = torch.as_tensor(sample_rows, device=self.device)
+            idx = self._band("counts")[rows_t][:, None] + torch.arange(
+                K, device=self.device)[None, :]
+            keys = prng.fold_in(self._band("base_keys")[rows_t][:, None],
+                                idx)
+            t = self._band("temps")[rows_t]
+            picked = prng.categorical(
+                keys, logits[rows_t].float() / t[:, None, None])
+            cand[rows_t] = picked.to(torch.int32)
+        if not self.integrity_traps:
+            return cand, None, None
+        # any corrupt row in a slot's window trips the slot
+        trap = tlm.logits_trap(logits).any(dim=-1) & alive
+        return cand, trap, tlm.logit_amax(logits, alive)
+
     def _traps(self, logits, mask=None):
         if not self.integrity_traps:
             return None, None
@@ -359,10 +447,12 @@ class ServingEngine(object):
 
     def _cow(self, dst: int, src: int):  # band-verb: cow
         """Copy-on-write: privatise one shared block (every band of
-        every layer) before the suffix writes into it."""
+        every layer: the payload and, on a quantized pool, its scale
+        rows) before the suffix writes into it."""
         for kv in self._cache:
             for buf in kv.values():
-                buf[dst] = buf[src]
+                raw = raw_bytes(buf)
+                raw[dst] = raw[src]
 
     # ------------------------------------------------------------------
     # device-resident side-bands
@@ -472,7 +562,8 @@ class ServingEngine(object):
         self._tables[s, :] = -1
         self._n_alloc[s] = 0
         self._reserved_tail[s] = 0
-        self._mark_dirty("tables")
+        self._limits[s] = 0
+        self._mark_dirty("tables", "limits")
 
     # ------------------------------------------------------------------
     # scheduler
@@ -540,6 +631,7 @@ class ServingEngine(object):
         h.finish_reason = reason
         self._slot_req[s] = None
         self._alive[s] = False
+        self._spec_ctx.pop(s, None)
         self._free_slot_blocks(s)
         self.metrics.kv_blocks_in_use = self._alloc.blocks_in_use
         self._mark_dirty("alive")
@@ -554,6 +646,13 @@ class ServingEngine(object):
             # garble@ drill: wrong-but-finite output, sticky
             token = (int(token) + 1) % int(self._cfg.vocab)
         h.tokens.append(int(token))
+        st = self._spec_ctx.get(s)
+        if st is not None:  # keep the drafting index current in O(1)
+            ctx = st["ctx"]
+            ctx.append(int(token))
+            pair = (ctx[-2], ctx[-1])
+            st["from"] = st["map"].get(pair)
+            st["map"][pair] = len(ctx)
         self._counts[s] += 1
         self.metrics.tokens_out += 1
         if h.eos_id is not None and int(token) == int(h.eos_id):
@@ -634,7 +733,8 @@ class ServingEngine(object):
         self.metrics.queue_wait_s.append(h.queue_wait_s)
         self.metrics.kv_blocks_in_use = self._alloc.blocks_in_use
         self._slot_req[s] = h
-        self._mark_dirty("tables")
+        self._limits[s] = T0 + h.max_new_tokens
+        self._mark_dirty("tables", "limits")
         # the first-token sampling key: token index resume_len of the
         # request's fold_in schedule, consumed on the final chunk
         self._prefill_state[s] = {
@@ -682,10 +782,10 @@ class ServingEngine(object):
         padded[:c] = h.full_prompt[cursor:cursor + c]
         t0 = time.monotonic()
         logits, _ = tlm.paged_prefill_chunk(
-            self._params, self._cache,
+            self._step_params(), self._cache,
             torch.tensor(padded, device=self.device), cursor,
             torch.tensor(self._tables[s], device=self.device), self._cfg,
-            true_len=c, kernel=self.paged_kernel)
+            true_len=c, kernel=self.paged_kernel, kv_quant=self.kv_quant)
         st["cursor"] = cursor + c
         self.metrics.prefill_chunks += 1
         self.metrics.prefill_tokens_computed += c
@@ -720,6 +820,14 @@ class ServingEngine(object):
         # a resumed request continues the original fold_in schedule
         self._counts[s] = h.resume_len
         self._base_keys[s] = (0, int(h.seed) & 0xFFFFFFFF)  # PRNGKey(seed)
+        if self.spec_draft_len is not None:
+            # seed the drafting index from the context once (O(T0));
+            # _emit keeps it current per token from here on
+            ctx = [int(t) for t in h.full_prompt]
+            bmap = {}
+            for i in range(len(ctx) - 1):
+                bmap[(ctx[i], ctx[i + 1])] = i + 2
+            self._spec_ctx[s] = {"ctx": ctx, "map": bmap, "from": None}
         self._mark_dirty()  # all bands: slot s changed everywhere
         self._emit(s, first)  # may retire immediately
         return True
@@ -854,7 +962,10 @@ class ServingEngine(object):
 
         if not self._alive.any():
             return progressed
-        self._decode_once()
+        if self.spec_draft_len is not None:
+            self._spec_step()
+        else:
+            self._decode_once()
 
         frag = 0
         for s in np.nonzero(self._alive)[0]:
@@ -899,6 +1010,69 @@ class ServingEngine(object):
         for s in live:
             self._tok[s] = nxt[s]
             self._emit(s, nxt[s])
+
+    def _draft_window(self, s: int) -> np.ndarray:
+        """Self-drafting by prompt lookup: continue the context's last
+        bigram from its most recent earlier occurrence (the request's own
+        text as the draft model). Unfilled draft rows are -1, never
+        accepted (candidates are vocab ids), so a draft-less window is a
+        plain one-token decode."""
+        K = self.spec_draft_len
+        w = np.full(K, -1, np.int32)
+        w[0] = self._tok[s]  # the pending (unwritten) token leads
+        st = self._spec_ctx.get(s)
+        if st is not None and st["from"] is not None:
+            cont = st["ctx"][st["from"]:st["from"] + K - 1]
+            w[1:1 + len(cont)] = cont
+        return w
+
+    def _spec_step(self):  # band-verb: sync
+        """One speculative decode phase: build every live slot's K-token
+        window, verify all in one batched step, then emit the model's
+        own candidates up to the first draft mismatch plus the bonus
+        token, within each request's budget. Acceptance is a host
+        decision, so tok/pos/counts re-upload next step."""
+        K = self.spec_draft_len
+        live = np.nonzero(self._alive)[0]
+        window = np.zeros((self.max_slots, K), np.int32)
+        for s in live:
+            lo = int(self._pos[s])
+            self._ensure_blocks(s, lo, min(lo + K, int(self._limits[s])))
+            window[s] = self._draft_window(s)
+        sample_rows = live[self._temps[live] > 0]
+        t0 = time.monotonic()
+        cand_d, trap_d, scale_d = self._verify_step(
+            torch.tensor(window, device=self.device), sample_rows)
+        cand = cand_d.cpu().numpy()  # syncs; candidates are real
+        if self.integrity_traps:
+            self._check_integrity(trap_d.cpu().numpy(), float(scale_d),
+                                  "spec verify")
+        t1 = time.monotonic()
+        self.metrics.span("spec_verify", t1 - t0)
+        self.metrics.decode_steps += 1
+        self.metrics.occupancy.append(
+            float(self._alive.sum()) / self.max_slots)
+        for s in live:
+            h = self._slot_req[s]
+            m = 0  # accepted drafts: the window prefix the model agrees with
+            while m < K - 1 and window[s, m + 1] == cand[s, m]:
+                m += 1
+            budget_left = h.max_new_tokens - len(h.tokens)
+            n = min(m + 1, budget_left)
+            self.metrics.spec_windows += 1
+            # only drafts actually proposed (-1 rows are empty lanes) and
+            # within the remaining budget count as drafted
+            lanes = window[s, 1:max(1, budget_left)]
+            self.metrics.spec_drafted += int((lanes >= 0).sum())
+            adv = 0
+            for j in range(n):
+                adv += 1
+                self._tok[s] = cand[s, j]
+                if self._emit(s, cand[s, j]):
+                    break  # EOS/budget: later accepted drafts discarded
+            self._pos[s] += adv  # one cache write per emitted token
+            self.metrics.spec_accepted += max(0, adv - 1)
+        self._mark_dirty("tok", "pos", "counts")
 
     def run(self) -> Dict[int, np.ndarray]:
         """Drive the engine until the queue drains and every slot

@@ -6,8 +6,10 @@ Wall-clock spans land in a small per-event collector (Calls / Total /
 Min / Max / Ave in ms) that `print_report()` renders as a table.
 Aggregates (`report()`) are O(1) running sums, never per-step history.
 The JAX package's compile (trace) counters are left out: this port runs
-eagerly, so there is nothing to count. So is its device-busy interval
-union: an eager step's dispatch-to-sync span is mostly host work, and
+eagerly, so there is nothing to count; where the reference reports the
+speculative verify step's trace count, this one reports how many verify
+steps ran (`spec_verify_steps`: with spec decoding on, every decode step
+is one). The device-busy interval union is left out too: an eager step's dispatch-to-sync span is mostly host work, and
 the device's busy share comes from a profiler (`chip_smoke.py
 --profile`). Spans end where the engine synchronises (it reads each
 step's tokens back), so tokens/s means the card's only when run there.
@@ -90,6 +92,10 @@ class ServingMetrics(object):
         self.kv_tail_blocks_freed = 0     # cumulative: reserved, never
         #                                   reached (early EOS tails)
         self.cow_blocks = 0               # cumulative copy-on-writes
+        # speculative decoding, cumulative
+        self.spec_windows = 0             # verify rows run
+        self.spec_drafted = 0             # drafted tokens proposed
+        self.spec_accepted = 0            # drafts emitted
         # request SLO: deadlines, cancels, token-level resume
         self.expired = 0
         self.cancelled = 0
@@ -99,6 +105,12 @@ class ServingMetrics(object):
         # injector tick, so an injected gray stall is visible here)
         self.step_ewma_s = 0.0
         self.paged_kernel = None  # gauge: "fused" | "gather"
+        # gauges fixed at construction: the KV pool's storage ("none" |
+        # "int8" | "fp8"), the weights' (None | "int8"), and whether decode
+        # steps are spec verify steps
+        self.kv_quant = None
+        self.weight_quant = None
+        self.spec = False
         self._t0 = None
         self._t1 = None
 
@@ -150,12 +162,21 @@ class ServingMetrics(object):
             "kv_blocks_freed_at_retire": self.kv_blocks_freed_at_retire,
             "kv_tail_blocks_freed": self.kv_tail_blocks_freed,
             "cow_blocks": self.cow_blocks,
+            "spec_windows": self.spec_windows,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": round(
+                self.spec_accepted / self.spec_drafted, 4)
+            if self.spec_drafted else None,
+            "spec_verify_steps": self.decode_steps if self.spec else 0,
             "expired": self.expired,
             "cancelled": self.cancelled,
             "resumed_requests": self.resumed_requests,
             "resume_tokens_reused": self.resume_tokens_reused,
             "step_ewma_s": round(self.step_ewma_s, 6),
             "paged_kernel": self.paged_kernel,
+            "kv_quant": self.kv_quant,
+            "weight_quant": self.weight_quant,
         }
         if self.prefix_cache is not None:
             rep["prefix_cache"] = self.prefix_cache.stats()

@@ -137,10 +137,9 @@ def test_refuses_quantized_pools_and_foreign_devices():
     tables = _t(np.array([[0, -1, -1, -1]], np.int32))
     q = torch.zeros(1, H, DH)
     sc = torch.ones(NB, H)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
         tpa.paged_decode_attention(q, _t(k), _t(v), tables,
-                                   _t(np.array([1])), k_scale=sc,
-                                   v_scale=sc)
+                                   _t(np.array([1])), k_scale=sc)
     with pytest.raises(ValueError, match="CUDA device"):
         tpa.paged_decode_attention(q.to("meta"), _t(k), _t(v), tables,
                                    _t(np.array([1])))

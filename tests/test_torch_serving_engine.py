@@ -165,9 +165,8 @@ def test_spike_sentinel_trips_on_a_sustained_excursion():
 
 
 @pytest.mark.parametrize("knob", [
-    {"spec_draft_len": 4}, {"decode_window": 8}, {"async_dispatch": True},
-    {"adapter_registry": object()}, {"kv_quant": "int8"},
-    {"weight_quant": "int8"}, {"kv_store": object()},
+    {"decode_window": 8}, {"async_dispatch": True},
+    {"adapter_registry": object()}, {"kv_store": object()},
     {"kv_fingerprints": True},
 ])
 def test_out_of_scope_knobs_raise(knob):

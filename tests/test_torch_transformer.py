@@ -297,8 +297,8 @@ def test_entry_points_refuse_missing_cuda_and_unported_branches():
             T.init_paged_kv_cache(cfg, 4, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.TransformerConfig(moe_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_paged_kv_cache(cfg, 4, 8, kv_quant="int8", device="cpu")
+    with pytest.raises(ValueError, match="kv_quant"):
+        T.init_paged_kv_cache(cfg, 4, 8, kv_quant="int4", device="cpu")
     p = T.init_params(cfg, torch.Generator(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.forward(p, torch.zeros(1, 8, dtype=torch.long), cfg,
