@@ -10,7 +10,10 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi) and build the
      paged-attention and flash-attention kernels from
      paddle_tpu_torch/csrc with nvcc (one process per source, in
-     parallel);
+     parallel); for every flash kernel print the registers, stack and
+     spill bytes nvcc reported and the tensor-core instructions
+     (HMMA/HGMMA) in its SASS (cuobjdump); the bf16 forward and dK/dV
+     kernels must hold tensor-core instructions and spill nothing;
   2. hold the paged kernel against its plain PyTorch version through all
      three wrappers (decode, verify, prefill chunk) at the serving shapes
      (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a 128-token
@@ -31,11 +34,15 @@ Phases (any failure exits non-zero):
      on EOS, through a pool small enough to force backpressure;
   5. hold the three flash kernels (forward o and lse, dK/dV, dQ) against
      their plain versions at the training shape (B 8, T 1024, H 8, D 64,
-     causal) in bf16 and f32 and at the JAX suite's odd shapes (cross
-     attention T 128 / S 384 with D 32, causal T 100 and T 768); time
-     each at the training shape in bf16 with a cold L2 beside its plain
-     version, its bound and scaled_dot_product_attention (forward, and
-     its backward for dK/dV and dQ together);
+     causal) in bf16 and f32, at the JAX suite's odd shapes (cross
+     attention T 128 / S 384 with D 32, causal T 100 and T 768) and at
+     the edges of the tensor-core tiles (D 40 and D 128, causal T 129,
+     T 200 / S 72, B*H = 1); launch the bf16 forward and dK/dV twice on
+     the training shape and require bit-identical outputs; time each
+     kernel at the training shape in bf16 with a cold L2 beside its
+     plain version, its bound and scaled_dot_product_attention (forward,
+     and its backward for dK/dV and dQ together), with its registers,
+     shared memory, spills and tensor-core instruction count;
   6. train the repo's training configuration (bench.py:913-931: the
      model above, bf16, tokens [8, 1025], SGD lr 1e-3,
      attn_impl="flash"): 2 warm-up steps, then 10 timed steps on one
@@ -92,6 +99,8 @@ training paths at rtol 1e-4 on losses and atol/rtol 1e-4 on parameters.
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -911,7 +920,96 @@ def sdpa_ms(torch, c, causal):
     return fwd, bwd
 
 
-def phase_flash(torch, tfa):
+def ptxas_usage(text):
+    """{mangled kernel name: registers, stack, spill_stores, spill_loads}
+    from nvcc's -Xptxas -v output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m[1])
+    return out
+
+
+def sass_tensor_ops(lib_path, nvcc):
+    """{mangled kernel name: count of tensor-core instructions (HMMA,
+    HGMMA)} in the library's SASS, by cuobjdump beside nvcc."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :", 1)[1].strip()
+            counts[cur] = 0
+        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[cur] += 1
+    return counts
+
+
+def _kernel_label(mangled):
+    """flash_forward_mma_kernel<bf16, 64> and the like, from a mangled
+    name (None for anything else)."""
+    m = re.search(r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E",
+                  mangled)
+    if m is None:
+        return None
+    dtype = "f32" if m[2] == "f" else "bf16"
+    return "%s<%s, %s>" % (m[1], dtype, m[3])
+
+
+def flash_build_report(_build):
+    """Phase 1's report of every flash kernel instantiation: registers,
+    stack and spills (nvcc) and tensor-core instructions (SASS). Gate:
+    each tensor-core kernel holds HMMA/HGMMA and spills 0 bytes."""
+    usage = ptxas_usage(_build.compiler_output("flash_attention"))
+    lib = _build.build(["flash_attention"])["flash_attention"]
+    ops = sass_tensor_ops(lib, _build._nvcc())
+    report = {}
+    for name, u in usage.items():
+        label = _kernel_label(name)
+        if label is None:
+            continue
+        u = dict(u, tensor_core_ops=ops.get(name, 0))
+        report[label] = u
+        log("  %-38s %3d registers, stack %d B, spills %d B stored / %d B "
+            "loaded, %d tensor-core instructions (HMMA/HGMMA) in SASS"
+            % (label, u.get("registers", -1), u.get("stack", -1),
+               u.get("spill_stores", -1), u.get("spill_loads", -1),
+               u["tensor_core_ops"]))
+    mma = {k: u for k, u in report.items() if "_mma_kernel" in k}
+    check(len(mma) == 6, "expected the bf16 forward and dK/dV tensor-core "
+          "kernels at D 32, 64 and 128, found %s" % sorted(mma))
+    for k, u in mma.items():
+        check(u["tensor_core_ops"] > 0, "%s has no tensor-core instruction"
+              % k)
+        check(u.get("spill_stores") == 0 and u.get("spill_loads") == 0,
+              "%s spills registers" % k)
+    return report
+
+
+# the kernel instantiation each flash entry point launches for bf16 at
+# the training shape's head width (64)
+FLASH_TRAIN_KERNEL = {
+    "forward": "flash_forward_mma_kernel<bf16, 64>",
+    "backward_kv": "flash_backward_kv_mma_kernel<bf16, 64>",
+    "backward_q": "flash_backward_q_kernel<bf16, 64>",
+}
+
+
+def phase_flash(torch, tfa, build_report):
     """Phase 5: the three flash kernels vs their plain versions at the
     training shape (bf16 and f32, causal) and the JAX suite's odd shapes,
     then bf16 timings at the training shape."""
@@ -936,9 +1034,30 @@ def phase_flash(torch, tfa):
             check_flash(torch, tfa, flash_case(rng, torch, dtype, 2, t, t,
                                                4, 64), True,
                         "%s causal T%d D64" % (name, t))
+        # the tensor-core tiles' edges: D padded to its 64 or filling the
+        # 128 bucket, one row past a 128-row tile, a ragged 64-row step in
+        # q and in k, and a single (b, h) slice
+        for (nb, t, s, h, d, causal) in ((2, 256, 256, 2, 40, True),
+                                         (2, 256, 256, 2, 128, True),
+                                         (2, 129, 129, 2, 64, True),
+                                         (2, 200, 72, 2, 64, False),
+                                         (1, 384, 384, 1, 64, True)):
+            check_flash(torch, tfa, flash_case(rng, torch, dtype, nb, t, s,
+                                               h, d), causal,
+                        "%s %s B%d T%d S%d H%d D%d" % (
+                            name, "causal" if causal else "cross", nb, t, s,
+                            h, d))
     del full["float32"]
     c = full["bfloat16"]
     o, lse, delta = flash_inputs(torch, tfa, c, True)
+    # each output tile has one owner and no atomics: launches repeat
+    for which in ("forward", "backward_kv"):
+        first = run_flash(tfa, which, c, True, lse, delta)
+        again = run_flash(tfa, which, c, True, lse, delta)
+        same = all(torch.equal(x, y) for x, y in zip(first, again))
+        log("  %-11s bf16 twice on the training shape: bit-identical %s"
+            % (which, same))
+        check(same, "%s kernel is not deterministic" % which)
     lib_fwd, lib_bwd = sdpa_ms(torch, c, True)
     timing = {}
     for which in ("forward", "backward_kv", "backward_q"):
@@ -948,12 +1067,19 @@ def phase_flash(torch, tfa):
             tfa, which, c, True, lse, delta, plain=True), iters=10)
         b, by = flash_bound_ms(which, B, T, T, H, D, 2, True, "bfloat16")
         lib = lib_fwd if which == "forward" else lib_bwd
+        kern = FLASH_TRAIN_KERNEL[which]
+        res = dict(build_report[kern])
+        res["shared_bytes"] = tfa.shared_bytes(which, torch.bfloat16, D)
         timing[which] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=lib)
+                             library_ms=lib, kernel=kern, resources=res)
         log("  %-11s bf16: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
-            "(%s), SDPA %s %.4f ms" % (which, ms, plain, b, by,
-                                       "forward" if which == "forward"
-                                       else "backward (dq, dk, dv)", lib))
+            "(%s), SDPA %s %.4f ms; %s: %s registers, %d B shared, "
+            "spills %s B / %s B, %s tensor-core instructions"
+            % (which, ms, plain, b, by, "forward" if which == "forward"
+               else "backward (dq, dk, dv)", lib, kern,
+               res.get("registers"), res["shared_bytes"],
+               res.get("spill_stores"), res.get("spill_loads"),
+               res.get("tensor_core_ops")))
     return errs, timing
 
 
@@ -1165,10 +1291,10 @@ def main():
     _build.build(["paged_attention", "flash_attention"])  # nvcc in parallel
     log("  built paged_attention and flash_attention in %.1f s"
         % (time.monotonic() - t0))
-    for name in ("paged_attention", "flash_attention"):
-        for line in _build.BUILD_LOG.get(name, (0, 0, ""))[2].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log("  ptxas %s: %s" % (name, line.strip()))
+    for line in _build.compiler_output("paged_attention").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log("  ptxas paged_attention: %s" % line.strip())
+    flash_report = flash_build_report(_build)
 
     log("phase 2: kernel vs plain version")
     errs, timing = phase_kernels(torch, tpa)
@@ -1188,7 +1314,7 @@ def main():
     del params
 
     log("phase 5: flash kernels vs plain versions")
-    flash_errs, flash_timing = phase_flash(torch, tfa)
+    flash_errs, flash_timing = phase_flash(torch, tfa, flash_report)
 
     log("phase 6: train at full width, bf16, attn_impl='flash'")
     flash_launches, train, (step, tparams, toks) = phase_train(torch, T, tfa)
@@ -1281,6 +1407,9 @@ def main():
             "library_note": "scaled_dot_product_attention, is_causal=True"
                             + (" (forward)" if which == "forward" else
                                " (backward: dq, dk, dv together)"),
+            "design": ("tensor cores, mma.sync m16n8k16 bf16"
+                       if "_mma_" in tm["kernel"] else "CUDA cores, f32 FMA"),
+            "kernel": tm["kernel"], "resources": tm["resources"],
             "card": card,
         })
     log("kernels: " + ", ".join("%s launches=%d" % (k["name"], k["launches"])

@@ -5,7 +5,8 @@ Each source compiles on its own into a shared library with a plain C
 interface under `paddle_tpu_torch/_build/` (listed in .gitignore), named
 by a digest of the source and the flags so an edited source never
 loads a stale library. Several sources build in parallel: one nvcc
-process per source, all started together, each waited for. The
+process per source, all started together, each waited for. nvcc's
+report (-Xptxas -v) is kept beside each library as `<library>.log`. The
 libraries are loaded with ctypes; callers declare argtypes/restype.
 
 Nothing here runs at import: the CPU tests import every module of the
@@ -19,10 +20,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from typing import Dict, Iterable
 
-__all__ = ["NVCC_FLAGS", "build", "load"]
+__all__ = ["NVCC_FLAGS", "build", "compiler_output", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -32,9 +32,6 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # -Xptxas -v reports registers, shared memory and spills per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-# name -> (library path, build seconds, compiler output) of this process
-BUILD_LOG: Dict[str, tuple] = {}
 
 
 def _nvcc() -> str:
@@ -71,7 +68,6 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    t0 = time.monotonic()
     try:
         for n in todo:
             tmp = "%s.%d.tmp" % (paths[n], os.getpid())
@@ -86,8 +82,9 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             if p.returncode != 0:
                 failed.append("%s (exit %d):\n%s" % (n, p.returncode, log))
                 continue
+            with open(paths[n] + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, paths[n])  # atomic: no half-written library
-            BUILD_LOG[n] = (paths[n], time.monotonic() - t0, log)
     finally:
         for p, _tmp in procs.values():
             if p.poll() is None:
@@ -96,6 +93,13 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def compiler_output(name: str) -> str:
+    """nvcc's output (-Xptxas -v: registers, stack, spills per kernel)
+    for csrc/<name>.cu's current library, kept beside it at build."""
+    with open(build([name])[name] + ".log") as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

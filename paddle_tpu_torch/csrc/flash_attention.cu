@@ -13,12 +13,50 @@
 // the input dtype before P.V and P^T.g, dS = P * (g.V^T - delta) * scale
 // rounded to the input dtype before dS^T.Q and dS.K.
 //
-// What bounds it on this card: at the training shape (T = S = 1024,
-// D = 64, causal) the forward must move ~34 MB and do ~8.6 GFLOP, the
-// backward passes ~13-17 GFLOP each — so with bf16 tensor cores the
-// passes sit near the compute/bandwidth balance point, and with f32
-// math on the CUDA cores (this version) they are compute-bound, at the
-// 67 TFLOP/s f32 peak at best. The design:
+// Two designs share the entry points:
+//
+// bf16 forward and dK/dV: FlashAttention-2's structure on the tensor
+// cores (`flash_forward_mma_kernel`, `flash_backward_kv_mma_kernel`).
+//   * every product is mma.sync m16n8k16 bf16 -> f32, its operands read
+//     from shared memory by ldmatrix (.trans where the product needs the
+//     transpose); accumulators stay in registers;
+//   * score tiles never leave registers: the m16n8 accumulator of
+//     S = Q.K^T, converted to bf16, is the A fragment of P.V (the
+//     conversion is the TPU kernel's rounding of P); row max and sum
+//     reduce over the quad of lanes that holds a row. dK/dV computes the
+//     transposed tiles S^T = K.Q^T and dP^T = V.g^T, so P^T and dS^T are
+//     already the A fragments of dV += P^T.g and dK += dS^T.Q;
+//   * the streamed tiles (forward: K and V; dK/dV: Q, g, lse and delta)
+//     arrive by cp.async into a two-stage ring of bf16 tiles, the next
+//     tile in flight while the current one is computed, one barrier per
+//     step. Rows are padded by 8 elements so ldmatrix is free of bank
+//     conflicts. Rows past T or S and columns past D (D pads to the 32,
+//     64 or 128 bucket) are zero-filled by cp.async's src-size;
+//   * a CTA owns 128 rows (8 warps x 16): forward q rows, stepping 64
+//     keys (two 32-key online-softmax updates per step, so the score
+//     tile fits beside the accumulators in 128 registers); dK/dV key
+//     rows, stepping 64 q rows from the diagonal in 16-row slices. The
+//     forward's Q fragments go to registers once and Q's shared tile
+//     becomes a ring stage; dK/dV reads its K and V fragments from
+//     shared memory at each use, which keeps it within 128 registers.
+//     At D <= 64 two CTAs share an SM; q tiles are issued longest first;
+//   * interior tiles skip the mask predicate, only edge and diagonal
+//     tiles evaluate it; a warp skips a tile its rows cannot attend;
+//   * each output tile is owned by one CTA, no atomics: deterministic.
+//   What bounds them: at the training shape (T = S = 1024, D = 64,
+//   causal) the forward's least time is set by its bytes (~34 MB,
+//   ~8.6 GFLOP) and dK/dV's by its operations (~17.2 GFLOP). Both run
+//   well above that: mma.sync reaches only part of the 989 TFLOP/s bf16
+//   peak, and with 8 warps each re-reading the streamed tile, ldmatrix's
+//   shared-memory reads (about one 512-byte x4 load per two mma) are
+//   the next limit. wgmma, TMA and warp specialisation are the step
+//   after this one.
+//
+// f32 (all three passes) and bf16 dQ: the CUDA-core design. The f32
+// instantiations are the f32 parity path, equal to the reference
+// attention to the last bit in the losses; tensor cores in TF32 would
+// change those numbers. dQ is the next kernel to move to the tensor
+// cores, on the helpers above.
 //   * each output tile is owned by one CTA; the TPU's sequential grid
 //     axis becomes a loop inside it, so no sums cross CTAs — no atomics,
 //     deterministic results:
@@ -38,8 +76,8 @@
 //   * ragged edges (T = 100, S = 384, ...) are masked in the kernel:
 //     rows past T or S load as zeros, their probabilities are forced to
 //     0 and they are never written.
-// Left for later work: mma.sync/wgmma on the tensor cores (bf16), cp.async
-// or TMA double buffering, and register-resident P between products.
+//   What bounds it: f32 math on the CUDA cores, compute-bound at the
+//   67 TFLOP/s f32 peak at best.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,7 +197,7 @@ __device__ __forceinline__ void row_dot(const float* A, const float* B,
 }
 
 // ---------------------------------------------------------------------
-// forward: o and lse for one (b*h, q tile)
+// CUDA cores, f32: o and lse for one (b*h, q tile)
 // ---------------------------------------------------------------------
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads)
@@ -304,7 +342,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 }
 
 // ---------------------------------------------------------------------
-// dK/dV for one (b*h, k tile), looping q tiles from the diagonal
+// CUDA cores, f32: dK/dV for one (b*h, k tile), looping q tiles from the
+// diagonal
 // ---------------------------------------------------------------------
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads)
@@ -414,7 +453,8 @@ flash_backward_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// dQ for one (b*h, q tile), looping k tiles up to the diagonal
+// CUDA cores, f32 and bf16: dQ for one (b*h, q tile), looping k tiles up
+// to the diagonal
 // ---------------------------------------------------------------------
 template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads)
@@ -506,6 +546,487 @@ flash_backward_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync helpers
+// ---------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kRows = 16 * kMmaWarps;  // rows a CTA owns (16 per warp)
+constexpr int kStep = 64;              // rows of a streamed tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared without a register round trip; with
+// `in` false nothing is read and the destination is zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a.b over one m16n8k16 tile: bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (nearest even) in one register, lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  uint32_t u;
+  memcpy(&u, &h, sizeof(u));
+  return u;
+}
+
+// reductions over the quad of lanes that holds one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ldmatrix x4 lane addresses into a row-major [rows][DM + 8] bf16 tile,
+// as byte offsets from the tile's shared address: the lane's part (a, b
+// or bt) plus the block's, `blk(r, c)`, a constant once loops unroll.
+//   a  — the A fragment of the 16x16 block at (r, c);
+//   b  — {b0, b1} of n-tiles r and r + 8 (tile rows are n, the 16
+//        columns from c are k), for x4 without .trans;
+//   bt — {b0, b1} of n-tiles c and c + 8 (tile rows r.. are k, columns
+//        are n), for x4 with .trans.
+template <int DM>
+struct Frag {
+  static constexpr int P = DM + 8;  // padded row, elements
+  uint32_t a, b, bt;
+  __device__ explicit Frag(int lane)
+      : a(2 * ((lane & 15) * P + (lane >> 4) * 8)),
+        b(2 * (((lane & 7) + (lane >> 4) * 8) * P + ((lane >> 3) & 1) * 8)),
+        bt(2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8)) {
+  }
+  __device__ static constexpr uint32_t blk(int r, int c) {
+    return 2 * (r * P + c);
+  }
+};
+
+// Queue the copy of rows [r0, r0 + ROWS) of one (b, h) slice into the
+// [ROWS][DM + 8] bf16 tile at shared address `dst`, in 16-byte chunks;
+// rows at or past `len` and columns at or past D are zero-filled. `src`
+// points at (b, row 0, h, 0) and consecutive rows are `rs` elements apart.
+template <int ROWS, int DM>
+__device__ __forceinline__ void cp_tile(uint32_t dst, const bf16* src,
+                                        int r0, int len, int rs, int D) {
+  constexpr int kChunks = DM / 8;  // per row
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks;
+    const int part = c % kChunks;
+    const bool in = r0 + r < len && part * 8 < D;
+    cp_async16(dst + Frag<DM>::blk(r, part * 8),
+               in ? src + (size_t)(r0 + r) * rs + part * 8 : src, in);
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16 forward on the tensor cores: o and lse for one (b*h, 128-row q
+// tile); warp w owns q rows 16w..16w+15 of the tile. Each 64-key stage
+// is taken as two 32-key halves, each a full online-softmax update: the
+// half-width score tile keeps the kernel within 128 registers (two CTAs
+// per SM) without spills.
+// ---------------------------------------------------------------------
+constexpr int kHalf = kStep / 2;
+
+template <int DM>
+__global__ void __launch_bounds__(kMmaThreads, DM <= 64 ? 2 : 1)
+flash_forward_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int H, int Tq, int S,
+                         int D, float scale, int causal) {
+  constexpr int KD = DM / 16;  // k-steps of Q.K^T over the head dim
+  constexpr int NO = DM / 8;   // n-tiles of o
+  constexpr uint32_t kTileBytes = kStep * (DM + 8) * sizeof(bf16);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // ring stage s holds K then V, [kStep][DM + 8] each; Q [kRows][DM + 8]
+  // sits in stage 1 until its fragments are in registers
+  const uint32_t ring = smem_addr(smem_raw);
+  const uint32_t sQ = ring + 2 * kTileBytes;
+  const Frag<DM> fr(threadIdx.x & 31);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // accumulator rows gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2tc, 2tc + 1
+  const int qw = q0 + 16 * warp;
+  const int rs = H * D;  // row stride, elements
+  const bf16* qb = q + ((size_t)b * Tq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * S * H + h) * D;
+  const bf16* vb = v + ((size_t)b * S * H + h) * D;
+
+  cp_tile<kRows, DM>(sQ, qb, q0, Tq, rs, D);
+  cp_commit();
+  cp_tile<kStep, DM>(ring, kb, 0, S, rs, D);
+  cp_tile<kStep, DM>(ring + kTileBytes, vb, 0, S, rs, D);
+  cp_commit();
+  int nk = (S + kStep - 1) / kStep;
+  if (causal) nk = min(nk, (q0 + kRows - 1) / kStep + 1);
+
+  cp_wait<1>();  // Q has landed; K and V of step 0 may still fly
+  __syncthreads();
+  uint32_t qf[KD][4];
+#pragma unroll
+  for (int kd = 0; kd < KD; ++kd)
+    ldsm4(qf[kd], sQ + fr.a + fr.blk(16 * warp, 16 * kd));
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kStep;
+    cp_wait<0>();
+    // step kt's tiles are visible to all, and every warp is done with
+    // step kt - 1 (and with Q), whose stage the next copy refills
+    __syncthreads();
+    if (kt + 1 < nk) {
+      const uint32_t nx = ring + ((kt + 1) & 1) * 2 * kTileBytes;
+      cp_tile<kStep, DM>(nx, kb, k0 + kStep, S, rs, D);
+      cp_tile<kStep, DM>(nx + kTileBytes, vb, k0 + kStep, S, rs, D);
+      cp_commit();
+    }
+    const uint32_t sK = ring + (kt & 1) * 2 * kTileBytes;
+    const uint32_t sV = sK + kTileBytes;
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int kh = k0 + kHalf * hf;
+      if (causal && kh > qw + 15) continue;  // no row of this warp attends
+
+      // S = Q.K^T: 16 rows x 32 keys, n-tile j = keys kh + 8j..
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kf[4];
+          ldsm4(kf, sK + fr.b + fr.blk(kHalf * hf + 16 * np, 16 * kd));
+          mma(s[2 * np], qf[kd], kf[0], kf[1]);
+          mma(s[2 * np + 1], qf[kd], kf[2], kf[3]);
+        }
+
+      // scale after the product; mask only where a key can be out of
+      // reach (the ragged end of S, the causal diagonal)
+      const bool edge = kh + kHalf > S || (causal && kh + kHalf - 1 > qw);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (edge) {
+            const int c = kh + 8 * j + 2 * tc + (e & 1);
+            const int r = qw + gr + 8 * (e >> 1);
+            if (!(c < S && (!causal || r >= c))) x = kNegInf;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        alpha[i] = m[i] <= kNegInf ? 0.f : expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+      uint32_t pp[4][2];  // P rounded to bf16: rows gr and gr + 8
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // exact guard: a masked score contributes exactly 0
+          const float x = s[j][e];
+          p[e] = x <= kNegInf ? 0.f : expf(x - m[e >> 1]);
+          sum[e >> 1] += p[e];  // l sums P before its rounding
+        }
+        pp[j][0] = pack_bf16(p[0], p[1]);
+        pp[j][1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      // acc += P.V: P's accumulators, rounded to bf16, are the A fragments
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t pa[4] = {pp[2 * kk][0], pp[2 * kk][1],
+                                pp[2 * kk + 1][0], pp[2 * kk + 1][1]};
+#pragma unroll
+        for (int dp = 0; dp < NO / 2; ++dp) {
+          uint32_t vf[4];
+          ldsm4_t(vf, sV + fr.bt + fr.blk(kHalf * hf + 16 * kk, 16 * dp));
+          mma(acc[2 * dp], pa, vf[0], vf[1]);
+          mma(acc[2 * dp + 1], pa, vf[2], vf[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    if (r >= Tq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    bf16* orow = o + ((size_t)(b * Tq + r) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * tc;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) = __floats2bfloat162_rn(
+            acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+    }
+    if (tc == 0) lse[(size_t)bh * Tq + r] = m[i] + logf(denom);
+  }
+}
+
+// ---------------------------------------------------------------------
+// bf16 dK/dV on the tensor cores: one (b*h, 128-row k tile), stepping
+// 64-row q tiles from the diagonal; warp w owns key rows 16w..16w+15
+// ---------------------------------------------------------------------
+// Shared memory of the dK/dV kernel: a two-stage ring, each stage the q
+// and g tiles [kStep][P] then 64 lse and 64 delta floats, followed by the
+// CTA's K and V tiles [kRows][P]. K and V fragments are read from shared
+// memory at each use rather than held in registers: held, they push the
+// kernel past 128 registers to one CTA per SM; read, it stays within 128
+// and two CTAs share an SM, which ran faster on an H100.
+template <int DM>
+struct KvLayout {
+  static constexpr int P = DM + 8;
+  static constexpr uint32_t kTileBytes = kStep * P * sizeof(bf16);  // q, g
+  static constexpr uint32_t kStage =
+      2 * kTileBytes + 2 * kStep * sizeof(float);
+  static constexpr uint32_t kBytes = 2 * kStage + 4 * kTileBytes;
+};
+
+template <int DM>
+__global__ void __launch_bounds__(kMmaThreads, DM <= 64 ? 2 : 1)
+flash_backward_kv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ g,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int H, int Tq, int S, int D, float scale,
+                             int causal) {
+  using L = KvLayout<DM>;
+  constexpr int KD = DM / 16;  // k-steps of K.Q^T over the head dim
+  constexpr int NO = DM / 8;   // n-tiles of dk and dv
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t sK = base + 2 * L::kStage;
+  const uint32_t sV = sK + 2 * L::kTileBytes;
+  const Frag<DM> fr(threadIdx.x & 31);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kRows;  // causal: low k tiles are longest
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // accumulator rows (keys) gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2tc, 2tc + 1
+  const int kw = k0 + 16 * warp;
+  const int rs = H * D;  // row stride, elements
+  const bf16* qb = q + ((size_t)b * Tq * H + h) * D;
+  const bf16* gb = g + ((size_t)b * Tq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * S * H + h) * D;
+  const bf16* vb = v + ((size_t)b * S * H + h) * D;
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+
+  // q tile qt (rows 64qt..) with its lse and delta into ring stage st
+  auto issue = [&](int qt, int st) {
+    const int r0 = qt * kStep;
+    const uint32_t at = base + st * L::kStage;
+    cp_tile<kStep, DM>(at, qb, r0, Tq, rs, D);
+    cp_tile<kStep, DM>(at + L::kTileBytes, gb, r0, Tq, rs, D);
+    const int t = threadIdx.x & (kStep - 1);
+    const bool in = r0 + t < Tq;
+    const uint32_t row = at + 2 * L::kTileBytes + 4 * t;
+    if (threadIdx.x < kStep)
+      cp_async4(row, in ? lb + r0 + t : lb, in);
+    else if (threadIdx.x < 2 * kStep)
+      cp_async4(row + 4 * kStep, in ? db + r0 + t : db, in);
+    cp_commit();
+  };
+
+  cp_tile<kRows, DM>(sK, kb, k0, S, rs, D);
+  cp_tile<kRows, DM>(sV, vb, k0, S, rs, D);
+  cp_commit();
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int nq = (Tq + kStep - 1) / kStep;
+  const int qt0 = causal ? k0 / kStep : 0;
+  if (qt0 < nq) issue(qt0, 0);
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1;
+    cp_wait<0>();
+    __syncthreads();
+    if (qt + 1 < nq) issue(qt + 1, st ^ 1);
+    const int q0 = qt * kStep;
+    if (causal && q0 + kStep - 1 < kw) continue;  // no q row reaches a key
+    const uint32_t sQ = base + st * L::kStage;
+    const uint32_t sG = sQ + L::kTileBytes;
+    const float* sL = reinterpret_cast<const float*>(
+        smem_raw + st * L::kStage + 2 * L::kTileBytes);
+    const float* sD = sL + kStep;
+    const bool edge =
+        q0 + kStep > Tq || kw + 16 > S || (causal && q0 < kw + 15);
+
+#pragma unroll
+    for (int sub = 0; sub < kStep / 16; ++sub) {
+      const int qs = 16 * sub;  // this 16-row slice of the q tile
+      if (causal && q0 + qs + 15 < kw) continue;
+      // S^T = K.Q^T and dP^T = V.g^T: 16 keys x 16 q rows, n-tile j =
+      // q rows qs + 8j..
+      float sp[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sp[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t ka[4], va[4], bq[4], bg[4];
+        ldsm4(ka, sK + fr.a + fr.blk(16 * warp, 16 * kd));
+        ldsm4(va, sV + fr.a + fr.blk(16 * warp, 16 * kd));
+        ldsm4(bq, sQ + fr.b + fr.blk(qs, 16 * kd));
+        ldsm4(bg, sG + fr.b + fr.blk(qs, 16 * kd));
+        mma(sp[0], ka, bq[0], bq[1]);
+        mma(sp[1], ka, bq[2], bq[3]);
+        mma(dp[0], va, bg[0], bg[1]);
+        mma(dp[1], va, bg[2], bg[3]);
+      }
+      // P^T = exp(S^T * scale - lse) (exactly 0 where masked) and
+      // dS^T = P^T * (dP^T - delta) * scale, per q column
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qc = qs + 8 * j + 2 * tc;
+        const float2 lq = *reinterpret_cast<const float2*>(sL + qc);
+        const float2 dq = *reinterpret_cast<const float2*>(sD + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool keep = true;
+          if (edge) {
+            const int qr = q0 + qc + (e & 1);
+            const int kc = kw + gr + 8 * (e >> 1);
+            keep = qr < Tq && kc < S && (!causal || qr >= kc);
+          }
+          const float p =
+              keep ? expf(sp[j][e] * scale - ((e & 1) ? lq.y : lq.x)) : 0.f;
+          sp[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - ((e & 1) ? dq.y : dq.x)) * scale;
+        }
+      }
+      const uint32_t pa[4] = {
+          pack_bf16(sp[0][0], sp[0][1]), pack_bf16(sp[0][2], sp[0][3]),
+          pack_bf16(sp[1][0], sp[1][1]), pack_bf16(sp[1][2], sp[1][3])};
+      const uint32_t sa[4] = {
+          pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
+          pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
+      // dV += P^T.g and dK += dS^T.Q over these 16 q rows
+#pragma unroll
+      for (int dn = 0; dn < NO / 2; ++dn) {
+        uint32_t bg[4], bq[4];
+        ldsm4_t(bg, sG + fr.bt + fr.blk(qs, 16 * dn));
+        ldsm4_t(bq, sQ + fr.bt + fr.blk(qs, 16 * dn));
+        mma(dva[2 * dn], pa, bg[0], bg[1]);
+        mma(dva[2 * dn + 1], pa, bg[2], bg[3]);
+        mma(dka[2 * dn], sa, bq[0], bq[1]);
+        mma(dka[2 * dn + 1], sa, bq[2], bq[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = kw + gr + 8 * i;
+    if (c >= S) continue;
+    const size_t row = ((size_t)(b * S + c) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = 8 * n + 2 * tc;
+      if (d < D) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + row + d) =
+            __floats2bfloat162_rn(dka[n][2 * i], dka[n][2 * i + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + row + d) =
+            __floats2bfloat162_rn(dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
 
@@ -520,12 +1041,19 @@ bool valid(const Shape& s, int elem) {
          s.D <= 128 && s.D % (16 / elem) == 0 && s.B * s.H <= 65535;
 }
 
-// shared bytes: `tiles` [64][D+1] tiles, `ptiles` [64][65] tiles and
-// `rows` 64-float row vectors
-size_t smem_bytes(int D, int tiles, int ptiles, int rows) {
-  return sizeof(float) * ((size_t)tiles * kTile * (D + 1) +
-                          (size_t)ptiles * kTile * kLdP +
-                          (size_t)rows * kTile);
+// Dynamic shared bytes per CTA of kernel `which` (0 forward, 1 dK/dV,
+// 2 dQ). CUDA cores: [64][D+1] tiles, [64][65] P/dS tiles and 64-float
+// rows; tensor cores: the forward's two-stage K/V ring, KvLayout.
+size_t fma_shared(int which, int D) {
+  constexpr int kParts[3][3] = {{3, 1, 0}, {4, 2, 2}, {4, 1, 2}};
+  return sizeof(float) * ((size_t)kParts[which][0] * kTile * (D + 1) +
+                          (size_t)kParts[which][1] * kTile * kLdP +
+                          (size_t)kParts[which][2] * kTile);
+}
+template <int DM>
+size_t mma_shared(int which) {
+  return which == 0 ? 4 * kStep * (DM + 8) * sizeof(bf16)
+                    : KvLayout<DM>::kBytes;
 }
 
 template <typename K>
@@ -536,10 +1064,42 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <int DM>
+cudaError_t forward_mma(const void* q, const void* k, const void* v,
+                        void* o, float* lse, const Shape& s,
+                        cudaStream_t st) {
+  const size_t smem = mma_shared<DM>(0);
+  cudaError_t e = allow_smem(flash_forward_mma_kernel<DM>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(s.B * s.H, (s.Tq + kRows - 1) / kRows);
+  flash_forward_mma_kernel<DM><<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, s.H, s.Tq,
+      s.S, s.D, s.scale, s.causal);
+  return cudaGetLastError();
+}
+
+template <int DM>
+cudaError_t backward_kv_mma(const void* q, const void* k, const void* v,
+                            const void* g, const float* lse,
+                            const float* delta, void* dk, void* dv,
+                            const Shape& s, cudaStream_t st) {
+  const size_t smem = mma_shared<DM>(1);
+  cudaError_t e = allow_smem(flash_backward_kv_mma_kernel<DM>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(s.B * s.H, (s.S + kRows - 1) / kRows);
+  flash_backward_kv_mma_kernel<DM><<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.H, s.Tq, s.S, s.D,
+      s.scale, s.causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int DM>
 cudaError_t forward(const void* q, const void* k, const void* v, void* o,
                     float* lse, const Shape& s, cudaStream_t st) {
-  const size_t smem = smem_bytes(s.D, 3, 1, 0);
+  const size_t smem = fma_shared(0, s.D);
   cudaError_t e = allow_smem(flash_forward_kernel<T, DM>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((s.Tq + kTile - 1) / kTile, s.B * s.H);
@@ -554,7 +1114,7 @@ template <typename T, int DM>
 cudaError_t backward_kv(const void* q, const void* k, const void* v,
                         const void* g, const float* lse, const float* delta,
                         void* dk, void* dv, const Shape& s, cudaStream_t st) {
-  const size_t smem = smem_bytes(s.D, 4, 2, 2);
+  const size_t smem = fma_shared(1, s.D);
   cudaError_t e = allow_smem(flash_backward_kv_kernel<T, DM>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((s.S + kTile - 1) / kTile, s.B * s.H);
@@ -570,7 +1130,7 @@ template <typename T, int DM>
 cudaError_t backward_q(const void* q, const void* k, const void* v,
                        const void* g, const float* lse, const float* delta,
                        void* dq, const Shape& s, cudaStream_t st) {
-  const size_t smem = smem_bytes(s.D, 4, 1, 2);
+  const size_t smem = fma_shared(2, s.D);
   cudaError_t e = allow_smem(flash_backward_q_kernel<T, DM>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((s.Tq + kTile - 1) / kTile, s.B * s.H);
@@ -581,18 +1141,19 @@ cudaError_t backward_q(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// dtype x D-bucket dispatch: the D-bucket sizes the register
-// accumulators (D/16 columns per thread); D itself stays a runtime value
-#define FLASH_DISPATCH(is_bf16, D, CALL)                               \
-  ((is_bf16) ? ((D) <= 64 ? CALL(__nv_bfloat16, 64) : CALL(__nv_bfloat16, 128)) \
-             : ((D) <= 64 ? CALL(float, 64) : CALL(float, 128)))
+// D-bucket dispatch: the bucket sizes the register accumulators and, on
+// the tensor cores, the zero-padded tiles; D itself stays a runtime value
+#define MMA_DISPATCH(D, CALL) \
+  ((D) <= 32 ? CALL(32) : (D) <= 64 ? CALL(64) : CALL(128))
+#define FMA_DISPATCH(T, D, CALL) ((D) <= 64 ? CALL(T, 64) : CALL(T, 128))
 
 }  // namespace
 
 // C interface bound with ctypes (parallel/flash_attention.py). q, g, o,
 // dq are [B, T, H, D]; k, v, dk, dv [B, S, H, D], all contiguous in the
 // input dtype (bf16 or f32); lse and delta [B, H, T] f32. Each returns
-// the cudaError_t of its launch (0 = launched) on `stream`.
+// the cudaError_t of its launch (0 = launched) on `stream`. bf16 forward
+// and dK/dV run on the tensor cores, everything else on the CUDA cores.
 extern "C" int flash_forward(const void* q, const void* k, const void* v,
                              void* o, void* lse, int is_bf16, int B, int H,
                              int T, int S, int D, float scale, int causal,
@@ -603,9 +1164,11 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v,
   if (!valid(s, is_bf16 ? 2 : 4)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-#define CALL(TT, DM) forward<TT, DM>(q, k, v, o, l, s, st)
-  e = FLASH_DISPATCH(is_bf16, D, CALL);
-#undef CALL
+#define MMA(DM) forward_mma<DM>(q, k, v, o, l, s, st)
+#define FMA(TT, DM) forward<TT, DM>(q, k, v, o, l, s, st)
+  e = is_bf16 ? MMA_DISPATCH(D, MMA) : FMA_DISPATCH(float, D, FMA);
+#undef MMA
+#undef FMA
   return (int)e;
 }
 
@@ -622,10 +1185,22 @@ extern "C" int flash_backward_kv(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define CALL(TT, DM) backward_kv<TT, DM>(q, k, v, g, l, dl, dk, dv, s, st)
-  e = FLASH_DISPATCH(is_bf16, D, CALL);
-#undef CALL
+#define MMA(DM) backward_kv_mma<DM>(q, k, v, g, l, dl, dk, dv, s, st)
+#define FMA(TT, DM) backward_kv<TT, DM>(q, k, v, g, l, dl, dk, dv, s, st)
+  e = is_bf16 ? MMA_DISPATCH(D, MMA) : FMA_DISPATCH(float, D, FMA);
+#undef MMA
+#undef FMA
   return (int)e;
+}
+
+// Dynamic shared memory (bytes per CTA) that a launch of kernel `which`
+// (0 forward, 1 dK/dV, 2 dQ) requests at head width D.
+extern "C" int flash_shared_bytes(int which, int is_bf16, int D) {
+  if (which < 0 || which > 2 || D <= 0 || D > 128) return -1;
+#define MMA(DM) mma_shared<DM>(which)
+  return (int)(is_bf16 && which < 2 ? MMA_DISPATCH(D, MMA)
+                                    : fma_shared(which, D));
+#undef MMA
 }
 
 extern "C" int flash_backward_q(const void* q, const void* k, const void* v,
@@ -641,8 +1216,9 @@ extern "C" int flash_backward_q(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-#define CALL(TT, DM) backward_q<TT, DM>(q, k, v, g, l, dl, dq, s, st)
-  e = FLASH_DISPATCH(is_bf16, D, CALL);
-#undef CALL
+#define FMA(TT, DM) backward_q<TT, DM>(q, k, v, g, l, dl, dq, s, st)
+  e = is_bf16 ? FMA_DISPATCH(__nv_bfloat16, D, FMA)
+              : FMA_DISPATCH(float, D, FMA);
+#undef FMA
   return (int)e;
 }

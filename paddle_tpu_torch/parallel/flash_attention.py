@@ -6,8 +6,11 @@ paddle_tpu/parallel/flash_attention.py).
 `flash_attention` keeps the JAX signature (without `interpret`: a CUDA
 kernel has no interpret mode), layout [B, T, H, D] and argument checks.
 `block_q`/`block_k` only drive those checks — they are the TPU kernel's
-VMEM tiles; the Hopper kernels use their own 64-row tiles and mask the
-ragged edge themselves, so a length such as 100 or 768 runs unpadded.
+VMEM tiles; the Hopper kernels use their own tiles (128 rows a CTA on
+the tensor cores, 64 on the CUDA cores) and mask the ragged edge
+themselves, so a length such as 100 or 768 runs unpadded. bf16 forward
+and dK/dV run on the tensor cores (mma.sync); dQ and every f32 pass run
+on the CUDA cores.
 
 The custom VJP is `_FlashAttention`: the forward saves (q, k, v, o,
 lse); the backward computes delta = rowsum(g * o) in f32 with torch
@@ -36,7 +39,7 @@ from .kernel_utils import causal_fill, guarded_exp, on_cpu
 __all__ = ["flash_attention", "flash_forward", "flash_backward",
            "flash_backward_kv", "flash_backward_q", "flash_attention_plain",
            "flash_backward_plain", "flash_backward_kv_plain",
-           "flash_backward_q_plain"]
+           "flash_backward_q_plain", "shared_bytes"]
 
 
 def _scores(q, k, scale, causal):
@@ -124,7 +127,22 @@ def _kernels():
         fn.argtypes = [ctypes.c_void_p] * n_ptr + tail
         fn.restype = ctypes.c_int
         fns[name] = fn
+    fns["flash_shared_bytes"] = lib.flash_shared_bytes
+    fns["flash_shared_bytes"].argtypes = [ctypes.c_int] * 3
+    fns["flash_shared_bytes"].restype = ctypes.c_int
     return fns
+
+
+def shared_bytes(which, dtype, D):
+    """Dynamic shared memory per CTA (bytes) that a launch of kernel
+    `which` ("forward", "backward_kv" or "backward_q") requests for
+    `dtype` inputs of head width D (builds the library on first use)."""
+    n = _kernels()["flash_shared_bytes"](
+        ("forward", "backward_kv", "backward_q").index(which),
+        int(dtype == torch.bfloat16), D)
+    if n < 0:
+        raise ValueError("no flash kernel %r at D=%d" % (which, D))
+    return n
 
 
 def _check_rows(q, *rows):

@@ -15,6 +15,12 @@ backward (the same lse-based formulas, three products deep) and at
 3e-4 against autograd of `reference_attention` (another algorithm —
 scale folded into q, a softmax Jacobian — the JAX suite's bar for
 flash vs reference gradients).
+
+Numeric state: each test runs its JAX calls under
+`jax.default_matmul_precision("float32")` and requires torch's float32
+matmul precision "highest", whatever an earlier test file on the same
+worker left behind; the forward tests also hold each side against a
+float64 numpy oracle at the same 2e-5, so a drift names its side.
 """
 
 import importlib
@@ -40,6 +46,41 @@ torch.set_num_threads(2)
 _FWD = 2e-5
 _GRAD = 1e-4
 _GRAD_REF = 3e-4
+
+
+@pytest.fixture(autouse=True)
+def _full_f32_matmuls():
+    """Both frameworks multiply in full float32 for every test here."""
+    assert torch.get_float32_matmul_precision() == "highest", \
+        "torch float32 matmul precision is %r, not 'highest'" \
+        % torch.get_float32_matmul_precision()
+    assert not torch.is_autocast_enabled("cpu")
+    with jax.default_matmul_precision("float32"):
+        yield
+
+
+def _oracle(q, k, v, causal):
+    """float64 numpy attention of [B, T, H, D] inputs (k/v [B, S, H,
+    D]): the exact answer both sides are held to."""
+    q, k, v = (np.asarray(a, np.float64) for a in (q, k, v))
+    s = np.einsum("bthd,bshd->bhts", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        T, S = s.shape[-2:]
+        s = np.where(np.tril(np.ones((T, S), bool)), s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhts,bshd->bthd", p, v)
+
+
+def _forward_held(got, want, q, k, v, causal):
+    """Each side within 2e-5 of the float64 oracle, then of each other."""
+    exact = _oracle(q, k, v, causal)
+    for side, out in (("port (torch)", got.detach().numpy()),
+                      ("reference (JAX Pallas)", np.asarray(want))):
+        np.testing.assert_allclose(out, exact, atol=_FWD, rtol=_FWD,
+                                   err_msg="%s drifted from the float64 "
+                                   "oracle" % side)
+    _close(got, want, _FWD)
 
 
 def _qkv(seed, B=2, T=128, H=4, D=32, S=None):
@@ -74,7 +115,7 @@ def test_forward_matches_jax_kernel(causal):
     got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal,
                               block_q=64, block_k=64)
     assert got.shape == q.shape and got.dtype == torch.float32
-    _close(got, want, _FWD)
+    _forward_held(got, want, q, k, v, causal)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -98,7 +139,7 @@ def test_cross_attention_forward():
     q, k, v, _ = _qkv(2, S=384)
     want = _jflash(q, k, v, False, bq=64, bk=128)
     got = tfa.flash_attention(_t(q), _t(k), _t(v), block_q=64, block_k=128)
-    _close(got, want, _FWD)
+    _forward_held(got, want, q, k, v, False)
 
 
 def _port_grads(q, k, v, g, causal, **kw):
@@ -153,10 +194,30 @@ def test_odd_lengths_forward_and_gradients(T):
     blocks; the port's tiles are its own either way."""
     q, k, v, g = _qkv(7 + T, B=1, T=T, H=2, D=32)
     want = _jflash(q, k, v, True, bq=1024, bk=1024)
-    _close(tfa.flash_attention(_t(q), _t(k), _t(v), causal=True), want,
-           _FWD)
+    _forward_held(tfa.flash_attention(_t(q), _t(k), _t(v), causal=True),
+                  want, q, k, v, True)
     got = _port_grads(q, k, v, g, True)
     for a, b in zip(got, _jax_grads(q, k, v, g, True, bq=1024, bk=1024)):
+        _close(a, b, _GRAD)
+
+
+@pytest.mark.parametrize("T,S,D,causal", [
+    (128, 128, 40, True),    # D padded to the kernels' 64 bucket
+    (128, 128, 128, True),   # D filling the 128 bucket
+    (129, 129, 32, True),    # one row past a 128-row tile
+    (200, 72, 32, False),    # ragged 64-row steps in q and in k
+], ids=["D40", "D128", "causal-T129", "T200-S72"])
+def test_tile_edges_forward_and_gradients(T, S, D, causal):
+    """The shapes the Hopper tensor-core tiles must mask, through the
+    plain versions the card's kernels are held against, vs the Pallas
+    kernels run as whole-sequence blocks."""
+    q, k, v, g = _qkv(20 + T + S + D, B=1, T=T, H=2, D=D, S=S)
+    want = _jflash(q, k, v, causal, bq=1024, bk=1024)
+    _forward_held(tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal),
+                  want, q, k, v, causal)
+    got = _port_grads(q, k, v, g, causal)
+    for a, b in zip(got, _jax_grads(q, k, v, g, causal, bq=1024,
+                                    bk=1024)):
         _close(a, b, _GRAD)
 
 
