@@ -10,17 +10,24 @@ Phases (any failure exits non-zero):
   1. print the card's name and power limit (nvidia-smi) and build the
      paged-attention and flash-attention kernels from
      paddle_tpu_torch/csrc with nvcc (one process per source, in
-     parallel); for every flash kernel print the registers, stack and
-     spill bytes nvcc reported and the tensor-core instructions
-     (HMMA/HGMMA) in its SASS (cuobjdump); the bf16 forward and dK/dV
-     kernels must hold tensor-core instructions and spill nothing;
-  2. hold the paged kernel against its plain PyTorch version through all
-     three wrappers (decode, verify, prefill chunk) at the serving shapes
-     (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a 128-token
-     chunk at start > 0, a 4-row verify window over 32 slots) in bf16
-     and f32, at one odd shape (Dh=32, Bt=8, R=3), with -1 table tails
-     (bit-identical to a full table) and a parked row; time the kernel
-     and the plain version at each of the three shapes with a cold L2;
+     parallel); for every paged and flash kernel print the registers,
+     stack and spill bytes nvcc reported, and for every flash kernel the
+     tensor-core instructions (HMMA/HGMMA) in its SASS (cuobjdump); the
+     nine bf16 flash kernels (forward, dK/dV, dQ at D 32/64/128) must
+     hold tensor-core instructions and spill nothing;
+  2. hold the paged kernels against their plain PyTorch version through
+     all three wrappers (decode, verify, prefill chunk) at the serving
+     shapes (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a
+     128-token chunk at start > 0, a 4-row verify window over 32 slots)
+     in bf16 and f32, at one odd shape (Dh=32, Bt=8, R=3) and at Dh 128
+     and 40 (WIDE), with -1 table tails (bit-identical to a full table)
+     and a parked row; bf16 (the
+     split-context kernel and its merge) also against the split plain
+     version at the partition count the library reports, relaunched
+     bit-identical, and on a case where one slot's context lies in one
+     partition and another's spans them all; time the kernels, the plain
+     version and (bf16) the split plain version at each of the three
+     shapes with a cold L2, with the partition count;
   3. serve a fixed-seed trace of 12 requests through ServingEngine at
      full width in bf16 (vocab 32000, dim 512, 8 heads, 8 layers,
      max_len 1024; 16 slots, 16-token blocks, 128-token chunks, an
@@ -37,8 +44,8 @@ Phases (any failure exits non-zero):
      causal) in bf16 and f32, at the JAX suite's odd shapes (cross
      attention T 128 / S 384 with D 32, causal T 100 and T 768) and at
      the edges of the tensor-core tiles (D 40 and D 128, causal T 129,
-     T 200 / S 72, B*H = 1); launch the bf16 forward and dK/dV twice on
-     the training shape and require bit-identical outputs; time each
+     T 200 / S 72, B*H = 1); launch the bf16 forward, dK/dV and dQ twice
+     on the training shape and require bit-identical outputs; time each
      kernel at the training shape in bf16 with a cold L2 beside its
      plain version, its bound and scaled_dot_product_attention (forward,
      and its backward for dK/dV and dQ together), with its registers,
@@ -56,9 +63,11 @@ Phases (any failure exits non-zero):
      the same codes and scales at the serving_quant shapes (H 8, Dh 64,
      Bt 32, 32 slots, contexts up to 1024, a 128-row chunk at start 256,
      a 4-row verify window), at phase 11's verify shape (Bt 16, 64
-     table entries) and at Dh 32, Bt 16, R 3, with -1 tails
-     (bit-identical) and a parked row; bf16 timings with a cold L2 beside
-     the plain version and the unquantized kernel at the same shape;
+     table entries), at Dh 32, Bt 16, R 3 and at Dh 128, with -1 tails
+     (bit-identical) and a parked row, bf16 also against the split plain
+     version and relaunched as in phase 2; bf16 timings with a cold L2
+     beside the plain versions and the unquantized kernel at the same
+     shape;
   9. the repo's serving_quant configuration (bench.py:1783-1808: the
      model above in bf16, 32 slots, 32-token blocks, 128-token chunks,
      an 8192-token prefix cache, one KV byte budget of (max_len // Bt)
@@ -78,7 +87,11 @@ Phases (any failure exits non-zero):
      the reverse); accept rate and tokens/s;
  12. f32, the first 8 requests: spec tokens equal plain-decode tokens
      for kv_quant none and int8;
- 13. print the kernels' JSON line (every kernel must have launched on a
+ 13. read the device time of each of the two CUDA kernels (split and
+     merge) of every bf16 paged call timed in phases 2 and 8
+     (torch.profiler; last, because a profiler window slows the host
+     work of every later phase);
+ 14. print the kernels' JSON line (every kernel must have launched on a
      main path), then the device line last.
 
 No request count of phases 9 and 11 is cut; phases 10 and 12 run the
@@ -97,6 +110,7 @@ scale varies with the shape); lse (f32 in both) at 1e-4; the f32
 training paths at rtol 1e-4 on losses and atol/rtol 1e-4 on parameters.
 """
 
+import functools
 import json
 import math
 import os
@@ -199,24 +213,62 @@ def make_case(rng, torch, dtype, S, R, H, Dh, Bt, MAXB, NB, parked=False,
                 base=t(base), base_np=base)
 
 
+def spans_case(rng, torch, dtype, S, shapes, kvq=None, R=4):
+    """A verify case in which slot 0's context lies in the split kernel's
+    first partition and slot 1's spans them all (its window ends at the
+    table's last depth); the other slots' contexts are random."""
+    ctx = shapes["MAXB"] * shapes["Bt"]
+    base = rng.randint(0, ctx - R + 1, S)
+    base[:2] = (5, ctx - R)
+    return make_case(rng, torch, dtype, S=S, R=R, base=base, kvq=kvq,
+                     **shapes)
+
+
+# head widths past 64 (each lane of the split kernel accumulates 4 dims)
+# and one that is no power of two; quantized pools need a multiple of 16
+WIDE = [dict(H=2, Dh=dh, Bt=16, MAXB=8, NB=40) for dh in (128, 40)]
+# (wrapper, rows, slots, base) of the windows checked at each wide shape
+WIDE_WINDOWS = (("decode", 1, 5, None), ("verify", 4, 5, None),
+                ("prefill", 20, 1, [37]))
+
+
+def check_wide(torch, tpa, rng, dtype, kvq=None):
+    """check_case on a decode (with a parked row), verify and prefill
+    window at each WIDE shape the pool type takes."""
+    name = "%s q %s" % (kvq or "none", str(dtype).split(".")[-1])
+    for shapes in WIDE:
+        if kvq is not None and shapes["Dh"] % 16:
+            continue
+        for which, R, S, base in WIDE_WINDOWS:
+            check_case(torch, tpa, which, make_case(
+                rng, torch, dtype, S=S, R=R, base=base,
+                parked=which == "decode", kvq=kvq, **shapes),
+                "%s %s Dh=%d R=%d" % (which, name, shapes["Dh"], R))
+
+
 def attended_tokens(c, R, Bt, MAXB):
     return [min(int(b) + r + 1, MAXB * Bt) for b in c["base_np"]
             for r in range(R)]
 
 
-def run_wrapper(tpa, which, c, table, plain=False):
+def run_wrapper(tpa, which, c, table, plain=False, parts=None):
     """Call one wrapper (or the plain version on f32 copies of q and
     unquantized pools; quantized pools pass their codes and scales as
-    they are) on a case."""
+    they are; with `parts`, the split plain version at that partition
+    count) on a case."""
     q, k, v, base = c["q"], c["k"], c["v"], c["base"]
     sc = dict(k_scale=c["ks"], v_scale=c["vs"])
     if plain:
         if c["ks"] is None:
             k, v = k.float(), v.float()
         scale = 1.0 / math.sqrt(q.shape[-1])
-        out = tpa.paged_attention_plain(q.float(), k, v, table, base,
-                                        scale=scale,
-                                        scale_in_q=which != "decode", **sc)
+        if parts is None:
+            fn = tpa.paged_attention_plain
+        else:
+            fn = functools.partial(tpa.paged_attention_split_plain,
+                                   parts=parts)
+        out = fn(q.float(), k, v, table, base, scale=scale,
+                 scale_in_q=which != "decode", **sc)
         return out[:, 0] if which == "decode" else (
             out[0] if which == "prefill" else out)
     if which == "decode":
@@ -227,18 +279,43 @@ def run_wrapper(tpa, which, c, table, plain=False):
                                        int(c["base_np"][0]), **sc)
 
 
+def case_parts(tpa, which, c):
+    """The split kernel's partition count for a case's wrapper call."""
+    q, k, table = c["q"], c["k"], c["part"]
+    S, R = (1, q.shape[1]) if which == "prefill" else (q.shape[0],
+                                                       q.shape[1])
+    return tpa.split_parts(S, R, q.shape[2], k.shape[1], table.shape[1])
+
+
 def check_case(torch, tpa, which, c, label):
+    """The wrapper vs the plain version (and for bf16 q, the split
+    kernel vs the split plain version at its partition count, and a
+    relaunch bit-identical); a -1 table tail bit-identical to a full
+    table."""
     tol = 1e-4 if c["q"].dtype == torch.float32 else 2e-2
     got = run_wrapper(tpa, which, c, c["part"])
     got_full = run_wrapper(tpa, which, c, c["full"])
+    split = c["q"].dtype == torch.bfloat16 and got.is_cuda
+    if split:
+        again = run_wrapper(tpa, which, c, c["part"])
     if got.is_cuda:
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
     want = run_wrapper(tpa, which, c, c["part"], plain=True)
     err = float((got.float() - want).abs().max())
     ok = torch.allclose(got.float(), want, atol=tol, rtol=tol)
     same = torch.equal(got, got_full)
-    log("  %-34s max_abs_err %.3e (tol %.0e) %s; -1 tail bit-identical: %s"
-        % (label, err, tol, "ok" if ok else "FAIL", same))
+    note = ""
+    if split:
+        parts = case_parts(tpa, which, c)
+        want_s = run_wrapper(tpa, which, c, c["part"], plain=True,
+                             parts=parts)
+        err_s = float((got.float() - want_s).abs().max())
+        ok = ok and torch.allclose(got.float(), want_s, atol=tol, rtol=tol)
+        same = same and torch.equal(got, again)
+        note = "; %d partitions, vs split plain %.3e, relaunch" % (parts,
+                                                                   err_s)
+    log("  %-34s max_abs_err %.3e (tol %.0e) %s; -1 tail%s bit-identical: "
+        "%s" % (label, err, tol, "ok" if ok else "FAIL", note, same))
     if not (ok and same and torch.isfinite(got).all()):
         raise AssertionError("kernel disagrees with its plain version: "
                              + label)
@@ -295,18 +372,83 @@ def bound_ms(c, tokens, dtype_name):
             else "operations")
 
 
+def kernel_device_ms(torch, fn, names, n=20):
+    """Mean device ms per launch of each CUDA kernel whose name holds one
+    of `names`, from torch.profiler over n calls of fn (over the launches
+    the profiler recorded; None where it recorded none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us, count = {}, {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.key and _device_us(e) > 0:
+                us[name] = us.get(name, 0.0) + _device_us(e)
+                count[name] = count.get(name, 0) + e.count
+    return {name: us[name] / count[name] / 1e3 if count.get(name) else None
+            for name in names}
+
+
 def time_case(torch, tpa, which, c, label):
-    """Kernel and plain-version device ms with a cold L2, and the bound."""
+    """Kernel and plain-version device ms with a cold L2, and the bound;
+    for bf16 q also the split plain version's time and the partition
+    count, and the call itself (`call`) for phase 13, which reads each of
+    its two kernels' device time."""
     R, Bt, MAXB = c["q"].shape[1], c["k"].shape[1], c["part"].shape[1]
     ms = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"]))
     plain = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"],
                                                plain=True), iters=10)
     b, by = bound_ms(c, attended_tokens(c, R, Bt, MAXB),
                      str(c["q"].dtype).split(".")[-1])
-    log("  %-8s %-10s kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
+    res = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+    note = ""
+    if c["q"].dtype == torch.bfloat16:
+        parts = case_parts(tpa, which, c)
+        res["partitions"] = parts
+        res["shared_bytes"] = tpa.split_shared_bytes(c["k"].dtype, R,
+                                                     c["q"].shape[3])
+        res["split_plain_ms"] = time_ms(torch, lambda: run_wrapper(
+            tpa, which, c, c["part"], plain=True, parts=parts), iters=10)
+        res["label"] = "%s %s" % (which, label)
+        res["call"] = lambda: run_wrapper(tpa, which, c, c["part"])
+        note = "; %d partitions, %d B shared, split plain %.4f ms" % (
+            parts, res["shared_bytes"], res["split_plain_ms"])
+    log("  %-8s %-10s kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)%s; "
         "no single PyTorch call computes paged attention"
-        % (which, label, ms, plain, b, by))
-    return dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        % (which, label, ms, plain, b, by, note))
+    return res
+
+
+# the two CUDA kernels of a bf16 paged wrapper call
+PAGED_KERNELS = ("paged_split_kernel", "paged_merge_kernel")
+
+
+def phase_split_times(torch, records):
+    """Phase 13: the split and merge kernels' device time (torch.profiler,
+    warm L2) of every bf16 call time_case timed, into its record. A
+    profiler window slows the host work of every later phase, so this
+    runs once the other phases are done."""
+    for res in records:
+        if "call" not in res:
+            continue
+        dev = kernel_device_ms(torch, res.pop("call"), PAGED_KERNELS)
+        res["split_kernel_ms"] = dev["paged_split_kernel"]
+        res["merge_kernel_ms"] = dev["paged_merge_kernel"]
+        log("  %-18s %d partitions: split kernel %s ms + merge %s ms "
+            "(kernel call %.4f ms with a cold L2)"
+            % (res["label"], res["partitions"],
+               *("not measured" if x is None else "%.4f" % x
+                 for x in (res["split_kernel_ms"], res["merge_kernel_ms"])),
+               res["ms"]))
 
 
 # the paged pools at the serving shapes with 16-token blocks: phase 3's
@@ -331,6 +473,9 @@ def phase_kernels(torch, tpa):
         for which, c in cases.items():
             errs[(which, name)] = check_case(
                 torch, tpa, which, c, "%s %s full width" % (which, name))
+        check_case(torch, tpa, "verify", spans_case(
+            np.random.RandomState(1), torch, dtype, 16, shapes),
+            "verify %s one and all partitions" % name)
         if dtype == torch.bfloat16:
             for which, c in cases.items():
                 timing[which] = time_case(torch, tpa, which, c, "bf16")
@@ -346,6 +491,7 @@ def phase_kernels(torch, tpa):
         check_case(torch, tpa, "prefill", make_case(
             rng, torch, dtype, S=1, R=13, base=[21], **odd),
             "prefill %s Dh=32 Bt=8 C=13" % name)
+        check_wide(torch, tpa, np.random.RandomState(2), dtype)
     return errs, timing
 
 
@@ -353,12 +499,13 @@ def phase_kernels_quant(torch, tpa):
     """The dequant branch: all three wrappers over int8 and fp8 pools with
     q in bf16 and f32 at the serving_quant shapes (H 8, Dh 64, Bt 32, 32
     slots, contexts up to 1024, a 128-row chunk at start 256, a 4-row
-    verify window) and at one odd shape (Dh 32, Bt 16, R 3); then bf16
-    timings with a cold L2 of every wrapper over int8, fp8 and (the
-    unquantized kernel at the same shape) bf16 pools. Last, the verify
-    wrapper over int8 and fp8 pools at the spec engine's shape (Bt 16,
-    64 table entries, a parked row), where phase 11 launches it, checked
-    in bf16 and f32 and timed in bf16."""
+    verify window), at one odd shape (Dh 32, Bt 16, R 3), at Dh 128 and
+    on a verify case whose slots' contexts lie in one partition and span
+    them all; then bf16 timings with a cold L2 of every wrapper over
+    int8, fp8 and (the unquantized kernel at the same shape) bf16 pools.
+    Last, the verify wrapper over int8 and fp8 pools at the spec
+    engine's shape (Bt 16, 64 table entries, a parked row), where phase
+    11 launches it, checked in bf16 and f32 and timed in bf16."""
     rng = np.random.RandomState(3)
     shapes = dict(H=8, Dh=64, Bt=32, MAXB=32, NB=1024)
     odd = dict(H=4, Dh=32, Bt=16, MAXB=16, NB=60)
@@ -388,6 +535,12 @@ def phase_kernels_quant(torch, tpa):
                         parked=which == "decode", kvq=kvq, **odd),
                         "%s %s q %s Dh=32 Bt=16 R=%d" % (which, kname, name,
                                                          R))
+                check_case(torch, tpa, "verify", spans_case(
+                    np.random.RandomState(4), torch, dtype, 32, shapes,
+                    kvq=kvq), "verify %s q %s one and all partitions"
+                    % (kname, name))
+                check_wide(torch, tpa, np.random.RandomState(6), dtype,
+                           kvq=kvq)
             if dtype == torch.bfloat16:
                 for which, c in cases.items():
                     timing[(which, kname)] = time_case(
@@ -973,7 +1126,8 @@ def _kernel_label(mangled):
 def flash_build_report(_build):
     """Phase 1's report of every flash kernel instantiation: registers,
     stack and spills (nvcc) and tensor-core instructions (SASS). Gate:
-    each tensor-core kernel holds HMMA/HGMMA and spills 0 bytes."""
+    each of the nine tensor-core kernels (three passes x D 32/64/128)
+    holds HMMA/HGMMA and spills 0 bytes."""
     usage = ptxas_usage(_build.compiler_output("flash_attention"))
     lib = _build.build(["flash_attention"])["flash_attention"]
     ops = sass_tensor_ops(lib, _build._nvcc())
@@ -990,8 +1144,8 @@ def flash_build_report(_build):
                u.get("spill_stores", -1), u.get("spill_loads", -1),
                u["tensor_core_ops"]))
     mma = {k: u for k, u in report.items() if "_mma_kernel" in k}
-    check(len(mma) == 6, "expected the bf16 forward and dK/dV tensor-core "
-          "kernels at D 32, 64 and 128, found %s" % sorted(mma))
+    check(len(mma) == 9, "expected the bf16 forward, dK/dV and dQ "
+          "tensor-core kernels at D 32, 64 and 128, found %s" % sorted(mma))
     for k, u in mma.items():
         check(u["tensor_core_ops"] > 0, "%s has no tensor-core instruction"
               % k)
@@ -1000,12 +1154,61 @@ def flash_build_report(_build):
     return report
 
 
+_TYPE_CODES = (("13__nv_bfloat16", "bf16"), ("13__nv_fp8_e4m3", "e4m3"),
+               ("f", "f32"), ("a", "int8"))
+
+
+def _paged_label(mangled):
+    """paged_split_kernel<bf16, 1, 2> and the like, from a mangled name
+    (None for anything else)."""
+    m = re.search(r"(paged_[a-z_]+_kernel)", mangled)
+    if m is None:
+        return None
+    rest, args = mangled[m.end():], []
+    if rest.startswith("I"):
+        rest = rest[1:]
+        while rest and not rest.startswith("E"):
+            n = re.match(r"Li(\d+)E", rest)
+            if n:
+                args.append(n[1])
+                rest = rest[n.end():]
+                continue
+            for code, name in _TYPE_CODES:
+                if rest.startswith(code):
+                    args.append(name)
+                    rest = rest[len(code):]
+                    break
+            else:
+                return None
+    return m[1] + ("<%s>" % ", ".join(args) if args else "")
+
+
+def paged_build_report(_build):
+    """Phase 1's report of every paged kernel instantiation: registers,
+    stack and spills (nvcc)."""
+    report = {}
+    for name, u in ptxas_usage(_build.compiler_output(
+            "paged_attention")).items():
+        label = _paged_label(name)
+        if label is None:
+            continue
+        report[label] = u
+        log("  %-38s %3d registers, stack %d B, spills %d B stored / %d B "
+            "loaded" % (label, u.get("registers", -1), u.get("stack", -1),
+                        u.get("spill_stores", -1), u.get("spill_loads", -1)))
+    check(any(k.startswith("paged_split_kernel") for k in report)
+          and "paged_merge_kernel" in report,
+          "the split and merge kernels are missing from the build: %s"
+          % sorted(report))
+    return report
+
+
 # the kernel instantiation each flash entry point launches for bf16 at
 # the training shape's head width (64)
 FLASH_TRAIN_KERNEL = {
     "forward": "flash_forward_mma_kernel<bf16, 64>",
     "backward_kv": "flash_backward_kv_mma_kernel<bf16, 64>",
-    "backward_q": "flash_backward_q_kernel<bf16, 64>",
+    "backward_q": "flash_backward_q_mma_kernel<bf16, 64>",
 }
 
 
@@ -1051,9 +1254,11 @@ def phase_flash(torch, tfa, build_report):
     c = full["bfloat16"]
     o, lse, delta = flash_inputs(torch, tfa, c, True)
     # each output tile has one owner and no atomics: launches repeat
-    for which in ("forward", "backward_kv"):
+    for which in ("forward", "backward_kv", "backward_q"):
         first = run_flash(tfa, which, c, True, lse, delta)
         again = run_flash(tfa, which, c, True, lse, delta)
+        if which == "backward_q":
+            first, again = (first,), (again,)
         same = all(torch.equal(x, y) for x, y in zip(first, again))
         log("  %-11s bf16 twice on the training shape: bit-identical %s"
             % (which, same))
@@ -1177,8 +1382,10 @@ def _device_us(evt):
 
 
 def _kernel_class(name):
-    for kernel in ("paged_attention", "flash_forward", "flash_backward_kv",
-                   "flash_backward_q"):
+    if any(k in name for k in ("paged_attention", "paged_split",
+                               "paged_merge")):
+        return "paged attention kernels"
+    for kernel in ("flash_forward", "flash_backward_kv", "flash_backward_q"):
         if kernel in name:
             return kernel + " kernel"
     if any(k in name for k in ("nvjet", "gemm", "cutlass", "sm90_xmma")):
@@ -1291,9 +1498,7 @@ def main():
     _build.build(["paged_attention", "flash_attention"])  # nvcc in parallel
     log("  built paged_attention and flash_attention in %.1f s"
         % (time.monotonic() - t0))
-    for line in _build.compiler_output("paged_attention").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log("  ptxas paged_attention: %s" % line.strip())
+    paged_report = paged_build_report(_build)
     flash_report = flash_build_report(_build)
 
     log("phase 2: kernel vs plain version")
@@ -1350,11 +1555,34 @@ def main():
         phase_profile_quant(torch, ServingEngine, params, cfg)
     del params, p32
 
+    log("phase 13: the bf16 paged calls' two kernels under torch.profiler")
+    phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
+
     kernels = []
     paged_note = "no single PyTorch call computes paged attention"
+
+    def paged_fields(which, pool, tm):
+        """The two CUDA kernels a bf16 call of this wrapper launches (Dh
+        64), their resources and device times, and the partitions."""
+        split = "paged_split_kernel<%s, %d, 2>" % (
+            pool, {"decode": 1, "verify": 4, "prefill": 16}[which])
+        return {
+            "cuda_kernels": [split, "paged_merge_kernel"],
+            "partitions": tm["partitions"],
+            "split_kernel_ms": tm["split_kernel_ms"],
+            "merge_kernel_ms": tm["merge_kernel_ms"],
+            "split_plain_ms": tm["split_plain_ms"],
+            "design": "split context over %d partitions, CUDA cores, f32 "
+                      "math, cp.async ring per warp" % tm["partitions"],
+            "resources": dict(
+                {k: paged_report.get(k) for k in
+                 (split, "paged_merge_kernel")},
+                split_shared_bytes=tm["shared_bytes"]),
+        }
+
     for which in ("decode", "prefill", "verify"):
         tm = timing[which]
-        kernels.append({
+        kernels.append(dict({
             "name": "paged_attention (%s, paged_%s_attention)"
                     % (which, which),
             "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
@@ -1365,7 +1593,7 @@ def main():
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None, "library_note": paged_note, "card": card,
-        })
+        }, **paged_fields(which, "bf16", tm)))
     for kvq in ("int8", "fp8"):
         for which in ("decode", "prefill", "verify"):
             # each entry's numbers come from the shape its launches ran
@@ -1378,7 +1606,7 @@ def main():
                 key, n = (which, kvq), quant[kvq]["launches"][which]
                 unq = qtiming[(which, "none")]["ms"]
             tm = qtiming[key]
-            kernels.append({
+            kernels.append(dict({
                 "name": "paged_attention dequant (%s, %s pool, "
                         "paged_%s_attention)" % (which, kvq, which),
                 "route": "cuda", "source": SOURCE,
@@ -1391,7 +1619,8 @@ def main():
                 "unquantized_ms_same_shape": unq,
                 "library_ms": None, "library_note": paged_note,
                 "card": card,
-            })
+            }, **paged_fields(which, "int8" if kvq == "int8" else "e4m3",
+                              tm)))
     for which in ("forward", "backward_kv", "backward_q"):
         tm = flash_timing[which]
         kernels.append({

@@ -15,8 +15,9 @@
 //
 // Two designs share the entry points:
 //
-// bf16 forward and dK/dV: FlashAttention-2's structure on the tensor
-// cores (`flash_forward_mma_kernel`, `flash_backward_kv_mma_kernel`).
+// bf16 (all three passes): FlashAttention-2's structure on the tensor
+// cores (`flash_forward_mma_kernel`, `flash_backward_kv_mma_kernel`,
+// `flash_backward_q_mma_kernel`).
 //   * every product is mma.sync m16n8k16 bf16 -> f32, its operands read
 //     from shared memory by ldmatrix (.trans where the product needs the
 //     transpose); accumulators stay in registers;
@@ -25,38 +26,40 @@
 //     conversion is the TPU kernel's rounding of P); row max and sum
 //     reduce over the quad of lanes that holds a row. dK/dV computes the
 //     transposed tiles S^T = K.Q^T and dP^T = V.g^T, so P^T and dS^T are
-//     already the A fragments of dV += P^T.g and dK += dS^T.Q;
-//   * the streamed tiles (forward: K and V; dK/dV: Q, g, lse and delta)
-//     arrive by cp.async into a two-stage ring of bf16 tiles, the next
-//     tile in flight while the current one is computed, one barrier per
-//     step. Rows are padded by 8 elements so ldmatrix is free of bank
+//     already the A fragments of dV += P^T.g and dK += dS^T.Q; dQ
+//     computes S and dP = g.V^T untransposed, so dS is the A fragment of
+//     dQ += dS.K, with K through ldmatrix.trans as V in the forward;
+//   * the streamed tiles (forward and dQ: K and V; dK/dV: Q, g, lse and
+//     delta) arrive by cp.async into a two-stage ring of bf16 tiles, the
+//     next tile in flight while the current one is computed, one barrier
+//     per step. Rows are padded by 8 elements so ldmatrix is free of bank
 //     conflicts. Rows past T or S and columns past D (D pads to the 32,
 //     64 or 128 bucket) are zero-filled by cp.async's src-size;
-//   * a CTA owns 128 rows (8 warps x 16): forward q rows, stepping 64
-//     keys (two 32-key online-softmax updates per step, so the score
-//     tile fits beside the accumulators in 128 registers); dK/dV key
-//     rows, stepping 64 q rows from the diagonal in 16-row slices. The
-//     forward's Q fragments go to registers once and Q's shared tile
-//     becomes a ring stage; dK/dV reads its K and V fragments from
-//     shared memory at each use, which keeps it within 128 registers.
-//     At D <= 64 two CTAs share an SM; q tiles are issued longest first;
+//   * a CTA owns 128 rows (8 warps x 16): forward and dQ q rows, stepping
+//     64 keys as two 32-key halves (so the score tiles fit beside the
+//     accumulators in 128 registers); dK/dV key rows, stepping 64 q rows
+//     from the diagonal in 16-row slices. The forward's Q fragments go to
+//     registers once and Q's shared tile becomes a ring stage; dK/dV
+//     reads its K and V fragments, and dQ its Q and g fragments, from
+//     shared memory at each use, which keeps them within 128 registers.
+//     dQ keeps the lse and delta of a warp's rows in registers (no online
+//     softmax: P = exp(S * scale - lse)). At D <= 64 two CTAs share an
+//     SM; q tiles are issued longest first;
 //   * interior tiles skip the mask predicate, only edge and diagonal
 //     tiles evaluate it; a warp skips a tile its rows cannot attend;
 //   * each output tile is owned by one CTA, no atomics: deterministic.
 //   What bounds them: at the training shape (T = S = 1024, D = 64,
 //   causal) the forward's least time is set by its bytes (~34 MB,
-//   ~8.6 GFLOP) and dK/dV's by its operations (~17.2 GFLOP). Both run
-//   well above that: mma.sync reaches only part of the 989 TFLOP/s bf16
-//   peak, and with 8 warps each re-reading the streamed tile, ldmatrix's
-//   shared-memory reads (about one 512-byte x4 load per two mma) are
-//   the next limit. wgmma, TMA and warp specialisation are the step
-//   after this one.
+//   ~8.6 GFLOP), dK/dV's and dQ's by their operations (~17.2 and ~12.9
+//   GFLOP). All run well above that: mma.sync reaches only part of the
+//   989 TFLOP/s bf16 peak, and with 8 warps each re-reading the streamed
+//   tile, ldmatrix's shared-memory reads (about one 512-byte x4 load per
+//   two mma) are the next limit. wgmma, TMA and warp specialisation are
+//   the step after this one.
 //
-// f32 (all three passes) and bf16 dQ: the CUDA-core design. The f32
-// instantiations are the f32 parity path, equal to the reference
-// attention to the last bit in the losses; tensor cores in TF32 would
-// change those numbers. dQ is the next kernel to move to the tensor
-// cores, on the helpers above.
+// f32 (all three passes): the CUDA-core design, the f32 parity path,
+// equal to the reference attention to the last bit in the losses;
+// tensor cores in TF32 would change those numbers.
 //   * each output tile is owned by one CTA; the TPU's sequential grid
 //     axis becomes a loop inside it, so no sums cross CTAs — no atomics,
 //     deterministic results:
@@ -91,24 +94,13 @@ constexpr int kThreads = 256;      // 16 x 16
 constexpr int kLdP = kTile + 1;    // padded row of a [64, 64] f32 tile
 constexpr float kNegInf = -1e30f;  // parallel/kernel_utils.py NEG_INF
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// x rounded to T's precision (round to nearest even), as astype(T) does
+// x rounded to T's precision, as astype(T) does (f32: unchanged)
 template <typename T>
 __device__ __forceinline__ float round_to(float x);
 template <>
 __device__ __forceinline__ float round_to<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 template <typename T>
@@ -119,18 +111,6 @@ __device__ __forceinline__ void unpack16<float>(const uint4& u, float* dst) {
   dst[1] = __uint_as_float(u.y);
   dst[2] = __uint_as_float(u.z);
   dst[3] = __uint_as_float(u.w);
-}
-template <>
-__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u,
-                                                        float* dst) {
-  __nv_bfloat162 h[4];
-  memcpy(h, &u, sizeof(h));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 // reductions over the 16 lanes of a half-warp (one row's owners)
@@ -453,7 +433,7 @@ flash_backward_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// CUDA cores, f32 and bf16: dQ for one (b*h, q tile), looping k tiles up
+// CUDA cores, f32: dQ for one (b*h, q tile), looping k tiles up
 // to the diagonal
 // ---------------------------------------------------------------------
 template <typename T, int DM>
@@ -1027,6 +1007,182 @@ flash_backward_kv_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// bf16 dQ on the tensor cores: one (b*h, 128-row q tile), stepping 64-key
+// K/V tiles up to the diagonal; warp w owns q rows 16w..16w+15. The
+// forward's structure with a second score tile (dP = g.V^T beside S =
+// Q.K^T) and no online softmax: lse and delta of the warp's two
+// accumulator rows stay in registers. Each 64-key stage is taken as two
+// 32-key halves; dS, rounded to bf16, is the A fragment of dQ += dS.K as
+// the forward's P is of P.V. The CTA's Q and g tiles stay in shared
+// memory and their fragments are read at each use, which keeps the
+// kernel within 128 registers (two CTAs per SM at D <= 64).
+// ---------------------------------------------------------------------
+template <int DM>
+struct QLayout {
+  static constexpr uint32_t kTileBytes = kStep * (DM + 8) * sizeof(bf16);
+  // ring stage s: K then V [kStep][DM + 8]; then Q and g [kRows][DM + 8]
+  static constexpr uint32_t kQ = 4 * kTileBytes;
+  static constexpr uint32_t kG = kQ + 2 * kTileBytes;
+  static constexpr uint32_t kBytes = kG + 2 * kTileBytes;
+};
+
+template <int DM>
+__global__ void __launch_bounds__(kMmaThreads, DM <= 64 ? 2 : 1)
+flash_backward_q_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ g,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            bf16* __restrict__ dq, int H, int Tq, int S,
+                            int D, float scale, int causal) {
+  using L = QLayout<DM>;
+  constexpr int KD = DM / 16;  // k-steps of Q.K^T and g.V^T over D
+  constexpr int NO = DM / 8;   // n-tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = smem_addr(smem_raw);
+  const uint32_t sQ = ring + L::kQ;
+  const uint32_t sG = ring + L::kG;
+  const Frag<DM> fr(threadIdx.x & 31);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // accumulator rows gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2tc, 2tc + 1
+  const int qw = q0 + 16 * warp;
+  const int rs = H * D;  // row stride, elements
+  const bf16* qb = q + ((size_t)b * Tq * H + h) * D;
+  const bf16* gb = g + ((size_t)b * Tq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * S * H + h) * D;
+  const bf16* vb = v + ((size_t)b * S * H + h) * D;
+
+  cp_tile<kRows, DM>(sQ, qb, q0, Tq, rs, D);
+  cp_tile<kRows, DM>(sG, gb, q0, Tq, rs, D);
+  cp_tile<kStep, DM>(ring, kb, 0, S, rs, D);
+  cp_tile<kStep, DM>(ring + L::kTileBytes, vb, 0, S, rs, D);
+  cp_commit();
+  int nk = (S + kStep - 1) / kStep;
+  if (causal) nk = min(nk, (q0 + kRows - 1) / kStep + 1);
+
+  // lse and delta of rows gr and gr + 8 (rows past Tq: zero, never
+  // stored; their Q and g rows are zero-filled)
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    lr[i] = r < Tq ? lse[(size_t)bh * Tq + r] : 0.f;
+    dr[i] = r < Tq ? delta[(size_t)bh * Tq + r] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kStep;
+    cp_wait<0>();
+    // step kt's tiles (and Q, g) are visible to all, and every warp is
+    // done with step kt - 1, whose stage the next copy refills
+    __syncthreads();
+    if (kt + 1 < nk) {
+      const uint32_t nx = ring + ((kt + 1) & 1) * 2 * L::kTileBytes;
+      cp_tile<kStep, DM>(nx, kb, k0 + kStep, S, rs, D);
+      cp_tile<kStep, DM>(nx + L::kTileBytes, vb, k0 + kStep, S, rs, D);
+      cp_commit();
+    }
+    const uint32_t sK = ring + (kt & 1) * 2 * L::kTileBytes;
+    const uint32_t sV = sK + L::kTileBytes;
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int kh = k0 + kHalf * hf;
+      if (causal && kh > qw + 15) continue;  // no row of this warp attends
+
+      // S = Q.K^T and dP = g.V^T: 16 rows x 32 keys, n-tile j = keys
+      // kh + 8j..
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qa[4], ga[4];
+        ldsm4(qa, sQ + fr.a + fr.blk(16 * warp, 16 * kd));
+        ldsm4(ga, sG + fr.a + fr.blk(16 * warp, 16 * kd));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kf[4], vf[4];
+          ldsm4(kf, sK + fr.b + fr.blk(kHalf * hf + 16 * np, 16 * kd));
+          ldsm4(vf, sV + fr.b + fr.blk(kHalf * hf + 16 * np, 16 * kd));
+          mma(s[2 * np], qa, kf[0], kf[1]);
+          mma(s[2 * np + 1], qa, kf[2], kf[3]);
+          mma(dp[2 * np], ga, vf[0], vf[1]);
+          mma(dp[2 * np + 1], ga, vf[2], vf[3]);
+        }
+      }
+
+      // P = exp(S * scale - lse), exactly 0 where masked (only edge and
+      // diagonal tiles evaluate the mask); dS = P * (dP - delta) * scale,
+      // rounded to bf16 as the TPU kernel's ds.astype(k.dtype)
+      const bool edge = kh + kHalf > S || (causal && kh + kHalf - 1 > qw);
+      uint32_t da[4][2];  // dS in bf16: rows gr and gr + 8
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool keep = true;
+          if (edge) {
+            const int c = kh + 8 * j + 2 * tc + (e & 1);
+            const int r = qw + gr + 8 * (e >> 1);
+            keep = c < S && (!causal || r >= c);
+          }
+          const float p = keep ? expf(s[j][e] * scale - lr[e >> 1]) : 0.f;
+          d[e] = p * (dp[j][e] - dr[e >> 1]) * scale;
+        }
+        da[j][0] = pack_bf16(d[0], d[1]);
+        da[j][1] = pack_bf16(d[2], d[3]);
+      }
+
+      // dQ += dS.K: dS's accumulators are the A fragments, K enters
+      // through ldmatrix.trans as V does in the forward's P.V
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const uint32_t a[4] = {da[2 * kk][0], da[2 * kk][1],
+                               da[2 * kk + 1][0], da[2 * kk + 1][1]};
+#pragma unroll
+        for (int dn = 0; dn < NO / 2; ++dn) {
+          uint32_t kf[4];
+          ldsm4_t(kf, sK + fr.bt + fr.blk(kHalf * hf + 16 * kk, 16 * dn));
+          mma(acc[2 * dn], a, kf[0], kf[1]);
+          mma(acc[2 * dn + 1], a, kf[2], kf[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    if (r >= Tq) continue;
+    bf16* row = dq + ((size_t)(b * Tq + r) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * tc;
+      if (c < D)
+        *reinterpret_cast<__nv_bfloat162*>(row + c) =
+            __floats2bfloat162_rn(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
 
@@ -1052,8 +1208,9 @@ size_t fma_shared(int which, int D) {
 }
 template <int DM>
 size_t mma_shared(int which) {
-  return which == 0 ? 4 * kStep * (DM + 8) * sizeof(bf16)
-                    : KvLayout<DM>::kBytes;
+  return which == 0   ? 4 * kStep * (DM + 8) * sizeof(bf16)
+         : which == 1 ? KvLayout<DM>::kBytes
+                      : QLayout<DM>::kBytes;
 }
 
 template <typename K>
@@ -1093,6 +1250,22 @@ cudaError_t backward_kv_mma(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), s.H, s.Tq, s.S, s.D,
       s.scale, s.causal);
+  return cudaGetLastError();
+}
+
+template <int DM>
+cudaError_t backward_q_mma(const void* q, const void* k, const void* v,
+                           const void* g, const float* lse,
+                           const float* delta, void* dq, const Shape& s,
+                           cudaStream_t st) {
+  const size_t smem = mma_shared<DM>(2);
+  cudaError_t e = allow_smem(flash_backward_q_mma_kernel<DM>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(s.B * s.H, (s.Tq + kRows - 1) / kRows);
+  flash_backward_q_mma_kernel<DM><<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+      static_cast<bf16*>(dq), s.H, s.Tq, s.S, s.D, s.scale, s.causal);
   return cudaGetLastError();
 }
 
@@ -1152,8 +1325,8 @@ cudaError_t backward_q(const void* q, const void* k, const void* v,
 // C interface bound with ctypes (parallel/flash_attention.py). q, g, o,
 // dq are [B, T, H, D]; k, v, dk, dv [B, S, H, D], all contiguous in the
 // input dtype (bf16 or f32); lse and delta [B, H, T] f32. Each returns
-// the cudaError_t of its launch (0 = launched) on `stream`. bf16 forward
-// and dK/dV run on the tensor cores, everything else on the CUDA cores.
+// the cudaError_t of its launch (0 = launched) on `stream`. bf16 runs on
+// the tensor cores, f32 on the CUDA cores.
 extern "C" int flash_forward(const void* q, const void* k, const void* v,
                              void* o, void* lse, int is_bf16, int B, int H,
                              int T, int S, int D, float scale, int causal,
@@ -1198,8 +1371,7 @@ extern "C" int flash_backward_kv(const void* q, const void* k, const void* v,
 extern "C" int flash_shared_bytes(int which, int is_bf16, int D) {
   if (which < 0 || which > 2 || D <= 0 || D > 128) return -1;
 #define MMA(DM) mma_shared<DM>(which)
-  return (int)(is_bf16 && which < 2 ? MMA_DISPATCH(D, MMA)
-                                    : fma_shared(which, D));
+  return (int)(is_bf16 ? MMA_DISPATCH(D, MMA) : fma_shared(which, D));
 #undef MMA
 }
 
@@ -1216,9 +1388,10 @@ extern "C" int flash_backward_q(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+#define MMA(DM) backward_q_mma<DM>(q, k, v, g, l, dl, dq, s, st)
 #define FMA(TT, DM) backward_q<TT, DM>(q, k, v, g, l, dl, dq, s, st)
-  e = is_bf16 ? FMA_DISPATCH(__nv_bfloat16, D, FMA)
-              : FMA_DISPATCH(float, D, FMA);
+  e = is_bf16 ? MMA_DISPATCH(D, MMA) : FMA_DISPATCH(float, D, FMA);
+#undef MMA
 #undef FMA
   return (int)e;
 }

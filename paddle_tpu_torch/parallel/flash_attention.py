@@ -8,9 +8,9 @@ kernel has no interpret mode), layout [B, T, H, D] and argument checks.
 `block_q`/`block_k` only drive those checks — they are the TPU kernel's
 VMEM tiles; the Hopper kernels use their own tiles (128 rows a CTA on
 the tensor cores, 64 on the CUDA cores) and mask the ragged edge
-themselves, so a length such as 100 or 768 runs unpadded. bf16 forward
-and dK/dV run on the tensor cores (mma.sync); dQ and every f32 pass run
-on the CUDA cores.
+themselves, so a length such as 100 or 768 runs unpadded. All three
+bf16 passes run on the tensor cores (mma.sync); every f32 pass runs on
+the CUDA cores.
 
 The custom VJP is `_FlashAttention`: the forward saves (q, k, v, o,
 lse); the backward computes delta = rowsum(g * o) in f32 with torch

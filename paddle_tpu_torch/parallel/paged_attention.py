@@ -16,12 +16,20 @@ Two numerics families, as in the JAX package:
 
 Each wrapper keeps the JAX argument order and layouts (without
 `interpret`: a CUDA kernel has no interpret mode). On a CUDA tensor it
-launches the Hopper kernel csrc/paged_attention.cu (built by nvcc at
-first use, bound with ctypes) and counts the launch in its
-`launches` attribute; on CPU tensors it runs `paged_attention_plain`,
-the plain PyTorch version of the same function, which the CPU tests
-hold against the JAX package and chip_smoke.py holds the kernel
-against. There is no fallback: a CUDA tensor launches or raises.
+launches the Hopper kernels of csrc/paged_attention.cu (built by nvcc at
+first use, bound with ctypes) and counts the call in its `launches`
+attribute; on CPU tensors it runs `paged_attention_plain`, the plain
+PyTorch version of the same function, which the CPU tests hold against
+the JAX package and chip_smoke.py holds the kernels against. There is
+no fallback: a CUDA tensor launches or raises.
+
+bf16 q runs the split-context kernel: the table walk is cut into
+`split_parts(S, R, H, Bt, MAXB)` partitions of contiguous table entries
+(set by the shapes alone), each CTA writes its partition's (m, l, acc)
+to a workspace, and a second kernel merges them in partition order.
+`paged_attention_split_plain` is the plain version of exactly that
+computation; the CPU tests hold it against `paged_attention_plain` and
+the JAX package. f32 q runs the single-pass kernel.
 
 Quantized pools: with `k_scale`/`v_scale` [NB, H] f32 (both or
 neither) the pools hold int8 or float8_e4m3fn codes, and each staged
@@ -42,7 +50,9 @@ import torch
 from .kernel_utils import NEG_INF, guarded_exp, on_cpu, raw_bytes
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
-           "paged_prefill_attention", "paged_attention_plain", "paged_view"]
+           "paged_prefill_attention", "paged_attention_plain",
+           "paged_attention_split_plain", "paged_view", "split_parts",
+           "split_shared_bytes"]
 
 
 def _check_scales(k_scale, v_scale):
@@ -99,18 +109,87 @@ def paged_attention_plain(q, k_pool, v_pool, tables, base, *, scale,
     return o.to(q.dtype)
 
 
+def paged_attention_split_plain(q, k_pool, v_pool, tables, base, *, scale,
+                                scale_in_q, parts, k_scale=None,
+                                v_scale=None):
+    """The plain version of the split-context kernel: the function of
+    `paged_attention_plain`, computed as the kernel computes it. The
+    table's MAXB entries are cut into partitions of E = ceil(MAXB /
+    parts) entries (partition p takes entries [p*E, (p+1)*E); trailing
+    ones may be empty); each gives (m, l, acc) in f32 from its own
+    masked softmax (m = NEG_INF, l = 0, acc = 0 when no depth of it is
+    attended), and the partitions merge in order with weights
+    exp(m_p - max m), exactly 0 for m_p <= NEG_INF: out = sum w*acc /
+    max(sum w*l, 1e-30) in q's dtype."""
+    _check_scales(k_scale, v_scale)
+    S, R = q.shape[0], q.shape[1]
+    MAXB, Bt = tables.shape[1], k_pool.shape[1]
+    L = MAXB * Bt
+    kv = paged_view(k_pool, tables, k_scale).float()
+    vv = paged_view(v_pool, tables, v_scale).float()
+    qf = q.float()
+    if scale_in_q:
+        qf = qf * scale
+    s = torch.einsum("srhd,slhd->shrl", qf, kv)
+    if not scale_in_q:
+        s = s * scale
+    rowpos = base.long().reshape(S, 1) + torch.arange(R, device=q.device)
+    depth = torch.arange(L, device=q.device)
+    masked = depth.view(1, 1, L) > rowpos.view(S, R, 1)  # [S, R, L]
+    s = s.masked_fill(masked[:, None], NEG_INF)
+    span = -(-MAXB // parts) * Bt  # tokens a partition takes
+    ms, ls, accs = [], [], []
+    for t0 in range(0, L, span):
+        sp = s[..., t0:t0 + span]
+        m = sp.amax(dim=-1, keepdim=True)  # NEG_INF when all masked
+        p = guarded_exp(sp, m)
+        ms.append(m)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("shrl,slhd->shrd", p,
+                                 vv[:, t0:t0 + span]))
+    top = torch.stack(ms).amax(dim=0)
+    l_sum = torch.zeros_like(top)
+    acc = torch.zeros_like(accs[0])
+    for m, l_p, a in zip(ms, ls, accs):  # partition order
+        w = guarded_exp(m, top)
+        l_sum = l_sum + w * l_p
+        acc = acc + w * a
+    o = acc / l_sum.clamp_min(1e-30)
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
+def _kernels():
     """Build (first call only) and bind csrc/paged_attention.cu."""
     from .. import _build
 
-    fn = _build.load("paged_attention").paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    lib = _build.load("paged_attention")
+    tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+    head = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    fns = {"single": lib.paged_attention_launch,
+           "split": lib.paged_attention_split_launch,
+           "parts": lib.paged_split_parts,
+           "shared": lib.paged_split_shared_bytes}
+    fns["single"].argtypes = head + [ctypes.c_int] * 2 + tail
+    fns["split"].argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+        + tail
+    fns["parts"].argtypes = [ctypes.c_int] * 5
+    fns["shared"].argtypes = [ctypes.c_int] * 3
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+@functools.lru_cache(maxsize=None)
+def split_parts(S, R, H, Bt, MAXB):
+    """Context partitions the split kernel takes for S slots of R rows
+    over H heads and [S, MAXB] tables of Bt-token blocks (the shapes
+    alone set it; builds the library on first use)."""
+    n = _kernels()["parts"](S, R, H, Bt, MAXB)
+    if n < 1:
+        raise ValueError("no split for shapes %s" % ((S, R, H, Bt, MAXB),))
+    return n
 
 
 # pool storage the kernel takes beside q's own dtype: its code in the C
@@ -118,11 +197,24 @@ def _kernel():
 _POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
+def split_shared_bytes(pool_dtype, R, Dh):
+    """Dynamic shared memory per CTA (bytes) that the split kernel
+    requests for R window rows of head width Dh over pools of
+    `pool_dtype` (bfloat16, int8 or float8_e4m3fn; builds the library on
+    first use)."""
+    n = _kernels()["shared"](_POOL_CODES.get(pool_dtype, 0), R, Dh)
+    if n < 0:
+        raise ValueError("no split kernel for R=%d, Dh=%d" % (R, Dh))
+    return n
+
+
 def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q,
             k_scale=None, v_scale=None):
-    """Launch the Hopper kernel on the current stream. `base` is an int32
-    CUDA tensor [S] or a Python int shared by every slot. Pools are q's
-    dtype, or int8 / float8_e4m3fn codes with f32 scales [NB, H]."""
+    """Launch the Hopper kernels on the current stream: bf16 q through
+    the split kernel (and the merge, with a workspace allocated here),
+    f32 q through the single-pass kernel. `base` is an int32 CUDA tensor
+    [S] or a Python int shared by every slot. Pools are q's dtype, or
+    int8 / float8_e4m3fn codes with f32 scales [NB, H]."""
     quant = _check_scales(k_scale, v_scale)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("paged attention kernel takes float32 or bfloat16 "
@@ -171,16 +263,24 @@ def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q,
     else:
         base_ptr, base_scalar = None, int(base)
     out = torch.empty_like(q)
-    err = _kernel()(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None,
-        tables.data_ptr(), base_ptr, base_scalar, out.data_ptr(),
-        int(q.dtype == torch.bfloat16), _POOL_CODES.get(k_pool.dtype, 0),
-        S, R, H, dh, NB, Bt, tables.shape[1], float(scale), int(scale_in_q),
-        q.device.index if q.device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    MAXB = tables.shape[1]
+    head = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None,
+            tables.data_ptr(), base_ptr, base_scalar, out.data_ptr())
+    tail = (S, R, H, dh, NB, Bt, MAXB, float(scale), int(scale_in_q),
+            q.device.index if q.device.index is not None
+            else torch.cuda.current_device(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    pool = _POOL_CODES.get(k_pool.dtype, 0)
+    if q.dtype == torch.bfloat16:
+        parts = split_parts(S, R, H, Bt, MAXB) if S * R * H else 1
+        ws = (torch.empty(S * R * H * parts * (dh + 2), dtype=torch.float32,
+                          device=q.device) if parts > 1 else None)
+        err = _kernels()["split"](*head, None if ws is None
+                                  else ws.data_ptr(), parts, pool, *tail)
+    else:
+        err = _kernels()["single"](*head, 0, pool, *tail)
     if err:
         raise RuntimeError("paged_attention kernel launch failed: CUDA "
                            "error %d" % err)

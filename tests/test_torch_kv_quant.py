@@ -9,7 +9,10 @@ against the JAX package on the same numpy-seeded inputs.
   the committed scale).
 * The three paged wrappers with scales vs the Pallas kernel's quantized
   branch in interpret mode at the paged suite's 2e-5 (the two differ in
-  softmax reduction order only), and the -1 table tail bit for bit.
+  softmax reduction order only), and the -1 table tail bit for bit; the
+  split plain version (the bf16 split-context kernel's function) at 1,
+  2, 3 and 4 partitions to the same bars and within 1e-6 of the
+  unsplit plain version.
 * The three paged primitives with kv_quant vs the reference's gather
   form: logits at 2e-5, scales at 2e-5 relative, and the stored codes
   equal.
@@ -19,6 +22,8 @@ against the JAX package on the same numpy-seeded inputs.
   copy-on-write copies the scale bands; the allocator prices blocks by
   the one formula; bad knobs raise ValueError.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -208,6 +213,81 @@ def test_quant_garbage_rows_bit_identical(kvq):
     qw = t(rng.randn(2, 2, PH, PDH).astype(np.float32))
     assert torch.equal(tpa.paged_verify_attention(qw, k, v, partial, pos, **sc),
                        tpa.paged_verify_attention(qw, k, v, full, pos, **sc))
+
+
+# ---------------------------------------------------------------------
+# the split plain version (the bf16 split-context kernel's computation)
+# over quantized pools: vs the unsplit plain version at atol/rtol 1e-6
+# (outputs reach ~40 here, where one f32 ulp is ~4e-6) and the
+# Pallas kernel's quantized branch at 2e-5, -1 tails bit for bit
+# ---------------------------------------------------------------------
+
+SPLIT_PARTS = [1, 2, 3, 4]  # up to MAXB, the tables' 4 entries
+
+
+def _split_window(kvq, which):
+    """(q [S, R, H, Dh], pools, scales, tables, base) of a window."""
+    kc, vc, ks, vs = _qpool(0, kvq)
+    tables, base, qshape = _WINDOWS[which]
+    q = np.random.RandomState(1).randn(*qshape).astype(np.float32)
+    if which == "decode":
+        q = q[:, None]
+    elif which == "prefill":
+        q, tables, base = q[None], tables[None], np.array([base])
+    return (t(q), _tpool(kc, kvq), _tpool(vc, kvq), t(ks), t(vs),
+            t(tables.astype(np.int32)), t(base.astype(np.int32)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_quant_window(kvq, which):
+    """The Pallas kernel's quantized branch (interpret mode) on a window,
+    as [S, R, H, Dh]."""
+    kc, vc, ks, vs = _qpool(0, kvq)
+    tables, base, qshape = _WINDOWS[which]
+    q = np.random.RandomState(1).randn(*qshape).astype(np.float32)
+    jbase = base if which == "prefill" else jnp.asarray(base, jnp.int32)
+    out = np.asarray(getattr(jpa, "paged_%s_attention" % which)(
+        jnp.asarray(q), _jpool(kc, kvq), _jpool(vc, kvq),
+        jnp.asarray(tables.astype(np.int32)), jbase, interpret=True,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs)))
+    return out[:, None] if which == "decode" else (
+        out[None] if which == "prefill" else out)
+
+
+@pytest.mark.parametrize("parts", SPLIT_PARTS)
+@pytest.mark.parametrize("which", ["decode", "verify", "prefill"])
+@pytest.mark.parametrize("kvq", KVQS)
+def test_split_plain_with_scales_matches_plain_and_jax(kvq, which, parts):
+    q, k, v, ks, vs, tables, base = _split_window(kvq, which)
+    kw = dict(scale=1.0 / np.sqrt(PDH), scale_in_q=which != "decode",
+              k_scale=ks, v_scale=vs)
+    split = tpa.paged_attention_split_plain(q, k, v, tables, base,
+                                            parts=parts, **kw)
+    plain = tpa.paged_attention_plain(q, k, v, tables, base, **kw)
+    assert split.dtype == torch.float32 and split.shape == q.shape
+    torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(split.numpy(), _jax_quant_window(kvq, which),
+                               rtol=_RTOL, atol=_ATOL)
+
+
+@pytest.mark.parametrize("parts", SPLIT_PARTS)
+@pytest.mark.parametrize("kvq", KVQS)
+def test_split_plain_quant_garbage_rows_bit_identical(kvq, parts):
+    """At a fixed partition count, a -1 tail over a quantized pool gives
+    output bit-identical to a full table (decode and verify windows)."""
+    kc, vc, ks, vs = _qpool(2, kvq)
+    k, v = _tpool(kc, kvq), _tpool(vc, kvq)
+    partial = t(np.array([[0, 1, -1, -1], [2, -1, -1, -1]], np.int32))
+    full = t(np.array([[0, 1, 8, 9], [2, 7, 5, 3]], np.int32))
+    pos = t(np.array([9, 5], np.int32))
+    rng = np.random.RandomState(3)
+    for R, scale_in_q in ((1, False), (2, True)):
+        q = t(rng.randn(2, R, PH, PDH).astype(np.float32))
+        a, b = (tpa.paged_attention_split_plain(
+            q, k, v, tbl, pos, scale=0.35, scale_in_q=scale_in_q,
+            parts=parts, k_scale=t(ks), v_scale=t(vs))
+            for tbl in (partial, full))
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The port stands alone: importing every paddle_tpu_torch module pulls in
 neither jax nor the JAX package, and no source of the port (nor
-chip_smoke.py) names either in an import."""
+chip_smoke.py or chip_ab.py) names either in an import."""
 
 import ast
 import os
@@ -49,6 +49,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "chip_ab.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()),

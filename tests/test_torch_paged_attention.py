@@ -9,7 +9,12 @@ suite's own pinned bar (atol/rtol 2e-5, tests/test_paged_kernel.py:
 the two sides differ only in reduction order — one-shot softmax here,
 online (max, sum, acc) in the Pallas kernel). The garbage-row
 invariant (a -1 table tail changes nothing) is checked bit for bit.
+The split plain version (the function of the bf16 split-context
+kernel, partition by partition) is held to the same bars at 1, 2, 3
+and MAXB partitions.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -143,3 +148,94 @@ def test_refuses_quantized_pools_and_foreign_devices():
     with pytest.raises(ValueError, match="CUDA device"):
         tpa.paged_decode_attention(q.to("meta"), _t(k), _t(v), tables,
                                    _t(np.array([1])))
+
+
+# ---------------------------------------------------------------------
+# the split plain version: the bf16 kernel's computation, partition by
+# partition, against the unsplit plain version (atol/rtol 1e-6: the
+# partitions only regroup one f32 softmax, a few ulps) and against the
+# JAX kernel (its bar)
+# ---------------------------------------------------------------------
+
+MAXB = 4
+PARTS = [1, 2, 3, MAXB]
+_SPLIT_WINDOWS = {
+    "decode": ([[0, 1, -1, -1], [2, 3, 4, -1], [5, -1, -1, -1]], [9, 20, 3],
+               (3, 1, H, DH)),
+    "verify": ([[0, 1, 2, -1], [3, 4, -1, -1]], [17, 9], (2, 3, H, DH)),
+    "prefill": ([[6, 1, 2, -1]], [10], (1, 8, H, DH)),
+}
+
+
+def _split_case(which):
+    """(q [S, R, H, Dh], k, v, tables, base) of one window shape."""
+    k, v = _pools(11)
+    tables, base, shape = _SPLIT_WINDOWS[which]
+    q = np.random.RandomState(12).randn(*shape).astype(np.float32)
+    return (q, k, v, np.array(tables, np.int32), np.array(base, np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_window(which):
+    """The JAX kernel (interpret mode) on a window shape, as [S, R, H, Dh]."""
+    q, k, v, tables, base = _split_case(which)
+    args = (jnp.asarray(k), jnp.asarray(v))
+    if which == "decode":
+        out = jpa.paged_decode_attention(jnp.asarray(q[:, 0]), *args,
+                                         jnp.asarray(tables),
+                                         jnp.asarray(base), interpret=True)
+        return np.asarray(out)[:, None]
+    if which == "verify":
+        return np.asarray(jpa.paged_verify_attention(
+            jnp.asarray(q), *args, jnp.asarray(tables), jnp.asarray(base),
+            interpret=True))
+    return np.asarray(jpa.paged_prefill_attention(
+        jnp.asarray(q[0]), *args, jnp.asarray(tables[0]), int(base[0]),
+        interpret=True))[None]
+
+
+def _both_plain(which, q, k, v, tables, base, parts):
+    kw = dict(scale=1.0 / np.sqrt(DH), scale_in_q=which != "decode")
+    args = (_t(q), _t(k), _t(v), _t(tables), _t(base))
+    return (tpa.paged_attention_split_plain(*args, parts=parts, **kw),
+            tpa.paged_attention_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("parts", PARTS)
+@pytest.mark.parametrize("which", ["decode", "verify", "prefill"])
+def test_split_plain_matches_plain_and_jax_kernel(which, parts):
+    split, plain = _both_plain(which, *_split_case(which), parts)
+    assert split.shape == plain.shape and split.dtype == torch.float32
+    torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(split.numpy(), _jax_window(which),
+                               rtol=_RTOL, atol=_ATOL)
+
+
+@pytest.mark.parametrize("parts", PARTS)
+def test_split_plain_garbage_rows_bit_identical(parts):
+    """At a fixed partition count, a -1 table tail gives output
+    bit-identical to a full table, for decode and verify windows."""
+    k, v = _pools(6)
+    rng = np.random.RandomState(7)
+    partial = np.array([[0, 1, -1, -1], [2, -1, -1, -1]], np.int32)
+    full = np.array([[0, 1, 8, 9], [2, 7, 5, 3]], np.int32)
+    pos = np.array([9, 5], np.int32)
+    for R, scale_in_q in ((1, False), (2, True)):
+        q = _t(rng.randn(2, R, H, DH).astype(np.float32))
+        a, b = (tpa.paged_attention_split_plain(
+            q, _t(k), _t(v), _t(tbl), _t(pos), scale=0.35,
+            scale_in_q=scale_in_q, parts=parts) for tbl in (partial, full))
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("parts", PARTS)
+def test_split_plain_parked_row_gets_unsplit_result(parts):
+    """A parked row (pos >= MAXB*Bt) attends its whole table in every
+    partition and gets the unsplit plain version's result."""
+    k, v = _pools(8)
+    tables = np.array([[0, -1, -1, -1], [3, 1, 4, 2]], np.int32)
+    pos = np.array([MAXB * BT, 12], np.int32)
+    q = np.random.RandomState(9).randn(2, 1, H, DH).astype(np.float32)
+    split, plain = _both_plain("decode", q, k, v, tables, pos, parts)
+    assert torch.isfinite(split).all()
+    torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-6)
