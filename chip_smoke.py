@@ -87,20 +87,46 @@ Phases (any failure exits non-zero):
      the reverse); accept rate and tokens/s;
  12. f32, the first 8 requests: spec tokens equal plain-decode tokens
      for kv_quant none and int8;
- 13. read the device time of each of the two CUDA kernels (split and
+ 13. decode windows and async dispatch: bench_serving_megabatch's
+     configuration (bench.py:1093-1180: the model above in bf16, 16
+     slots, 64 requests arriving Poisson at 1 per step with seed 0,
+     prompts of 64-512 tokens, 128 new tokens, even requests greedy and
+     odd ones sampled at T 0.8) through decode_window K in {1, 4, 8},
+     sync and async: every variant's tokens equal K=1 sync's, decode
+     launches = layers x K x windows and prefill launches = layers x
+     chunks, and every steady chained async dispatch (no band dirty)
+     runs under torch.cuda.set_sync_debug_mode("error"); steps/token,
+     band uploads, the host's share outside dispatch-to-sync spans and
+     tokens/s per variant; then the first 16 requests over int8 and fp8
+     pools, K=8 async tokens equal to K=1 sync's;
+ 14. LoRA adapters: phase 3's trace with three of every four requests
+     on one of 3 adapters (rank 8) through a pool of 2 payload slots
+     (adapter_slots=3, as bench.py:2882): zero-adapter requests emit
+     the tokens of an engine without a registry, each adapter request
+     the tokens it emits served alone, launches = layers x steps;
+ 15. KV fingerprints and the durable store: phase 3's trace with
+     kv_fingerprints=True trips nothing and emits the same tokens; the
+     flip@ drill trips exactly once (kind "fingerprint"); in a temp dir,
+     engine A spills a header request's blocks, engine B imports them as
+     a handoff with zero closed-block tokens re-prefilled and A's
+     tokens, and an engine warmed from the store reopened from disk
+     gives A's tokens prefilling only the prompt past the header;
+ 16. read the device time of each of the two CUDA kernels (split and
      merge) of every bf16 paged call timed in phases 2 and 8
      (torch.profiler; last, because a profiler window slows the host
      work of every later phase);
- 14. print the kernels' JSON line (every kernel must have launched on a
-     main path), then the device line last.
+ 17. print the kernels' JSON line (every kernel must have launched on a
+     main path; the paged entries also carry their launches in phases
+     13 and 14), then the device line last.
 
-No request count of phases 9 and 11 is cut; phases 10 and 12 run the
+No request count of phases 9, 11 and 13 is cut; phases 10 and 12 run the
 trace's first 8 requests.
 
 With --profile, torch.profiler also reads the device-busy share and the
 top kernels over the bf16 trace's first steps and steady decode steps,
-over 3 train steps, and over 24 steps of the serving_quant
-configuration with kv_quant none and int8.
+over 3 train steps, over 24 steps of the serving_quant configuration
+with kv_quant none and int8, and over 12 steps of 16 megabatch requests
+at K=1 sync and K=8 async.
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
@@ -401,7 +427,7 @@ def kernel_device_ms(torch, fn, names, n=20):
 def time_case(torch, tpa, which, c, label):
     """Kernel and plain-version device ms with a cold L2, and the bound;
     for bf16 q also the split plain version's time and the partition
-    count, and the call itself (`call`) for phase 13, which reads each of
+    count, and the call itself (`call`) for phase 16, which reads each of
     its two kernels' device time."""
     R, Bt, MAXB = c["q"].shape[1], c["k"].shape[1], c["part"].shape[1]
     ms = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"]))
@@ -953,6 +979,336 @@ def phase_spec_identity(torch, T, ServingEngine, p32, cfg32, dev="cuda",
 
 
 # ---------------------------------------------------------------------
+# phases 13-15: decode windows, adapters, fingerprints and the KV store
+# ---------------------------------------------------------------------
+
+# bench_serving_megabatch's configuration at its chip shape
+# (bench.py:1093-1180): 16 slots, 64 requests arriving Poisson at 1 per
+# step (seed 0), prompts of 64-512 tokens, 128 new tokens each, even
+# requests greedy and odd ones sampled at T 0.8
+MEGABATCH = dict(slots=16, n=64, rate=1.0, p_lo=64, p_hi=512, budget=128)
+WINDOWS = ((1, False), (1, True), (4, False), (4, True), (8, False),
+           (8, True))
+
+
+def megabatch_trace(vocab, seed=0):
+    """bench.py's megabatch trace: [(prompt, max_new, temperature)] and
+    arrival steps, drawn in bench.py's order."""
+    m = MEGABATCH
+    rng = np.random.RandomState(seed)
+    arrive = np.floor(np.cumsum(
+        rng.exponential(1.0 / m["rate"], m["n"]))).astype(int)
+    reqs = [(rng.randint(0, vocab, rng.randint(m["p_lo"], m["p_hi"] + 1))
+             .astype(np.int32), m["budget"], 0.0 if j % 2 == 0 else 0.8)
+            for j in range(m["n"])]
+    return reqs, arrive
+
+
+def _watch_steady_dispatch(torch, eng, dev):
+    """Wrap the engine's window launch: a steady chained launch (chained
+    off the pending window, no band dirty) runs under
+    torch.cuda.set_sync_debug_mode("error"), so any synchronising call
+    in it raises. Returns the list of steady launches seen."""
+    steady = []
+    real = eng._launch_window
+
+    def launch(prev, live):
+        if prev is None or eng._dirty or dev != "cuda":
+            return real(prev, live)
+        up0 = eng.metrics.band_uploads
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rec = real(prev, live)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        check(eng.metrics.band_uploads == up0,
+              "a steady chained dispatch uploaded a band")
+        steady.append(1)
+        return rec
+
+    eng._launch_window = launch
+    return steady
+
+
+def _megabatch_run(torch, tpa, ServingEngine, params, cfg, reqs, arrive,
+                   dev, **kw):
+    """One variant over the megabatch trace after an unmeasured warm-up
+    request, with the paged counters zeroed just before the trace and
+    read just after; returns the per-request tokens and the run's
+    numbers (deltas over the trace)."""
+    eng = ServingEngine(params, cfg, max_slots=MEGABATCH["slots"],
+                        device=dev, **kw)
+    eng.submit(np.arange(1, 9, dtype=np.int32), 4)
+    eng.run()
+    steady = _watch_steady_dispatch(torch, eng, dev)
+    m0 = dict(eng.metrics.report())
+    busy0 = eng.metrics.device_busy_s
+    _sync(torch, dev)
+    zero_launches(tpa)
+    hs, i, step = [], 0, 0
+    t0 = time.monotonic()
+    while i < len(reqs) or eng.live_slots or eng.queue_depth \
+            or eng.prefilling_slots or eng._inflight is not None:
+        while i < len(reqs) and arrive[i] <= step:
+            p, n, temp = reqs[i]
+            hs.append(eng.submit(p, n, temperature=temp, seed=1000 + i))
+            i += 1
+        if not eng.step() and i < len(reqs):
+            step = max(step + 1, int(arrive[i]))  # idle gap: jump
+            continue
+        step += 1
+    _sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = read_launches(tpa)
+    check_served(hs, cfg.vocab)
+    rep = eng.metrics.report()
+    toks = rep["tokens_out"] - m0["tokens_out"]
+    d = {k: rep[k] - m0[k] for k in ("decode_steps", "prefill_chunks",
+                                     "band_uploads")}
+    busy = eng.metrics.device_busy_s - busy0
+    return [list(h.tokens) for h in hs], dict(
+        d, launches=launches, tokens=toks, wall_s=wall,
+        tokens_per_s=toks / wall, steps_per_token=d["decode_steps"] / toks,
+        host_share_outside_dispatch_sync=max(0.0, wall - busy) / wall,
+        steady_chained_dispatches=len(steady))
+
+
+def _check_window_launches(cfg, K, r, label, dev):
+    want = {"decode": cfg.layers * K * r["decode_steps"],
+            "prefill": cfg.layers * r["prefill_chunks"], "verify": 0}
+    if dev == "cuda":
+        check(r["launches"] == want and r["decode_steps"] > 0,
+              "%s launches %s != %s (decode = layers x K x windows)"
+              % (label, r["launches"], want))
+
+
+def phase_windows(torch, T, tpa, ServingEngine, params, cfg, dev="cuda",
+                  n=None, quant_n=16):
+    """Phase 13: the megabatch trace through decode_window K in {1, 4, 8},
+    sync and async: every variant's tokens equal K=1 sync's; decode
+    launches = layers x K x windows, prefill launches = layers x chunks;
+    with async, the steady chained dispatches run under
+    set_sync_debug_mode("error") and at least one runs. Then the first
+    `quant_n` requests over int8 and fp8 pools, K=8 async against K=1
+    sync (kernel 4b on the window path)."""
+    reqs, arrive = megabatch_trace(cfg.vocab)
+    reqs, arrive = reqs[:n], arrive[:n]
+    out, base = {}, None
+    for K, async_on in WINDOWS:
+        label = "K=%d %s" % (K, "async" if async_on else "sync")
+        toks, r = _megabatch_run(torch, tpa, ServingEngine, params, cfg,
+                                 reqs, arrive, dev, decode_window=K,
+                                 async_dispatch=async_on)
+        base = toks if base is None else base
+        if toks != base:
+            bad = next(i for i, (a, b) in enumerate(zip(toks, base))
+                       if a != b)
+            raise AssertionError("%s: request %d diverged from K=1 sync: "
+                                 "%s vs %s" % (label, bad, toks[bad][:16],
+                                               base[bad][:16]))
+        _check_window_launches(cfg, K, r, label, dev)
+        if async_on and dev == "cuda":
+            check(r["steady_chained_dispatches"] > 0,
+                  "%s ran no steady chained dispatch" % label)
+        out[label] = r
+        log("  %-11s %d tokens in %.3f s = %.1f tokens/s; steps/token "
+            "%.4f; band uploads %d; host share outside dispatch-to-sync "
+            "%.4f; launches %s; steady chained dispatches under sync "
+            "debug %d" % (label, r["tokens"], r["wall_s"],
+                          r["tokens_per_s"], r["steps_per_token"],
+                          r["band_uploads"],
+                          r["host_share_outside_dispatch_sync"],
+                          r["launches"], r["steady_chained_dispatches"]))
+    qreqs, qarrive = reqs[:quant_n], arrive[:quant_n]
+    for kvq in ("int8", "fp8"):
+        got = {}
+        for K, async_on in ((1, False), (8, True)):
+            label = "%s K=%d %s" % (kvq, K, "async" if async_on else "sync")
+            got[K], r = _megabatch_run(
+                torch, tpa, ServingEngine, params, cfg, qreqs, qarrive, dev,
+                decode_window=K, async_dispatch=async_on, kv_quant=kvq)
+            _check_window_launches(cfg, K, r, label, dev)
+            out[label] = r
+            log("  %-17s %d tokens, %.1f tokens/s, launches %s"
+                % (label, r["tokens"], r["tokens_per_s"], r["launches"]))
+        check(got[8] == got[1], "%s: K=8 async tokens differ from K=1 sync"
+              % kvq)
+    return out
+
+
+def adapter_registry(cfg, names=("ad_a", "ad_b", "ad_c"), rank=8):
+    from paddle_tpu_torch.serving import AdapterRegistry, make_adapter
+
+    reg = AdapterRegistry()
+    for i, name in enumerate(names):
+        reg.register(name, make_adapter(cfg, rank=rank, seed=i + 1))
+    return reg
+
+
+def phase_adapters(torch, T, tpa, ServingEngine, params, cfg, dev="cuda",
+                   n=None):
+    """Phase 14: phase 3's trace with every request but each fourth on
+    one of 3 adapters through a 2-payload-slot pool (adapter_slots=3,
+    bench.py:2882). The zero-adapter requests emit the tokens of an
+    engine without a registry; the batched adapter requests emit what
+    they emit served one at a time; decode and prefill launches of the
+    batched run = layers x steps."""
+    reqs = trace(cfg)[:n]
+    names = (None, "ad_a", "ad_b", "ad_c")
+    reg = adapter_registry(cfg)
+    kw = dict(ENGINE, adapter_registry=reg, adapter_slots=3)
+
+    def serve(eng, rs):
+        hs = [eng.submit(**r) for r in rs[:-1]]
+        eng.run()
+        hs.append(eng.submit(**rs[-1]))  # after the first copy published
+        eng.run()
+        return [list(h.tokens) for h in hs]
+
+    plain = serve(ServingEngine(params, cfg, device=dev, **ENGINE), reqs)
+    with_ad = [dict(r, adapter=names[i % 4]) for i, r in enumerate(reqs)]
+    eng = ServingEngine(params, cfg, device=dev, **kw)
+    _sync(torch, dev)
+    zero_launches(tpa)
+    t0 = time.monotonic()
+    batched = serve(eng, with_ad)
+    _sync(torch, dev)
+    wall = time.monotonic() - t0
+    launches = read_launches(tpa)
+    rep = eng.metrics.report()
+    want = {"decode": cfg.layers * rep["decode_steps"],
+            "prefill": cfg.layers * rep["prefill_chunks"], "verify": 0}
+    if dev == "cuda":
+        check(launches == want, "adapter launches %s != %s"
+              % (launches, want))
+    zero = [i for i, r in enumerate(with_ad) if r["adapter"] is None]
+    check(all(batched[i] == plain[i] for i in zero),
+          "a zero-adapter request differs from the engine without a "
+          "registry")
+    seq = ServingEngine(params, cfg, device=dev, **kw)
+    for i, r in enumerate(with_ad):
+        if r["adapter"] is None:
+            continue
+        h = seq.submit(**r)
+        seq.run()
+        check(list(h.tokens) == batched[i],
+              "adapter request %d (%s): batched tokens differ from its "
+              "sequential run" % (i, r["adapter"]))
+    moved = sum(batched[i] != plain[i] for i in range(len(reqs))
+                if i not in zero)
+    check(moved > 0, "no adapter changed any request's tokens")
+    pool = rep["adapter_pool"]
+    check(pool["evictions"] >= 1, "3 adapters through 2 payload slots "
+          "never evicted")
+    toks = rep["tokens_out"]
+    log("  %d requests (%d zero-adapter == no registry; %d adapter "
+        "requests == sequential, %d of them moved by their adapter); %d "
+        "tokens in %.3f s = %.1f tokens/s; pool %s; launches %s"
+        % (len(reqs), len(zero), len(reqs) - len(zero), moved, toks, wall,
+           toks / wall, pool, launches))
+    return dict(launches=launches, tokens=toks, wall_s=wall,
+                tokens_per_s=toks / wall, adapter_pool=pool)
+
+
+def phase_integrity_store(torch, T, ServingEngine, params, cfg, dev="cuda",
+                          n=None):
+    """Phase 15: phase 3's trace with kv_fingerprints=True trips nothing
+    and emits phase 3's tokens; the flip@ drill trips exactly once, at
+    the aliased re-open; a durable store in a temp dir: engine A spills,
+    engine B imports a handoff with zero closed-block tokens re-prefilled
+    and A's tokens, and a warm start (the store reopened from disk) gives
+    the same tokens without re-prefilling the header."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed.fault_injection import FaultInjector
+    from paddle_tpu_torch.serving import IntegrityError, KVBlockStore
+
+    reqs = trace(cfg)[:n]
+
+    def serve(eng, rs):
+        hs = [eng.submit(**r) for r in rs[:-1]]
+        eng.run()
+        hs.append(eng.submit(**rs[-1]))
+        eng.run()
+        return [list(h.tokens) for h in hs]
+
+    plain = serve(ServingEngine(params, cfg, device=dev, **ENGINE), reqs)
+    fp = ServingEngine(params, cfg, device=dev, kv_fingerprints=True,
+                       **ENGINE)
+    check(serve(fp, reqs) == plain, "kv_fingerprints changed tokens")
+    st = fp.metrics.report()["block_fingerprints"]
+    check(st["mismatches"] == 0 and st["verified"] > 0
+          and st["committed"] > 0, "clean fingerprint run: %s" % st)
+    log("  fingerprints, clean: %s" % st)
+
+    header = next(r for r in reqs if len(r["prompt"]) >= 160)
+    inj = FaultInjector("")
+    drill = ServingEngine(params, cfg, device=dev, kv_fingerprints=True,
+                          fault_injector=inj, **ENGINE)
+    drill.submit(**header).result()
+    inj.arm("flip@1")
+    tripped = None
+    try:
+        drill.submit(**header).result()
+    except IntegrityError as exc:
+        tripped = exc
+    check(tripped is not None and tripped.kind == "fingerprint"
+          and drill._fp.mismatches == 1,
+          "the flip@ drill did not trip exactly once at the re-open: %r"
+          % (tripped,))
+    log("  flip@ drill: one %s trip (%s)" % (tripped.kind, tripped))
+
+    Bt = ENGINE["kv_block_tokens"]
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(ENGINE, kv_fingerprints=True)
+        store = KVBlockStore(dir=d, block_tokens=Bt)
+        a = ServingEngine(params, cfg, device=dev, kv_store=store, **kw)
+        ha = a.submit(**header)
+        a.run()
+        package = store.chain_fetch(header["prompt"])
+        check(len(package) == 128 // Bt and
+              a.metrics.store_spilled_blocks == len(package),
+              "engine A spilled %d blocks, the store has %d of them"
+              % (a.metrics.store_spilled_blocks, len(package)))
+        b = ServingEngine(params, cfg, device=dev, kv_store=store, **kw)
+        hb = b.submit(handoff=package, **header)
+        b.run()
+        mb = b.metrics
+        check(mb.tokens_recomputed_at_migration == 0
+              and mb.handoff_imports == 1 and mb.handoff_fallbacks == 0
+              and hb.handoff_outcome == {"imported": 128,
+                                         "fallback": False},
+              "handoff: %s" % hb.handoff_outcome)
+        check(hb.tokens == ha.tokens, "handoff tokens differ from A's")
+        store.close()
+        warm_store = KVBlockStore(dir=d, block_tokens=Bt)
+        c = ServingEngine(params, cfg, device=dev, kv_store=warm_store,
+                          kv_store_warm=True, **kw)
+        warmed = c.metrics.store_warm_blocks
+        hc = c.submit(**header)
+        c.run()
+        T0 = len(header["prompt"])
+        check(warmed == len(package) and hc.tokens == ha.tokens
+              and c.metrics.prefill_tokens_computed == T0 - 128,
+              "warm start: %d blocks warmed, %d prefill tokens for a "
+              "%d-token prompt" % (warmed, c.metrics.prefill_tokens_computed,
+                                   T0))
+        warm_store.close()
+    out = dict(fingerprints=st, handoff_blocks=mb.handoff_blocks_imported,
+               handoff_prefill_tokens=mb.prefill_tokens_computed,
+               warm_blocks=warmed,
+               warm_prefill_tokens=c.metrics.prefill_tokens_computed,
+               prompt_tokens=T0)
+    log("  store: A spilled %d blocks; B imported %d (0 recomputed), "
+        "prefilled %d of %d prompt tokens; warm start %d blocks, %d "
+        "prefill tokens; tokens equal" % (
+            len(package), mb.handoff_blocks_imported,
+            mb.prefill_tokens_computed, T0, warmed,
+            c.metrics.prefill_tokens_computed))
+    return out
+
+
+# ---------------------------------------------------------------------
 # phases 5-7: the flash-attention kernels and the training step
 # ---------------------------------------------------------------------
 
@@ -1462,6 +1818,25 @@ def phase_profile_quant(torch, ServingEngine, params, cfg, warm=8, n=24):
         eng.run()
 
 
+def phase_profile_windows(torch, ServingEngine, params, cfg, warm=4, n=12):
+    """torch.profiler over `n` steps of the megabatch configuration's
+    first 16 requests, submitted at once, for K=1 sync and K=8 async,
+    after `warm` unprofiled steps: device busy per step and per token."""
+    reqs, _ = megabatch_trace(cfg.vocab)
+    for K, async_on in ((1, False), (8, True)):
+        eng = ServingEngine(params, cfg, max_slots=MEGABATCH["slots"],
+                            device="cuda", decode_window=K,
+                            async_dispatch=async_on)
+        for i, (p, m, temp) in enumerate(reqs[:16]):
+            eng.submit(p, m, temperature=temp, seed=1000 + i)
+        for _ in range(warm):
+            eng.step()
+        _profile_window(torch, eng.step, n, "K=%d %s, %d steps of %d "
+                        "tokens" % (K, "async" if async_on else "sync", n,
+                                    K))
+        eng.run()
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -1553,9 +1928,22 @@ def main():
     if "--profile" in sys.argv[1:]:
         log("profile: bf16 serving_quant steps under torch.profiler")
         phase_profile_quant(torch, ServingEngine, params, cfg)
-    del params, p32
+    del p32
 
-    log("phase 13: the bf16 paged calls' two kernels under torch.profiler")
+    log("phase 13: decode windows and async dispatch at full width, bf16")
+    windows = phase_windows(torch, T, tpa, ServingEngine, params, cfg)
+    if "--profile" in sys.argv[1:]:
+        log("profile: bf16 decode windows under torch.profiler")
+        phase_profile_windows(torch, ServingEngine, params, cfg)
+
+    log("phase 14: LoRA adapters at full width, bf16")
+    adapters = phase_adapters(torch, T, tpa, ServingEngine, params, cfg)
+
+    log("phase 15: KV fingerprints and the durable KV store, bf16")
+    store = phase_integrity_store(torch, T, ServingEngine, params, cfg)
+    del params
+
+    log("phase 16: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
     kernels = []
@@ -1580,6 +1968,14 @@ def main():
                 split_shared_bytes=tm["shared_bytes"]),
         }
 
+    def window_launches(kvq=None):
+        """The decode window phase's launches of one wrapper, by run."""
+        pre = "" if kvq is None else kvq + " "
+        return {label[len(pre):]: r["launches"]
+                for label, r in windows.items()
+                if label.startswith(pre) and (kvq is not None or
+                                              label.startswith("K="))}
+
     for which in ("decode", "prefill", "verify"):
         tm = timing[which]
         kernels.append(dict({
@@ -1588,6 +1984,9 @@ def main():
             "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
             "launches": (spec["none"]["launches"]["verify"]
                          if which == "verify" else launches[which]),
+            "window_launches": {k: v[which] for k, v in
+                                window_launches().items()},
+            "adapter_launches": adapters["launches"][which],
             "max_abs_err": errs[(which, "bfloat16")],
             "max_abs_err_f32": errs[(which, "float32")],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -1612,6 +2011,8 @@ def main():
                 "route": "cuda", "source": SOURCE,
                 "replaces": TPU_KERNEL + " (quant=True branch)",
                 "launches": n,
+                "window_launches": {k: v[which] for k, v in
+                                    window_launches(kvq).items()},
                 "max_abs_err": qerrs[key + ("bfloat16",)],
                 "max_abs_err_f32": qerrs[key + ("float32",)],
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -1648,6 +2049,9 @@ def main():
     log("serving: %s" % json.dumps(serve))
     log("quantized serving: %s" % json.dumps(quant))
     log("spec decoding: %s" % json.dumps(spec))
+    log("decode windows: %s" % json.dumps(windows))
+    log("adapters: %s" % json.dumps(adapters))
+    log("fingerprints and store: %s" % json.dumps(store))
     log("training: %s" % json.dumps(dict(train, **parity)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,10 +24,10 @@ Differences from JAX that the port makes explicit:
   * JAX drops out-of-range scatter writes and clamps out-of-range
     gathers silently. Here parked rows (dead decode slots, padded chunk
     rows, past-budget verify rows — all resolved to block NB by
-    `_phys_rows`) are masked out before the write, and gathers of the
-    positional table clamp their index explicitly. The pool is never
-    grown by a sentinel block, so `kv_block_bytes` stays the pool's
-    true cost;
+    `_phys_rows`) are dropped by `_RowWriter` without reading anything
+    back to the host, and gathers of the positional table clamp their
+    index explicitly. The pool is never grown by a sentinel block, so
+    `kv_block_bytes` stays the pool's true cost;
   * `make_train_step`'s step updates the parameter tensors IN PLACE
     (JAX returns a new pytree).
 
@@ -35,7 +35,11 @@ Quantized KV pools (kv_quant="int8" | "fp8") store codes with
 per-(physical block, head) f32 scales; fp8 codes are gathered and
 scattered through a uint8 view of the pool.
 
-The MoE, mesh (sequence-parallel) and LoRA-adapter branches of the
+The paged primitives take the reference's LoRA adapter pool
+(`adapters`, `adapter_idx`: per-slot q/v deltas, `_adapter_qv`).
+`decode_window_retire` is the decode window's in-loop retirement rule
+and `paged_block_fingerprint` the KV block checksum of the serving
+integrity layer. The MoE and mesh (sequence-parallel) branches of the
 reference are not ported yet and raise NotImplementedError when asked
 for.
 """
@@ -61,7 +65,8 @@ __all__ = ["TransformerConfig", "init_params", "params_from_numpy",
            "generate", "init_paged_kv_cache", "kv_block_bytes",
            "kv_storage_dtype",
            "paged_decode_step", "paged_prefill_chunk",
-           "paged_verify_step", "logits_trap", "logit_amax"]
+           "paged_verify_step", "logits_trap", "logit_amax",
+           "decode_window_retire", "paged_block_fingerprint"]
 
 
 def _not_ported(what: str, item: str):
@@ -381,13 +386,11 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens,
 # ---------------------------------------------------------------------
 
 
-def _check_paged(kernel, kv_quant, adapters):
+def _check_paged(kernel, kv_quant):
     if kernel not in ("gather", "fused"):
         raise ValueError("paged kernel must be 'gather' or 'fused' (got %r)"
                          % (kernel,))
     _kv_quant_check(kv_quant)
-    if adapters is not None:
-        _not_ported("LoRA adapters", "adapters")
 
 
 # ---------------------------------------------------------------------
@@ -531,21 +534,42 @@ def _phys_rows(tables, wpos, NB, Bt):
 
 
 class _RowWriter(object):
-    """The in-range rows of one primitive call's cache writes, selected
-    once (one device->host sync for the whole call, not per layer):
-    rows `_phys_rows` parked at block NB are never written."""
+    """The cache writes of one primitive call, with the rows
+    `_phys_rows` parked at block NB dropped WITHOUT reading anything back
+    to the host (no `nonzero`, no boolean mask), so a decode window can
+    be dispatched while the previous one still runs.
+
+    Every row is written, but a parked row is redirected to the target
+    of the call's first live row and carries that row's own bytes; when
+    no row of the call is live, every parked row rewrites block 0's
+    offset 0 with the bytes it already holds. Duplicate targets in one
+    scatter therefore always carry identical bytes, so the write is
+    deterministic, a parked row never changes what a live row wrote,
+    and the pool needs no sink block (`kv_block_bytes` stays its true
+    cost and the kernels' shape checks are unchanged)."""
 
     def __init__(self, pk, off, NB):
         self.pk_all, self.off_all = pk, off
-        self.sel = torch.nonzero(pk < NB, as_tuple=True)
-        self.pk = pk[self.sel]
-        self.off = off[self.sel]
+        fpk, foff = pk.reshape(-1).long(), off.reshape(-1).long()
+        n = fpk.shape[0]
+        live = fpk < NB
+        idx = torch.arange(n, device=fpk.device)
+        own = torch.where(live, idx, n)
+        # each row's source among the rows plus one extra row n (block 0
+        # offset 0's current bytes): itself when live, else the first
+        # live row, else the extra row
+        self.src = torch.where(live, own, own.amin(dim=0, keepdim=True))
+        self.pk = F.pad(fpk, (0, 1)).index_select(0, self.src)
+        self.off = F.pad(foff, (0, 1)).index_select(0, self.src)
 
     def write(self, buf, rows):
         """rows [..., H, Dh] shaped like pk -> written into buf in place
         (cast to buf's dtype; fp8 codes through the byte view)."""
-        raw_bytes(buf)[self.pk, self.off] = raw_bytes(
-            rows[self.sel].to(buf.dtype))
+        raw = raw_bytes(buf)
+        vals = raw_bytes(rows.to(buf.dtype)).reshape(
+            (self.src.shape[0],) + tuple(raw.shape[2:]))
+        ext = torch.cat([vals, raw[:1, 0]])
+        raw.index_put_((self.pk, self.off), ext.index_select(0, self.src))
 
 
 def _write_layer(kv, writer, k, v, qmax, commit_from_call=False):
@@ -562,6 +586,45 @@ def _write_layer(kv, writer, k, v, qmax, commit_from_call=False):
     return kv["k_scale"], kv["v_scale"]
 
 
+def _adapter_delta(h, a, b, scale):
+    """LoRA-style low-rank delta h @ A @ B * scale with per-slot adapter
+    gathers: `a` is [d, r] (one slot, the prefill chunk's scalar index)
+    or [S, d, r] (decode [S, d] and verify [S, K, d] activations); `b`
+    and `scale` match. Computed in the pool's dtype (f32), as JAX
+    promotes. The zero adapter (A = B = 0, scale 0) gives exact zeros."""
+    h = h.to(torch.promote_types(h.dtype, a.dtype))
+    if a.dim() == 2:  # one slot
+        return (h @ a) @ b * scale
+    if h.dim() == 2:  # decode: [S, d] x [S, d, r]
+        t = torch.einsum("sd,sdr->sr", h, a)
+        return torch.einsum("sr,srd->sd", t, b) * scale[:, None]
+    t = torch.einsum("skd,sdr->skr", h, a)  # verify: [S, K, d]
+    return torch.einsum("skr,srd->skd", t, b) * scale[:, None, None]
+
+
+def _adapter_qv(h, blk, li, adapters, idx):
+    """q/v projections of layer `li` with the per-slot adapter delta
+    folded in, shared by the three paged primitives. `idx` is the
+    adapter-index band (an int for the chunk's one slot, [S] otherwise);
+    `adapters` the stacked pool ([P, layers, ...], serving/adapters.py).
+    The f32 delta is cast to the activation dtype BEFORE the add, so the
+    zero adapter leaves a bf16 model bit-identical to the base model.
+    Returns (q, v) unshaped."""
+    q = h @ blk["wq"]
+    v = h @ blk["wv"]
+    if adapters is not None:
+        if isinstance(idx, torch.Tensor):
+            idx = idx.long()
+        sc = adapters["scale"][idx]
+        dq = _adapter_delta(h, adapters["a_q"][idx, li],
+                            adapters["b_q"][idx, li], sc)
+        dv = _adapter_delta(h, adapters["a_v"][idx, li],
+                            adapters["b_v"][idx, li], sc)
+        q = q + dq.to(q.dtype)
+        v = v + dv.to(v.dtype)
+    return q, v
+
+
 def paged_decode_step(params, token, pos, tables, cache,
                       cfg: TransformerConfig, adapters=None,
                       adapter_idx=None, kernel="gather", kv_quant="none"):
@@ -571,18 +634,19 @@ def paged_decode_step(params, token, pos, tables, cache,
     nothing; its logits are garbage nothing reads. With `kv_quant`
     ('int8' | 'fp8') writes quantize at the scatter (row-commit) and
     reads dequantize in the kernel or on the gathered view."""
-    _check_paged(kernel, kv_quant, adapters)
+    _check_paged(kernel, kv_quant)
     qmax = _KV_QMAX.get(kv_quant)
     B = token.shape[0]
     dh = cfg.dim // cfg.heads
     NB, Bt = cache[0]["k"].shape[0], cache[0]["k"].shape[1]
     x = params["embed"][token.long()] + _pos_rows(params, pos)
     writer = _RowWriter(*_phys_rows(tables, pos, NB, Bt), NB)
-    for blk, kv in zip(params["blocks"], cache):
+    for li, (blk, kv) in enumerate(zip(params["blocks"], cache)):
         h = _ln(x, blk["ln1"])
-        q = (h @ blk["wq"]).reshape(B, cfg.heads, dh)
+        q, v = _adapter_qv(h, blk, li, adapters, adapter_idx)
+        q = q.reshape(B, cfg.heads, dh)
         k = (h @ blk["wk"]).reshape(B, cfg.heads, dh)
-        v = (h @ blk["wv"]).reshape(B, cfg.heads, dh)
+        v = v.reshape(B, cfg.heads, dh)
         ksc, vsc = _write_layer(kv, writer, k, v, qmax)
         if kernel == "fused":
             from ..parallel.paged_attention import paged_decode_attention
@@ -615,7 +679,7 @@ def paged_prefill_chunk(params, cache, chunk, start_pos, table_row,
     `kv_quant` a chunk commits the scale of every block it opens from
     all its rows in that block (call-commit) and clips into blocks an
     earlier chunk committed; reads dequantize as in paged_decode_step."""
-    _check_paged(kernel, kv_quant, adapters)
+    _check_paged(kernel, kv_quant)
     qmax = _KV_QMAX.get(kv_quant)
     (C,) = chunk.shape
     NB, Bt, H, dh = cache[0]["k"].shape
@@ -629,11 +693,12 @@ def paged_prefill_chunk(params, cache, chunk, start_pos, table_row,
                        torch.full_like(positions, Lv))
     x = params["embed"][chunk.long()][None] + _pos_rows(params, positions)[None]
     writer = _RowWriter(*_phys_rows(table_row, wpos, NB, Bt), NB)
-    for blk, kv in zip(params["blocks"], cache):
+    for li, (blk, kv) in enumerate(zip(params["blocks"], cache)):
         h = _ln(x, blk["ln1"])
-        q = (h @ blk["wq"]).reshape(1, C, H, dh)
+        q, v = _adapter_qv(h, blk, li, adapters, adapter_idx)
+        q = q.reshape(1, C, H, dh)
         k = (h @ blk["wk"]).reshape(1, C, H, dh)
-        v = (h @ blk["wv"]).reshape(1, C, H, dh)
+        v = v.reshape(1, C, H, dh)
         ksc, vsc = _write_layer(kv, writer, k[0], v[0], qmax,
                                 commit_from_call=True)
         if kernel == "fused":
@@ -669,7 +734,7 @@ def paged_verify_step(params, cache, window, pos, wpos, tables,
     opening a block commits its scale alone (row-commit: rejected draft
     rows never reach a scale) and reads dequantize as in
     paged_decode_step."""
-    _check_paged(kernel, kv_quant, adapters)
+    _check_paged(kernel, kv_quant)
     qmax = _KV_QMAX.get(kv_quant)
     S, K = window.shape
     NB, Bt, H, dh = cache[0]["k"].shape
@@ -679,11 +744,12 @@ def paged_verify_step(params, cache, window, pos, wpos, tables,
     positions = pos.long()[:, None] + torch.arange(K, device=dev)[None, :]
     x = params["embed"][window.long()] + _pos_rows(params, positions)
     writer = _RowWriter(*_phys_rows(tables, wpos, NB, Bt), NB)
-    for blk, kv in zip(params["blocks"], cache):
+    for li, (blk, kv) in enumerate(zip(params["blocks"], cache)):
         h = _ln(x, blk["ln1"])
-        q = (h @ blk["wq"]).reshape(S, K, H, dh)
+        q, v = _adapter_qv(h, blk, li, adapters, adapter_idx)
+        q = q.reshape(S, K, H, dh)
         k = (h @ blk["wk"]).reshape(S, K, H, dh)
-        v = (h @ blk["wv"]).reshape(S, K, H, dh)
+        v = v.reshape(S, K, H, dh)
         ksc, vsc = _write_layer(kv, writer, k, v, qmax)
         if kernel == "fused":
             from ..parallel.paged_attention import paged_verify_attention
@@ -724,3 +790,39 @@ def logit_amax(logits, mask=None):
             mask = mask[..., None]
         a = torch.where(mask, a, torch.zeros_like(a))
     return a.max()
+
+
+def decode_window_retire(alive, nxt, pos, limits, eos_ids):
+    """In-window retirement for the decode window, the branch-free
+    device mirror of the engine's `_emit` rule applied after every
+    iteration: a slot that samples its EOS id (`eos_ids` [S], -1 = none)
+    or whose advanced position reaches `limits - 1` (its budget is
+    spent) emits that token and goes dead for the rest of the window;
+    dead slots do not advance. Returns (alive, pos) after the
+    iteration."""
+    live = alive.to(pos.dtype)
+    npos = pos + live
+    hit_eos = (eos_ids >= 0) & (nxt == eos_ids)
+    nalive = alive & ~hit_eos & (npos < limits - 1)
+    return nalive, npos
+
+
+def paged_block_fingerprint(cache, bid):
+    """Folded f32 checksum of ONE physical KV block across every layer
+    and band (payload rows and, on a quantized pool, the per-head scale
+    rows), as a 0-d f32 tensor: position-weighted (element index mod 97,
+    plus 1) so a transposition inside the block moves it, and folded per
+    band and layer with distinct multipliers so a value moving between K
+    and V or between layers cannot cancel. Deterministic for fixed
+    shapes on one device; the summation order differs from the JAX
+    package's, so the two agree to float rounding, not bit for bit."""
+    acc = None
+    for li, kv in enumerate(cache):
+        for bi, band in enumerate(sorted(kv)):
+            x = kv[band][int(bid)].float().reshape(-1)
+            w = torch.arange(x.shape[0], dtype=torch.float32,
+                             device=x.device) % 97.0 + 1.0
+            fold = float(np.float32(1.0 + 0.013 * (li * 7 + bi + 1)))
+            term = torch.sum(x * w) * fold
+            acc = term if acc is None else acc + term
+    return acc

@@ -46,7 +46,30 @@ One engine serves many concurrent requests of a transformer LM:
     row, so quantized spec decode emits the quantized plain path's
     tokens) and dequantized in the paged kernel; `weight_quant="int8"`
     keeps the parameters as per-tensor int8 and dequantizes them at the
-    start of every step.
+    start of every step (once per decode window).
+  * Decode windows and async dispatch — `decode_window` = K runs K
+    decode iterations per dispatch, all on the device: each iteration
+    samples on the same fold_in(seed, count) schedule, retires slots
+    that hit EOS or their budget (`transformer.decode_window_retire`;
+    their later writes park, their lanes emit -1) and stacks its traps
+    [K, S], so the host syncs once per K tokens. `async_dispatch`
+    enqueues window N+1 off window N's device outputs before syncing N;
+    a host event that dirties a device-advanced band breaks the chain.
+    A steady chained dispatch uploads nothing and reads nothing back.
+  * LoRA adapters — `adapter_registry` with `adapter_slots` /
+    `adapter_rank`: a device pool of stacked q/v deltas
+    (serving/adapters.py) gathered per slot by the `aidx` band inside
+    the same batched steps; `submit(adapter=)` resolves or refuses at
+    once; adapter requests never alias or publish the prefix trie.
+  * KV fingerprints — `kv_fingerprints=True` commits a per-block
+    checksum when a block closes (publish), verifies it when another
+    request re-opens the aliased block, and drops it when the block is
+    freed: a flipped block cannot serve a prefix hit.
+  * Durable KV store — `kv_store` (serving/kv_store.py): closed blocks
+    spill as self-describing records at publish; `submit(handoff=)`
+    imports a request's finished prefix after fingerprint verification
+    (re-prefill is the counted fallback); `kv_store_warm=True` (or
+    `warm_from_store()`) restores the store's chains into the trie.
 
 Attention goes through `paged_kernel="fused"` by default on every
 device: on CUDA tensors the Hopper paged-attention kernel, on CPU
@@ -60,9 +83,12 @@ Correctness bar (tested against the JAX engine on the CPU): the same
 trace gives the same tokens per request, greedy and sampled, and the
 same prefix hits, copy-on-writes and block residency.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): decode windows and async dispatch, LoRA adapters, KV
-fingerprints and the durable KV store.
+Every constructor knob and `submit` argument of the reference is taken
+except four constructor arguments: `donate` (the reference donates its
+cache buffers to each compiled step; this cache is updated in place,
+so there is nothing to donate), `prefix_block_tokens` (the reference's
+older name for `kv_block_tokens`), and the fleet's `scheduler_hook`
+and `weights_version`, which wait for the port of serving/fleet.py.
 """
 
 from __future__ import annotations
@@ -80,10 +106,13 @@ from ..distributed import fault_injection as _fi
 from ..models import transformer as tlm
 from ..parallel.kernel_utils import raw_bytes
 from ..utils import prng
-from .integrity import IntegrityError, ServingSentinel
+from .adapters import AdapterPool
+from .integrity import (_FP_RTOL, BlockFingerprints, IntegrityError,
+                        ServingSentinel)
 from .kv_blocks import KVBlockAllocator
+from .kv_store import make_block_record, payload_crc
 from .metrics import ServingMetrics
-from .prefix_cache import PrefixCache
+from .prefix_cache import PrefixCache, chain_keys
 from .quantization import dequantize_params, quantize_params
 
 __all__ = ["ServingEngine", "ServingHandle", "EngineFailed",
@@ -92,10 +121,14 @@ __all__ = ["ServingEngine", "ServingHandle", "EngineFailed",
 # per-slot side-bands the decode step reads; kept device-resident and
 # re-uploaded only when a scheduler event dirties one
 _BANDS = ("tok", "pos", "alive", "temps", "counts", "base_keys", "tables",
-          "limits")
+          "limits", "aidx", "eos")
 
-_ROADMAP_WINDOW = "the engine's decode-window and async path"
-_ROADMAP_STORE = "integrity fingerprints and the KV store"
+# bands the decode window ADVANCES on the device: a host event that
+# dirties one of these between dispatch and sync (admission,
+# retirement, cancel, expiry) means the device copies no longer carry
+# host truth, so the async chain must break and re-upload. The other
+# bands are host truth only (the device never writes them).
+_DEVICE_ADVANCED = frozenset(("tok", "pos", "alive", "counts"))
 
 
 def bucket_pow2(m: int, floor: int = 8) -> int:
@@ -108,9 +141,15 @@ def bucket_pow2(m: int, floor: int = 8) -> int:
     return b
 
 
-def _refuse(knob: str, item: str):
-    raise NotImplementedError("ServingEngine(%s) is not ported yet — "
-                              "ROADMAP: %s" % (knob, item))
+def _dtype_name(t) -> str:
+    """A tensor's dtype as the KV store's meta rows spell it (numpy's
+    names: "float32", "bfloat16", "int8", "float8_e4m3fn")."""
+    return str(t.dtype).replace("torch.", "")
+
+
+def _row_bytes(t):
+    """One contiguous block row of a pool band as flat uint8."""
+    return t.reshape(-1).view(torch.uint8)
 
 
 class EngineFailed(RuntimeError):
@@ -133,11 +172,15 @@ class ServingHandle(object):
     already emitted: they become prefill context, only the remainder is
     decoded, and the sampling key schedule continues at index
     `resume_len`. `tokens` holds only the newly generated tokens;
-    `result()` returns the full sequence."""
+    `result()` returns the full sequence. `adapter` names the request's
+    adapter (None = the base model); `handoff` is a durable-KV package
+    (the finished prefix's store records), judged at admission, whose
+    outcome lands in `handoff_imported` / `handoff_fallback` /
+    `handoff_outcome`."""
 
     def __init__(self, engine, rid, prompt, max_new_tokens, temperature,
                  eos_id, seed, publish_len, deadline_at=None,
-                 resume_tokens=None):
+                 resume_tokens=None, adapter=None, handoff=None):
         self._engine = engine
         self.rid = rid
         self.prompt = prompt  # np.int32 [T0] — the original prompt
@@ -156,6 +199,11 @@ class ServingHandle(object):
         # prefix pool (None = the whole prompt)
         self.publish_len = publish_len
         self.deadline_at = deadline_at  # absolute time.monotonic()
+        self.adapter = adapter
+        self.handoff = handoff
+        self.handoff_imported = 0       # tokens imported clean
+        self.handoff_fallback = False   # any re-prefill shortfall
+        self.handoff_outcome = None     # set once the package is judged
         self.tokens: List[int] = []  # generated tokens (may include eos)
         self.done = False
         # 'eos' | 'budget' | 'expired' | 'cancelled'
@@ -196,7 +244,11 @@ class ServingEngine(object):
     `integrity_spike_factor`, `replica_id` and `fault_injector` as in
     the reference; `spec_draft_len` (verify window K; None or < 2 = plain
     decode), `kv_quant` ("none" | "int8" | "fp8") and `weight_quant`
-    (None | "int8") as in the reference. `params` must already live on
+    (None | "int8"); `decode_window` (K decode iterations per dispatch;
+    None or 1 with `async_dispatch=False` is the one-token step) and
+    `async_dispatch`; `adapter_registry`, `adapter_slots` (pool slots,
+    slot 0 the zero adapter) and `adapter_rank`; `kv_fingerprints`;
+    `kv_store` and `kv_store_warm`. `params` must already live on
     `device` (CUDA by default)."""
 
     def __init__(self, params, cfg, max_slots=8, max_len=None,
@@ -205,39 +257,36 @@ class ServingEngine(object):
                  kv_block_tokens=None, kv_pool_blocks=None,
                  spec_draft_len=None, replica_id=None,
                  fault_injector=None, adapter_registry=None,
+                 adapter_slots=8, adapter_rank=None,
                  paged_kernel="fused", kv_quant="none", weight_quant=None,
                  integrity_traps=True, kv_fingerprints=False,
                  integrity_spike_factor=None, kv_store=None,
-                 decode_window=None, async_dispatch=False, device=None):
+                 kv_store_warm=False, decode_window=None,
+                 async_dispatch=False, device=None):
         if spec_draft_len is not None and int(spec_draft_len) < 0:
             raise ValueError("spec_draft_len must be >= 0 or None")
         # K < 2 means no drafts to verify: the plain decode step
         self.spec_draft_len = (
             int(spec_draft_len) if spec_draft_len and int(spec_draft_len) >= 2
             else None)
+        dw = 1 if decode_window is None else int(decode_window)
+        if dw < 1:
+            raise ValueError("decode_window must be >= 1 or None")
+        self.decode_window = dw
+        self.async_dispatch = bool(async_dispatch)
         if self.spec_draft_len is not None and (
-                decode_window not in (None, 1) or async_dispatch):
+                dw > 1 or self.async_dispatch):
             raise ValueError(
                 "spec_draft_len composes with neither decode_window>1 "
                 "nor async_dispatch: speculative acceptance is a host "
                 "decision after every verify step — run spec with "
                 "decode_window=1 and async_dispatch=False")
-        if decode_window not in (None, 1):
-            _refuse("decode_window>1", _ROADMAP_WINDOW)
-        if async_dispatch:
-            _refuse("async_dispatch", _ROADMAP_WINDOW)
-        if adapter_registry is not None:
-            _refuse("adapter_registry", "adapters")
         tlm._kv_quant_check(kv_quant)
         self.kv_quant = kv_quant
         if weight_quant not in (None, "int8"):
             raise ValueError("weight_quant must be None or 'int8' (got %r)"
                              % (weight_quant,))
         self.weight_quant = weight_quant
-        if kv_store is not None:
-            _refuse("kv_store", _ROADMAP_STORE)
-        if kv_fingerprints:
-            _refuse("kv_fingerprints", _ROADMAP_STORE)
         if paged_kernel not in ("fused", "gather"):
             raise ValueError("paged_kernel must be 'fused' or 'gather' "
                              "(got %r)" % (paged_kernel,))
@@ -281,11 +330,22 @@ class ServingEngine(object):
                 "scalar)")
         self._sentinel = ServingSentinel(
             spike_factor=integrity_spike_factor)  # guarded-by: scheduler
+        if kv_fingerprints and not prefix_cache_tokens:
+            # fingerprints commit at trie publish and verify at aliased
+            # re-open: with no prefix cache neither point exists
+            raise ValueError(
+                "kv_fingerprints needs the prefix cache (pass "
+                "prefix_cache_tokens=): fingerprints commit at trie "
+                "publish and verify at aliased re-open — with no "
+                "cache neither audit point ever runs")
+        self._fp: Optional[BlockFingerprints] = (
+            BlockFingerprints() if kv_fingerprints else None)  # guarded-by: scheduler
         self.metrics = ServingMetrics(S)
         self.metrics.paged_kernel = paged_kernel
         self.metrics.kv_quant = kv_quant
         self.metrics.weight_quant = weight_quant
         self.metrics.spec = self.spec_draft_len is not None
+        self.metrics.block_fp = self._fp
         self.metrics.kv_blocks_total = NB
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         self.kv_block_bytes = tlm.kv_block_bytes(
@@ -295,10 +355,20 @@ class ServingEngine(object):
             NB, Bt, block_bytes=self.kv_block_bytes)  # guarded-by: scheduler
         self.prefix_cache: Optional[PrefixCache] = None
         if prefix_cache_tokens:
+            # evictions go through _decref_block: a block eviction frees
+            # drops its fingerprint with it
             self.prefix_cache = PrefixCache(
                 int(prefix_cache_tokens), block_tokens=Bt,
-                on_evict=self._alloc.decref)
+                on_evict=self._decref_block)
             self.metrics.prefix_cache = self.prefix_cache
+        # the adapter pool: slot 0 is the zero adapter, so requests
+        # without one are exact no-ops
+        self._adapter_pool: Optional[AdapterPool] = None  # guarded-by: scheduler
+        if adapter_registry is not None:
+            self._adapter_pool = AdapterPool(
+                cfg, adapter_registry, adapter_slots, rank=adapter_rank,
+                device=self.device)
+            self.metrics.adapter_pool = self._adapter_pool
         self._cache = tlm.init_paged_kv_cache(cfg, NB, Bt, dtype=cfg.dtype,
                                               kv_quant=kv_quant,
                                               device=self.device)
@@ -322,8 +392,12 @@ class ServingEngine(object):
         self._tables = np.full((S, self.blocks_per_slot), -1,
                                np.int32)      # guarded-by: scheduler
         # per-slot position limit (T0 + max_new): verify rows at or past
-        # it park their writes
+        # it park their writes, and the decode window retires at it
         self._limits = np.zeros(S, np.int32)  # guarded-by: scheduler
+        # per-slot adapter-pool slot (0 = the zero adapter) and EOS id
+        # (-1 = none; the decode window judges EOS on the device)
+        self._aidx = np.zeros(S, np.int32)    # guarded-by: scheduler
+        self._eos = np.full(S, -1, np.int32)  # guarded-by: scheduler
         self._n_alloc = np.zeros(S, np.int32)  # table entries >= 0  # guarded-by: scheduler
         self._reserved_tail = np.zeros(S, np.int32)  # guarded-by: scheduler
         self._dev: Dict[str, Any] = {}        # guarded-by: scheduler
@@ -341,12 +415,38 @@ class ServingEngine(object):
         # any request ever carried a deadline -> the per-step expiry
         # sweep runs; stays False (zero hot-path cost) otherwise
         self._deadlines = False               # guarded-by: scheduler
+        # ONE decode function per engine: the window engine never runs
+        # the one-token step, and the one-token engine never builds the
+        # window
+        self._use_window = dw > 1 or self.async_dispatch
+        self._window_fn = (self._make_decode_window() if self._use_window
+                           else None)
+        # the one dispatched-not-yet-synced window (async dispatch);
+        # sync mode never leaves one pending
+        self._inflight: Optional[dict] = None  # guarded-by: scheduler
         self.replica_id = replica_id
         self._failed: Optional[EngineFailed] = None  # guarded-by: scheduler
         # fault-injection tick source for step(): an explicit injector,
         # or (resolved on the first step) the process-wide default when
         # PADDLE_FAULT is set, else an inert one
         self._injector = fault_injector       # guarded-by: scheduler
+        # the durable KV tier: closed blocks spill to it at publish;
+        # handoff imports and warm starts read from it
+        if kv_store is not None and int(kv_store.block_tokens) != Bt:
+            raise ValueError(
+                "kv_store block geometry mismatch: store has "
+                "block_tokens=%d, engine has %d — records would never "
+                "align with the trie chain keys"
+                % (int(kv_store.block_tokens), Bt))
+        if kv_store is not None and self.prefix_cache is None:
+            raise ValueError(
+                "kv_store needs the prefix cache (pass "
+                "prefix_cache_tokens=): blocks spill at trie publish "
+                "and warm-start restores into the trie")
+        self._kv_store = kv_store             # thread: shared (store locks itself)
+        self.metrics.kv_store = kv_store
+        if kv_store is not None and kv_store_warm:
+            self.warm_from_store()
 
     def _check_params_device(self, params):
         want = self.device
@@ -386,7 +486,8 @@ class ServingEngine(object):
         write_pos = torch.where(alive, pos, torch.full_like(pos, Lv))
         logits, _ = tlm.paged_decode_step(
             self._step_params(), tok, write_pos, tables, self._cache,
-            self._cfg, kernel=self.paged_kernel, kv_quant=self.kv_quant)
+            self._cfg, kernel=self.paged_kernel, kv_quant=self.kv_quant,
+            **self._adapter_args(self._band("aidx")))
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         if len(sample_rows):
             # only the live sampled rows draw: their tokens depend on
@@ -417,7 +518,7 @@ class ServingEngine(object):
         logits, _ = tlm.paged_verify_step(
             self._step_params(), self._cache, window, pos, wpos,
             self._band("tables"), self._cfg, kernel=self.paged_kernel,
-            kv_quant=self.kv_quant)
+            kv_quant=self.kv_quant, **self._adapter_args(self._band("aidx")))
         cand = torch.argmax(logits, dim=-1).to(torch.int32)
         if len(sample_rows):
             # window row i samples token index counts + i: the plain
@@ -436,6 +537,72 @@ class ServingEngine(object):
         # any corrupt row in a slot's window trips the slot
         trap = tlm.logits_trap(logits).any(dim=-1) & alive
         return cand, trap, tlm.logit_amax(logits, alive)
+
+    def _make_decode_window(self):
+        """The K-token decode window: K iterations of the one-token step's
+        body, all on the device. Each iteration writes every slot's
+        pending token (parked lanes write to position Lv, past the
+        table: `_RowWriter` drops them), picks greedy or sampled next
+        tokens on the same fold_in(base_key, count) schedule (counts
+        advance per live iteration, so sampled tokens do not depend on
+        K; sampled rows come from the device bands, so a dispatch
+        uploads nothing), then applies `decode_window_retire`: a slot
+        hitting EOS or its budget emits that token and parks. Dead lanes
+        emit -1. Traps stack per iteration ([K, S], scales [K]), so a
+        trip in iteration j poisons only tokens >= j. int8 weights
+        dequantize once per window. Returns the advanced device bands
+        (tok, pos, alive, counts) and one flat int32 tensor the host
+        reads in a single copy: rows [2K+4, S] of the emitted tokens
+        [K, S], the four bands and the traps [K, S], then the K scales'
+        f32 bits (traps and scales are zeros with traps off)."""
+        cfg, K = self._cfg, self.decode_window
+        Lv = self.blocks_per_slot * self.kv_block_tokens
+        kernel, kv_quant = self.paged_kernel, self.kv_quant
+        traps_on = self.integrity_traps
+
+        def _window(tables, tok, pos, alive, temps, counts, base_keys,
+                    limits, eos, aidx):
+            params = self._step_params()
+            adapters = self._adapter_args(aidx)
+            sampled = temps > 0
+            safe_t = torch.where(sampled, temps, torch.ones_like(temps))
+            toks, traps, scales = [], [], []
+            for _ in range(K):
+                write_pos = torch.where(alive, pos,
+                                        torch.full_like(pos, Lv))
+                logits, _ = tlm.paged_decode_step(
+                    params, tok, write_pos, tables, self._cache, cfg,
+                    kernel=kernel, kv_quant=kv_quant, **adapters)
+                greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+                keys = prng.fold_in(base_keys, counts)
+                drawn = prng.categorical(
+                    keys, logits.float() / safe_t[:, None]).to(torch.int32)
+                nxt = torch.where(sampled, drawn, greedy)
+                if traps_on:
+                    traps.append(tlm.logits_trap(logits) & alive)
+                    scales.append(tlm.logit_amax(logits, alive))
+                toks.append(torch.where(alive, nxt,
+                                        torch.full_like(nxt, -1)))
+                live = alive.to(torch.int32)
+                nalive, npos = tlm.decode_window_retire(
+                    alive, nxt, pos, limits, eos)
+                tok = torch.where(alive, nxt, tok)
+                counts = counts + live
+                pos, alive = npos, nalive
+            if traps_on:
+                trap_rows = torch.stack(traps).to(torch.int32)
+                bits = torch.stack(scales).float().view(torch.int32)
+            else:
+                trap_rows = torch.zeros((K, tok.shape[0]), dtype=torch.int32,
+                                        device=tok.device)
+                bits = torch.zeros(K, dtype=torch.int32, device=tok.device)
+            ints = torch.cat([torch.stack(toks), tok[None], pos[None],
+                              alive.to(torch.int32)[None], counts[None],
+                              trap_rows])
+            return (tok, pos, alive, counts), torch.cat(
+                [ints.reshape(-1), bits])
+
+        return _window
 
     def _traps(self, logits, mask=None):
         if not self.integrity_traps:
@@ -459,6 +626,9 @@ class ServingEngine(object):
     # ------------------------------------------------------------------
     def _band(self, name):
         if name in self._dirty:
+            # a blocking copy on purpose: the scheduler rewrites these
+            # numpy buffers in place, and a non_blocking upload from
+            # pageable memory could read a later value
             self._dev[name] = torch.tensor(getattr(self, "_" + name),
                                            device=self.device)
             self._dirty.discard(name)
@@ -467,6 +637,15 @@ class ServingEngine(object):
 
     def _mark_dirty(self, *names):
         self._dirty.update(names or _BANDS)
+
+    def _adapter_args(self, aidx) -> dict:
+        """The paged primitives' adapter kwargs when the adapter pool is
+        on (the stacked pool tensors and `aidx`: the [S] device band, or
+        the chunk's one slot as an int); empty otherwise."""
+        if self._adapter_pool is None:
+            return {}
+        return {"adapters": self._adapter_pool.device_arrays(),
+                "adapter_idx": aidx}
 
     # ------------------------------------------------------------------
     # integrity
@@ -500,6 +679,21 @@ class ServingEngine(object):
                       self._sentinel.detector.ewma or 0.0,
                       self._sentinel.detector.spike_factor))
 
+    def _fp_of(self, bid: int) -> float:
+        """Recompute one physical block's fingerprint on the device (a
+        sync: the value is read back)."""
+        return float(tlm.paged_block_fingerprint(self._cache, int(bid)))
+
+    def _decref_block(self, bid) -> bool:
+        """Drop one pool reference; a block actually FREED also drops
+        its committed fingerprint (a recycled id must never be judged
+        against its previous tenant's checksum). Every engine-side
+        release goes through here (retirement, trie eviction)."""
+        freed = self._alloc.decref(bid)
+        if freed and self._fp is not None:
+            self._fp.drop(int(bid))
+        return freed
+
     def _flip_resident_block(self):
         """Consume a flip@ fault: corrupt the lowest in-use physical
         block's K payload in place with finite garbage (re-armed while
@@ -511,6 +705,131 @@ class ServingEngine(object):
             return
         buf = self._cache[0]["k"]
         buf[bid] = (buf[bid].float() * -1.0 + 1.7).to(buf.dtype)
+
+    # ------------------------------------------------------------------
+    # durable KV tier
+    # ------------------------------------------------------------------
+    def _serialize_block(self, bid: int):  # band-verb: serialize
+        """Flatten one physical block across every layer and band into
+        (payload bytes, meta rows): meta rows are ("li.band", dtype,
+        shape per block) in the sorted-band order
+        `paged_block_fingerprint` folds, so a record is self-describing
+        (codes and scale rows travel together) and its fingerprint is
+        recomputable from the payload alone. One device-to-host copy."""
+        parts, meta = [], []
+        b = int(bid)
+        for li, kv in enumerate(self._cache):
+            for band in sorted(kv):
+                row = kv[band][b]
+                meta.append(("%d.%s" % (li, band), _dtype_name(row),
+                             tuple(int(x) for x in row.shape)))
+                parts.append(_row_bytes(row))
+        return torch.cat(parts).cpu().numpy().tobytes(), meta
+
+    def _upload_block_record(self, rec, bid: int) -> bool:  # band-verb: import
+        """Write one store record's payload into physical block `bid` in
+        place. Every meta row is validated against this engine's cache
+        geometry before anything is written: False (and an untouched
+        cache) on any layer, band, dtype, shape or length mismatch."""
+        payload = rec["payload"]
+        off = 0
+        planned = []
+        for name, dtype, shape in rec["meta"]:
+            li_s, _, band = str(name).partition(".")
+            try:
+                li = int(li_s)
+            except ValueError:
+                return False
+            if li < 0 or li >= len(self._cache) \
+                    or band not in self._cache[li]:
+                return False
+            buf = self._cache[li][band]
+            shape = tuple(int(x) for x in shape)
+            if shape != tuple(buf.shape[1:]) or _dtype_name(buf) != dtype:
+                return False
+            n = int(np.prod(shape, dtype=np.int64)) * buf.element_size()
+            chunk = payload[off:off + n]
+            if len(chunk) != n:
+                return False
+            off += n
+            planned.append((buf, np.frombuffer(chunk, np.uint8)))
+        if off != len(payload):
+            return False
+        b = int(bid)
+        for buf, raw in planned:
+            _row_bytes(buf[b]).copy_(torch.from_numpy(raw.copy()))
+        return True
+
+    def _record_fp_ok(self, rec, fp_d) -> bool:
+        """The handoff/warm transfer checksum: the fingerprint recomputed
+        on this device after upload vs the record's committed one (the
+        aliased re-open's tolerance)."""
+        exp = float(rec["fp"])
+        return abs(float(fp_d) - exp) <= _FP_RTOL * max(1.0, abs(exp))
+
+    def warm_from_store(self) -> int:  # band-verb: import
+        """Restore the durable store's chains into this engine's prefix
+        trie (a restart's warm start): parents before children, each
+        block crc- and fingerprint-verified on upload and grafted under
+        the trie, which takes the fresh block's one pool reference.
+        Corrupt entries are skipped and quarantined with their whole
+        subtree (a child's context is its ancestors' payloads). Stops at
+        the trie's token budget or when the pool runs out. Returns the
+        blocks restored."""
+        store = self._kv_store
+        pc = self.prefix_cache
+        if store is None or pc is None:
+            return 0
+        Bt = self.kv_block_tokens
+        n_warm = 0
+        chain: Dict[int, list] = {}  # key -> tokens through this block
+        skipped = set()
+        for rec in store.iter_chains():
+            key = rec["key"]
+            par = rec["parent"]
+            if par in skipped:
+                skipped.add(key)  # corrupt ancestor: subtree is dead
+                continue
+            if par != 0 and par not in chain:
+                continue  # unrooted (hole upstream): nothing to graft
+            toks = (chain[par] if par else []) \
+                + [int(t) for t in rec["tokens"]]
+            depth = len(toks) // Bt
+            m = pc.match(np.asarray(toks, np.int32), record=False)
+            have = m.length
+            m.release()
+            if have >= depth * Bt:
+                chain[key] = toks  # already resident (or just warmed)
+                continue
+            if pc.size_tokens + Bt > pc.token_budget:
+                break  # budget: deeper warms would evict earlier ones
+            if len(rec["payload"]) != rec["nbytes"] \
+                    or payload_crc(rec["payload"]) != rec["crc"]:
+                store.quarantine(key)
+                self.metrics.store_quarantined += 1
+                skipped.add(key)
+                continue
+            bid = self._alloc.try_alloc()
+            if bid is None:
+                break  # pool pressure: serve traffic over warmth
+            ok = self._upload_block_record(rec, bid)
+            fp_d = self._fp_of(bid) if ok else None
+            if not ok or not self._record_fp_ok(rec, fp_d):
+                self._decref_block(bid)
+                store.quarantine(key)
+                self.metrics.store_quarantined += 1
+                skipped.add(key)
+                continue
+            if self._fp is not None:
+                self._fp.commit(bid, fp_d)
+            # ancestors are resident (the chain gate above), so only
+            # this deepest block is novel to the publish
+            pc.publish(np.asarray(toks, np.int32), depth,
+                       lambda _d, b=bid: b)
+            n_warm += 1
+            self.metrics.store_warm_blocks += 1
+            chain[key] = toks
+        return n_warm
 
     # ------------------------------------------------------------------
     # block bookkeeping
@@ -552,7 +871,7 @@ class ServingEngine(object):
         freed = 0
         for b in range(self.blocks_per_slot):
             bid = int(self._tables[s, b])
-            if bid >= 0 and self._alloc.decref(bid):
+            if bid >= 0 and self._decref_block(bid):
                 freed += 1
         tail = int(self._reserved_tail[s])
         if tail:
@@ -577,11 +896,12 @@ class ServingEngine(object):
         blocks than the whole pool) raise; a merely saturated pool
         queues. `publish_len` bounds what the prefix pool may publish;
         `deadline_at` is an absolute time.monotonic() budget;
-        `resume_tokens` are tokens an earlier incarnation emitted."""
-        if adapter is not None:
-            _refuse("submit(adapter=)", "adapters")
-        if handoff is not None:
-            _refuse("submit(handoff=)", _ROADMAP_STORE)
+        `resume_tokens` are tokens an earlier incarnation emitted;
+        `adapter` names a registered adapter (resolved now: an unknown
+        one, or any adapter on an engine without a pool, raises);
+        `handoff` is the finished prefix's durable-KV records, imported
+        at admission after fingerprint verification (re-prefill is the
+        counted fallback, never a wrong token)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         T0 = prompt.shape[0]
         if T0 < 1:
@@ -603,10 +923,21 @@ class ServingEngine(object):
                    self.num_kv_blocks, self.kv_block_tokens))
         if publish_len is not None and publish_len < 0:
             raise ValueError("publish_len must be >= 0 or None")
+        if adapter is not None:
+            # resolve or refuse NOW, never at admission in the scheduler
+            if self._adapter_pool is None:
+                raise ValueError(
+                    "request names adapter %r but the engine has no "
+                    "adapter pool (pass adapter_registry=)" % (adapter,))
+            if not self._adapter_pool.registry.has(adapter):
+                raise ValueError("unknown adapter %r (registered: %r)"
+                                 % (adapter,
+                                    self._adapter_pool.registry.names()))
         h = ServingHandle(self, self._next_rid, prompt, max_new_tokens,
                           temperature, eos_id, seed, publish_len,
                           deadline_at=deadline_at,
-                          resume_tokens=resume_tokens)
+                          resume_tokens=resume_tokens, adapter=adapter,
+                          handoff=handoff)
         self._next_rid += 1
         if deadline_at is not None:
             self._deadlines = True
@@ -632,6 +963,12 @@ class ServingEngine(object):
         self._slot_req[s] = None
         self._alive[s] = False
         self._spec_ctx.pop(s, None)
+        if self._adapter_pool is not None:
+            # drop the request's pin (residency keeps the adapter warm)
+            # and point the band back at the zero adapter
+            self._adapter_pool.release(int(self._aidx[s]))
+            self._aidx[s] = 0
+            self._mark_dirty("aidx")
         self._free_slot_blocks(s)
         self.metrics.kv_blocks_in_use = self._alloc.blocks_in_use
         self._mark_dirty("alive")
@@ -666,15 +1003,20 @@ class ServingEngine(object):
     def _admit(self, h: ServingHandle, s: int) -> bool:  # band-verb: alias
         """Try to assign free slot s: alias the longest cached prefix
         chain's physical blocks into the slot's table (ref-counted,
-        zero-copy), copy-on-write any aliased block the suffix must
-        write into, and reserve the worst-case remainder. Returns False
-        — request stays queued, engine state untouched — when the pool
-        cannot cover the reservation even after reclaiming idle trie
-        blocks."""
+        zero-copy; fingerprint-verified when fingerprints are on),
+        copy-on-write any aliased block the suffix must write into,
+        reserve the worst-case remainder, pin the request's adapter and
+        import its handoff package. Returns False — request stays
+        queued, engine state untouched — when the pool (or the adapter
+        pool) cannot take it yet."""
         T0 = h.full_prompt.shape[0]
         Bt = self.kv_block_tokens
         need_total = self._blocks_for(T0 + h.max_new_tokens)
-        pc = self.prefix_cache
+        aslot = 0
+        pool = self._adapter_pool
+        # an adapted model writes adapter-specific K/V: adapter requests
+        # skip the token-keyed trie both ways (see _publish)
+        pc = self.prefix_cache if h.adapter is None else None
         # a pure PROBE: retries of a block-starved request must not
         # inflate hit/miss stats or restamp LRU order
         m = pc.match(h.full_prompt, record=False) if pc is not None else None
@@ -706,12 +1048,38 @@ class ServingEngine(object):
             self._reclaim_for(need_new)
             if not self._alloc.reserve(need_new):
                 return False  # saturated: stay queued (backpressure)
+            if pool is not None:
+                # pinned AFTER the block reservation, so a block-starved
+                # retry never touches adapter stats or LRU; a pool whose
+                # every slot is pinned leaves the request queued
+                aslot = pool.acquire(h.adapter)
+                if aslot is None:
+                    self._alloc.release_reservation(need_new)
+                    return False
             if pc is not None:
                 pc.record_miss()
         else:
             try:
                 if not self._alloc.reserve(need_new):
                     return False  # unreachable single-threaded; defensive
+                if pool is not None:
+                    aslot = pool.acquire(None)  # trie hits carry none
+                if self._fp is not None and n_alias:
+                    # the aliased re-open audit point: another request is
+                    # about to attend through these blocks. All
+                    # reductions are queued before the one readback
+                    fps = torch.stack([
+                        tlm.paged_block_fingerprint(
+                            self._cache, int(m.payloads[d]))
+                        for d in range(n_alias)]).cpu().numpy()
+                    for d in range(n_alias):
+                        bid = int(m.payloads[d])
+                        if not self._fp.check(bid, float(fps[d])):
+                            self._trip(
+                                "fingerprint",
+                                "KV block %d fingerprint mismatch on "
+                                "aliased re-open (committed %r)"
+                                % (bid, self._fp.expected(bid)))
                 pc.record_hit(m)
                 keep = n_alias - n_cow
                 for d in range(keep):
@@ -725,8 +1093,32 @@ class ServingEngine(object):
                     self.metrics.cow_blocks += 1
             finally:
                 m.release()
-        self._n_alloc[s] = n_alias
-        self._reserved_tail[s] = need_new - n_cow
+        n_imp, imp_fail = self._import_handoff(h, s, n_alias)
+        if n_imp:
+            cursor = min((n_alias + n_imp) * Bt, T0 - 1)
+        # the zero-recompute audit: closed-block prompt tokens the source
+        # had finished vs where this prefill starts (the final prompt
+        # token always computes). A resumed admission without a package
+        # charges every closed block it re-prefills.
+        package = h.handoff
+        expected = 0
+        if package:
+            expected = min(len(package) * Bt, T0 - 1)
+        elif h.resume_len > 0:
+            expected = min((T0 // Bt) * Bt, T0 - 1)
+        recomputed = max(0, expected - cursor)
+        self.metrics.tokens_recomputed_at_migration += recomputed
+        if package:
+            if recomputed > 0 or imp_fail:
+                self.metrics.handoff_fallbacks += 1
+                h.handoff_fallback = True
+            else:
+                self.metrics.handoff_imports += 1
+            h.handoff_outcome = {"imported": h.handoff_imported,
+                                 "fallback": h.handoff_fallback}
+            h.handoff = None  # release the payload bytes
+        self._n_alloc[s] = n_alias + n_imp
+        self._reserved_tail[s] = need_new - n_cow - n_imp
         if pc is not None:
             self.metrics.prefix_hit_tokens.append(cursor if n_alias else 0)
         h.queue_wait_s = time.monotonic() - h.submit_t
@@ -734,7 +1126,8 @@ class ServingEngine(object):
         self.metrics.kv_blocks_in_use = self._alloc.blocks_in_use
         self._slot_req[s] = h
         self._limits[s] = T0 + h.max_new_tokens
-        self._mark_dirty("tables", "limits")
+        self._aidx[s] = aslot
+        self._mark_dirty("tables", "limits", "aidx")
         # the first-token sampling key: token index resume_len of the
         # request's fold_in schedule, consumed on the final chunk
         self._prefill_state[s] = {
@@ -745,22 +1138,91 @@ class ServingEngine(object):
         self._prefill_q.append(s)
         return True
 
-    def _publish(self, s: int, h: ServingHandle):
+    def _import_handoff(self, h: ServingHandle, s: int, n_alias: int):
+        """Import slot s's handoff package past its aliased blocks: each
+        record is token-, crc- and kv_quant-checked, uploaded into a
+        block of the slot's reservation, and its recomputed fingerprint
+        held against the record's (the transfer checksum). The import
+        stops at the first failure (a child's K/V attends through its
+        ancestors); a fingerprint liar is quarantined in the store.
+        Returns (blocks imported, whether a record failed)."""
+        package = h.handoff
+        if not package:
+            return 0, False
+        Bt = self.kv_block_tokens
+        store = self._kv_store
+        n_imp, failed = 0, False
+        for d in range(n_alias, min(len(package), self.blocks_per_slot)):
+            rec = package[d]
+            blk = tuple(int(t) for t in h.full_prompt[d * Bt:(d + 1) * Bt])
+            if (rec.get("kv_quant", "none") != self.kv_quant
+                    or tuple(rec["tokens"]) != blk
+                    or len(rec["payload"]) != rec["nbytes"]
+                    or payload_crc(rec["payload"]) != rec["crc"]):
+                failed = True
+                break
+            bid = self._alloc.alloc_reserved()
+            ok = self._upload_block_record(rec, bid)
+            fp_d = self._fp_of(bid) if ok else None
+            if not ok or not self._record_fp_ok(rec, fp_d):
+                # the freed block does not restore the reservation
+                # alloc_reserved consumed: re-reserve it (the block just
+                # freed guarantees success)
+                self._decref_block(bid)
+                self._alloc.reserve(1)
+                if store is not None and ok:
+                    store.quarantine(rec["key"])
+                    self.metrics.store_quarantined += 1
+                failed = True
+                break
+            if self._fp is not None:
+                self._fp.commit(bid, fp_d)
+            self._tables[s, d] = bid
+            n_imp += 1
+        if n_imp:
+            self.metrics.handoff_blocks_imported += n_imp
+            self.metrics.handoff_tokens_imported += n_imp * Bt
+            h.handoff_imported = n_imp * Bt
+        return n_imp, failed
+
+    def _publish(self, s: int, h: ServingHandle):  # band-verb: serialize
         """Publish the finished prompt's whole blocks (up to the publish
         boundary) into the prefix trie — zero-copy: the trie takes a ref
-        on the slot's physical block ids."""
+        on the slot's physical block ids. A block closes here: its
+        fingerprint commits, and with a store it spills as a record.
+        Adapter requests never publish (their K/V is tenant-specific)."""
         pc = self.prefix_cache
-        if pc is None:
+        if pc is None or h.adapter is not None:
             return
         T0 = h.full_prompt.shape[0]
         bound = T0 if h.publish_len is None else min(h.publish_len, T0)
-        n_blocks = bound // pc.block_tokens
+        Bt = pc.block_tokens
+        n_blocks = bound // Bt
         if n_blocks < 1:
             return
+        store = self._kv_store
+        # chain keys of the store records: the trie summary's fold
+        keys = (chain_keys(h.full_prompt[:n_blocks * Bt], Bt)
+                if store is not None else None)
 
         def _take(d):
             bid = int(self._tables[s, d])
             self._alloc.incref(bid)
+            fp = None
+            if self._fp is not None or store is not None:
+                fp = self._fp_of(bid)
+            if self._fp is not None:
+                self._fp.commit(bid, fp)
+            if store is not None:
+                # write-through spill of novel blocks, the fingerprint
+                # riding along as the transfer checksum
+                payload, meta = self._serialize_block(bid)
+                store.put(make_block_record(
+                    keys[d], keys[d - 1] if d else 0,
+                    tuple(int(t)
+                          for t in h.full_prompt[d * Bt:(d + 1) * Bt]),
+                    fp, payload, meta, kv_quant=self.kv_quant))
+                self.metrics.store_spilled_blocks += 1
             return bid
 
         pc.publish(h.full_prompt, n_blocks, _take)
@@ -785,7 +1247,8 @@ class ServingEngine(object):
             self._step_params(), self._cache,
             torch.tensor(padded, device=self.device), cursor,
             torch.tensor(self._tables[s], device=self.device), self._cfg,
-            true_len=c, kernel=self.paged_kernel, kv_quant=self.kv_quant)
+            true_len=c, kernel=self.paged_kernel, kv_quant=self.kv_quant,
+            **self._adapter_args(int(self._aidx[s])))
         st["cursor"] = cursor + c
         self.metrics.prefill_chunks += 1
         self.metrics.prefill_tokens_computed += c
@@ -809,6 +1272,7 @@ class ServingEngine(object):
         h.ttft_s = now - h.submit_t
         self.metrics.ttft_s.append(h.ttft_s)
         self.metrics.span("prefill_T%d" % Cb, now - t0)
+        self.metrics.observe_device_interval(t0, now)
         self.metrics.prefills += 1
         self._publish(s, h)
         del self._prefill_state[s]
@@ -820,6 +1284,8 @@ class ServingEngine(object):
         # a resumed request continues the original fold_in schedule
         self._counts[s] = h.resume_len
         self._base_keys[s] = (0, int(h.seed) & 0xFFFFFFFF)  # PRNGKey(seed)
+        # the decode window judges EOS on the device (-1 = none)
+        self._eos[s] = -1 if h.eos_id is None else int(h.eos_id)
         if self.spec_draft_len is not None:
             # seed the drafting index from the context once (O(T0));
             # _emit keeps it current per token from here on
@@ -936,7 +1402,10 @@ class ServingEngine(object):
         except Exception as exc:
             self.abort(exc)
             raise
-        self.metrics.observe_step(time.monotonic() - t0)
+        # per-token EWMA: the static window size, not the emitted count
+        # (a low-occupancy window still runs K iterations)
+        self.metrics.observe_step(time.monotonic() - t0,
+                                  tokens=self.decode_window)
         return out
 
     def _step_inner(self) -> bool:
@@ -960,9 +1429,14 @@ class ServingEngine(object):
             chunks += 1
             progressed = True
 
-        if not self._alive.any():
+        if self._use_window:
+            # a pending async window may still hold the tokens that
+            # retire the last requests: the phase runs with no live slot
+            if not self._window_phase():
+                return progressed
+        elif not self._alive.any():
             return progressed
-        if self.spec_draft_len is not None:
+        elif self.spec_draft_len is not None:
             self._spec_step()
         else:
             self._decode_once()
@@ -1002,6 +1476,7 @@ class ServingEngine(object):
         self._dirty.difference_update(("tok", "pos", "counts"))
         t1 = time.monotonic()
         self.metrics.span("decode_step", t1 - t0)
+        self.metrics.observe_device_interval(t0, t1)
         self.metrics.decode_steps += 1
         self.metrics.occupancy.append(
             float(self._alive.sum()) / self.max_slots)
@@ -1010,6 +1485,127 @@ class ServingEngine(object):
         for s in live:
             self._tok[s] = nxt[s]
             self._emit(s, nxt[s])
+
+    # ------------------------------------------------------------------
+    # decode windows and async dispatch
+    # ------------------------------------------------------------------
+    def _can_chain(self) -> bool:
+        """Window N+1 may chain off window N's unsynced device outputs
+        only while the device-advanced bands still carry device truth:
+        a host event since the dispatch dirtied one and breaks the
+        chain (sync first, re-upload host truth, then dispatch)."""
+        return not (self._dirty & _DEVICE_ADVANCED)
+
+    def _window_phase(self) -> bool:
+        """The window engine's decode phase: sync the pending window (if
+        any) and keep the async pipeline one window deep, or run one
+        dispatch and sync in line (sync mode). False only when there is
+        nothing to do: no live slot and no pending window."""
+        rec, self._inflight = self._inflight, None
+        if rec is None and not self._alive.any():
+            return False
+        if rec is not None:
+            chained = None
+            if self.async_dispatch and self._alive.any() \
+                    and self._can_chain():
+                # enqueue window N+1 off window N's device outputs BEFORE
+                # syncing N: the emission below overlaps N+1's device work
+                chained = self._dispatch_window(prev=rec)
+            self._sync_window(rec)
+            self._inflight = chained
+            if chained is None and self.async_dispatch \
+                    and self._alive.any():
+                # chain broken by a host event: host truth is current
+                # again after the sync, so refill the pipeline now
+                self._inflight = self._dispatch_window()
+            return True
+        w = self._dispatch_window()
+        if self.async_dispatch:
+            self._inflight = w  # emission runs one window behind
+        else:
+            self._sync_window(w)
+        return True
+
+    def _dispatch_window(self, prev=None):
+        """Enqueue one K-token window. `prev` chains it off that unsynced
+        window's output bands (the host mirrors are a window stale then,
+        so blocks are ensured over a 2K-position horizon)."""
+        K = self.decode_window
+        live = np.nonzero(self._alive)[0]
+        horizon = 2 * K if prev is not None else K
+        for s in live:
+            p = int(self._pos[s])
+            # only positions < limits - 1 are ever written (the budget
+            # rule parks a slot after its write at limits - 2)
+            self._ensure_blocks(
+                s, p, min(p + horizon, int(self._limits[s]) - 1))
+        return self._launch_window(prev, live)
+
+    def _launch_window(self, prev, live):
+        """The window's device work once its blocks are in the tables:
+        bands from the host (uploaded only if dirty) or, chained, from
+        `prev`'s outputs. A steady chained launch uploads and reads back
+        nothing."""
+        t0 = time.monotonic()
+        if prev is None:
+            tok_d, pos_d = self._band("tok"), self._band("pos")
+            alive_d, counts_d = self._band("alive"), self._band("counts")
+        else:
+            tok_d, pos_d, alive_d, counts_d = prev["bands"]
+        bands, packed = self._window_fn(
+            self._band("tables"), tok_d, pos_d, alive_d, self._band("temps"),
+            counts_d, self._band("base_keys"), self._band("limits"),
+            self._band("eos"), self._band("aidx"))
+        self.metrics.decode_steps += 1
+        self.metrics.occupancy.append(
+            float(self._alive.sum()) / self.max_slots)
+        return {"bands": bands, "packed": packed, "t0": t0,
+                "slots": [(int(s), self._slot_req[int(s)]) for s in live]}
+
+    def _sync_window(self, rec):  # band-verb: sync
+        """Sync one dispatched window (its one readback) and emit its
+        tokens in iteration order. Lane discipline: -1 lanes are parking
+        padding and are dropped; a slot whose request changed since the
+        dispatch (expired, cancelled, refilled) drops its remaining
+        lanes. Each iteration's traps are judged BEFORE its tokens emit,
+        so a trip in iteration j poisons only tokens >= j; all-parked
+        rows are skipped so the spike EWMA never sees masked zeros.
+        Then the window's bands become device truth only where the host
+        mirrors agree with them; otherwise host truth re-uploads."""
+        K, S = self.decode_window, self.max_slots
+        flat = rec["packed"].cpu().numpy()  # the sync point
+        t1 = time.monotonic()
+        self.metrics.span("decode_step", t1 - rec["t0"])
+        self.metrics.observe_device_interval(rec["t0"], t1)
+        ints = flat[:(2 * K + 4) * S].reshape(2 * K + 4, S)
+        toks = ints[:K]
+        ntok, npos, nalive, ncounts = ints[K:K + 4]
+        traps_w = ints[K + 4:]
+        scales_w = flat[(2 * K + 4) * S:].view(np.float32)
+        for j in range(K):
+            row = toks[j]
+            if self.integrity_traps and (row >= 0).any():
+                self._check_integrity(traps_w[j] != 0, scales_w[j],
+                                      "decode window")
+            for s, h in rec["slots"]:
+                if self._slot_req[s] is not h or not self._alive[s]:
+                    continue  # expired, cancelled or refilled: discard
+                t = int(row[s])
+                if t < 0:
+                    continue  # parked lane
+                self._pos[s] += 1  # the token just synced sat at pos
+                self._tok[s] = t
+                self._emit(s, t)
+        if (np.array_equal(self._pos, npos)
+                and np.array_equal(self._alive, nalive != 0)
+                and np.array_equal(self._counts, ncounts)
+                and np.array_equal(self._tok, ntok)):
+            tok_d, pos_d, alive_d, counts_d = rec["bands"]
+            self._dev["tok"], self._dev["pos"] = tok_d, pos_d
+            self._dev["alive"], self._dev["counts"] = alive_d, counts_d
+            self._dirty.difference_update(_DEVICE_ADVANCED)
+        else:
+            self._mark_dirty(*_DEVICE_ADVANCED)
 
     def _draft_window(self, s: int) -> np.ndarray:
         """Self-drafting by prompt lookup: continue the context's last
@@ -1049,6 +1645,7 @@ class ServingEngine(object):
                                   "spec verify")
         t1 = time.monotonic()
         self.metrics.span("spec_verify", t1 - t0)
+        self.metrics.observe_device_interval(t0, t1)
         self.metrics.decode_steps += 1
         self.metrics.occupancy.append(
             float(self._alive.sum()) / self.max_slots)

@@ -1,6 +1,7 @@
 """Serving metrics: tokens/s, slot occupancy, queue wait, time-to-first-
-token, prefix reuse and block-pool gauges for the continuous-batching
-engine (counterpart of paddle_tpu/serving/metrics.py).
+token, prefix reuse, block-pool, adapter-pool, fingerprint and KV-store
+gauges for the continuous-batching engine (counterpart of
+paddle_tpu/serving/metrics.py).
 
 Wall-clock spans land in a small per-event collector (Calls / Total /
 Min / Max / Ave in ms) that `print_report()` renders as a table.
@@ -9,10 +10,16 @@ The JAX package's compile (trace) counters are left out: this port runs
 eagerly, so there is nothing to count; where the reference reports the
 speculative verify step's trace count, this one reports how many verify
 steps ran (`spec_verify_steps`: with spec decoding on, every decode step
-is one). The device-busy interval union is left out too: an eager step's dispatch-to-sync span is mostly host work, and
-the device's busy share comes from a profiler (`chip_smoke.py
---profile`). Spans end where the engine synchronises (it reads each
-step's tokens back), so tokens/s means the card's only when run there.
+is one).
+
+`device_busy_s` is the union of dispatch-to-sync spans (a decode step,
+a decode window, a final prefill chunk), as in the reference. On an
+eager engine a span also holds the host's own dispatch work, so
+`host_overhead_frac` (wall outside those spans, over wall) is the share
+of the scheduler's host work between steps, not the card's idle share;
+that comes from a profiler (`chip_smoke.py --profile`). Spans end where
+the engine synchronises, so tokens/s means the card's only when run
+there.
 """
 
 from __future__ import annotations
@@ -111,17 +118,53 @@ class ServingMetrics(object):
         self.kv_quant = None
         self.weight_quant = None
         self.spec = False
+        # set by the engine when the adapter pool, KV fingerprints or a
+        # KV store is on: report() surfaces their O(1) counters
+        self.adapter_pool = None
+        self.block_fp = None
+        self.kv_store = None
+        # durable KV tier, cumulative: closed-block prompt tokens a
+        # resumed admission re-prefilled (0 on the clean path), handoff
+        # imports and fallbacks, store spills, warm loads, rejections
+        self.tokens_recomputed_at_migration = 0
+        self.handoff_imports = 0
+        self.handoff_blocks_imported = 0
+        self.handoff_tokens_imported = 0
+        self.handoff_fallbacks = 0
+        self.store_spilled_blocks = 0
+        self.store_warm_blocks = 0
+        self.store_quarantined = 0
+        # union of dispatch-to-sync spans (module docstring), folded
+        # through a last-end watermark so overlapping async windows
+        # never count twice
+        self.device_busy_s = 0.0
+        self._busy_last_end = 0.0
         self._t0 = None
         self._t1 = None
 
     STEP_EWMA_ALPHA = 0.5  # fast decay: ~3 healthy steps erase a spike
 
-    def observe_step(self, seconds: float):
+    def observe_step(self, seconds: float, tokens: int = 1):
+        """Fold one engine-step wall time into the step-latency EWMA,
+        normalised PER TOKEN: `tokens` is the step's token capacity (the
+        static decode window), so a K-token window does not read K
+        times slower than a one-token step; K=1 keeps the per-step
+        meaning."""
         a = self.STEP_EWMA_ALPHA
+        seconds = seconds / max(1, int(tokens))
         if self.step_ewma_s == 0.0:
             self.step_ewma_s = seconds
         else:
             self.step_ewma_s = a * seconds + (1.0 - a) * self.step_ewma_s
+
+    def observe_device_interval(self, start: float, end: float):
+        """Fold one dispatch-to-sync span into the busy union. Spans
+        arrive in sync order; overlap with an earlier span (an async
+        window dispatched before its predecessor synced) counts once."""
+        lo = max(start, self._busy_last_end)
+        if end > lo:
+            self.device_busy_s += end - lo
+            self._busy_last_end = end
 
     def span(self, name: str, seconds: float):
         self.ops.record(name, seconds)
@@ -174,12 +217,31 @@ class ServingMetrics(object):
             "resumed_requests": self.resumed_requests,
             "resume_tokens_reused": self.resume_tokens_reused,
             "step_ewma_s": round(self.step_ewma_s, 6),
+            "device_busy_s": round(self.device_busy_s, 4),
+            "host_overhead_frac": round(
+                max(0.0, wall - self.device_busy_s) / wall, 4)
+            if wall else None,
             "paged_kernel": self.paged_kernel,
             "kv_quant": self.kv_quant,
             "weight_quant": self.weight_quant,
+            "tokens_recomputed_at_migration":
+                self.tokens_recomputed_at_migration,
+            "handoff_imports": self.handoff_imports,
+            "handoff_blocks_imported": self.handoff_blocks_imported,
+            "handoff_tokens_imported": self.handoff_tokens_imported,
+            "handoff_fallbacks": self.handoff_fallbacks,
+            "store_spilled_blocks": self.store_spilled_blocks,
+            "store_warm_blocks": self.store_warm_blocks,
+            "store_quarantined": self.store_quarantined,
         }
         if self.prefix_cache is not None:
             rep["prefix_cache"] = self.prefix_cache.stats()
+        if self.adapter_pool is not None:
+            rep["adapter_pool"] = self.adapter_pool.stats()
+        if self.block_fp is not None:
+            rep["block_fingerprints"] = self.block_fp.stats()
+        if self.kv_store is not None:
+            rep["kv_store"] = self.kv_store.stats()
         return rep
 
     def table(self):

@@ -164,14 +164,29 @@ def test_spike_sentinel_trips_on_a_sustained_excursion():
     assert h.finish_reason == "budget"
 
 
-@pytest.mark.parametrize("knob", [
-    {"decode_window": 8}, {"async_dispatch": True},
-    {"adapter_registry": object()}, {"kv_store": object()},
-    {"kv_fingerprints": True},
+@pytest.mark.parametrize("knob,match", [
+    pytest.param({"decode_window": 0}, "decode_window", id="knob0"),
+    pytest.param({"async_dispatch": True, "spec_draft_len": 4},
+                 "spec_draft_len composes", id="knob1"),
+    pytest.param({"adapter_registry": "empty"}, "adapter rank unknown",
+                 id="knob2"),
+    pytest.param({"kv_store": "store"}, "prefix_cache_tokens", id="knob3"),
+    pytest.param({"kv_fingerprints": True}, "prefix_cache_tokens",
+                 id="knob4"),
 ])
-def test_out_of_scope_knobs_raise(knob):
+def test_out_of_scope_knobs_raise(knob, match):
+    """The engine knobs an earlier slice refused are all ported now; what
+    is left of their refusals are the reference's own ValueErrors: a
+    window below 1, spec decoding with a window or async dispatch, an
+    adapter pool of unknown rank, and a KV store or fingerprints without
+    the prefix cache they hook into."""
+    from paddle_tpu_torch.serving import AdapterRegistry, KVBlockStore
+
     _, _, cfg, tp = _models(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    objs = {"empty": AdapterRegistry(), "store": KVBlockStore()}
+    knob = {k: objs.get(v, v) if isinstance(v, str) else v
+            for k, v in knob.items()}
+    with pytest.raises(ValueError, match=match):
         ServingEngine(tp, cfg, device="cpu", **knob)
 
 
