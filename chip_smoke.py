@@ -111,13 +111,34 @@ Phases (any failure exits non-zero):
      a handoff with zero closed-block tokens re-prefilled and A's
      tokens, and an engine warmed from the store reopened from disk
      gives A's tokens prefilling only the prompt past the header;
- 16. read the device time of each of the two CUDA kernels (split and
+ 16. Fluid ResNet-50 training through paddle_tpu_torch.fluid, the repo's
+     headline configuration (bench.py:211-229, :515-535):
+     resnet_imagenet(depth=50), images [128, 3, 224, 224], 1000
+     classes, cross_entropy -> mean, Momentum(0.01, 0.9), program.amp
+     (bf16 forward, f32 master params); startup on the card, one fixed
+     synthetic batch from np.random.RandomState(0) (int64 labels), 2
+     warm-up steps, then 10 timed steps ending in a sync, with
+     torch.backends.cudnn.benchmark on: every loss finite and the last
+     below the first; img/s, ms/step, peak device memory and bench.py's
+     FLOP share (img/s x 3 x 4.09e9 / 989e12);
+ 17. Fluid f32 parity: resnet_cifar10(depth=8), batch 16, 32x32 f32, 3
+     Momentum steps from the same startup weights on CUDAPlace(0) (cuDNN
+     TF32 off) and on CPUPlace(): losses within rtol 1e-4, parameters
+     and batch-norm running statistics within atol 1e-4;
+ 18. the Fluid flash_attention op: q/k/v data slots [1024, 8, 64], q
+     through an fc, flash_attention(causal=True) -> mean, one SGD step in
+     bf16 at batch 8 through the Executor, with the flash counters zeroed
+     just before and read just after: forward, backward_kv and
+     backward_q each launched exactly once; the op's output held against
+     flash_attention_plain at phase 5's bf16 tolerance;
+ 19. read the device time of each of the two CUDA kernels (split and
      merge) of every bf16 paged call timed in phases 2 and 8
      (torch.profiler; last, because a profiler window slows the host
      work of every later phase);
- 17. print the kernels' JSON line (every kernel must have launched on a
+ 20. print the kernels' JSON line (every kernel must have launched on a
      main path; the paged entries also carry their launches in phases
-     13 and 14), then the device line last.
+     13 and 14, the flash entries their Fluid launches in phase 18),
+     then the device line last.
 
 No request count of phases 9, 11 and 13 is cut; phases 10 and 12 run the
 trace's first 8 requests.
@@ -126,7 +147,8 @@ With --profile, torch.profiler also reads the device-busy share and the
 top kernels over the bf16 trace's first steps and steady decode steps,
 over 3 train steps, over 24 steps of the serving_quant configuration
 with kv_quant none and int8, and over 12 steps of 16 megabatch requests
-at K=1 sync and K=8 async.
+at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps (device
+time by class and by region: forward, backward, optimizer).
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
@@ -427,7 +449,7 @@ def kernel_device_ms(torch, fn, names, n=20):
 def time_case(torch, tpa, which, c, label):
     """Kernel and plain-version device ms with a cold L2, and the bound;
     for bf16 q also the split plain version's time and the partition
-    count, and the call itself (`call`) for phase 16, which reads each of
+    count, and the call itself (`call`) for phase 19, which reads each of
     its two kernels' device time."""
     R, Bt, MAXB = c["q"].shape[1], c["k"].shape[1], c["part"].shape[1]
     ms = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"]))
@@ -1837,6 +1859,283 @@ def phase_profile_windows(torch, ServingEngine, params, cfg, warm=4, n=12):
         eng.run()
 
 
+# ---------------------------------------------------------------------
+# phases 16-18: the Fluid Program/Executor (paddle_tpu_torch.fluid)
+# ---------------------------------------------------------------------
+
+# the headline (bench.py:211-229, :515-535): ResNet-50, batch 128, bf16 AMP
+FLUID_RESNET = dict(batch=128, shape=[3, 224, 224], classes=1000, depth=50)
+RESNET50_FWD_FLOPS = 4.09e9  # bench.py:199, per 224x224 image
+FLUID_PARITY = dict(batch=16, shape=[3, 32, 32], classes=10, depth=8)
+FLUID_FLASH = dict(batch=8, seq=1024, heads=8, dim=64)
+
+
+def fluid_image_program(fluid, model, shape, classes, amp):
+    """bench.py's _build_image_workload with float32 images and int64
+    labels: model -> cross_entropy -> mean, Momentum(0.01, 0.9)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        image = fluid.layers.data(name="image", shape=shape, dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        predict = model(image, classes)
+        avg = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=predict, label=label))
+        fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            avg)
+    main.amp = amp
+    return main, startup, avg
+
+
+def image_feed(torch, batch, shape, classes, dev):
+    """bench.py:525-529's fixed synthetic batch, on `dev`."""
+    rng = np.random.RandomState(0)
+    image = rng.rand(batch, *shape).astype(np.float32)
+    label = rng.randint(0, classes, (batch, 1)).astype(np.int64)
+    return {"image": torch.from_numpy(image).to(dev),
+            "label": torch.from_numpy(label).to(dev)}
+
+
+def _fluid_class(name):
+    if any(k in name for k in ("implicit_gemm", "fprop", "dgrad", "wgrad",
+                               "conv", "cudnn", "nchwToNhwc", "nhwcToNchw",
+                               "winograd")):
+        return "convolution (cuDNN)"
+    if any(k in name for k in ("nvjet", "gemm", "cutlass")):
+        return "GEMM (cuBLAS)"
+    if "Memcpy" in name or "Memset" in name:
+        return "memcpy/memset"
+    return "batch norm, elementwise, reduce"
+
+
+FLUID_REGIONS = ("fluid/forward", "fluid/optimizer")
+
+
+def profile_fluid(torch, run, n, label):
+    """torch.profiler over `run()` n times: wall, device-busy share and
+    device ops per step; device ms per step by kernel class; and the
+    forward and optimizer regions (the lowering's record_function ranges)
+    as the sum of their kernels' device time; autograd's engine thread
+    launches the backward's kernels, so the backward is the rest of the
+    busy time. The optimizer's
+    kernels are elementwise: the elementwise class includes them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    avgs = prof.key_averages()
+    kernels = [e for e in avgs
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and _device_us(e) > 0 and e.key not in FLUID_REGIONS]
+    busy = sum(_device_us(e) for e in kernels) / 1e6
+    classes = {}
+    for e in kernels:
+        c = _fluid_class(e.key)
+        classes[c] = classes.get(c, 0.0) + _device_us(e) / 1e3 / n
+    regions = {}
+    for e in avgs:
+        if e.key in FLUID_REGIONS and getattr(
+                e, "device_type", None) == DeviceType.CPU:
+            total = getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0))
+            regions[e.key] = total / 1e3 / n
+    ops = sum(e.count for e in kernels) / n
+    log("  profile %s: %.3f ms/step wall (profiled), device busy %.4f "
+        "ms/step = %.4f of wall, %.0f device ops/step"
+        % (label, wall / n * 1e3, busy / n * 1e3, busy / wall, ops))
+    for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        log("    class %-34s %.4f ms/step device" % (c, ms))
+    if len(regions) == len(FLUID_REGIONS):
+        regions["fluid/backward"] = busy / n * 1e3 - sum(regions.values())
+    for r in ("fluid/forward", "fluid/backward", "fluid/optimizer"):
+        log("    region %-33s %s" % (r, "%.4f ms/step device (kernels)"
+                                    % regions[r] if r in regions
+                                    else "not measured"))
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        log("    %-60s %6d calls %9.3f ms device"
+            % (e.key[:60], e.count, _device_us(e) / 1e3))
+    return dict(wall_ms=wall / n * 1e3, busy_ms=busy / n * 1e3,
+                busy_share=busy / wall, ops_per_step=ops, classes=classes,
+                regions=regions)
+
+
+def phase_fluid_resnet(torch, fluid, resnet, profile=False, warm=2,
+                       steps=10, place=None, cfg=FLUID_RESNET):
+    """Phase 16: the headline ResNet-50 configuration trained through the
+    port's Fluid Executor on the card (`place` and `cfg` shrink it for a
+    rehearsal on the CPU)."""
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=cfg["depth"]),
+        cfg["shape"], cfg["classes"], amp=True)
+    scope = fluid.Scope()
+    torch.backends.cudnn.benchmark = True
+    try:
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place or fluid.CUDAPlace(0))
+            dev = exe.device
+            t0 = time.monotonic()
+            exe.run(startup)
+            _sync(torch, dev.type)
+            startup_s = time.monotonic() - t0
+            n_params = sum(scope.get(p.name).numel() for p in
+                           main.global_block().all_parameters())
+            feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                              cfg["classes"], dev)
+
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[avg],
+                               return_numpy=False)[0]
+
+            t0 = time.monotonic()
+            losses = [step() for _ in range(warm)]
+            _sync(torch, dev.type)
+            warm_s = time.monotonic() - t0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            losses += [step() for _ in range(steps)]
+            _sync(torch, dev.type)
+            wall = time.monotonic() - t0
+            peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+                    else 0)
+            losses = [float(x.reshape(())) for x in losses]
+            check(all(math.isfinite(x) for x in losses),
+                  "a Fluid ResNet-50 loss is not finite: %s" % losses)
+            check(losses[-1] < losses[0], "the Fluid ResNet-50 loss did not "
+                  "fall on a fixed batch: %s" % losses)
+            ips = cfg["batch"] * steps / wall
+            share = ips * 3 * RESNET50_FWD_FLOPS / PEAK_FLOPS["bfloat16"]
+            log("  %d parameters; startup %.1f s, %d warm-up steps %.1f s "
+                "(cudnn.benchmark on)" % (n_params, startup_s, warm, warm_s))
+            log("  losses %s" % ", ".join("%.4f" % x for x in losses))
+            log("  %d steps of batch %d: %.3f ms/step, %.1f img/s, peak "
+                "device memory %.2f GiB, FLOP share %.4f of 989 TFLOP/s "
+                "(bench.py's count)" % (steps, cfg["batch"], wall / steps
+                                        * 1e3, ips, peak / 2 ** 30, share))
+            out = dict(img_per_s=ips, ms_per_step=wall / steps * 1e3,
+                       peak_mem_gib=peak / 2 ** 30, flop_share=share,
+                       losses=losses, startup_s=startup_s, warm_s=warm_s)
+            if profile:
+                out["profile"] = profile_fluid(torch, step, 3,
+                                               "3 Fluid ResNet-50 steps")
+    finally:
+        torch.backends.cudnn.benchmark = False
+    del scope, exe, feed, step
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fluid_parity(torch, fluid, resnet, steps=3, place=None):
+    """Phase 17: resnet_cifar10(depth=8) in f32 from one set of startup
+    weights, 3 Momentum steps on the card (TF32 off, as main() sets) and
+    on the CPU. Losses within rtol 1e-4; parameters and batch-norm
+    running statistics within atol 1e-4 (the velocities, raw gradient
+    sums, are reported: the batch-norm variance E[x^2] - E[x]^2 amplifies
+    their reduction-order error)."""
+    cfg = FLUID_PARITY
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_cifar10(x, c, depth=cfg["depth"]),
+        cfg["shape"], cfg["classes"], amp=False)
+    init = fluid.Scope()
+    with fluid.scope_guard(init):
+        fluid.Executor(fluid.CPUPlace()).run(startup)
+    init = fluid.scope_to_numpy(init)
+    runs = {}
+    for side, where in (("card", place or fluid.CUDAPlace(0)),
+                        ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(where)
+        scope = fluid.scope_from_numpy(fluid.Scope(), init, exe.device)
+        feed = image_feed(torch, cfg["batch"], cfg["shape"], cfg["classes"],
+                          exe.device)
+        with fluid.scope_guard(scope):
+            losses = [float(exe.run(main, feed=feed,
+                                    fetch_list=[avg])[0][0])
+                      for _ in range(steps)]
+        runs[side] = (losses, fluid.scope_to_numpy(scope))
+    (lc, sc), (lh, sh) = runs["card"], runs["cpu"]
+    block = main.global_block()
+    model = {p.name for p in block.all_parameters()}
+    for op in block.ops:
+        if op.type == "batch_norm":
+            model |= set(op.input("Mean") + op.input("Variance"))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    diff = {n: float(np.abs(sc[n] - sh[n]).max()) for n in sh}
+    p_err = max(diff[n] for n in model)
+    v_err = max(d for n, d in diff.items() if n not in model)
+    moved = max(float(np.abs(sh[n] - init[n]).max()) for n in model)
+    ok = loss_err <= 1e-4 and p_err <= 1e-4
+    log("  f32 %d steps: losses card %s vs CPU %s; max rel loss diff %.3e, "
+        "max param/statistic diff %.3e (moved up to %.3e), max optimizer "
+        "state diff %.3e %s" % (steps, ["%.6f" % x for x in lc],
+                                ["%.6f" % x for x in lh], loss_err, p_err,
+                                moved, v_err, "ok" if ok else "FAIL"))
+    check(ok, "Fluid f32 training on the card diverged from the CPU")
+    return dict(loss_rel_err=loss_err, param_abs_err=p_err,
+                optimizer_state_abs_err=v_err)
+
+
+def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH):
+    """Phase 18: a Fluid program whose flash_attention op reaches the
+    Hopper kernels, forward and backward, through one bf16 SGD step of
+    the Executor (on the CPU, a rehearsal: the plain versions run and no
+    kernel launches)."""
+    B, T, H, D = cfg["batch"], cfg["seq"], cfg["heads"], cfg["dim"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        q, k, v = (fluid.layers.data(name=n, shape=[T, H, D],
+                                     dtype="float32") for n in "qkv")
+        qp = fluid.layers.fc(input=q, size=D, num_flatten_dims=3,
+                             bias_attr=False)
+        out = fluid.layers.flash_attention(qp, k, v, causal=True)
+        loss = fluid.layers.mean(x=out)
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    main.amp = True
+    w = main.global_block().all_parameters()[0].name
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        rng = np.random.RandomState(18)
+        feed = {n: torch.from_numpy(rng.randn(B, T, H, D).astype(
+            np.float32)).to(exe.device) for n in "qkv"}
+        exe.run(startup)
+        _sync(torch, exe.device.type)
+        for key in tfa.launches:
+            tfa.launches[key] = 0
+        got = exe.run(main, feed=feed, fetch_list=[out, qp, "k", "v", loss,
+                                                   w + "@GRAD"],
+                      return_numpy=False)
+        _sync(torch, exe.device.type)
+        launches = dict(tfa.launches)
+    o, qb, kb, vb, lval, grad = got
+    check(o.dtype == torch.bfloat16 and qb.dtype == torch.bfloat16,
+          "the Fluid flash op did not run in bf16: %s %s" % (o.dtype,
+                                                             qb.dtype))
+    want, _ = tfa.flash_attention_plain(qb.float(), kb.float(), vb.float(),
+                                        D ** -0.5, True)
+    err, ok = _held(torch, o, want, f32=False)
+    finite = bool(torch.isfinite(lval).all()) and bool(
+        torch.isfinite(grad).all())
+    log("  launches %s (each must be 1); output vs plain max_abs_err %.3e "
+        "%s; loss %.6f, |grad| max %.3e" % (
+            launches, err, "ok" if ok else "FAIL", float(lval.reshape(())),
+            float(grad.abs().max())))
+    if exe.device.type == "cuda":
+        check(all(launches[kn] == 1 for kn in ("forward", "backward_kv",
+                                               "backward_q")),
+              "the Fluid flash op's step did not launch each kernel once: "
+              "%s" % launches)
+    check(ok and finite, "the Fluid flash op disagrees with the plain "
+          "version or is not finite")
+    return dict(launches=launches, max_abs_err=err)
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -1943,7 +2242,20 @@ def main():
     store = phase_integrity_store(torch, T, ServingEngine, params, cfg)
     del params
 
-    log("phase 16: the bf16 paged calls' two kernels under torch.profiler")
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import resnet
+    torch.cuda.empty_cache()
+    log("phase 16: Fluid ResNet-50 training, bf16 AMP, batch 128, 224x224")
+    fluid_resnet = phase_fluid_resnet(torch, fluid, resnet,
+                                      profile="--profile" in sys.argv[1:])
+
+    log("phase 17: Fluid f32 parity, card vs CPU (resnet_cifar10 depth 8)")
+    fluid_parity = phase_fluid_parity(torch, fluid, resnet)
+
+    log("phase 18: the Fluid flash_attention op, one bf16 SGD step")
+    fluid_flash = phase_fluid_flash(torch, fluid, tfa)
+
+    log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
     kernels = []
@@ -2029,6 +2341,7 @@ def main():
             "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[which],
             "launches": flash_launches[which],
+            "fluid_launches": fluid_flash["launches"][which],
             "max_abs_err": flash_errs["bfloat16"][which],
             "max_abs_err_f32": flash_errs["float32"][which],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -2053,6 +2366,9 @@ def main():
     log("adapters: %s" % json.dumps(adapters))
     log("fingerprints and store: %s" % json.dumps(store))
     log("training: %s" % json.dumps(dict(train, **parity)))
+    log("fluid: %s" % json.dumps(dict(resnet50=fluid_resnet,
+                                      f32_parity=fluid_parity,
+                                      flash_op=fluid_flash)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

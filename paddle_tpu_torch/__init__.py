@@ -2,7 +2,7 @@
 Hopper (H100).
 
 The JAX package `paddle_tpu` stays the reference; this package mirrors
-its module layout (`models/transformer.py`, `parallel/`, `serving/`,
+its module layout (`models/`, `parallel/`, `serving/`, `fluid/`,
 `utils/`, `distributed/`) so each module's counterpart is found at the
 same relative path. It imports torch and numpy only — never jax, and
 nothing from `paddle_tpu` (where a jax-free helper is needed, the port
@@ -15,9 +15,10 @@ plain PyTorch version of the same function beside it: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernel or raises.
 
 Entry points (`init_params`, `params_from_numpy`, the cache
-initialisers, `ServingEngine`) run on CUDA unless the caller passes
-``device="cpu"``; with no GPU and no explicit CPU request they raise —
-they never fall back to the CPU silently.
+initialisers, `ServingEngine`, `fluid.Executor`) run on CUDA unless the
+caller passes ``device="cpu"`` (``fluid.CPUPlace()``); with no GPU and
+no explicit CPU request they raise — they never fall back to the CPU
+silently.
 """
 
 from __future__ import annotations

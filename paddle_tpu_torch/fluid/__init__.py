@@ -1,0 +1,103 @@
+"""paddle_tpu_torch.fluid — the Fluid Program/Executor framework on
+PyTorch (counterpart of paddle_tpu.fluid, with the same Python API).
+
+A program built with these layers runs through `Executor`, on the card
+by default (`Executor()`, `CUDAPlace(i)`; raising where there is none)
+or on the CPU when asked (`CPUPlace()`). The slice ported so far: the
+IR, the executor and autograd backward, the math / tensor / nn /
+optimizer op kernels, the layers of io, nn, tensor and ops, the
+optimizers, regularizers, clipping and model save/load in the JAX
+package's on-disk format. ROADMAP Queue A lists what of Fluid is left.
+"""
+
+from . import core
+from . import framework
+from . import layers
+from . import optimizer
+from . import backward
+from . import regularizer
+from . import initializer
+from . import clip
+from . import io
+
+from .framework import (
+    Program,
+    Variable,
+    Parameter,
+    default_main_program,
+    default_startup_program,
+    program_guard,
+    get_var,
+)
+from .core import CPUPlace, CUDAPlace, TPUPlace
+from .executor import (
+    Executor,
+    Scope,
+    global_scope,
+    scope_guard,
+    switch_scope,
+    fetch_var,
+    as_numpy,
+    scope_from_numpy,
+    scope_to_numpy,
+)
+from .param_attr import ParamAttr, WeightNormParamAttr
+from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier, MSRA
+from .optimizer import (
+    SGD,
+    Momentum,
+    Adagrad,
+    Adam,
+    Adamax,
+    DecayedAdagrad,
+    RMSProp,
+    Adadelta,
+    Ftrl,
+    SGDOptimizer,
+    MomentumOptimizer,
+    AdagradOptimizer,
+    AdamOptimizer,
+    AdamaxOptimizer,
+    DecayedAdagradOptimizer,
+    RMSPropOptimizer,
+    AdadeltaOptimizer,
+    FtrlOptimizer,
+)
+from .backward import append_backward, calc_gradient
+from .regularizer import L1Decay, L2Decay, L1DecayRegularizer, L2DecayRegularizer
+from .clip import (
+    ErrorClipByValue,
+    GradientClipByValue,
+    GradientClipByNorm,
+    GradientClipByGlobalNorm,
+)
+
+__all__ = [
+    "io",
+    "initializer",
+    "layers",
+    "optimizer",
+    "backward",
+    "calc_gradient",
+    "regularizer",
+    "clip",
+    "Program",
+    "Variable",
+    "Parameter",
+    "default_main_program",
+    "default_startup_program",
+    "program_guard",
+    "Executor",
+    "Scope",
+    "global_scope",
+    "scope_guard",
+    "fetch_var",
+    "scope_from_numpy",
+    "scope_to_numpy",
+    "ParamAttr",
+    "WeightNormParamAttr",
+    "CPUPlace",
+    "CUDAPlace",
+    "TPUPlace",
+    "append_backward",
+]

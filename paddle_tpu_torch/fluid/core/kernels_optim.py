@@ -1,0 +1,209 @@
+"""Optimizer-update op kernels (counterpart of
+paddle_tpu/fluid/core/kernels_optim.py, dense branches).
+
+Parity with the reference's optimizer ops (operators/sgd_op.cc,
+momentum_op, adagrad_op, adam_op, adamax_op, decayed_adagrad_op,
+rmsprop_op, adadelta_op, ftrl_op, proximal_gd_op, proximal_adagrad_op).
+The executor runs these ops under torch.no_grad(), and each updates its
+parameter and state tensors IN PLACE: the JAX executor donates the
+scope's buffers to the compiled step, and writing into the scope's own
+tensors is the port's counterpart (no second copy of the model). Where
+an op's output names another variable than its input, the kernel
+updates a copy instead.
+
+Gradients are dense tensors. The JAX package's SelectedRows branches
+(sparse embedding gradients) are not ported yet: the executor refuses a
+program that would take them (ROADMAP, Queue A).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .registry import register_op
+
+
+def _lr(ins):
+    return ins["LearningRate"][0].reshape(())
+
+
+def _grad(ins):
+    g = ins["Grad"][0]
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            "sparse (SelectedRows) gradients are not ported yet (ROADMAP "
+            "Queue A, Fluid); got %s" % type(g).__name__)
+    return g
+
+
+def _inplace(ctx, ins, in_slot, out_slot):
+    """The tensor an update of `in_slot` writes: the input itself when the
+    op's `out_slot` names the same variable (every optimizer op the
+    Optimizer classes append), else a copy."""
+    t = ins[in_slot][0]
+    same = ctx.op.outputs.get(out_slot) == ctx.op.inputs.get(in_slot)
+    return t if same else t.clone()
+
+
+@register_op("sgd")
+def _sgd(ctx, ins, attrs):
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    return {"ParamOut": p.sub_(_lr(ins) * _grad(ins))}
+
+
+@register_op("momentum")
+def _momentum(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    v = _inplace(ctx, ins, "Velocity", "VelocityOut")
+    mu, lr = attrs["mu"], _lr(ins)
+    v.mul_(mu).add_(g)
+    if attrs.get("use_nesterov", False):
+        p.sub_((g + mu * v) * lr)
+    else:
+        p.sub_(lr * v)
+    return {"ParamOut": p, "VelocityOut": v}
+
+
+@register_op("adagrad")
+def _adagrad(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    m = _inplace(ctx, ins, "Moment", "MomentOut")
+    m.add_(g * g)
+    p.sub_(_lr(ins) * g / (torch.sqrt(m) + attrs.get("epsilon", 1e-6)))
+    return {"ParamOut": p, "MomentOut": m}
+
+
+@register_op("adam")
+def _adam(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    m1 = _inplace(ctx, ins, "Moment1", "Moment1Out")
+    m2 = _inplace(ctx, ins, "Moment2", "Moment2Out")
+    b1p = ins["Beta1Pow"][0].reshape(())
+    b2p = ins["Beta2Pow"][0].reshape(())
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr = _lr(ins) * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    m1.mul_(b1).add_((1.0 - b1) * g)
+    m2.mul_(b2).add_((1.0 - b2) * g * g)
+    p.sub_(lr * m1 / (torch.sqrt(m2) + eps))
+    return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
+
+
+@register_op("adamax")
+def _adamax(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    m = _inplace(ctx, ins, "Moment", "MomentOut")
+    inf = _inplace(ctx, ins, "InfNorm", "InfNormOut")
+    b1p = ins["Beta1Pow"][0].reshape(())
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    m.mul_(b1).add_((1.0 - b1) * g)
+    torch.maximum(b2 * inf, torch.abs(g) + attrs.get("epsilon", 1e-8),
+                  out=inf)
+    p.sub_(_lr(ins) / (1.0 - b1p) * m / inf)
+    return {"ParamOut": p, "MomentOut": m, "InfNormOut": inf}
+
+
+@register_op("decayed_adagrad")
+def _decayed_adagrad(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    m = _inplace(ctx, ins, "Moment", "MomentOut")
+    decay = attrs.get("decay", 0.95)
+    m.mul_(decay).add_((1.0 - decay) * g * g)
+    p.sub_(_lr(ins) * g / (torch.sqrt(m) + attrs.get("epsilon", 1e-6)))
+    return {"ParamOut": p, "MomentOut": m}
+
+
+@register_op("rmsprop")
+def _rmsprop(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    ms = _inplace(ctx, ins, "MeanSquare", "MeanSquareOut")
+    mom = _inplace(ctx, ins, "Moment", "MomentOut")
+    decay = attrs.get("decay", 0.9)
+    ms.mul_(decay).add_((1.0 - decay) * g * g)
+    mom.mul_(attrs.get("momentum", 0.0)).add_(
+        _lr(ins) * g / torch.sqrt(ms + attrs.get("epsilon", 1e-10)))
+    p.sub_(mom)
+    return {"ParamOut": p, "MomentOut": mom, "MeanSquareOut": ms}
+
+
+@register_op("adadelta")
+def _adadelta(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    ag = _inplace(ctx, ins, "AvgSquaredGrad", "AvgSquaredGradOut")
+    au = _inplace(ctx, ins, "AvgSquaredUpdate", "AvgSquaredUpdateOut")
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    ag.mul_(rho).add_((1.0 - rho) * g * g)
+    update = -torch.sqrt((au + eps) / (ag + eps)) * g
+    au.mul_(rho).add_((1.0 - rho) * update * update)
+    p.add_(update)
+    return {"ParamOut": p, "AvgSquaredGradOut": ag, "AvgSquaredUpdateOut": au}
+
+
+@register_op("ftrl")
+def _ftrl(ctx, ins, attrs):
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    sq = _inplace(ctx, ins, "SquaredAccumulator", "SquaredAccumOut")
+    lin = _inplace(ctx, ins, "LinearAccumulator", "LinearAccumOut")
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    lr_power = attrs.get("lr_power", -0.5)
+    lr = _lr(ins)
+    new_sq = sq + g * g
+    if lr_power == -0.5:
+        sigma = (torch.sqrt(new_sq) - torch.sqrt(sq)) / lr
+        denom = l2 + torch.sqrt(new_sq) / lr
+    else:
+        sigma = (torch.pow(new_sq, -lr_power) - torch.pow(sq, -lr_power)) / lr
+        denom = l2 + torch.pow(new_sq, -lr_power) / lr
+    lin.add_(g - sigma * p)
+    sq.copy_(new_sq)
+    pre = torch.sign(lin) * l1 - lin
+    p.copy_(torch.where(torch.abs(lin) > l1, pre / denom,
+                        torch.zeros_like(p)))
+    return {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin}
+
+
+def _prox_project(prox, lr, attrs):
+    """Soft-threshold by lr*l1 then shrink by 1/(1+lr*l2) — the shared
+    projection of proximal_gd/proximal_adagrad (reference
+    proximal_gd_op.h / proximal_adagrad_op.h)."""
+    l1 = attrs.get("l1", 0.0)
+    l2 = attrs.get("l2", 0.0)
+    if l1 > 0:
+        return torch.sign(prox) * (
+            torch.clamp_min(torch.abs(prox) - lr * l1, 0.0) / (1.0 + lr * l2))
+    return prox / (1.0 + lr * l2)
+
+
+@register_op("proximal_gd")
+def _proximal_gd(ctx, ins, attrs):
+    """Proximal gradient descent (reference operators/proximal_gd_op.h)."""
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    lr = _lr(ins)
+    return {"ParamOut": p.copy_(_prox_project(p - lr * g, lr, attrs))}
+
+
+@register_op("proximal_adagrad")
+def _proximal_adagrad(ctx, ins, attrs):
+    """Reference operators/proximal_adagrad_op.h: adagrad moment, then
+    the same proximal projection as proximal_gd."""
+    g = _grad(ins)
+    p = _inplace(ctx, ins, "Param", "ParamOut")
+    m = _inplace(ctx, ins, "Moment", "MomentOut")
+    lr = _lr(ins)
+    m.add_(g * g)
+    prox = p - lr * g / torch.sqrt(m)
+    return {"ParamOut": p.copy_(_prox_project(prox, lr, attrs)),
+            "MomentOut": m}

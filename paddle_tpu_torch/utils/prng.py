@@ -20,6 +20,12 @@ _gumbel (mode "low") and categorical):
   fold_in(key, data)   -> threefry(key, (0, data))
   split(key, num)      -> threefry(key, (0, i)) for i < num
   categorical(key, l)  -> argmax(gumbel(key, l.shape) + l)
+  uniform(key, s, lo, hi) -> max(lo, floats * (hi - lo) + lo)
+  normal(key, s)       -> sqrt(2) * erfinv(uniform(key, s, -1+ulp, 1))
+  truncated_normal(key, lo, hi, s) -> the same through erf(lo), erf(hi)
+
+The uniform bits are exact; normal and truncated_normal pass them
+through torch's erfinv, which may differ from XLA's by a few ulp.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "fold_in", "split", "uniform", "categorical"]
+__all__ = ["PRNGKey", "fold_in", "split", "uniform", "normal",
+           "truncated_normal", "categorical"]
 
 _M = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -86,20 +93,53 @@ def _bits32(key, n: int):
     return b1 ^ b2
 
 
-def uniform(key, shape):
-    """jax.random.uniform(key, shape) (float32 in [0, 1)) for one key
-    [2]: the mantissa of 1.0 filled with the top 23 random bits."""
+def uniform(key, shape, minval=0.0, maxval=1.0):
+    """jax.random.uniform(key, shape, float32, minval, maxval) for one
+    key [2]: the mantissa of 1.0 filled with the top 23 random bits,
+    scaled into [minval, maxval)."""
     shape = tuple(shape)
     bits = _bits32(key, int(np.prod(shape, dtype=np.int64)))
-    return _to_uniform(bits, 0.0, 1.0).reshape(shape)
+    return _to_uniform(bits, minval, maxval).reshape(shape)
+
+
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key, shape):
+    """jax.random.normal(key, shape) in float32: sqrt(2) * erfinv(u) over
+    uniform bits in (-1, 1) (jax/_src/random.py _normal_real)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    return _SQRT2_F32 * torch.erfinv(uniform(key, shape, lo, 1.0))
+
+
+def truncated_normal(key, lower, upper, shape):
+    """jax.random.truncated_normal(key, lower, upper, shape) in float32
+    (jax/_src/random.py _truncated_normal): the uniform bits scaled into
+    [erf(lower / sqrt2), erf(upper / sqrt2)), through erfinv, clipped to
+    the open interval (lower, upper)."""
+    bounds = torch.tensor([lower, upper], dtype=torch.float32)
+    a, b = torch.erf(bounds / _SQRT2_F32).tolist()
+    out = _SQRT2_F32 * torch.erfinv(uniform(key, shape, a, b))
+    lo = float(np.nextafter(np.float32(lower), np.float32(np.inf)))
+    hi = float(np.nextafter(np.float32(upper), np.float32(-np.inf)))
+    return out.clamp(lo, hi)
 
 
 def _to_uniform(bits, minval, maxval):
-    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fb.view(torch.float32) - 1.0
+    # x in [1, 2): the top 23 bits as the mantissa of 1.0
+    x = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     lo = np.float32(minval)
     span = np.float32(maxval) - lo  # float32 arithmetic, as in JAX
-    return (floats * float(span) + float(lo)).clamp_min(float(lo))
+    if span == 1.0:
+        # XLA folds (x - 1) * 1 + lo into x + (lo - 1) when the bounds
+        # are constants of the compiled step, which rounds differently
+        # from (x - 1) + lo
+        out = x + float(lo - np.float32(1.0))
+    else:
+        # one fused multiply-add, as XLA contracts (x - 1) * span + lo
+        out = torch.addcmul(torch.full_like(x, float(lo)), x - 1.0,
+                            torch.full_like(x, float(span)))
+    return out.clamp_min(float(lo))
 
 
 def categorical(key, logits):

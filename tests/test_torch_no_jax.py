@@ -31,6 +31,10 @@ def test_importing_every_module_leaves_jax_out():
     mods = _modules()
     for name in ("engine", "adapters", "kv_store", "integrity"):
         assert "paddle_tpu_torch.serving." + name in mods
+    for name in ("executor", "core.lowering", "core.kernels_nn", "io",
+                 "layers.nn", "optimizer"):
+        assert "paddle_tpu_torch.fluid." + name in mods
+    assert "paddle_tpu_torch.models.resnet" in mods
     code = (
         "import importlib, sys\n"
         "for m in %r: importlib.import_module(m)\n"
