@@ -133,12 +133,37 @@ Phases (any failure exits non-zero):
      flash_attention_plain at phase 5's bf16 tolerance;
  19. read the device time of each of the two CUDA kernels (split and
      merge) of every bf16 paged call timed in phases 2 and 8
-     (torch.profiler; last, because a profiler window slows the host
-     work of every later phase);
- 20. print the kernels' JSON line (every kernel must have launched on a
-     main path; the paged entries also carry their launches in phases
-     13 and 14, the flash entries their Fluid launches in phase 18),
-     then the device line last.
+     (torch.profiler; run after phase 22, because a profiler window
+     slows the host work of every later phase);
+ 20. the LSTM benchmark (bench.py:800-850, benchmark/paddle/rnn) through
+     the Fluid Executor: embedding 30000 x 128, 2 x (fc to 4*512, then
+     dynamic_lstm(2048) with peepholes), sequence_last_step, fc(2,
+     softmax), cross_entropy -> mean, Adam(2e-3), program.amp; batch 64
+     x 100 tokens (uniform offsets, RandomState(0)), 2 warm-up and 10
+     timed steps ending in a sync: every loss finite; ms/step, tokens/s,
+     peak device memory and bench.py's FLOP count x 3 over 989 TFLOP/s.
+     Then the sync check: the lstm kernel alone, forward and backward,
+     at these shapes in bf16 on device tensors with host-known offsets
+     under torch.cuda.set_sync_debug_mode("error"): no read back to the
+     host;
+ 21. ragged f32 parity, card vs CPU: the book's stacked_lstm_net (3
+     layers, alternating is_reverse) and convolution_net
+     (tests/test_understand_sentiment.py: vocab 120, batch 16, widths
+     32, lengths 3-20 with a 1 and a maximum that is no power of two)
+     and crnn_ctc (paddle_tpu/models/ocr_crnn.py, hidden 48, images
+     [8, 1, 32, 128], labels of 1-12 ids), 3 Momentum steps (lr 0.05,
+     0.002 for the CRNN; momentum 0.9) from one set of startup weights:
+     losses within rtol 1e-4, parameters within atol 1e-4;
+ 22. the CRNN at its own width (hidden 48, 36 classes), images
+     [32, 1, 32, 128] with ragged labels of 4-12 ids, 6 f32 SGD(0.002)
+     steps on one fixed batch: losses finite and falling; then the
+     greedy decode (ctc_align) of the trained weights through the
+     for_test clone;
+ then print the kernels' JSON line (every kernel must have launched on
+ a main path; the paged entries also carry their launches in phases 13
+ and 14, the flash entries their Fluid launches in phase 18; no Hopper
+ kernel lies on the path of phases 20-22, whose recurrences, segment
+ ops and CTC are plain torch ops), then the device line last.
 
 No request count of phases 9, 11 and 13 is cut; phases 10 and 12 run the
 trace's first 8 requests.
@@ -147,8 +172,9 @@ With --profile, torch.profiler also reads the device-busy share and the
 top kernels over the bf16 trace's first steps and steady decode steps,
 over 3 train steps, over 24 steps of the serving_quant configuration
 with kv_quant none and int8, and over 12 steps of 16 megabatch requests
-at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps (device
-time by class and by region: forward, backward, optimizer).
+at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps and 3
+Fluid LSTM steps (device time by class and by region: forward,
+backward, optimizer).
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
@@ -1904,6 +1930,8 @@ def _fluid_class(name):
         return "GEMM (cuBLAS)"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy/memset"
+    if any(k in name for k in ("index", "gather", "scatter", "embedding")):
+        return "index and gather"
     return "batch norm, elementwise, reduce"
 
 
@@ -2136,6 +2164,358 @@ def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH):
     return dict(launches=launches, max_abs_err=err)
 
 
+# ---------------------------------------------------------------------
+# phases 20-22: LoD sequences and dynamic RNNs through the Fluid port
+# ---------------------------------------------------------------------
+
+# bench.py:800-850 (bench_lstm, the benchmark/paddle/rnn LSTM): batch 64
+# x 100 tokens, vocab 30000, embedding 128, 2 x (fc to 4*512, then
+# dynamic_lstm), Adam(2e-3), bf16 AMP
+FLUID_LSTM = dict(batch=64, seq=100, vocab=30000, emb=128, hidden=512,
+                  layers=2, lr=2e-3)
+# the book's sentiment nets (tests/test_understand_sentiment.py): vocab
+# 120, batch 16, embedding and hidden 32
+BOOK = dict(vocab=120, batch=16, emb=32, hid=32)
+# the CRNN (paddle_tpu/models/ocr_crnn.py) at its own hidden width 48
+OCR = dict(batch=32, height=32, width=128, classes=36, hidden=48)
+
+
+def lstm_flops(cfg):
+    """bench.py:838-846's forward FLOPs of a batch: per LSTM layer the
+    input projection (E or H -> 4H) and the recurrent GEMM (H -> 4H) over
+    every token, 2 FLOPs per MAC."""
+    toks = cfg["batch"] * cfg["seq"]
+    f, in_dim = 0.0, cfg["emb"]
+    for _ in range(cfg["layers"]):
+        f += 2.0 * toks * (in_dim * 4 * cfg["hidden"]
+                           + cfg["hidden"] * 4 * cfg["hidden"])
+        in_dim = cfg["hidden"]
+    return f
+
+
+def lstm_program(fluid, cfg, amp=True):
+    """bench.py:800-825's program built with the port's API."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                  lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        x = fluid.layers.embedding(input=words,
+                                   size=[cfg["vocab"], cfg["emb"]])
+        for _ in range(cfg["layers"]):
+            proj = fluid.layers.fc(input=x, size=cfg["hidden"] * 4)
+            x, _ = fluid.layers.dynamic_lstm(input=proj,
+                                             size=cfg["hidden"] * 4)
+        last = fluid.layers.sequence_last_step(input=x)
+        predict = fluid.layers.fc(input=last, size=2, act="softmax")
+        cost = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=predict, label=label))
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(cost)
+    main.amp = amp
+    return main, startup, cost
+
+
+def lstm_feed(torch, cfg, dev):
+    """bench.py:829-835's batch: uniform offsets, RandomState(0); the
+    tokens on the device, the offsets on the host."""
+    rng = np.random.RandomState(0)
+    B, T = cfg["batch"], cfg["seq"]
+    tokens = rng.randint(0, cfg["vocab"], (B * T, 1)).astype(np.int64)
+    offsets = np.arange(0, B * T + 1, T, dtype=np.int32)
+    label = rng.randint(0, 2, (B, 1)).astype(np.int64)
+    return {"words": (torch.from_numpy(tokens).to(dev), [offsets]),
+            "label": torch.from_numpy(label).to(dev)}
+
+
+def phase_fluid_lstm(torch, fluid, profile=False, warm=2, steps=10,
+                     place=None, cfg=FLUID_LSTM):
+    """Phase 20: the LSTM benchmark trained through the port's Fluid
+    Executor on the card, bf16 AMP (`place` and `cfg` shrink it for a
+    rehearsal on the CPU)."""
+    main, startup, cost = lstm_program(fluid, cfg)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        dev = exe.device
+        exe.run(startup)
+        feed = lstm_feed(torch, cfg, dev)
+
+        def step():
+            return exe.run(main, feed=feed, fetch_list=[cost],
+                           return_numpy=False)[0]
+
+        t0 = time.monotonic()
+        losses = [step() for _ in range(warm)]
+        _sync(torch, dev.type)
+        warm_s = time.monotonic() - t0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        losses += [step() for _ in range(steps)]
+        _sync(torch, dev.type)
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+            else 0
+        losses = [float(x.reshape(())) for x in losses]
+        check(all(math.isfinite(x) for x in losses),
+              "a Fluid LSTM loss is not finite: %s" % losses)
+        tokens = cfg["batch"] * cfg["seq"]
+        share = lstm_flops(cfg) * 3 / (wall / steps) / PEAK_FLOPS["bfloat16"]
+        log("  warm-up %d steps %.1f s; losses %s" % (
+            warm, warm_s, ", ".join("%.4f" % x for x in losses)))
+        log("  %d steps of %d x %d tokens: %.3f ms/step, %.1f tokens/s, "
+            "peak device memory %.3f GiB, FLOP share %.6f of 989 TFLOP/s "
+            "(bench.py's count x 3)" % (
+                steps, cfg["batch"], cfg["seq"], wall / steps * 1e3,
+                tokens * steps / wall, peak / 2 ** 30, share))
+        out = dict(ms_per_step=wall / steps * 1e3,
+                   tokens_per_s=tokens * steps / wall,
+                   peak_mem_gib=peak / 2 ** 30, flop_share=share,
+                   losses=losses, warm_s=warm_s)
+        if profile:
+            out["profile"] = profile_fluid(torch, step, 3,
+                                           "3 Fluid LSTM steps")
+    del scope, exe, feed, step
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_lstm_sync(torch, cfg=FLUID_LSTM, dev="cuda"):
+    """The lstm kernel alone, forward and backward, at phase 20's shapes
+    (one layer, bf16 as under AMP) on device tensors whose offsets the
+    host knows, under torch.cuda.set_sync_debug_mode("error"): any read
+    of the device back to the host raises."""
+    import types
+
+    from paddle_tpu_torch.fluid.core.registry import (LoweringContext,
+                                                      get_kernel)
+
+    B, T, H = cfg["batch"], cfg["seq"], cfg["hidden"]
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def rand(*shape):
+        return (0.1 * torch.randn(*shape, generator=g, device=dev)).to(
+            torch.bfloat16).requires_grad_(True)
+
+    x, w, b = rand(B * T, 4 * H), rand(H, 4 * H), rand(1, 7 * H)
+    host = np.arange(0, B * T + 1, T, dtype=np.int32)
+    off = torch.from_numpy(host).to(dev)
+    ctx = LoweringContext(None, None, torch.device(dev))
+    ctx.op = types.SimpleNamespace(
+        type="lstm", inputs={"Input": ["x"], "Weight": ["w"],
+                             "Bias": ["b"]},
+        outputs={"Hidden": ["h"], "Cell": ["c"]})
+    ctx.env = {"x@LOD0": off}
+    ctx.note_host_lod(off, host)
+    _sync(torch, dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = get_kernel("lstm")(ctx, {"Input": [x], "Weight": [w],
+                                       "Bias": [b]}, {})
+        grads = torch.autograd.grad(out["Hidden"].float().sum(),
+                                    [x, w, b])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    _sync(torch, dev)
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [out["Hidden"], out["Cell"]] + list(grads))
+    log("  lstm forward and backward at [%d x %d, 4x%d] bf16: no host "
+        "sync; outputs and gradients finite: %s" % (B, T, H, finite))
+    check(finite, "the lstm kernel's sync check gave non-finite values")
+    return dict(no_host_sync=True, finite=finite)
+
+
+def ragged_lengths(rng, n, lo, hi, one=True):
+    """n lengths in [lo, hi] (with a 1 among them when `one`) and a
+    maximum that is no power of two."""
+    lens = rng.randint(lo, hi + 1, n)
+    if one:
+        lens[0] = 1
+    while lens.max() & (lens.max() - 1) == 0:
+        lens[int(np.argmax(lens))] -= 1
+    return lens
+
+
+def book_feed(rng, cfg=BOOK):
+    lens = ragged_lengths(rng, cfg["batch"], 3, 20)
+    toks = rng.randint(0, cfg["vocab"], (int(lens.sum()), 1)).astype(
+        np.int64)
+    lod = np.cumsum([0] + list(lens)).astype(np.int32)
+    labels = rng.randint(0, 2, (cfg["batch"], 1)).astype(np.int64)
+    return {"words": (toks, [lod]), "label": labels}, lens
+
+
+def ocr_batch(rng, cfg, lo=4, hi=12, one=False):
+    """Images whose column bands encode their labels (as
+    tests/test_mobilenet_ocr.py's _ocr_batch), ragged labels of lo..hi
+    ids."""
+    n, W = cfg["batch"], cfg["width"]
+    imgs = 0.05 * rng.rand(n, 1, cfg["height"], W).astype(np.float32)
+    lens = ragged_lengths(rng, n, lo, hi, one)
+    labels = []
+    for i, ln in enumerate(lens):
+        lab = rng.randint(0, cfg["classes"], ln)
+        step = W // ln
+        for j, c in enumerate(lab):
+            imgs[i, 0, :, j * step:j * step + step // 2] += \
+                0.2 + 0.6 * c / cfg["classes"]
+        labels.extend(lab)
+    lod = np.cumsum([0] + list(lens)).astype(np.int32)
+    return imgs, (np.asarray(labels, np.int64).reshape(-1, 1), [lod]), lens
+
+
+def book_nets(fluid, cfg=BOOK):
+    """tests/test_understand_sentiment.py:36-80's two nets."""
+    def conv(data, label):
+        emb = fluid.layers.embedding(input=data,
+                                     size=[cfg["vocab"], cfg["emb"]])
+        towers = [fluid.nets.sequence_conv_pool(
+            input=emb, num_filters=cfg["hid"], filter_size=k, act="tanh",
+            pool_type="sqrt") for k in (3, 4)]
+        return fluid.layers.fc(input=towers, size=2, act="softmax")
+
+    def stacked_lstm(data, label, stacked_num=3):
+        emb = fluid.layers.embedding(input=data,
+                                     size=[cfg["vocab"], cfg["emb"]])
+        fc1 = fluid.layers.fc(input=emb, size=cfg["hid"])
+        lstm1, _ = fluid.layers.dynamic_lstm(input=fc1, size=cfg["hid"])
+        inputs = [fc1, lstm1]
+        for i in range(2, stacked_num + 1):
+            fc = fluid.layers.fc(input=inputs, size=cfg["hid"])
+            lstm, _ = fluid.layers.dynamic_lstm(
+                input=fc, size=cfg["hid"], is_reverse=(i % 2) == 0)
+            inputs = [fc, lstm]
+        pooled = [fluid.layers.sequence_pool(input=v, pool_type="max")
+                  for v in inputs]
+        return fluid.layers.fc(input=pooled, size=2, act="softmax")
+
+    return {"stacked_lstm_net": stacked_lstm, "convolution_net": conv}
+
+
+def ragged_programs(fluid, crnn):
+    """(name, main, startup, loss, feed, lengths) of phase 21's three
+    programs, f32, Momentum(lr, 0.9): lr 0.05 for the book's nets, 0.002
+    for the CRNN (whose summed CTC losses have large gradients)."""
+    out = []
+    rng = np.random.RandomState(21)
+    for name, net in sorted(book_nets(fluid).items()):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            data = fluid.layers.data(name="words", shape=[1],
+                                     dtype="int64", lod_level=1)
+            label = fluid.layers.data(name="label", shape=[1],
+                                      dtype="int64")
+            loss = fluid.layers.mean(x=fluid.layers.cross_entropy(
+                input=net(data, label), label=label))
+            fluid.optimizer.Momentum(learning_rate=0.05,
+                                     momentum=0.9).minimize(loss)
+        feed, lens = book_feed(rng)
+        out.append((name, main, startup, loss, feed, lens))
+    cfg = dict(OCR, batch=8)
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, cfg["height"],
+                                                   cfg["width"]],
+                                dtype="float32")
+        lab = fluid.layers.data(name="lab", shape=[1], dtype="int64",
+                                lod_level=1)
+        loss, _ = crnn.crnn_ctc(img, lab, num_classes=cfg["classes"],
+                                hidden=cfg["hidden"])
+        fluid.optimizer.Momentum(learning_rate=0.002,
+                                 momentum=0.9).minimize(loss)
+    imgs, labels, lens = ocr_batch(rng, cfg, one=True)
+    out.append(("crnn_ctc", main, startup, loss,
+                {"img": imgs, "lab": labels}, lens))
+    return out
+
+
+def phase_ragged_parity(torch, fluid, crnn, steps=3, place=None):
+    """Phase 21: the book's stacked_lstm_net (3 layers, alternating
+    is_reverse) and convolution_net and the CRNN, f32, 3 Momentum steps
+    from one set of startup weights on the card (TF32 off, as main()
+    sets) and on the CPU, fed ragged lengths from a seed (a 1 among
+    them, a maximum that is no power of two). Losses within rtol 1e-4,
+    parameters within atol 1e-4."""
+    results = {}
+    for name, main, startup, loss, feed, lens in ragged_programs(fluid,
+                                                                 crnn):
+        init = fluid.Scope()
+        with fluid.scope_guard(init):
+            fluid.Executor(fluid.CPUPlace()).run(startup)
+        init = fluid.scope_to_numpy(init)
+        runs = {}
+        for side, where in (("card", place or fluid.CUDAPlace(0)),
+                            ("cpu", fluid.CPUPlace())):
+            exe = fluid.Executor(where)
+            scope = fluid.scope_from_numpy(fluid.Scope(), init, exe.device)
+            with fluid.scope_guard(scope):
+                losses = [float(np.ravel(exe.run(
+                    main, feed=feed, fetch_list=[loss])[0])[0])
+                    for _ in range(steps)]
+            runs[side] = (losses, fluid.scope_to_numpy(scope))
+        (lc, sc), (lh, sh) = runs["card"], runs["cpu"]
+        params = [p.name for p in main.global_block().all_parameters()]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        p_err = max(float(np.abs(sc[n] - sh[n]).max()) for n in params)
+        moved = max(float(np.abs(sh[n] - init[n]).max()) for n in params)
+        ok = loss_err <= 1e-4 and p_err <= 1e-4 and all(
+            math.isfinite(x) for x in lc)
+        log("  %s (lengths %d..%d, max %d): losses card %s vs CPU %s; max "
+            "rel loss diff %.3e, max param diff %.3e (moved up to %.3e) %s"
+            % (name, int(lens.min()), int(lens.max()), int(lens.max()),
+               ["%.6f" % x for x in lc], ["%.6f" % x for x in lh],
+               loss_err, p_err, moved, "ok" if ok else "FAIL"))
+        check(ok, "%s: f32 training on the card diverged from the CPU"
+              % name)
+        results[name] = dict(loss_rel_err=loss_err, param_abs_err=p_err)
+    return results
+
+
+def phase_crnn(torch, fluid, crnn, steps=6, place=None, cfg=OCR):
+    """Phase 22: the CRNN at its own width (hidden 48) on images
+    [32, 1, 32, 128] with ragged labels of 4-12 ids, f32 SGD(0.002) on
+    one fixed batch: losses finite and falling; then the greedy decode of
+    the trained weights through the for_test clone."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = fluid.layers.data(name="img", shape=[1, cfg["height"],
+                                                   cfg["width"]],
+                                dtype="float32")
+        lab = fluid.layers.data(name="lab", shape=[1], dtype="int64",
+                                lod_level=1)
+        loss, logits = crnn.crnn_ctc(img, lab, num_classes=cfg["classes"],
+                                     hidden=cfg["hidden"])
+        decoded = crnn.greedy_decode(logits, cfg["classes"])
+        infer = main.clone(for_test=True)
+        fluid.optimizer.SGD(learning_rate=0.002).minimize(loss)
+    imgs, labels, lens = ocr_batch(np.random.RandomState(22), cfg)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        exe.run(startup)
+        feed = {"img": imgs, "lab": labels}
+        t0 = time.monotonic()
+        losses = [float(np.ravel(exe.run(main, feed=feed,
+                                         fetch_list=[loss])[0])[0])
+                  for _ in range(steps)]
+        _sync(torch, exe.device.type)
+        ms = (time.monotonic() - t0) / steps * 1e3
+        dec = exe.run(infer, feed={"img": imgs}, fetch_list=[decoded])[0]
+    ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+    valid = bool(((dec >= 0) & (dec < cfg["classes"])).all())
+    log("  labels of %d..%d ids; losses %s; %.1f ms/step (f32, incl. "
+        "fetch); greedy decode %s, ids in range: %s %s" % (
+            int(lens.min()), int(lens.max()),
+            ", ".join("%.4f" % x for x in losses), ms, list(dec.shape),
+            valid, "ok" if ok and valid else "FAIL"))
+    check(ok, "the CRNN's losses are not finite or did not fall: %s"
+          % losses)
+    check(valid, "the CRNN's greedy decode emitted ids out of range")
+    return dict(losses=losses, ms_per_step=ms,
+                decoded_shape=list(dec.shape))
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -2255,6 +2635,22 @@ def main():
     log("phase 18: the Fluid flash_attention op, one bf16 SGD step")
     fluid_flash = phase_fluid_flash(torch, fluid, tfa)
 
+    from paddle_tpu_torch.models import ocr_crnn
+    log("phase 20: the Fluid LSTM benchmark, bf16 AMP, batch 64 x 100 "
+        "tokens, 2 x dynamic_lstm(512)")
+    fluid_lstm = phase_fluid_lstm(torch, fluid,
+                                  profile="--profile" in sys.argv[1:])
+    log("phase 20 (sync check): the lstm kernel under "
+        "torch.cuda.set_sync_debug_mode('error')")
+    lstm_sync = phase_lstm_sync(torch)
+
+    log("phase 21: ragged f32 parity, card vs CPU (book sentiment nets, "
+        "CRNN)")
+    ragged = phase_ragged_parity(torch, fluid, ocr_crnn)
+
+    log("phase 22: the OCR CRNN at hidden 48, images [32, 1, 32, 128], f32")
+    crnn = phase_crnn(torch, fluid, ocr_crnn)
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -2368,7 +2764,10 @@ def main():
     log("training: %s" % json.dumps(dict(train, **parity)))
     log("fluid: %s" % json.dumps(dict(resnet50=fluid_resnet,
                                       f32_parity=fluid_parity,
-                                      flash_op=fluid_flash)))
+                                      flash_op=fluid_flash,
+                                      lstm=fluid_lstm, lstm_sync=lstm_sync,
+                                      ragged_f32_parity=ragged,
+                                      crnn=crnn)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

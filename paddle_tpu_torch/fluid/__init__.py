@@ -7,12 +7,15 @@ or on the CPU when asked (`CPUPlace()`). The slice ported so far: the
 IR, the executor and autograd backward, the math / tensor / nn /
 optimizer op kernels, the layers of io, nn, tensor and ops, the
 optimizers, regularizers, clipping and model save/load in the JAX
-package's on-disk format. ROADMAP Queue A lists what of Fluid is left.
+package's on-disk format; LoD (ragged) feeds, the sequence ops, the
+dynamic LSTM and GRU, CTC, `nets` and `DataFeeder`. ROADMAP Queue A
+lists what of Fluid is left.
 """
 
 from . import core
 from . import framework
 from . import layers
+from . import nets
 from . import optimizer
 from . import backward
 from . import regularizer
@@ -41,6 +44,7 @@ from .executor import (
     scope_from_numpy,
     scope_to_numpy,
 )
+from .data_feeder import DataFeeder
 from .param_attr import ParamAttr, WeightNormParamAttr
 from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier, MSRA
 from .optimizer import (
@@ -76,6 +80,7 @@ __all__ = [
     "io",
     "initializer",
     "layers",
+    "nets",
     "optimizer",
     "backward",
     "calc_gradient",
@@ -94,6 +99,7 @@ __all__ = [
     "fetch_var",
     "scope_from_numpy",
     "scope_to_numpy",
+    "DataFeeder",
     "ParamAttr",
     "WeightNormParamAttr",
     "CPUPlace",

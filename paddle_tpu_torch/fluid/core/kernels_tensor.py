@@ -6,7 +6,8 @@ Random ops draw from the port's threefry (utils/prng.py) with the JAX
 package's key schedule: `uniform_random` gives the JAX package's bits
 exactly; `gaussian_random` / `truncated_gaussian_random` pass the same
 uniform bits through torch's erfinv (within a few ulp of XLA's).
-`row_conv` and `im2sequence` wait for the sequence kernels (ROADMAP).
+`row_conv` and `im2sequence` read and write LoD side-bands
+(kernels_sequence.py).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ...utils import prng
+from .kernels_sequence import lod_key, seg_ids
 from .registry import register_op, torch_dtype
 
 
@@ -329,3 +331,53 @@ def _is_empty(ctx, ins, attrs):
     """Out = [numel(X) == 0] (reference operators/is_empty_op.cc)."""
     return {"Out": torch.tensor([ins["X"][0].numel() == 0],
                                 device=ctx.device)}
+
+
+@register_op("row_conv")
+def _row_conv(ctx, ins, attrs):
+    """Lookahead row convolution (reference operators/row_conv_op.cc);
+    each step mixes `future_context` future frames of the same sequence.
+    Accepts the packed LoD layout [T, D] (masked at sequence boundaries
+    via segment ids) or a dense [N, T, D] batch."""
+    x = ins["X"][0]
+    filt = ins["Filter"][0]  # [future_context+1, D]
+    out = torch.zeros_like(x)
+    if x.dim() == 2:
+        offsets = ctx.env.get(lod_key(ctx.op.inputs["X"][0]))
+        total = x.shape[0]
+        ids = (seg_ids(offsets, total) if offsets is not None
+               else torch.zeros((total,), dtype=torch.int64,
+                                device=x.device))  # one long sequence
+        for k in range(filt.shape[0]):
+            shifted = F.pad(x[k:], (0, 0, 0, k))
+            ids_k = F.pad(ids[k:], (0, k), value=-1)
+            valid = (ids_k == ids)[:, None]
+            out = out + torch.where(valid, shifted * filt[k][None, :],
+                                    torch.zeros_like(shifted))
+        return {"Out": out}
+    for k in range(filt.shape[0]):
+        out = out + F.pad(x[:, k:, :], (0, 0, 0, k)) * filt[k][None, None, :]
+    return {"Out": out}
+
+
+@register_op("im2sequence")
+def _im2sequence(ctx, ins, attrs):
+    """Reference operators/im2sequence_op.cc: sliding blocks -> rows, in
+    the channel-major (c, kh, kw) feature order of the JAX package's
+    conv_general_dilated_patches. Each image becomes one sequence of
+    oh*ow steps; the offsets are static in the graph, so their host copy
+    is known (kernels_rnn._seq_T takes a recurrence's extent from it)."""
+    x = ins["X"][0]  # NCHW
+    kh, kw = attrs.get("kernels", [1, 1])
+    sh, sw = attrs.get("strides", [1, 1])
+    pads = attrs.get("paddings", [0, 0, 0, 0])
+    x = F.pad(x, (pads[1], pads[3], pads[0], pads[2]))
+    n, c, h, w = x.shape
+    steps = ((h - kh) // sh + 1) * ((w - kw) // sw + 1)
+    patches = F.unfold(x, (kh, kw), stride=(sh, sw))  # [N, C*kh*kw, L]
+    out = patches.transpose(1, 2).reshape(n * steps, c * kh * kw)
+    host = np.arange(n + 1, dtype=np.int32) * steps
+    ctx.set_lod(ctx.op.outputs["Out"][0],
+                torch.arange(n + 1, dtype=torch.int32, device=x.device)
+                * steps, host=host)
+    return {"Out": out}

@@ -25,15 +25,22 @@ torch.no_grad(). The forward and tail regions of a training run are
 (chip_smoke.py --profile; autograd's own thread launches the backward's
 kernels, so a range around it would hold none); with no profiler active
 a range costs a few microseconds of host time per run.
+
+LoD: ragged values carry their offsets as `x@LOD0` side-bands in the
+environment (registry.LoweringContext). After each op, `_share_lod`
+hands the first ragged input's offsets to every output that set none,
+as the JAX package does; a run with no side-band skips it at once.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from .kernels_sequence import lod_key
 from .registry import LoweringContext, get_kernel
 
 AUTODIFF_OP = "autodiff"
@@ -84,7 +91,9 @@ def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
                 "and run the clone instead." % (op.type, slot, names,
                                                 e.args[0])
             ) from e
+    # sequence kernels read LoD offsets / write output LoD via ctx.env
     ctx.op = op
+    ctx.env = env
     outs = kernel(ctx, ins, op.attrs)
     for slot, names in op.outputs.items():
         if slot not in outs:
@@ -100,6 +109,56 @@ def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
             if var is not None and var.stop_gradient and val.requires_grad:
                 val = val.detach()
             env[name] = val
+    _share_lod(ctx, op, env)
+
+
+# ops whose outputs are dense even when inputs are ragged (the JAX
+# package's lowering.py:139-156)
+_LOD_BARRIER_OPS = frozenset(
+    [
+        "sequence_pool", "mean", "accuracy", "auc", "top_k",
+        "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+        "reduce_prod", "fill_constant_batch_size_like", "shape",
+        "isfinite", "squared_l2_norm",
+    ]
+)
+
+
+def _share_lod(ctx, op, env):
+    """Default LoD propagation (reference: ShareLoD in each op's
+    InferShape): row-wise ops keep their input's raggedness, so any
+    output that hasn't set its own @LOD0 inherits the first input's.
+    Sequence kernels that compute a new LoD set it before this runs;
+    reductions that collapse the ragged (row) axis are barriers — a
+    reduce over FEATURE axes only (dim excludes 0, no reduce_all) stays
+    row-wise and propagates. The offsets tensor itself is shared, so its
+    host copy (if any) follows it."""
+    if not ctx.has_lod:
+        return
+    if op.type in _LOD_BARRIER_OPS:
+        if not op.type.startswith("reduce_"):
+            return
+        dims = op.attrs.get("dim", 0)
+        dims = list(dims) if isinstance(dims, (list, tuple)) else [dims]
+        # negative dims can address the row axis without containing 0
+        # (dim=-2 on 2-D); rank is unknown here, so treat any negative
+        # dim conservatively as a barrier
+        if op.attrs.get("reduce_all", False) or 0 in dims or any(
+                d < 0 for d in dims):
+            return
+    src = None
+    for names in op.inputs.values():
+        for n in names:
+            src = env.get(lod_key(n))
+            if src is not None:
+                break
+        if src is not None:
+            break
+    if src is None:
+        return
+    for names in op.outputs.values():
+        for n in names:
+            env.setdefault(lod_key(n), src)
 
 
 def _run_op_f32(ctx: LoweringContext, op, env: Dict[str, Any]):
@@ -178,13 +237,23 @@ def _refuse_sparse(fwd_ops):
 
 
 def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
-              is_test: bool = False, keep=()) -> Dict[str, Any]:
+              is_test: bool = False, keep=(), host_lods=None
+              ) -> Dict[str, Any]:
     """Run `ops` of `block` over `env` (feeds and persistables by name)
     and return the final environment. `keep` names the values the caller
     reads afterwards besides the persistables (the fetches): the forward
     region's other intermediates are dropped before the backward pass so
-    autograd can free them as it goes."""
-    ctx = LoweringContext(block, base_key, device, is_test=is_test)
+    autograd can free them as it goes. `host_lods` maps each fed
+    side-band of `env` ("x@LOD0") to its host copy."""
+    host_lods = host_lods or {}
+    lengths = [int(np.diff(h).max()) for h in host_lods.values()
+               if h.shape[0] > 1]
+    ctx = LoweringContext(block, base_key, device, is_test=is_test,
+                          seq_maxlen=max(lengths) if lengths else None)
+    ctx.ops, ctx.keep = ops, keep
+    for key, host in host_lods.items():
+        ctx.note_host_lod(env[key], host)
+        ctx.has_lod = True
     fwd_ops, ad_op, tail_ops = _split_at_autodiff(ops)
     if ad_op is None:
         with torch.no_grad():
@@ -222,6 +291,8 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     live = set(env) | set(keep)
     for op in tail_ops:
         live |= set(op.input_arg_names)
+    # a kept ragged value keeps its offsets
+    live |= {lod_key(k) for k in live}
     fenv = {k: v for k, v in fenv.items() if k in live}
     if loss.requires_grad:
         grads = torch.autograd.grad(loss, list(leaves.values()),

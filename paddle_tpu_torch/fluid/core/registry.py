@@ -76,30 +76,85 @@ def registered_ops() -> List[str]:
 
 
 class LoweringContext(object):
-    """Per-run state shared by kernels: the device, the op being run and
-    RNG derivation.
+    """Per-run state shared by kernels: the device, the op being run, the
+    environment, LoD offsets and RNG derivation.
 
     Deterministic RNG: every random op folds a fresh counter into the
     run's base key with the port's threefry (utils/prng.py), exactly as
     the JAX package folds it with jax.random, so a random op of a given
     (program, run) draws the same bits in both packages.
+
+    LoD: a ragged variable `x` carries its int32 offsets under
+    `x@LOD0` in the environment, on the device. Offsets the host knows
+    (fed ones, and those a kernel derives from static shapes, as
+    im2sequence does) also keep a host copy, registered against the
+    device tensor (`set_lod`, `host_lod`): kernels take a sequence
+    count or a time extent from it, never from a device read.
     """
 
-    def __init__(self, block, base_key, device, is_test: bool = False):
+    def __init__(self, block, base_key, device, is_test: bool = False,
+                 seq_maxlen=None):
         self.block = block
         self._base_key = base_key
         self._rng_counter = 0
         self.device = device
         self.is_test = is_test
-        # the op being run (set by lowering.run_op): optimizer kernels
-        # read its output names to decide whether to update in place
+        # the largest FED sequence length of this run (exact, from the
+        # host): the time extent of a recurrence whose offsets the host
+        # does not know (kernels_rnn._seq_T). Where it knows them, each
+        # input pads to its own longest sequence (the JAX package's
+        # per-feed `seq_buckets`)
+        self.seq_maxlen = seq_maxlen
+        # the op being run and its environment (set by lowering.run_op):
+        # optimizer kernels read the op's output names to decide whether
+        # to update in place; sequence kernels read and write side-bands
         self.op = None
+        self.env: dict = {}
         # True while running the bf16 forward region of an AMP program:
         # deny-listed ops (lowering._AMP_F32_OPS) then compute in f32
         self.amp_region = False
+        # True once any side-band exists: lowering._share_lod returns at
+        # once while it is False
+        self.has_lod = False
+        self._host_lods = {}  # id(device offsets) -> (tensor, ndarray)
+        # the ops of the run and the names read after it, for `is_read`
+        self.ops = ()
+        self.keep = ()
+        self._reads = None
 
     def next_key(self):
         if self._base_key is None:
             raise RuntimeError("this execution was built without an RNG key")
         self._rng_counter += 1
         return prng.fold_in(self._base_key, self._rng_counter)
+
+    def set_lod(self, name, offsets, host=None):
+        """Bind `offsets` as variable `name`'s side-band in the current
+        environment; `host` is their host copy where it is known."""
+        from .kernels_sequence import lod_key
+
+        self.env[lod_key(name)] = offsets
+        self.has_lod = True
+        if host is not None:
+            self.note_host_lod(offsets, host)
+
+    def note_host_lod(self, offsets, host):
+        self._host_lods[id(offsets)] = (offsets, host)
+
+    def host_lod(self, offsets):
+        """The host copy of a device offsets tensor, or None when only
+        the device holds them (offsets computed from data)."""
+        entry = self._host_lods.get(id(offsets))
+        return entry[1] if entry is not None and entry[0] is offsets \
+            else None
+
+    def is_read(self, name) -> bool:
+        """Whether an op of this run reads `name` or the caller fetches
+        it: lets a kernel skip an output that nothing reads (eager torch
+        pays for every value it computes, where XLA drops dead ones)."""
+        if self._reads is None:
+            reads = set(self.keep)
+            for op in self.ops:
+                reads |= set(op.input_arg_names)
+            self._reads = reads
+        return name in self._reads

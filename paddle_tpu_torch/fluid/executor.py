@@ -13,9 +13,16 @@ names them. Feeds keep their integer width (int64 labels stay int64 for
 the gather), where the JAX package narrows int64 to int32; float64 feeds
 narrow to float32 as there.
 
+A ragged (LoD) feed is a `(data, [offsets])` pair, or an object with
+`.data` and `.lod()` (DataFeeder builds the pairs): `data` packs the
+sequences row after row and `offsets` says where each starts. It feeds
+`name` and its int32 side-band `name@LOD0`, and the executor keeps a
+host copy of the offsets, so the number of sequences and the time
+extent of a recurrence come from the host, never from a device read.
+
 Not ported yet (ROADMAP, Queue A): the mesh (`Executor(mesh=...)`),
-`run_grad_accum`, `run_async_local`, the profiler hooks, LoD feeds, the
-program verifier (`validate=True`).
+`run_grad_accum`, `run_async_local`, the profiler hooks, nested (2-level
+LoD) feeds, the program verifier (`validate=True`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from ..utils import prng
 from . import core
+from .core.kernels_sequence import lod_key
 from .core.lowering import _backward_slice, run_block
 from .core.program import Program, Variable
 from .core.registry import torch_dtype
@@ -177,6 +185,41 @@ def _host_to_device(value, var, device):
     return t.to(device=device, dtype=want)
 
 
+def _step_feed(value, i):
+    """Step i of a scanned feed: its data's i-th slice, with the offsets
+    of a ragged feed unchanged."""
+    data, lod = _split_lod_feed(value)
+    return data[i] if lod is None else (data[i], lod)
+
+
+def _split_lod_feed(value):
+    """(data, [offsets...] or None) of a feed: a `(data, lod)` pair, an
+    object exposing `.data` and `.lod()`, or plain data."""
+    if isinstance(value, tuple) and len(value) == 2 \
+            and not np.isscalar(value[0]):
+        return value[0], _flatten_lod(value[1])
+    if hasattr(value, "lod") and hasattr(value, "data"):
+        return value.data, _flatten_lod(value.lod())
+    return value, None
+
+
+def _flatten_lod(lod):
+    """A fed LoD as a list of levels, each an int32 offsets vector on the
+    host, of its own (the reference feeds [[..level0..], [..level1..]])."""
+    if lod is None:
+        return None
+
+    def host(v):
+        if isinstance(v, torch.Tensor):
+            v = v.cpu()
+        return np.array(v, dtype=np.int32)
+
+    if len(lod) and isinstance(lod[0], (list, tuple, np.ndarray,
+                                        torch.Tensor)):
+        return [host(lv) for lv in lod]
+    return [host(lod)]
+
+
 class _PlanCache(object):
     """Bounded LRU of run plans (pruned op lists and the persistables a
     run writes) keyed by (program uid, version, fetch names, persistables
@@ -270,9 +313,10 @@ class Executor(object):
     ):
         """Run `steps` training iterations with one call. With
         scan_feeds=True every feed carries a leading [steps] dim of
-        per-step batches; otherwise the same feed is reused each step.
-        Fetches return stacked [steps, ...]. Step i draws from
-        fold_in(run key, i), the JAX package's lax.scan schedule."""
+        per-step batches (a ragged feed's offsets are shared by every
+        step); otherwise the same feed is reused each step. Fetches
+        return stacked [steps, ...]. Step i draws from fold_in(run key,
+        i), the JAX package's lax.scan schedule."""
         self._run_counter += 1
         program = program if program is not None \
             else core.default_main_program()
@@ -282,7 +326,8 @@ class Executor(object):
                             self._run_counter)
         per_step = []
         for i in range(int(steps)):
-            f = {n: v[i] for n, v in feed.items()} if scan_feeds else feed
+            f = {n: _step_feed(v, i) for n, v in feed.items()} \
+                if scan_feeds else feed
             per_step.append(self._execute(
                 program, f, fetch_list or [], scope, False, True,
                 prng.fold_in(base, i)))
@@ -336,16 +381,23 @@ class Executor(object):
                 scope.set(name, v)
             env[name] = v
         persist_in = dict(env)
+        host_lods = {}
         for name, value in feed.items():
-            if isinstance(value, tuple) or hasattr(value, "lod"):
-                raise NotImplementedError(
-                    "LoD feeds are not ported yet (ROADMAP Queue A, Fluid)")
             var = block.var(name) if block.has_var(name) else None
-            env[name] = _host_to_device(value, var, self.device)
+            data, lod = _split_lod_feed(value)
+            env[name] = _host_to_device(data, var, self.device)
+            if lod is not None:
+                if len(lod) > 1:
+                    raise NotImplementedError(
+                        "feed %r has a %d-level LoD: nested sequences are "
+                        "not ported yet (they come with control flow, "
+                        "ROADMAP Queue A 6.2)" % (name, len(lod)))
+                host_lods[lod_key(name)] = lod[0]
+                env[lod_key(name)] = torch.from_numpy(lod[0]).to(self.device)
         ops, persist_out = self._plan(program, fetch_names, persist_in,
                                       persist_names, use_cache)
         env = run_block(block, ops, env, self.device, base_key=rng_key,
-                        keep=fetch_names)
+                        keep=fetch_names, host_lods=host_lods)
         for n in persist_out:
             v = env[n].detach()
             old = persist_in.get(n)

@@ -257,6 +257,20 @@ def test_unported_ops_and_sparse_grads_raise():
             fetch_list=[y])
 
 
+def test_nested_lod_feed_raises():
+    """A 2-level LoD feed (nested sequences) waits for the control-flow
+    slice; the executor names it rather than run one level."""
+    main, startup = TF.Program(), TF.Program()
+    with TF.program_guard(main, startup):
+        x = TF.layers.data(name="x", shape=[2], dtype="float32",
+                           lod_level=2)
+        y = TF.layers.sequence_pool(input=x, pool_type="sum")
+    feed = {"x": (np.ones((5, 2), np.float32), [[0, 2, 3], [0, 1, 3, 5]])}
+    with pytest.raises(NotImplementedError,
+                       match="nested sequences.*Queue A 6.2"):
+        TF.Executor(TF.CPUPlace()).run(main, feed=feed, fetch_list=[y])
+
+
 def test_scope_arrays_are_never_shared_with_the_caller():
     """The CPU scope is updated in place: arrays loaded into it and
     arrays read out of it must be the caller's own copies."""

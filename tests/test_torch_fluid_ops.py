@@ -29,25 +29,62 @@ import torch_parity as tp
 torch.set_num_threads(2)
 
 
-def _op(ins, aliases=()):
-    """A stand-in Operator: input slot s holds variable "s"; an output
-    slot named in `aliases` writes its input's variable (in place)."""
-    outs = {o: [i] for o, i in aliases}
-    return types.SimpleNamespace(inputs={s: [s] for s in ins}, outputs=outs)
+def _names(slot, vals):
+    """Variable names of an input slot: "s", or "s0", "s1", ... when the
+    slot holds several tensors."""
+    return [slot] if len(vals) == 1 else ["%s%d" % (slot, i)
+                                          for i in range(len(vals))]
 
 
-def run_both(op_type, ins, attrs, seed=0, aliases=(), is_test=False):
-    """(JAX outputs, port outputs), each {slot: [numpy]}."""
+def _op(ins, aliases=(), outs=()):
+    """A stand-in Operator: input slot s holds variable "s" (_names); an
+    output slot named in `aliases` writes its input's variable (in
+    place), one named in `outs` writes variable "s"."""
+    outputs = {o: [i] for o, i in aliases}
+    outputs.update({o: [o] for o in outs})
+    return types.SimpleNamespace(
+        type=None, inputs={s: _names(s, v) for s, v in ins.items()},
+        outputs=outputs)
+
+
+def run_both(op_type, ins, attrs, seed=0, aliases=(), is_test=False,
+             lods=None, outs=(), env=None, host=True, keep=()):
+    """(JAX outputs, port outputs, port inputs), each {slot: [numpy]}.
+
+    LoD: `lods` maps an input variable name (see _op) to its offsets, and
+    `env` other side-band entries by key; both go into each context's
+    environment. The port also gets the host copy of every `lods` entry
+    (as its executor registers fed offsets) unless `host` is False.
+    Output slots named in `outs` come back with their side-bands under
+    "<slot>@LOD0". `keep` names variables the run reads afterwards."""
     jctx = JCtx(None, jax.random.fold_in(jax.random.PRNGKey(seed), 1),
                 is_test=is_test)
     tctx = TCtx(None, prng.fold_in(prng.PRNGKey(seed), 1), "cpu",
                 is_test=is_test)
-    tctx.op = _op(ins, aliases)
+    op = _op(ins, aliases, outs)
+    op.type = op_type
+    jctx.op = tctx.op = op
+    side = {n + "@LOD0": np.asarray(o, np.int32)
+            for n, o in (lods or {}).items()}
+    side.update(env or {})
+    jctx.env = {k: jnp.asarray(v) for k, v in side.items()}
+    tctx.env = {k: torch.from_numpy(np.array(v)) for k, v in side.items()}
+    tctx.has_lod = bool(side)
+    tctx.keep = keep
+    if host:
+        for n in lods or {}:
+            tctx.note_host_lod(tctx.env[n + "@LOD0"], side[n + "@LOD0"])
     jout = jkernel(op_type)(jctx, {k: [jnp.asarray(a) for a in v]
                                    for k, v in ins.items()}, dict(attrs))
     tins = {k: [torch.from_numpy(np.array(a)) for a in v]
             for k, v in ins.items()}
     tout = tkernel(op_type)(tctx, tins, dict(attrs))
+    for o in outs:
+        key = o + "@LOD0"
+        if key in jctx.env:
+            jout[key] = jctx.env[key]
+        if key in tctx.env:
+            tout[key] = tctx.env[key]
 
     def norm(d, f):
         return {k: [f(x) for x in (v if isinstance(v, (list, tuple))
