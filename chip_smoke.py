@@ -133,7 +133,7 @@ Phases (any failure exits non-zero):
      flash_attention_plain at phase 5's bf16 tolerance;
  19. read the device time of each of the two CUDA kernels (split and
      merge) of every bf16 paged call timed in phases 2 and 8
-     (torch.profiler; run after phase 22, because a profiler window
+     (torch.profiler; run after phase 24, because a profiler window
      slows the host work of every later phase);
  20. the LSTM benchmark (bench.py:800-850, benchmark/paddle/rnn) through
      the Fluid Executor: embedding 30000 x 128, 2 x (fc to 4*512, then
@@ -159,11 +159,34 @@ Phases (any failure exits non-zero):
      steps on one fixed batch: losses finite and falling; then the
      greedy decode (ctc_align) of the trained weights through the
      for_test clone;
+ 23. control flow in f32, card vs CPU in one process: the book's NMT
+     (tests/test_machine_translation.py's topology at its widths: dict
+     40, word 16, hidden 32, batch 8) trains 3 Adagrad steps from one
+     set of startup weights (at lr 0.01 losses within rtol 1e-4 and
+     parameters within atol 1e-4; at the book's lr 0.2 the losses) and
+     beam-decodes; a beam loop whose beams all end early (the exit
+     armed); IfElse, Switch, StaticRNN and a row of ties through top_k:
+     ids, lengths, the fetched loop counter and top_k indices equal,
+     values within 1e-5;
+ 24. the book's NMT at full width (the PaddlePaddle book's wmt14
+     chapter: dictionaries of 30000, word vectors 512, encoder and
+     decoder width 512, fc and dynamic_lstm at 2048, beam 3, topk 10;
+     f32): batch 64 pairs of the synthetic reverse-copy
+     corpus with 10-50 source tokens (RandomState(0)), Adagrad at lr
+     1e-3 (the JAX test's 0.2 saturates the softmax at this width); 2
+     warm-up and 10
+     timed steps ending in a sync (losses finite and falling; ms/step,
+     target tokens/s, peak device memory), then one step under
+     torch.cuda.set_sync_debug_mode("error"); a beam decode of the 64
+     sources capped at 64 trips (ms per decode, sentences/s, trips,
+     mean output length), and one with its synchronizing calls counted:
+     at most one per trip after the peel;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases 13
  and 14, the flash entries their Fluid launches in phase 18; no Hopper
- kernel lies on the path of phases 20-22, whose recurrences, segment
- ops and CTC are plain torch ops), then the device line last.
+ kernel lies on the path of phases 20-24, whose recurrences, segment
+ ops, CTC, loops and beam search are plain torch ops), then the device
+ line last.
 
 No request count of phases 9, 11 and 13 is cut; phases 10 and 12 run the
 trace's first 8 requests.
@@ -172,9 +195,9 @@ With --profile, torch.profiler also reads the device-busy share and the
 top kernels over the bf16 trace's first steps and steady decode steps,
 over 3 train steps, over 24 steps of the serving_quant configuration
 with kv_quant none and int8, and over 12 steps of 16 megabatch requests
-at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps and 3
-Fluid LSTM steps (device time by class and by region: forward,
-backward, optimizer).
+at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps, 3 Fluid
+LSTM steps, 3 Fluid NMT training steps and one NMT beam decode (device
+time by class and by region: forward, backward, optimizer).
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
@@ -2516,6 +2539,516 @@ def phase_crnn(torch, fluid, crnn, steps=6, place=None, cfg=OCR):
                 decoded_shape=list(dec.shape))
 
 
+# ---------------------------------------------------------------------
+# phases 23-24: control flow through the Fluid port
+# ---------------------------------------------------------------------
+
+# the PaddlePaddle book's machine-translation chapter (wmt14): source
+# and target dictionaries of 30000, word vectors 512, encoder and
+# decoder width 512 (fc and dynamic_lstm at 4 x 512), beam 3; the Fluid
+# book program's topk k 10 (tests/test_machine_translation.py:100);
+# batch 64 sentence pairs of 10-50 source tokens from the synthetic
+# reverse-copy corpus (RandomState(0)); decode capped at 64 trips (the
+# book's max_length is 250). Adagrad at lr 1e-3: its first step moves
+# every parameter with a gradient by about lr, so the JAX test's lr 0.2
+# (at width 32) moves each of the 30000 logits by up to ~0.2 x 512 at
+# this width and saturates the softmax in one step (losses 10.31 ->
+# 18.17, the cap of -log(1e-8), on the H100)
+NMT = dict(dict_size=30000, word=512, hidden=512, beam=3, topk=10,
+           batch=64, lo=10, hi=50, max_len=64, lr=1e-3)
+# the JAX suite's widths (tests/test_machine_translation.py)
+NMT_TEST = dict(dict_size=40, word=16, hidden=32, beam=2, topk=10,
+                batch=8, lo=2, hi=4, max_len=6, lr=0.2)
+NMT_START, NMT_END = 1, 2
+
+
+def wmt_batch(cfg, seed):
+    """tests/test_machine_translation.py's synthetic_wmt at `cfg`'s
+    dictionary and lengths: (src, <s>+reversed, reversed+<e>) triples."""
+    rng = np.random.RandomState(seed)
+    data = []
+    for _ in range(cfg["batch"]):
+        src = rng.randint(3, cfg["dict_size"],
+                          size=rng.randint(cfg["lo"], cfg["hi"] + 1))
+        rev = src[::-1].tolist()
+        data.append((src.tolist(), [NMT_START] + rev, rev + [NMT_END]))
+    return data
+
+
+def lod_pair(torch, seqs, dev, dtype=np.int64):
+    """(packed [total, 1] on `dev`, [host offsets]) of a list of id
+    sequences."""
+    off = np.cumsum([0] + [len(s) for s in seqs]).astype(np.int32)
+    flat = np.concatenate([np.asarray(s) for s in seqs]).astype(dtype)
+    return torch.from_numpy(flat.reshape(-1, 1)).to(dev), [off]
+
+
+def nmt_encoder(fluid, cfg):
+    """The book's encoder: embedding -> fc(4H, tanh) -> dynamic_lstm(4H)
+    -> sequence_last_step."""
+    pd = fluid.layers
+    src = pd.data(name="src_word_id", shape=[1], dtype="int64", lod_level=1)
+    emb = pd.embedding(input=src, size=[cfg["dict_size"], cfg["word"]],
+                       dtype="float32",
+                       param_attr=fluid.ParamAttr(name="vemb"))
+    fc1 = pd.fc(input=emb, size=cfg["hidden"] * 4, act="tanh")
+    hidden, _ = pd.dynamic_lstm(input=fc1, size=cfg["hidden"] * 4)
+    return pd.sequence_last_step(input=hidden)
+
+
+def nmt_train_program(fluid, cfg, lr=None):
+    """tests/test_machine_translation.py:29-63: the training decoder is
+    a DynamicRNN over the target words, its memory booted from the
+    encoder's context; cross_entropy -> mean, Adagrad."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        pd = fluid.layers
+        context = nmt_encoder(fluid, cfg)
+        trg = pd.data(name="target_language_word", shape=[1],
+                      dtype="int64", lod_level=1)
+        trg_emb = pd.embedding(input=trg,
+                               size=[cfg["dict_size"], cfg["word"]],
+                               dtype="float32",
+                               param_attr=fluid.ParamAttr(name="vemb"))
+        rnn = pd.DynamicRNN()
+        with rnn.block():
+            word = rnn.step_input(trg_emb)
+            pre = rnn.memory(init=context)
+            state = pd.fc(input=[word, pre], size=cfg["hidden"],
+                          act="tanh")
+            score = pd.fc(input=state, size=cfg["dict_size"],
+                          act="softmax")
+            rnn.update_memory(pre, state)
+            rnn.output(score)
+        label = pd.data(name="target_language_next_word", shape=[1],
+                        dtype="int64", lod_level=1)
+        loss = pd.mean(x=pd.cross_entropy(input=rnn(), label=label))
+        fluid.optimizer.Adagrad(
+            learning_rate=cfg["lr"] if lr is None else lr).minimize(loss)
+    return main, startup, loss
+
+
+def decode_loop(fluid, init_state, V, D, H, T, beam, k, emb_attr,
+                names=("dec", "out")):
+    """tests/test_machine_translation.py:66-113's decoder: a While over
+    tensor arrays (array_read -> sequence_expand over the beam parents
+    -> embedding + fc -> topk -> beam_search -> increment ->
+    array_write -> less_than), then beam_search_decode. Returns the
+    decode's ids, scores, lengths, loop counter and state array."""
+    pd = fluid.layers
+    init_ids = pd.data(name="init_ids", shape=[1], dtype="int64",
+                       lod_level=2)
+    init_scores = pd.data(name="init_scores", shape=[1], dtype="float32",
+                          lod_level=2)
+    array_len = pd.fill_constant(shape=[1], dtype="int64", value=T)
+    counter = pd.zeros(shape=[1], dtype="int64", force_cpu=True)
+    state_array = pd.create_array("float32")
+    pd.array_write(init_state, array=state_array, i=counter)
+    ids_array = pd.create_array("int64")
+    scores_array = pd.create_array("float32")
+    pd.array_write(init_ids, array=ids_array, i=counter)
+    pd.array_write(init_scores, array=scores_array, i=counter)
+    cond = pd.less_than(x=counter, y=array_len)
+    w = pd.While(cond=cond)
+    with w.block():
+        pre_ids = pd.array_read(array=ids_array, i=counter)
+        pre_state = pd.array_read(array=state_array, i=counter)
+        pre_score = pd.array_read(array=scores_array, i=counter)
+        expanded = pd.sequence_expand(pre_state, pre_score)
+        emb = pd.embedding(input=pre_ids, size=[V, D], dtype="float32",
+                           param_attr=fluid.ParamAttr(name=emb_attr))
+        state = pd.fc(input=[emb, expanded], size=H, act="tanh",
+                      param_attr=fluid.ParamAttr(name=names[0]))
+        score = pd.fc(input=state, size=V, act="softmax",
+                      param_attr=fluid.ParamAttr(name=names[1]))
+        top_scores, top_ids = pd.topk(score, k=k)
+        sel_ids, sel_scores = pd.beam_search(pre_ids, top_ids, top_scores,
+                                             beam, end_id=NMT_END)
+        pd.increment(x=counter, value=1, in_place=True)
+        pd.array_write(state, array=state_array, i=counter)
+        pd.array_write(sel_ids, array=ids_array, i=counter)
+        pd.array_write(sel_scores, array=scores_array, i=counter)
+        pd.less_than(x=counter, y=array_len, cond=cond)
+    ids, scores = pd.beam_search_decode(ids=ids_array, scores=scores_array)
+    lens = fluid.default_main_program().global_block().var(ids.lens_name)
+    return dict(ids=ids, lens=lens, counter=counter, scores=scores)
+
+
+def nmt_decode_program(fluid, cfg):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        out = decode_loop(fluid, nmt_encoder(fluid, cfg), cfg["dict_size"],
+                          cfg["word"], cfg["hidden"], cfg["max_len"],
+                          cfg["beam"], cfg["topk"], "vemb")
+    return main, startup, out
+
+
+def nmt_decode_feed(torch, cfg, data, dev):
+    """The sources on `dev` and one <s> per source as a 2-level LoD
+    feed (init ids and scores)."""
+    B = len(data)
+    lod = [list(range(B + 1))] * 2
+    return {"src_word_id": lod_pair(torch, [d[0] for d in data], dev),
+            "init_ids": (torch.full((B, 1), NMT_START, dtype=torch.int64,
+                                    device=dev), lod),
+            "init_scores": (torch.ones((B, 1), device=dev), lod)}
+
+
+def nmt_train_feed(torch, data, dev):
+    return {"src_word_id": lod_pair(torch, [d[0] for d in data], dev),
+            "target_language_word": lod_pair(torch, [d[1] for d in data],
+                                             dev),
+            "target_language_next_word": lod_pair(
+                torch, [d[2] for d in data], dev)}
+
+
+def control_programs(fluid):
+    """(name, main, startup, fetches, feed) of phase 23's IfElse, Switch
+    and StaticRNN programs (tests/test_torch_fluid_control.py's) and a
+    row of ties through top_k."""
+    rng = np.random.RandomState(23)
+    out = []
+    pd = fluid.layers
+
+    def program(name, build, feed):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            fetches = build()
+        out.append((name, main, startup, fetches, feed))
+
+    def ifelse():
+        x = pd.data(name="x", shape=[2], dtype="float32")
+        c = pd.data(name="c", shape=[1], dtype="bool")
+        ie = pd.IfElse(c)
+        with ie.true_block():
+            ie.output(pd.tanh(x=pd.scale(x=ie.input(x), scale=3.0)))
+        with ie.false_block():
+            ie.output(pd.scale(x=pd.exp(x=ie.input(x)), scale=2.0,
+                               bias=-1.0))
+        return list(ie())
+
+    program("ifelse", ifelse, {"x": rng.randn(64, 2).astype(np.float32),
+                               "c": rng.rand(64, 1) > 0.5})
+
+    def switch():
+        step = pd.data(name="s", shape=[1], dtype="float32")
+        lr = pd.fill_constant(shape=[1], dtype="float32", value=0.8)
+        one = pd.fill_constant(shape=[1], dtype="float32", value=1.0)
+        with pd.Switch() as sw:
+            with sw.case(pd.less_than(step, one)):
+                pd.assign(pd.scale(x=lr, scale=0.5), lr)
+            with sw.default():
+                pd.assign(pd.fill_constant(shape=[1], dtype="float32",
+                                           value=0.3), lr)
+        return [pd.scale(x=lr, scale=1.0)]
+
+    program("switch", switch, {"s": np.array([[0.5]], np.float32)})
+
+    def static_rnn(T=5, N=16, D=32):
+        x = pd.data(name="x", shape=[T, N, D], dtype="float32",
+                    append_batch_size=False)
+        h0 = pd.fill_constant(shape=[N, D], dtype="float32", value=0.0)
+        rnn = pd.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            hprev = rnn.memory(init=h0)
+            w = pd.create_parameter([D, D], "float32", attr="srnn_w")
+            h = pd.tanh(x=pd.elementwise_add(x=pd.matmul(x=xt, y=w),
+                                             y=pd.matmul(x=hprev, y=w)))
+            rnn.update_memory(hprev, h)
+            rnn.step_output(h)
+        return [rnn()]
+
+    program("static_rnn", static_rnn,
+            {"x": rng.randn(5, 16, 32).astype(np.float32)})
+
+    def ties():
+        x = pd.data(name="x", shape=[40], dtype="float32")
+        vals, idx = pd.topk(x, k=10)
+        return [vals, idx]
+
+    tie = np.zeros((3, 40), np.float32)
+    tie[0, 20] = 1.0
+    tie[1, ::3] = 0.5
+    tie[2] = rng.randint(0, 3, 40)
+    program("top_k ties", ties, {"x": tie})
+    return out
+
+
+def _card_and_cpu(fluid, startup, run, place=None, init=None):
+    """`run(exe)` on the card and on the CPU from one set of startup
+    weights (the CPU startup's, or `init` laid over them); returns
+    {side: (run's result, final scope as numpy)}."""
+    scope0 = fluid.Scope()
+    with fluid.scope_guard(scope0):
+        fluid.Executor(fluid.CPUPlace()).run(startup)
+    weights = dict(fluid.scope_to_numpy(scope0), **(init or {}))
+    out = {}
+    for side, where in (("card", place or fluid.CUDAPlace(0)),
+                        ("cpu", fluid.CPUPlace())):
+        exe = fluid.Executor(where)
+        scope = fluid.scope_from_numpy(fluid.Scope(), weights, exe.device)
+        with fluid.scope_guard(scope):
+            res = run(exe)
+        out[side] = (res, fluid.scope_to_numpy(scope))
+    return out, weights
+
+
+def phase_control_parity(torch, fluid, place=None, steps=3):
+    """Phase 23: control flow in f32, card vs CPU in one process. The
+    book's NMT at the JAX suite's widths trains 3 Adagrad steps from one
+    set of startup weights: at lr 0.01 losses within rtol 1e-4 and
+    parameters within atol 1e-4; at the book's lr 0.2 the losses
+    (Adagrad's lr*g/(|g|+1e-6) turns an f32 rounding difference in a
+    near-zero gradient into up to 2e5 times it in the parameter). Its
+    beam decode, a beam loop whose beams all end early (the exit on),
+    and IfElse / Switch / StaticRNN / top_k ties: ids, lengths, the
+    fetched counter and top_k indices exact, values within 1e-5."""
+    from paddle_tpu_torch.fluid.core import kernels_control as kc
+
+    results = {}
+    data = wmt_batch(NMT_TEST, 1)
+    for lr, hold in ((0.01, True), (0.2, False)):
+        main, startup, loss = nmt_train_program(fluid, NMT_TEST, lr)
+
+        def train(exe):
+            feed = nmt_train_feed(torch, data, exe.device)
+            return [float(np.ravel(exe.run(main, feed=feed,
+                                           fetch_list=[loss])[0])[0])
+                    for _ in range(steps)]
+
+        runs, init = _card_and_cpu(fluid, startup, train, place)
+        (lc, sc), (lh, sh) = runs["card"], runs["cpu"]
+        params = [p.name for p in main.global_block().all_parameters()]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        p_err = max(float(np.abs(sc[n] - sh[n]).max()) for n in params)
+        moved = max(float(np.abs(sh[n] - init[n]).max()) for n in params)
+        ok = loss_err <= 1e-4 and (p_err <= 1e-4 or not hold) and all(
+            math.isfinite(x) for x in lc)
+        label = "nmt train, Adagrad(%g)" % lr
+        log("  %s: losses card %s vs CPU %s; max rel loss diff %.3e, max "
+            "param diff %.3e%s (moved up to %.3e) %s" % (
+                label, ["%.6f" % x for x in lc], ["%.6f" % x for x in lh],
+                loss_err, p_err, "" if hold else " (not held)", moved,
+                "ok" if ok else "FAIL"))
+        check(ok, "%s: card diverged from the CPU" % label)
+        results[label] = dict(loss_rel_err=loss_err, param_abs_err=p_err)
+
+    def held_decode(label, main, startup, out, feed_fn, init=None):
+        def decode(exe):
+            got = exe.run(main, feed=feed_fn(exe.device),
+                          fetch_list=[out[k] for k in
+                                      ("ids", "lens", "counter", "scores")])
+            return got, dict(kc.LAST_WHILE_STATS)
+
+        runs, _ = _card_and_cpu(fluid, startup, decode, place, init)
+        (c, cstats), (h, hstats) = runs["card"][0], runs["cpu"][0]
+        exact = all(np.array_equal(a, b) for a, b in zip(c[:3], h[:3]))
+        s_err = float(np.abs(c[3] - h[3]).max())
+        ok = exact and s_err <= 1e-5 and cstats == hstats
+        log("  %s: ids %s, counter %d, trips %s; ids, lengths and counter "
+            "equal: %s, max score diff %.3e %s" % (
+                label, list(c[0].shape), int(np.ravel(c[2])[0]), cstats,
+                exact, s_err, "ok" if ok else "FAIL"))
+        check(ok, "%s: the card's decode differs from the CPU's" % label)
+        results[label] = dict(score_abs_err=s_err, counter=int(
+            np.ravel(c[2])[0]), stats=cstats)
+        return cstats
+
+    main, startup, out = nmt_decode_program(fluid, NMT_TEST)
+    held_decode("nmt decode", main, startup, out,
+                lambda dev: nmt_decode_feed(torch, NMT_TEST, data, dev))
+
+    V, D, H, T_MAX = 7, 4, 5, 24
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        state = fluid.layers.data(name="init_state", shape=[H],
+                                  dtype="float32")
+        out = decode_loop(fluid, state, V, D, H, T_MAX, 2, 5, "ee_emb",
+                          ("ee_dec", "ee_out"))
+    rng = np.random.RandomState(9)
+    init_state = rng.randn(2, H).astype(np.float32)
+    rigged = np.zeros((H, V), np.float32)
+    rigged[:, NMT_END] = 4.0  # end_id wins every softmax: beams end early
+
+    def beam_feed(dev):
+        lod = [[0, 1, 2]] * 2
+        return {"init_state": torch.from_numpy(init_state).to(dev),
+                "init_ids": (torch.full((2, 1), NMT_START,
+                                        dtype=torch.int64, device=dev), lod),
+                "init_scores": (torch.ones((2, 1), device=dev), lod)}
+
+    stats = held_decode("beam loop, early exit", main, startup, out,
+                        beam_feed, init={"ee_out": rigged})
+    check(stats["early_exit_armed"] and results["beam loop, early exit"][
+        "counter"] < T_MAX // 2, "the beam loop did not exit early: %s"
+        % stats)
+
+    for name, main, startup, fetches, feed in control_programs(fluid):
+        def run(exe):
+            return exe.run(main, feed=feed, fetch_list=fetches)
+
+        runs, _ = _card_and_cpu(fluid, startup, run, place)
+        c, h = runs["card"][0], runs["cpu"][0]
+        if name == "top_k ties":
+            ok = np.array_equal(c[1], h[1]) and c[1][0].tolist() == [
+                20, 0, 1, 2, 3, 4, 5, 6, 7, 8]
+            err = float(np.abs(c[0] - h[0]).max())
+        else:
+            err = max(float(np.abs(a - b).max()) for a, b in zip(c, h))
+            ok = err <= 1e-5
+        log("  %s: max diff card vs CPU %.3e %s" % (
+            name, err, "ok" if ok else "FAIL"))
+        check(ok, "%s: the card differs from the CPU" % name)
+        results[name] = dict(abs_err=err)
+    return results
+
+
+def _count_syncs(torch, fn):
+    """(fn(), the number of synchronizing CUDA calls it made):
+    torch.cuda.set_sync_debug_mode("warn") warns at each."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    n = sum("synchroniz" in str(w.message) for w in seen)
+    return out, n
+
+
+def phase_nmt(torch, fluid, profile=False, warm=2, steps=10, place=None,
+              cfg=NMT):
+    """Phase 24: the book's NMT at full width on the card (`place` and
+    `cfg` shrink it for a rehearsal on the CPU): 2 warm-up and 10 timed
+    f32 Adagrad steps ending in a sync, then one more training step
+    under torch.cuda.set_sync_debug_mode("error"); then beam decodes of
+    the batch's 64 sources (one warm-up, 3 timed), and one with its
+    synchronizing calls counted: at most one per trip after the peel."""
+    from paddle_tpu_torch.fluid.core import kernels_control as kc
+
+    data = wmt_batch(cfg, 0)
+    main, startup, loss = nmt_train_program(fluid, cfg)
+    out = {}
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        dev = exe.device
+        exe.run(startup)
+        feed = nmt_train_feed(torch, data, dev)
+
+        def step():
+            return exe.run(main, feed=feed, fetch_list=[loss],
+                           return_numpy=False)[0]
+
+        t0 = time.monotonic()
+        losses = [step() for _ in range(warm)]
+        _sync(torch, dev.type)
+        warm_s = time.monotonic() - t0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        losses += [step() for _ in range(steps)]
+        _sync(torch, dev.type)
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" \
+            else 0
+        losses = [float(x.reshape(())) for x in losses]
+        tokens = sum(len(d[1]) for d in data)
+        src_tokens = sum(len(d[0]) for d in data)
+        check(all(math.isfinite(x) for x in losses) and losses[-1] <
+              losses[0], "the NMT's losses are not finite or did not "
+              "fall: %s" % losses)
+        log("  warm-up %d steps %.1f s; losses %s" % (
+            warm, warm_s, ", ".join("%.4f" % x for x in losses)))
+        log("  %d steps of %d pairs (%d source, %d target tokens): %.3f "
+            "ms/step, %.1f target tokens/s, peak device memory %.3f GiB"
+            % (steps, len(data), src_tokens, tokens, wall / steps * 1e3,
+               tokens * steps / wall, peak / 2 ** 30))
+        out["train"] = dict(ms_per_step=wall / steps * 1e3,
+                            target_tokens_per_s=tokens * steps / wall,
+                            target_tokens=tokens, source_tokens=src_tokens,
+                            peak_mem_gib=peak / 2 ** 30, losses=losses,
+                            warm_s=warm_s)
+        if dev.type == "cuda":
+            _sync(torch, "cuda")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                last = step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(math.isfinite(float(last.reshape(()))),
+                  "the NMT's sync-checked step gave a non-finite loss")
+            log("  training step under set_sync_debug_mode('error'): no "
+                "host sync")
+            out["train"]["no_host_sync"] = True
+        if profile:
+            out["train"]["profile"] = profile_fluid(
+                torch, step, 3, "3 Fluid NMT training steps")
+    del scope, exe, feed, step
+
+    dmain, dstartup, dout = nmt_decode_program(fluid, cfg)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        exe.run(dstartup)
+        dfeed = nmt_decode_feed(torch, cfg, data, dev)
+        fetch = [dout[k] for k in ("ids", "lens", "counter", "scores")]
+
+        def decode():
+            return exe.run(dmain, feed=dfeed, fetch_list=fetch,
+                           return_numpy=False)
+
+        decode()
+        _sync(torch, dev.type)
+        n = 3
+        t0 = time.monotonic()
+        for _ in range(n):
+            got = decode()
+        _sync(torch, dev.type)
+        ms = (time.monotonic() - t0) / n * 1e3
+        stats = dict(kc.LAST_WHILE_STATS)
+        ids, lens, counter, scores = [fluid.as_numpy(t) for t in got]
+        B = len(data)
+        ok = ids.shape == (B * cfg["beam"], cfg["max_len"] + 1) and bool(
+            (ids[:, 0] == NMT_START).all()) and bool(
+            ((ids >= 0) & (ids < cfg["dict_size"])).all()) and bool(
+            np.isfinite(scores).all())
+        log("  beam decode of %d sources (beam %d, at most %d trips): "
+            "%.3f ms per decode, %.1f sentences/s; trips %d (peeled %d, "
+            "%d of %d after the peel, early exit armed: %s); mean output "
+            "length %.2f; ids %s %s" % (
+                B, cfg["beam"], cfg["max_len"], ms, B / (ms / 1e3),
+                int(np.ravel(counter)[0]), stats["peeled"],
+                stats["executed"], stats["remaining"],
+                stats["early_exit_armed"], float(lens.mean()),
+                list(ids.shape), "ok" if ok else "FAIL"))
+        check(ok, "the NMT's beam decode gave malformed output")
+        out["decode"] = dict(ms_per_decode=ms,
+                             sentences_per_s=B / (ms / 1e3),
+                             trips=int(np.ravel(counter)[0]), stats=stats,
+                             mean_len=float(lens.mean()))
+        if dev.type == "cuda":
+            _, syncs = _count_syncs(torch, decode)
+            after_peel = kc.LAST_WHILE_STATS["remaining"]
+            log("  decode with syncs counted: %d synchronizing calls, %d "
+                "trips after the peel" % (syncs, after_peel))
+            check(syncs <= after_peel, "the decode loop synchronized %d "
+                  "times over %d trips after the peel" % (syncs, after_peel))
+            out["decode"]["syncs"] = syncs
+        if profile:
+            out["decode"]["profile"] = profile_fluid(
+                torch, decode, 1, "1 Fluid NMT beam decode")
+    del scope, exe
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -2651,6 +3184,15 @@ def main():
     log("phase 22: the OCR CRNN at hidden 48, images [32, 1, 32, 128], f32")
     crnn = phase_crnn(torch, fluid, ocr_crnn)
 
+    log("phase 23: control flow f32 parity, card vs CPU (NMT at test "
+        "widths, a beam loop with the early exit, IfElse, Switch, "
+        "StaticRNN, top_k ties)")
+    control = phase_control_parity(torch, fluid)
+
+    log("phase 24: the book's NMT at full width (dict 30000, width 512, "
+        "beam 3), f32 Adagrad(1e-3), batch 64; beam decode")
+    nmt = phase_nmt(torch, fluid, profile="--profile" in sys.argv[1:])
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -2767,7 +3309,8 @@ def main():
                                       flash_op=fluid_flash,
                                       lstm=fluid_lstm, lstm_sync=lstm_sync,
                                       ragged_f32_parity=ragged,
-                                      crnn=crnn)))
+                                      crnn=crnn, control_f32_parity=control,
+                                      nmt=nmt)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ IR, the executor and autograd backward, the math / tensor / nn /
 optimizer op kernels, the layers of io, nn, tensor and ops, the
 optimizers, regularizers, clipping and model save/load in the JAX
 package's on-disk format; LoD (ragged) feeds, the sequence ops, the
-dynamic LSTM and GRU, CTC, `nets` and `DataFeeder`. ROADMAP Queue A
-lists what of Fluid is left.
+dynamic LSTM and GRU, CTC, `nets` and `DataFeeder`; control flow
+(While, tensor arrays, DynamicRNN, IfElse, Switch, StaticRNN, beam
+search) and 2-level LoD feeds. ROADMAP Queue A lists what of Fluid is
+left.
 """
 
 from . import core

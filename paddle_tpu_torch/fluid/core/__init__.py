@@ -4,8 +4,8 @@
 program.py (the IR, a copy of the JAX package's), registry.py +
 kernels_*.py (the op set as torch functions), lowering.py (a block's ops
 run eagerly on the executor's device, autograd for the backward).
-The kernel modules of control flow, CRF, sampled losses and detection
-are not ported yet (ROADMAP, Queue A).
+The kernel modules of CRF, sampled losses and detection are not ported
+yet (ROADMAP, Queue A).
 """
 
 import torch
@@ -33,6 +33,7 @@ from . import kernels_tensor  # noqa: F401
 from . import kernels_optim  # noqa: F401
 from . import kernels_sequence  # noqa: F401
 from . import kernels_rnn  # noqa: F401
+from . import kernels_control  # noqa: F401
 from . import kernels_ctc  # noqa: F401
 from .lowering import AUTODIFF_OP, run_block
 from ... import resolve_device

@@ -334,9 +334,18 @@ def _dropout(ctx, ins, attrs):
 
 # --- metrics ------------------------------------------------------------
 
+def stable_topk(x, k):
+    """The k largest entries of each row of x and their indices, ties in
+    index order (lowest first), as `lax.top_k` orders them: a stable
+    descending sort, then its first k. `torch.topk` leaves the order of
+    ties to the device's algorithm."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 @register_op("top_k")
 def _top_k(ctx, ins, attrs):
-    vals, idx = torch.topk(ins["X"][0], attrs.get("k", 1), dim=-1)
+    vals, idx = stable_topk(ins["X"][0], attrs.get("k", 1))
     return {"Out": vals, "Indices": idx.to(torch.int32)}
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .kernels_nn import stable_topk
 from .registry import register_op
 
 LOD_SUFFIX = "@LOD0"
@@ -307,7 +308,7 @@ def _kmax_seq_score(ctx, ins, attrs):
     rows = torch.arange(n, device=x.device)
     masked = torch.where(ids[None, :] == rows[:, None], x[None, :],
                          torch.full_like(x, float("-inf"))[None, :])
-    top_s, top_i = torch.topk(masked, min(k, total), dim=1)
+    top_s, top_i = stable_topk(masked, min(k, total))
     rel = _i32(top_i) - offsets[:-1, None]
     rel = torch.where(torch.isfinite(top_s), rel, torch.full_like(rel, -1))
     if k > total:  # more slots than tokens exist at all

@@ -28,8 +28,11 @@ def _dtype(attrs, default="float32"):
 @register_op("fill_constant")
 def _fill_constant(ctx, ins, attrs):
     shape = tuple(int(s) for s in attrs["shape"])
+    # a loop counter or limit stays on the host (kernels_control.host_names)
+    device = torch.device("cpu") if ctx.op.outputs["Out"][0] in \
+        ctx.host_names else ctx.device
     return {"Out": torch.full(shape, attrs.get("value", 0.0),
-                              dtype=_dtype(attrs), device=ctx.device)}
+                              dtype=_dtype(attrs), device=device)}
 
 
 @register_op("fill_constant_batch_size_like")

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .kernels_sequence import lod_key
+from .kernels_control import TensorArray, place_hosted
+from .kernels_sequence import LOD_SUFFIX, lod_key
 from .registry import LoweringContext, get_kernel
 
 AUTODIFF_OP = "autodiff"
@@ -73,12 +74,25 @@ _AMP_F32_STICKY = frozenset(
 )
 
 
+# ops that read env directly (tensor arrays, sub-blocks): inputs may be
+# names with no env binding yet (e.g. the first array_write of an array)
+# (the JAX package's lowering.py:73-90)
+_ENV_OPS = frozenset(
+    ["while", "array_write", "array_read", "array_length", "dynamic_rnn",
+     "beam_search_decode"]
+)
+
+
 def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
     """Execute one op: gather named inputs from env, call the kernel, bind
     named outputs back into env."""
     kernel = get_kernel(op.type)
     ins = {}
+    lazy = op.type in _ENV_OPS
     for slot, names in op.inputs.items():
+        if lazy:
+            ins[slot] = [env.get(n) for n in names]
+            continue
         try:
             ins[slot] = [env[n] for n in names]
         except KeyError as e:
@@ -91,6 +105,9 @@ def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
                 "and run the clone instead." % (op.type, slot, names,
                                                 e.args[0])
             ) from e
+    hosted = ctx.host_names
+    if hosted:
+        place_hosted(ctx, op, ins, hosted)
     # sequence kernels read LoD offsets / write output LoD via ctx.env
     ctx.op = op
     ctx.env = env
@@ -106,7 +123,8 @@ def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
             # grad flow at such vars): frozen feature extractors really
             # receive no gradient
             var = ctx.block._find_var_recursive(name)
-            if var is not None and var.stop_gradient and val.requires_grad:
+            if var is not None and var.stop_gradient and isinstance(
+                    val, torch.Tensor) and val.requires_grad:
                 val = val.detach()
             env[name] = val
     _share_lod(ctx, op, env)
@@ -149,6 +167,8 @@ def _share_lod(ctx, op, env):
     src = None
     for names in op.inputs.values():
         for n in names:
+            if isinstance(env.get(n), TensorArray):
+                continue  # an array's items carry their own side-bands
             src = env.get(lod_key(n))
             if src is not None:
                 break
@@ -158,7 +178,8 @@ def _share_lod(ctx, op, env):
         return
     for names in op.outputs.values():
         for n in names:
-            env.setdefault(lod_key(n), src)
+            if not isinstance(env.get(n), TensorArray):
+                env.setdefault(lod_key(n), src)
 
 
 def _run_op_f32(ctx: LoweringContext, op, env: Dict[str, Any]):
@@ -246,11 +267,12 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     autograd can free them as it goes. `host_lods` maps each fed
     side-band of `env` ("x@LOD0") to its host copy."""
     host_lods = host_lods or {}
-    lengths = [int(np.diff(h).max()) for h in host_lods.values()
-               if h.shape[0] > 1]
+    lengths = [int(np.diff(h).max()) for k, h in host_lods.items()
+               if k.endswith(LOD_SUFFIX) and h.shape[0] > 1]
     ctx = LoweringContext(block, base_key, device, is_test=is_test,
                           seq_maxlen=max(lengths) if lengths else None)
     ctx.ops, ctx.keep = ops, keep
+    ctx.fetch_names = frozenset(keep)
     for key, host in host_lods.items():
         ctx.note_host_lod(env[key], host)
         ctx.has_lod = True

@@ -45,6 +45,7 @@ def torch_dtype(name) -> torch.dtype:
 
 
 _KERNELS: Dict[str, Callable] = {}
+_ALL = object()  # LoweringContext._reads of a sub-block: every name
 
 
 def register_op(op_type: str):
@@ -113,14 +114,52 @@ class LoweringContext(object):
         # True while running the bf16 forward region of an AMP program:
         # deny-listed ops (lowering._AMP_F32_OPS) then compute in f32
         self.amp_region = False
-        # True once any side-band exists: lowering._share_lod returns at
-        # once while it is False
-        self.has_lod = False
+        # [True] once any side-band exists: lowering._share_lod returns
+        # at once while it is False. A list, shared with sub-contexts
+        self._lod_flag = [False]
         self._host_lods = {}  # id(device offsets) -> (tensor, ndarray)
         # the ops of the run and the names read after it, for `is_read`
         self.ops = ()
         self.keep = ()
         self._reads = None
+        # the names the caller fetches, and (in a sub-block) the names
+        # ops after the enclosing control-flow op read: the While
+        # early-exit gate (kernels_control.py) must not freeze them
+        self.fetch_names = frozenset()
+        self.downstream_reads = frozenset()
+
+    @property
+    def has_lod(self) -> bool:
+        return self._lod_flag[0]
+
+    @has_lod.setter
+    def has_lod(self, value):
+        self._lod_flag[0] = bool(value)
+
+    @property
+    def host_names(self) -> frozenset:
+        """The loop counters and limits of the program: values the
+        executor keeps on the host (kernels_control.host_names)."""
+        from .kernels_control import host_names
+
+        return host_names(self.block.program) if self.block is not None \
+            else frozenset()
+
+    def sub_context(self, block):
+        """A context for a control-flow op's sub-block: a fresh RNG
+        counter on the same base key (the JAX package builds a new
+        LoweringContext there), the run's device, `is_test`,
+        `seq_maxlen`, AMP region and fetches, and the host copies of
+        LoD offsets shared both ways. Every output counts as read."""
+        sub = LoweringContext(block, self._base_key, self.device,
+                              is_test=self.is_test,
+                              seq_maxlen=self.seq_maxlen)
+        sub.amp_region = self.amp_region
+        sub.fetch_names = self.fetch_names
+        sub._lod_flag = self._lod_flag
+        sub._host_lods = self._host_lods
+        sub._reads = _ALL
+        return sub
 
     def next_key(self):
         if self._base_key is None:
@@ -152,9 +191,12 @@ class LoweringContext(object):
         """Whether an op of this run reads `name` or the caller fetches
         it: lets a kernel skip an output that nothing reads (eager torch
         pays for every value it computes, where XLA drops dead ones)."""
+        if self._reads is _ALL:
+            return True
         if self._reads is None:
             reads = set(self.keep)
             for op in self.ops:
                 reads |= set(op.input_arg_names)
+                reads |= self.block.program._sub_block_outer_reads(op)
             self._reads = reads
         return name in self._reads

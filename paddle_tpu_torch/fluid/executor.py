@@ -19,10 +19,13 @@ sequences row after row and `offsets` says where each starts. It feeds
 `name` and its int32 side-band `name@LOD0`, and the executor keeps a
 host copy of the offsets, so the number of sequences and the time
 extent of a recurrence come from the host, never from a device read.
+A 2-level LoD (`[outer, finest]`, as beam search's init ids come) feeds
+its finest level as `name@LOD0` and its outer level as `name@LOD_SRC`,
+both with host copies.
 
 Not ported yet (ROADMAP, Queue A): the mesh (`Executor(mesh=...)`),
-`run_grad_accum`, `run_async_local`, the profiler hooks, nested (2-level
-LoD) feeds, the program verifier (`validate=True`).
+`run_grad_accum`, `run_async_local`, the profiler hooks, the program
+verifier (`validate=True`).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ import torch
 
 from ..utils import prng
 from . import core
-from .core.kernels_sequence import lod_key
+from .core.kernels_control import to_device_async
+from .core.kernels_sequence import LOD_SRC, lod_key
 from .core.lowering import _backward_slice, run_block
 from .core.program import Program, Variable
 from .core.registry import torch_dtype
@@ -185,6 +189,13 @@ def _host_to_device(value, var, device):
     return t.to(device=device, dtype=want)
 
 
+def _offsets_to_device(host, device):
+    """Fed offsets on `device` without a wait on the card (the host
+    keeps its own copy): a run whose data is already there waits for
+    nothing."""
+    return to_device_async(torch.from_numpy(host), device)
+
+
 def _step_feed(value, i):
     """Step i of a scanned feed: its data's i-th slice, with the offsets
     of a ragged feed unchanged."""
@@ -295,8 +306,8 @@ class Executor(object):
         self._run_counter += 1
         program = program if program is not None \
             else core.default_main_program()
-        key = prng.fold_in(prng.PRNGKey(program.random_seed, self.device),
-                           self._run_counter)
+        key = to_device_async(prng.fold_in(prng.PRNGKey(program.random_seed),
+                                      self._run_counter), self.device)
         return self._execute(program, feed or {}, fetch_list or [],
                              scope or global_scope(), return_numpy,
                              use_program_cache, key)
@@ -322,7 +333,7 @@ class Executor(object):
             else core.default_main_program()
         feed = feed or {}
         scope = scope or global_scope()
-        base = prng.fold_in(prng.PRNGKey(program.random_seed, self.device),
+        base = prng.fold_in(prng.PRNGKey(program.random_seed),
                             self._run_counter)
         per_step = []
         for i in range(int(steps)):
@@ -330,7 +341,7 @@ class Executor(object):
                 if scan_feeds else feed
             per_step.append(self._execute(
                 program, f, fetch_list or [], scope, False, True,
-                prng.fold_in(base, i)))
+                to_device_async(prng.fold_in(base, i), self.device)))
         out = [torch.stack([s[j] for s in per_step])
                for j in range(len(fetch_list or []))]
         return as_numpy(out) if return_numpy else out
@@ -387,13 +398,14 @@ class Executor(object):
             data, lod = _split_lod_feed(value)
             env[name] = _host_to_device(data, var, self.device)
             if lod is not None:
+                # rows are described by the FINEST level; a coarser outer
+                # level (2-level beam-search feeds) rides `x@LOD_SRC`
+                bands = [(lod_key(name), lod[-1])]
                 if len(lod) > 1:
-                    raise NotImplementedError(
-                        "feed %r has a %d-level LoD: nested sequences are "
-                        "not ported yet (they come with control flow, "
-                        "ROADMAP Queue A 6.2)" % (name, len(lod)))
-                host_lods[lod_key(name)] = lod[0]
-                env[lod_key(name)] = torch.from_numpy(lod[0]).to(self.device)
+                    bands.append((name + LOD_SRC, lod[0]))
+                for key, host in bands:
+                    host_lods[key] = host
+                    env[key] = _offsets_to_device(host, self.device)
         ops, persist_out = self._plan(program, fetch_names, persist_in,
                                       persist_names, use_cache)
         env = run_block(block, ops, env, self.device, base_key=rng_key,

@@ -23,6 +23,15 @@ __all__ = ["NEG_INF", "guarded_exp", "causal_fill", "on_cpu", "raw_bytes"]
 NEG_INF = -1e30
 
 
+# The first torch.exp of a process can race on the CPU: when it is wide
+# enough to split over OpenMP threads, one thread's share can come back
+# ~1e-4 off (the exp's lazy first-call set-up run by two threads at
+# once); every later exp is right. So the plain versions' exp is set up
+# here, in one thread, before any of them runs
+# (tests/test_torch_cpu_exp_race.py measures both).
+torch.exp(torch.zeros(1))
+
+
 def guarded_exp(x, m):
     """exp(x - m) with the exact no-op guard: entries at or below
     NEG_INF (masked scores, or a never-updated running max) give exactly

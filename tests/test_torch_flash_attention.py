@@ -20,7 +20,8 @@ Numeric state: each test runs its JAX calls under
 `jax.default_matmul_precision("float32")` and requires torch's float32
 matmul precision "highest", whatever an earlier test file on the same
 worker left behind; the forward tests also hold each side against a
-float64 numpy oracle at the same 2e-5, so a drift names its side.
+float64 numpy oracle at the same 2e-5, so a drift names its side (the
+lse test holds both its o and its lse so).
 """
 
 import importlib
@@ -70,6 +71,17 @@ def _oracle(q, k, v, causal):
     p = np.exp(s - s.max(-1, keepdims=True))
     p /= p.sum(-1, keepdims=True)
     return np.einsum("bhts,bshd->bthd", p, v)
+
+
+def _oracle_lse(q, k, causal):
+    """float64 log-sum-exp of the scaled scores -> [B, H, T]."""
+    q, k = (np.asarray(a, np.float64) for a in (q, k))
+    s = np.einsum("bthd,bshd->bhts", q, k) * q.shape[-1] ** -0.5
+    if causal:
+        T, S = s.shape[-2:]
+        s = np.where(np.tril(np.ones((T, S), bool)), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    return (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
 
 
 def _forward_held(got, want, q, k, v, causal):
@@ -131,6 +143,21 @@ def test_lse_matches_jax_residual(causal):
     o, lse = tfa.flash_attention_plain(_t(q), _t(k), _t(v), D ** -0.5,
                                        causal)
     assert lse.shape == (B, H, T) and lse.dtype == torch.float32
+    # each side against the float64 oracle first, so a drift names it
+    exact_lse = _oracle_lse(q, k, causal).reshape(B * H, T, 1)
+    for side, got in (("port (torch)", lse.reshape(B * H, T, 1).numpy()),
+                      ("reference (JAX Pallas)", np.asarray(lse_j))):
+        np.testing.assert_allclose(got, exact_lse, atol=_FWD, rtol=_FWD,
+                                   err_msg="%s lse drifted from the "
+                                   "float64 oracle" % side)
+    exact_o = _oracle(q, k, v, causal).transpose(0, 2, 1, 3).reshape(
+        B * H, T, D)
+    for side, got in (("port (torch)",
+                       o.permute(0, 2, 1, 3).reshape(B * H, T, D).numpy()),
+                      ("reference (JAX Pallas)", np.asarray(o_j))):
+        np.testing.assert_allclose(got, exact_o, atol=_FWD,
+                                   rtol=_FWD, err_msg="%s o drifted from "
+                                   "the float64 oracle" % side)
     _close(lse.reshape(B * H, T, 1), lse_j, _FWD)
     _close(o.permute(0, 2, 1, 3).reshape(B * H, T, D), o_j, _FWD)
 

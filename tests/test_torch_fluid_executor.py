@@ -258,17 +258,22 @@ def test_unported_ops_and_sparse_grads_raise():
 
 
 def test_nested_lod_feed_raises():
-    """A 2-level LoD feed (nested sequences) waits for the control-flow
-    slice; the executor names it rather than run one level."""
-    main, startup = TF.Program(), TF.Program()
-    with TF.program_guard(main, startup):
-        x = TF.layers.data(name="x", shape=[2], dtype="float32",
-                           lod_level=2)
-        y = TF.layers.sequence_pool(input=x, pool_type="sum")
-    feed = {"x": (np.ones((5, 2), np.float32), [[0, 2, 3], [0, 1, 3, 5]])}
-    with pytest.raises(NotImplementedError,
-                       match="nested sequences.*Queue A 6.2"):
-        TF.Executor(TF.CPUPlace()).run(main, feed=feed, fetch_list=[y])
+    """A 2-level LoD feed (nested sequences) was refused until control
+    flow came; it now feeds as the JAX package feeds it: the finest
+    level describes the rows (`x@LOD0`), the outer level rides
+    `x@LOD_SRC`, so sequence ops pool the finest sequences."""
+    def build(fluid, resnet):
+        x = fluid.layers.data(name="x", shape=[2], dtype="float32",
+                              lod_level=2)
+        return dict(y=fluid.layers.sequence_pool(input=x, pool_type="sum"))
+
+    data = np.arange(10, dtype=np.float32).reshape(5, 2)
+    feed = {"x": (data, [[0, 2, 3], [0, 1, 3, 5]])}
+    pair = tp.FluidPair(build)
+    (j,), (t,) = pair.run(feed, ["y"])
+    np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(
+        t, [data[0], data[1] + data[2], data[3] + data[4]])
 
 
 def test_scope_arrays_are_never_shared_with_the_caller():
