@@ -181,12 +181,41 @@ Phases (any failure exits non-zero):
      sources capped at 64 trips (ms per decode, sentences/s, trips,
      mean output length), and one with its synchronizing calls counted:
      at most one per trip after the peel;
+ 25. bench.py:855-909's sparse-embedding benchmark, uncut (a [1M, 64]
+     f32 table, batch 4096 x 8 id fields, reduce_sum -> fc(1) ->
+     sigmoid cross-entropy) through the Fluid executor with SGD(0.05)
+     and Adam(1e-3), each with is_sparse True and False: 2 warm-up and
+     10 timed steps on one batch ending in a sync (ms/step, examples/s,
+     touched rows/s, sparse over dense, the peak device memory the timed
+     steps add above the resident state); gates: a sparse step adds less
+     than one table, one steady sparse SGD and Adam step each run under
+     torch.cuda.set_sync_debug_mode("error"), and one more lazy-Adam
+     step on a new batch leaves the untouched rows of the table and both
+     moments bit-identical (and moves the touched ones);
+ 26. sparse and sampled f32 parity, card vs CPU from one set of startup
+     weights: tests/test_selected_rows.py's model (vocab 50, dim 6,
+     duplicate ids, padding_idx) 5 steps each with SGD, Momentum,
+     Adagrad and Adam (tables and optimizer state within 1e-6);
+     tests/test_ctc_sampled_ops.py's nce and hsigmoid programs 5 Adam
+     steps each (losses within rtol 1e-5, nce's sampled labels
+     identical); the book's word2vec with is_sparse=True at the book's
+     widths (embeddings 32, hidden 256, N 5, batch 32) over a synthetic
+     2000-word dictionary, 3 SGD steps (losses within rtol 1e-5);
+ 27. Wide&Deep and DeepFM (paddle_tpu_torch/models/ctr.py) at full
+     width: Criteo's layout (26 id fields in disjoint 40000-id ranges,
+     1,040,000 ids, 13 dense features), the DeepFM paper's Criteo
+     setting (embeddings 10, deep layers 400-400-400, Adam(1e-3)), batch
+     2048, f32, seeded synthetic ids and labels (field 0's id parity
+     xor an interaction of fields 1 and 2, 10% noise): 2 warm-up and 10
+     timed steps (ms/step, examples/s, peak device memory), then to 30
+     steps: the loss must fall; AUC of the last training step and of a
+     held-out batch through the for_test clone;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases 13
  and 14, the flash entries their Fluid launches in phase 18; no Hopper
- kernel lies on the path of phases 20-24, whose recurrences, segment
- ops, CTC, loops and beam search are plain torch ops), then the device
- line last.
+ kernel lies on the path of phases 20-27, whose recurrences, segment
+ ops, CTC, loops, beam search, sparse updates and sampled losses are
+ plain torch ops), then the device line last.
 
 No request count of phases 9, 11 and 13 is cut; phases 10 and 12 run the
 trace's first 8 requests.
@@ -196,7 +225,8 @@ top kernels over the bf16 trace's first steps and steady decode steps,
 over 3 train steps, over 24 steps of the serving_quant configuration
 with kv_quant none and int8, and over 12 steps of 16 megabatch requests
 at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps, 3 Fluid
-LSTM steps, 3 Fluid NMT training steps and one NMT beam decode (device
+LSTM steps, 3 Fluid NMT training steps, one NMT beam decode, 3 steps of
+each phase-25 configuration and 3 Wide&Deep and DeepFM steps (device
 time by class and by region: forward, backward, optimizer).
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
@@ -3049,6 +3079,439 @@ def phase_nmt(torch, fluid, profile=False, warm=2, steps=10, place=None,
     return out
 
 
+# ---------------------------------------------------------------------
+# phases 25-27: sparse gradients, sampled losses and the CTR models
+# ---------------------------------------------------------------------
+
+# bench.py:855-909's sparse-embedding benchmark, uncut: a [1M, 64]
+# table, batch 4096 x 8 id fields, sum-pooled into a logistic head
+SPARSE = dict(vocab=1_000_000, dim=64, batch=4096, fields=8)
+SPARSE_OPTS = (("sgd", lambda f: f.optimizer.SGD(learning_rate=0.05)),
+               ("adam", lambda f: f.optimizer.Adam(learning_rate=1e-3)))
+
+
+def sparse_program(fluid, cfg, is_sparse, opt):
+    """bench.py:867-884's program (the table named, so its optimizer
+    state can be found)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[cfg["fields"]],
+                                dtype="int64")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        emb = fluid.layers.embedding(
+            input=ids, size=[cfg["vocab"], cfg["dim"]], is_sparse=is_sparse,
+            param_attr=fluid.ParamAttr(name="emb_w"))
+        pooled = fluid.layers.reduce_sum(emb, dim=1)
+        pred = fluid.layers.fc(input=pooled, size=1, act=None)
+        cost = fluid.layers.mean(
+            x=fluid.layers.sigmoid_cross_entropy_with_logits(x=pred,
+                                                             label=y))
+        opt(fluid).minimize(cost)
+    return main, startup, cost
+
+
+def sparse_feed(torch, cfg, dev, seed=0):
+    """bench.py:886-890's batch (RandomState(seed)) on `dev`."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg["vocab"], (cfg["batch"], cfg["fields"]))
+    y = (rng.rand(cfg["batch"], 1) > 0.5).astype(np.float32)
+    return {"ids": torch.from_numpy(ids.astype(np.int64)).to(dev),
+            "y": torch.from_numpy(y).to(dev)}
+
+
+def _lazy_rows_held(torch, scope, exe, main, cost, cfg, dev):
+    """One more lazy-Adam step on a new batch: the rows of the table and
+    of both moments that the batch does not touch are bit-identical
+    before and after, and the touched rows of each moved."""
+    shape = (cfg["vocab"], cfg["dim"])
+    names = sorted(n for n in scope.keys()
+                   if tuple(scope.get(n).shape) == shape)
+    before = {n: scope.get(n).clone() for n in names}
+    feed = sparse_feed(torch, cfg, dev, seed=1)
+    exe.run(main, feed=feed, fetch_list=[cost], return_numpy=False)
+    touched = torch.zeros(cfg["vocab"], dtype=torch.bool, device=dev)
+    touched[feed["ids"].reshape(-1)] = True
+    kept = all(torch.equal(before[n][~touched], scope.get(n)[~touched])
+               for n in names)
+    moved = all(not torch.equal(before[n][touched], scope.get(n)[touched])
+                for n in names)
+    ok = len(names) == 3 and kept and moved
+    log("  lazy Adam step on a new batch (%d touched rows): %s untouched "
+        "rows bit-identical %s, touched rows moved %s %s" % (
+            int(touched.sum()), "/".join(names), kept, moved,
+            "ok" if ok else "FAIL"))
+    check(ok, "lazy Adam moved an untouched row or missed a touched one")
+    return dict(state=names, untouched_identical=kept, touched_moved=moved)
+
+
+def phase_sparse_bench(torch, fluid, profile=False, warm=2, steps=10,
+                       place=None, cfg=SPARSE):
+    """Phase 25: bench.py's sparse-embedding benchmark through the port's
+    Fluid executor, SGD(0.05) and Adam(1e-3), each with is_sparse True
+    and False: 2 warm-up and 10 timed steps on one batch ending in a
+    sync; ms/step, examples/s, touched rows/s (batch x fields), the
+    peak device memory the timed steps add above the resident state
+    (the sparse step must add less than one table), a sparse step under
+    torch.cuda.set_sync_debug_mode("error"), and lazy Adam's untouched
+    rows held bit-identical. `place` and `cfg` shrink it for a rehearsal
+    on the CPU."""
+    out = {}
+    table = cfg["vocab"] * cfg["dim"] * 4
+    rows = cfg["batch"] * cfg["fields"]
+    for opt_name, opt in SPARSE_OPTS:
+        for is_sparse in (True, False):
+            label = "%s %s" % (opt_name, "sparse" if is_sparse else "dense")
+            main, startup, cost = sparse_program(fluid, cfg, is_sparse, opt)
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(place or fluid.CUDAPlace(0))
+                dev = exe.device
+                cuda = dev.type == "cuda"
+                exe.run(startup)
+                feed = sparse_feed(torch, cfg, dev)
+
+                def step():
+                    return exe.run(main, feed=feed, fetch_list=[cost],
+                                   return_numpy=False)[0]
+
+                losses = [step() for _ in range(warm)]
+                _sync(torch, dev.type)
+                resident = torch.cuda.memory_allocated() if cuda else 0
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.monotonic()
+                losses += [step() for _ in range(steps)]
+                _sync(torch, dev.type)
+                wall = time.monotonic() - t0
+                added = torch.cuda.max_memory_allocated() - resident \
+                    if cuda else 0
+                losses = [float(x.reshape(())) for x in losses]
+                check(all(math.isfinite(x) for x in losses),
+                      "%s: a loss is not finite: %s" % (label, losses))
+                rec = dict(ms_per_step=wall / steps * 1e3,
+                           examples_per_s=cfg["batch"] * steps / wall,
+                           touched_rows_per_s=rows * steps / wall,
+                           resident_mib=resident / 2 ** 20,
+                           added_peak_mib=added / 2 ** 20, losses=losses)
+                log("  %s: %.3f ms/step, %.1f examples/s, %.1f touched "
+                    "rows/s; resident %.1f MiB, the steps add %.1f MiB at "
+                    "peak (one table: %.1f MiB); losses %.5f -> %.5f" % (
+                        label, rec["ms_per_step"], rec["examples_per_s"],
+                        rec["touched_rows_per_s"], rec["resident_mib"],
+                        rec["added_peak_mib"], table / 2 ** 20, losses[0],
+                        losses[-1]))
+                if is_sparse and cuda:
+                    check(added < table, "%s: the step added %.1f MiB, "
+                          "more than one table" % (label, added / 2 ** 20))
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        last = step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    check(math.isfinite(float(last.reshape(()))),
+                          "%s: the sync-checked step gave a non-finite "
+                          "loss" % label)
+                    log("  %s step under set_sync_debug_mode('error'): no "
+                        "host sync" % label)
+                    rec["no_host_sync"] = True
+                if profile:
+                    rec["profile"] = profile_fluid(torch, step, 3,
+                                                   "3 %s steps" % label)
+                if is_sparse and opt_name == "adam":
+                    rec["lazy_rows"] = _lazy_rows_held(
+                        torch, scope, exe, main, cost, cfg, dev)
+                out[label] = rec
+            del scope, exe, feed, step
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        speedup = out[opt_name + " dense"]["ms_per_step"] / \
+            out[opt_name + " sparse"]["ms_per_step"]
+        out[opt_name + " sparse speedup"] = speedup
+        log("  %s: sparse over dense %.3fx" % (opt_name, speedup))
+    return out
+
+
+# tests/test_selected_rows.py's model (vocab 50, dim 6, duplicate ids
+# and a padding_idx in every batch) and tests/test_ctc_sampled_ops.py's
+# nce (V 40, D 8, 32 rows, 8 noise samples, Adam 0.05) and hsigmoid (8
+# classes, D 6, 64 rows, Adam 0.1) programs
+SPARSE_PARITY_OPTS = (
+    ("sgd", lambda f: f.optimizer.SGD(learning_rate=0.2)),
+    ("momentum", lambda f: f.optimizer.Momentum(learning_rate=0.1,
+                                                momentum=0.9)),
+    ("adagrad", lambda f: f.optimizer.Adagrad(learning_rate=0.3)),
+    ("adam", lambda f: f.optimizer.Adam(learning_rate=0.05)))
+# the book's word2vec (tests/test_word2vec.py's network with
+# is_sparse=True, as the reference book builds it) at the book's widths
+# over a synthetic 2000-word dictionary (imikolov is not in the repo)
+WORD2VEC = dict(dict_size=2000, embed=32, hidden=256, n=5, batch=32,
+                lr=0.1)
+
+
+def embedding_parity_program(fluid, opt, vocab=50, dim=6, pad=3):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        emb = fluid.layers.embedding(
+            input=ids, size=[vocab, dim], is_sparse=True, padding_idx=pad,
+            param_attr=fluid.ParamAttr(
+                name="emb_w",
+                initializer=fluid.initializer.Normal(scale=0.2, seed=7)))
+        pred = fluid.layers.fc(input=emb, size=1, act=None,
+                               param_attr=fluid.ParamAttr(
+                                   name="fc_w",
+                                   initializer=fluid.initializer.Constant(
+                                       0.5)))
+        loss = fluid.layers.mean(
+            x=fluid.layers.square_error_cost(input=pred, label=y))
+        opt(fluid).minimize(loss)
+    return main, startup, loss
+
+
+def embedding_parity_batches(n, vocab=50, pad=3, batch=8):
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, vocab, (batch, 1)).astype(np.int64)
+        ids[1], ids[2] = ids[0], pad
+        out.append({"ids": ids, "y": rng.uniform(
+            -1, 1, (batch, 1)).astype(np.float32)})
+    return out
+
+
+def nce_program(fluid):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[8], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        cost = fluid.layers.nce(input=x, label=y, num_total_classes=40,
+                                num_neg_samples=8)
+        loss = fluid.layers.mean(x=cost)
+        fluid.optimizer.Adam(learning_rate=0.05).minimize(loss)
+        nce = [op for op in main.global_block().ops if op.type == "nce"][0]
+        labels = main.global_block().var(nce.outputs["SampleLabels"][0])
+    return main, startup, [loss, labels]
+
+
+def hsigmoid_program(fluid):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[6], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="int64")
+        loss = fluid.layers.mean(x=fluid.layers.hsigmoid(
+            input=x, label=y, num_classes=8))
+        fluid.optimizer.Adam(learning_rate=0.1).minimize(loss)
+    return main, startup, [loss]
+
+
+def word2vec_program(fluid, cfg=WORD2VEC):
+    """tests/test_word2vec.py's network: N-1 context words through one
+    shared table, concat -> fc(hidden, sigmoid) -> fc(dict, softmax),
+    cross_entropy -> mean, SGD."""
+    pd = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        words = [pd.data(name="w%d" % i, shape=[1], dtype="int64")
+                 for i in range(cfg["n"] - 1)]
+        nxt = pd.data(name="nextw", shape=[1], dtype="int64")
+        embs = [pd.embedding(input=w, size=[cfg["dict_size"], cfg["embed"]],
+                             dtype="float32", is_sparse=True,
+                             param_attr="shared_w") for w in words]
+        hidden = pd.fc(input=pd.concat(input=embs, axis=1),
+                       size=cfg["hidden"], act="sigmoid")
+        predict = pd.fc(input=hidden, size=cfg["dict_size"], act="softmax")
+        loss = pd.mean(x=pd.cross_entropy(input=predict, label=nxt))
+        fluid.optimizer.SGD(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, [loss]
+
+
+def word2vec_feed(cfg=WORD2VEC, seed=0):
+    """tests/test_word2vec.py's synthetic n-grams: the next word is the
+    sum of the context modulo the dictionary."""
+    rng = np.random.RandomState(seed)
+    ctx = rng.randint(0, cfg["dict_size"], (cfg["batch"], cfg["n"] - 1))
+    feed = {"w%d" % i: ctx[:, i:i + 1].astype(np.int64)
+            for i in range(cfg["n"] - 1)}
+    feed["nextw"] = (ctx.sum(1) % cfg["dict_size"]).reshape(-1, 1).astype(
+        np.int64)
+    return feed
+
+
+def phase_sparse_parity(torch, fluid, place=None, steps=5):
+    """Phase 26: f32, card vs CPU in one process, from one set of startup
+    weights. The sparse embedding model 5 steps with each optimizer that
+    has a sparse branch: tables and optimizer state within 1e-6. nce and
+    hsigmoid 5 Adam steps each: losses within rtol 1e-5, nce's sampled
+    labels identical. The book's word2vec (is_sparse) 3 SGD steps:
+    losses within rtol 1e-5."""
+    results = {}
+    feeds = embedding_parity_batches(steps)
+    for name, opt in SPARSE_PARITY_OPTS:
+        main, startup, loss = embedding_parity_program(fluid, opt)
+
+        def train(exe):
+            return [float(np.ravel(exe.run(main, feed=f,
+                                           fetch_list=[loss])[0])[0])
+                    for f in feeds]
+
+        runs, init = _card_and_cpu(fluid, startup, train, place)
+        (lc, sc), (lh, sh) = runs["card"], runs["cpu"]
+        err = max(float(np.abs(sc[n] - sh[n]).max()) for n in sh)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        moved = float(np.abs(sh["emb_w"] - init["emb_w"]).max())
+        ok = err <= 1e-6 and all(math.isfinite(x) for x in lc)
+        label = "sparse embedding, %s" % name
+        log("  %s: %d steps, max table/state diff %.3e (table moved up to "
+            "%.3e), max rel loss diff %.3e %s" % (
+                label, steps, err, moved, loss_err, "ok" if ok else "FAIL"))
+        check(ok, "%s: the card differs from the CPU" % label)
+        results[label] = dict(state_abs_err=err, loss_rel_err=loss_err)
+
+    rng = np.random.RandomState(3)
+    x = rng.randn(32, 8).astype(np.float32)
+    nce_feed = {"x": x, "y": ((np.abs(x.sum(1)) * 7).astype(np.int64)
+                              % 40).reshape(-1, 1)}
+    rng = np.random.RandomState(4)
+    centers = rng.randn(8, 6).astype(np.float32) * 2
+    hy = rng.randint(0, 8, 64)
+    hs_feed = {"x": centers[hy] + 0.1 * rng.randn(64, 6).astype(np.float32),
+               "y": hy.reshape(-1, 1).astype(np.int64)}
+    for label, (main, startup, fetch), feed, n in (
+            ("nce", nce_program(fluid), nce_feed, steps),
+            ("hsigmoid", hsigmoid_program(fluid), hs_feed, steps),
+            ("word2vec (book widths, is_sparse)", word2vec_program(fluid),
+             word2vec_feed(), 3)):
+
+        def train(exe):
+            return [exe.run(main, feed=feed, fetch_list=fetch)
+                    for _ in range(n)]
+
+        runs, _ = _card_and_cpu(fluid, startup, train, place)
+        c, h = runs["card"][0], runs["cpu"][0]
+        lc = [float(np.ravel(r[0])[0]) for r in c]
+        lh = [float(np.ravel(r[0])[0]) for r in h]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        same = all(np.array_equal(a[1], b[1]) for a, b in zip(c, h)) \
+            if len(fetch) > 1 else True
+        ok = loss_err <= 1e-5 and same and all(math.isfinite(v) for v in lc)
+        log("  %s: %d steps, losses card %s vs CPU %s, max rel diff %.3e%s "
+            "%s" % (label, n, ["%.6f" % v for v in lc],
+                    ["%.6f" % v for v in lh], loss_err,
+                    ", sampled labels identical" if len(fetch) > 1 and same
+                    else "", "ok" if ok else "FAIL"))
+        check(ok, "%s: the card differs from the CPU" % label)
+        results[label] = dict(loss_rel_err=loss_err, losses=lc)
+    return results
+
+
+# DeepFM's Criteo setting (Guo et al. 2017): embeddings 10, deep layers
+# (400, 400, 400), Adam(1e-3); Criteo's layout
+# (paddle_tpu/v2/dataset/criteo.py:36-45): 26 id fields in disjoint
+# 40000-id ranges (1,040,000 ids) and 13 dense features; batch 2048
+CTR = dict(fields=26, per_field=40000, dense=13, embed=10,
+           deep=(400, 400, 400), batch=2048, lr=1e-3)
+
+
+def ctr_program(fluid, ctr, kind, cfg=CTR):
+    """(main, startup, for_test clone, loss, auc) of `ctr.<kind>` over
+    ids [B, 26] and dense [B, 13]."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name="ids", shape=[cfg["fields"]],
+                                dtype="int64")
+        dense = fluid.layers.data(name="dense", shape=[cfg["dense"]],
+                                  dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        loss, prob = getattr(ctr, kind)(
+            ids, y, num_fields=cfg["fields"],
+            vocab=cfg["fields"] * cfg["per_field"], embed_dim=cfg["embed"],
+            deep_dims=cfg["deep"], dense_input=dense)
+        auc = fluid.layers.auc(input=prob, label=y)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, test, loss, auc
+
+
+def ctr_batch(torch, dev, seed, cfg=CTR):
+    """Seeded ids (field f's ids in [f * 40000, (f + 1) * 40000)), dense
+    features and labels with tests/test_ctr_models.py's signal: field
+    0's id parity xor an interaction of fields 1 and 2, 10% noise."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg["per_field"], (cfg["batch"], cfg["fields"])) \
+        + np.arange(cfg["fields"]) * cfg["per_field"]
+    signal = (ids[:, 0] % 2) ^ ((ids[:, 1] % 2) & (ids[:, 2] % 2))
+    y = (signal ^ (rng.rand(cfg["batch"]) < 0.1)).astype(np.float32)
+    dense = rng.randn(cfg["batch"], cfg["dense"]).astype(np.float32)
+    return {"ids": torch.from_numpy(ids.astype(np.int64)).to(dev),
+            "dense": torch.from_numpy(dense).to(dev),
+            "y": torch.from_numpy(y.reshape(-1, 1)).to(dev)}
+
+
+def phase_ctr(torch, fluid, ctr, profile=False, warm=2, steps=10, total=30,
+              place=None, cfg=CTR):
+    """Phase 27: Wide&Deep and DeepFM at full width in f32 on one fixed
+    batch: 2 warm-up and 10 timed steps ending in a sync (ms/step,
+    examples/s, peak device memory), then to 30 steps: the loss must
+    fall; AUC of the last training step and of a held-out batch through
+    the for_test clone."""
+    out = {}
+    for kind in ("wide_deep", "deepfm"):
+        main, startup, test, loss, auc = ctr_program(fluid, ctr, kind, cfg)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place or fluid.CUDAPlace(0))
+            dev = exe.device
+            exe.run(startup)
+            feed = ctr_batch(torch, dev, 0, cfg)
+
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[loss, auc],
+                               return_numpy=False)
+
+            t0 = time.monotonic()
+            runs = [step() for _ in range(warm)]
+            _sync(torch, dev.type)
+            warm_s = time.monotonic() - t0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            runs += [step() for _ in range(steps)]
+            _sync(torch, dev.type)
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated() \
+                if dev.type == "cuda" else 0
+            runs += [step() for _ in range(total - warm - steps)]
+            losses = [float(r[0].reshape(())) for r in runs]
+            train_auc = float(runs[-1][1].reshape(()))
+            held = exe.run(test, feed=ctr_batch(torch, dev, 1, cfg),
+                           fetch_list=[loss, auc])
+            held_loss, held_auc = (float(np.ravel(v)[0]) for v in held)
+            ok = all(math.isfinite(x) for x in losses) and \
+                np.mean(losses[-5:]) < np.mean(losses[:5])
+            log("  %s: %d steps of %d: %.3f ms/step, %.1f examples/s, peak "
+                "device memory %.3f GiB; losses %.5f -> %.5f over %d steps, "
+                "train-batch AUC %.4f; held-out batch loss %.5f, AUC %.4f "
+                "%s" % (kind, steps, cfg["batch"], wall / steps * 1e3,
+                        cfg["batch"] * steps / wall, peak / 2 ** 30,
+                        losses[0], losses[-1], total, train_auc, held_loss,
+                        held_auc, "ok" if ok else "FAIL"))
+            check(ok, "%s: the loss did not fall: %s" % (kind, losses))
+            out[kind] = dict(ms_per_step=wall / steps * 1e3,
+                             examples_per_s=cfg["batch"] * steps / wall,
+                             peak_mem_gib=peak / 2 ** 30, warm_s=warm_s,
+                             losses=losses, train_auc=train_auc,
+                             held_out_auc=held_auc,
+                             held_out_loss=held_loss)
+            if profile:
+                out[kind]["profile"] = profile_fluid(
+                    torch, step, 3, "3 %s steps" % kind)
+        del scope, exe, feed, step
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -3193,6 +3656,22 @@ def main():
         "beam 3), f32 Adagrad(1e-3), batch 64; beam decode")
     nmt = phase_nmt(torch, fluid, profile="--profile" in sys.argv[1:])
 
+    from paddle_tpu_torch.models import ctr
+    log("phase 25: bench.py's sparse-embedding benchmark (vocab 1,000,000 "
+        "x 64, batch 4096 x 8 fields), SGD and Adam, sparse vs dense")
+    sparse = phase_sparse_bench(torch, fluid,
+                                profile="--profile" in sys.argv[1:])
+
+    log("phase 26: sparse and sampled f32 parity, card vs CPU (the sparse "
+        "embedding model x 4 optimizers, nce, hsigmoid, word2vec)")
+    sparse_parity = phase_sparse_parity(torch, fluid)
+
+    log("phase 27: Wide&Deep and DeepFM at full width (26 fields, "
+        "1,040,000 ids, embeddings 10, deep 400-400-400), f32 Adam(1e-3), "
+        "batch 2048")
+    ctr_models = phase_ctr(torch, fluid, ctr,
+                           profile="--profile" in sys.argv[1:])
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -3310,7 +3789,9 @@ def main():
                                       lstm=fluid_lstm, lstm_sync=lstm_sync,
                                       ragged_f32_parity=ragged,
                                       crnn=crnn, control_f32_parity=control,
-                                      nmt=nmt)))
+                                      nmt=nmt, sparse_bench=sparse,
+                                      sparse_f32_parity=sparse_parity,
+                                      ctr=ctr_models)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -360,6 +360,32 @@ def _accuracy(ctx, ins, attrs):
             "Correct": num_correct.reshape(1), "Total": total.reshape(1)}
 
 
+@register_op("auc")
+def _auc(ctx, ins, attrs):
+    """Batch-local ROC AUC by threshold bucketing (reference auc_op.cc:
+    the trapezoidal rule over score thresholds). The thresholds are
+    jnp.linspace(0, 1, num)'s float32 values (i / (num - 1), then 1.0)
+    and the area jnp.trapezoid's, negated (fpr falls as the threshold
+    rises)."""
+    pred = ins["Out"][0]
+    label = ins["Label"][0].reshape(-1)
+    score = pred[:, 1] if pred.dim() == 2 and pred.shape[1] == 2 \
+        else pred.reshape(-1)
+    num = int(attrs.get("num_thresholds", 200))
+    dev = score.device
+    thresholds = torch.cat([
+        torch.arange(num - 1, dtype=torch.float32, device=dev) / (num - 1),
+        torch.ones(1, device=dev)]) if num > 1 \
+        else torch.zeros(1, device=dev)
+    pos = (label > 0).float()
+    neg = 1.0 - pos
+    above = (score.float()[None, :] >= thresholds[:, None]).float()
+    tpr = (above * pos).sum(1) / torch.clamp_min(pos.sum(), 1.0)
+    fpr = (above * neg).sum(1) / torch.clamp_min(neg.sum(), 1.0)
+    area = 0.5 * ((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1])).sum()
+    return {"AUC": (-area).reshape(1)}
+
+
 @register_op("flash_attention")
 def _flash_attention(ctx, ins, attrs):
     """Blockwise attention on [B, T, H, D] through the port's flash

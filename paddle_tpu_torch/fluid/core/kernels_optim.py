@@ -1,5 +1,5 @@
 """Optimizer-update op kernels (counterpart of
-paddle_tpu/fluid/core/kernels_optim.py, dense branches).
+paddle_tpu/fluid/core/kernels_optim.py).
 
 Parity with the reference's optimizer ops (operators/sgd_op.cc,
 momentum_op, adagrad_op, adam_op, adamax_op, decayed_adagrad_op,
@@ -11,9 +11,14 @@ tensors is the port's counterpart (no second copy of the model). Where
 an op's output names another variable than its input, the kernel
 updates a copy instead.
 
-Gradients are dense tensors. The JAX package's SelectedRows branches
-(sparse embedding gradients) are not ported yet: the executor refuses a
-program that would take them (ROADMAP, Queue A).
+A gradient is a dense tensor or, for an embedding table that takes the
+sparse path (lowering._find_sparse_sites), a SelectedRows. sgd,
+momentum, adagrad and adam have the reference's SelectedRows branches:
+sgd scatter-adds the rows; the others update lazily, on the merged
+touched rows only, so an untouched row keeps its parameter and state
+bit for bit. The other rules densify a SelectedRows to the exact dense
+gradient (`_grad`), as the JAX package does; the lowering never sends
+them one.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .registry import register_op
+from .selected_rows import SelectedRows, _col, as_dense
 
 
 def _lr(ins):
@@ -28,12 +34,30 @@ def _lr(ins):
 
 
 def _grad(ins):
-    g = ins["Grad"][0]
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            "sparse (SelectedRows) gradients are not ported yet (ROADMAP "
-            "Queue A, Fluid); got %s" % type(g).__name__)
-    return g
+    """The dense gradient: a SelectedRows arriving at a rule without a
+    sparse branch densifies to the exact dense gradient."""
+    return as_dense(ins["Grad"][0])
+
+
+def _lazy_rows(g, dtype):
+    """The merged rows of a SelectedRows as update targets: (targets,
+    valid, values). A sentinel slot (row == height) is aimed at slot
+    0's row, which after the merge's sort is a real row unless every id
+    was padding (then at row height - 1); `_lazy_write` gives it the
+    value slot 0 writes, so the duplicate writes carry identical bytes
+    and the sentinel changes nothing."""
+    r, gv = g.merged()
+    valid = r < g.height
+    first = torch.where(valid[0], r[0], g.height - 1)
+    return torch.where(valid, r, first), valid, gv.to(dtype)
+
+
+def _lazy_write(t, rows, valid, new, old):
+    """Write `new` [n, ...] into the rows of `t` (in place); sentinel
+    slots write slot 0's value (`new[0]` when slot 0 is a real row, the
+    row's own `old[0]` when every slot is a sentinel)."""
+    fill = torch.where(valid[0], new[0], old[0])
+    t.index_copy_(0, rows, torch.where(_col(valid, new), new, fill))
 
 
 def _inplace(ctx, ins, in_slot, out_slot):
@@ -47,16 +71,37 @@ def _inplace(ctx, ins, in_slot, out_slot):
 
 @register_op("sgd")
 def _sgd(ctx, ins, attrs):
+    g = ins["Grad"][0]
     p = _inplace(ctx, ins, "Param", "ParamOut")
-    return {"ParamOut": p.sub_(_lr(ins) * _grad(ins))}
+    if isinstance(g, SelectedRows):
+        # reference sgd_op.cc SelectedRows branch: a row scatter-add;
+        # duplicate rows accumulate, a sentinel adds 0.0 to row 0
+        valid = g.rows < g.height
+        upd = (-_lr(ins)) * g.values.to(p.dtype)
+        upd = torch.where(_col(valid, upd), upd, torch.zeros_like(upd))
+        return {"ParamOut": p.index_add_(
+            0, torch.where(valid, g.rows, 0), upd)}
+    return {"ParamOut": p.sub_(_lr(ins) * g)}
 
 
 @register_op("momentum")
 def _momentum(ctx, ins, attrs):
-    g = _grad(ins)
+    g = ins["Grad"][0]
     p = _inplace(ctx, ins, "Param", "ParamOut")
     v = _inplace(ctx, ins, "Velocity", "VelocityOut")
     mu, lr = attrs["mu"], _lr(ins)
+    if isinstance(g, SelectedRows):
+        # lazy update: the velocity decays only on touched rows
+        r, valid, gv = _lazy_rows(g, p.dtype)
+        v_r, p_r = v.index_select(0, r), p.index_select(0, r)
+        v_new = mu * v_r + gv
+        if attrs.get("use_nesterov", False):
+            step = (gv + mu * v_new) * lr
+        else:
+            step = lr * v_new
+        _lazy_write(p, r, valid, p_r - step, p_r)
+        _lazy_write(v, r, valid, v_new, v_r)
+        return {"ParamOut": p, "VelocityOut": v}
     v.mul_(mu).add_(g)
     if attrs.get("use_nesterov", False):
         p.sub_((g + mu * v) * lr)
@@ -67,9 +112,21 @@ def _momentum(ctx, ins, attrs):
 
 @register_op("adagrad")
 def _adagrad(ctx, ins, attrs):
-    g = _grad(ins)
+    g = ins["Grad"][0]
     p = _inplace(ctx, ins, "Param", "ParamOut")
     m = _inplace(ctx, ins, "Moment", "MomentOut")
+    if isinstance(g, SelectedRows):
+        # reference adagrad_op.h SelectedRows branch: duplicates merged
+        # (MergeAdd), then the moment and the parameter of each touched
+        # row
+        r, valid, gv = _lazy_rows(g, p.dtype)
+        m_r, p_r = m.index_select(0, r), p.index_select(0, r)
+        m_new = m_r + gv * gv
+        p_new = p_r - _lr(ins) * gv / (
+            torch.sqrt(m_new) + attrs.get("epsilon", 1e-6))
+        _lazy_write(p, r, valid, p_new, p_r)
+        _lazy_write(m, r, valid, m_new, m_r)
+        return {"ParamOut": p, "MomentOut": m}
     m.add_(g * g)
     p.sub_(_lr(ins) * g / (torch.sqrt(m) + attrs.get("epsilon", 1e-6)))
     return {"ParamOut": p, "MomentOut": m}
@@ -77,7 +134,7 @@ def _adagrad(ctx, ins, attrs):
 
 @register_op("adam")
 def _adam(ctx, ins, attrs):
-    g = _grad(ins)
+    g = ins["Grad"][0]
     p = _inplace(ctx, ins, "Param", "ParamOut")
     m1 = _inplace(ctx, ins, "Moment1", "Moment1Out")
     m2 = _inplace(ctx, ins, "Moment2", "Moment2Out")
@@ -87,6 +144,21 @@ def _adam(ctx, ins, attrs):
     b2 = attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     lr = _lr(ins) * torch.sqrt(1.0 - b2p) / (1.0 - b1p)
+    if isinstance(g, SelectedRows):
+        # lazy adam (reference adam_op.h SparseAdamFunctor): the moments
+        # decay and the parameter moves only on touched rows; untouched
+        # rows keep their state bit for bit (a documented divergence
+        # from dense adam, as in the reference's sparse branch)
+        r, valid, gv = _lazy_rows(g, p.dtype)
+        m1_r, m2_r = m1.index_select(0, r), m2.index_select(0, r)
+        p_r = p.index_select(0, r)
+        m1_new = b1 * m1_r + (1.0 - b1) * gv
+        m2_new = b2 * m2_r + (1.0 - b2) * gv * gv
+        p_new = p_r - lr * m1_new / (torch.sqrt(m2_new) + eps)
+        _lazy_write(p, r, valid, p_new, p_r)
+        _lazy_write(m1, r, valid, m1_new, m1_r)
+        _lazy_write(m2, r, valid, m2_new, m2_r)
+        return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
     m1.mul_(b1).add_((1.0 - b1) * g)
     m2.mul_(b2).add_((1.0 - b2) * g * g)
     p.sub_(lr * m1 / (torch.sqrt(m2) + eps))

@@ -188,15 +188,35 @@ def _crop(ctx, ins, attrs):
 @register_op("lookup_table")
 def _lookup_table(ctx, ins, attrs):
     """Embedding gather (reference operators/lookup_table_op.cc). Ids come
-    in as [N, 1] int; padding_idx rows read as zeros. The dense path only:
-    the SelectedRows gradient path is refused by the executor (lowering.py
-    `_refuse_sparse`)."""
+    in as [N, 1] int; padding_idx rows read as zeros.
+
+    Sparse-gradient sites (lowering._find_sparse_sites): the table is
+    read as a constant (it is no autograd leaf), and the gathered rows
+    carry the site's zero gradient leaf instead, so the backward pass
+    produces a [n_ids, dim] gradient, the SelectedRows value block,
+    rather than a dense [vocab, dim] one (reference lookup_table_op.cc
+    SelectedRows grad branch). The leaf's dtype is the region's (bf16
+    under AMP: the rows are cast after the gather, never the table).
+    The touched row ids are recorded under `<out>@sparse_rows`; a
+    padding position records the sentinel `height`."""
     w = ins["W"][0]
     ids = ins["Ids"][0]
     flat = ids.reshape(-1).long()
-    out = w[flat]
     padding_idx = attrs.get("padding_idx", -1)
-    if padding_idx is not None and padding_idx >= 0:
+    has_pad = padding_idx is not None and padding_idx >= 0
+    out_name = ctx.op.outputs["Out"][0]
+    leaf_name = ctx.sparse_sites.get(out_name)
+    if leaf_name is not None:
+        leaf = ctx.env[leaf_name]
+        out = w[flat].to(leaf.dtype) + leaf
+        ctx.env[out_name + "@sparse_rows"] = (
+            torch.where(flat == padding_idx, w.shape[0], flat)
+            if has_pad else flat)
+    else:
+        out = w[flat]
+    if has_pad:
+        # masking AFTER the leaf's add zeroes its gradient at padding
+        # positions too
         out = torch.where((flat == padding_idx)[:, None],
                           torch.zeros_like(out), out)
     if ids.shape[-1] == 1:

@@ -18,6 +18,13 @@ the same three regions eagerly, op by op, on the executor's device:
    torch.no_grad(); the optimizer kernels update the scope's tensors in
    place (kernels_optim.py).
 
+Sparse gradients (`embedding(is_sparse=True)`, `_find_sparse_sites`): a
+qualifying table is no leaf of step 1; each of its lookups adds a zero
+[n_ids, dim] leaf to its gathered rows instead, so step 2 yields the
+rows' gradients and never a [vocab, dim] one, and the table's `@GRAD`
+is a SelectedRows of the touched rows (selected_rows.py) that the
+optimizer applies to those rows only.
+
 A program without the marker (startup, inference) runs all its ops under
 torch.no_grad(). The forward and tail regions of a training run are
 `torch.profiler.record_function` ranges ("fluid/forward",
@@ -43,6 +50,7 @@ from torch.profiler import record_function
 from .kernels_control import TensorArray, place_hosted
 from .kernels_sequence import LOD_SUFFIX, lod_key
 from .registry import LoweringContext, get_kernel
+from .selected_rows import SelectedRows
 
 AUTODIFF_OP = "autodiff"
 # ops handled by the executor itself, not kernels
@@ -245,16 +253,48 @@ def _backward_slice(block, fetch_names, persist_names):
     return list(reversed(kept))
 
 
-def _refuse_sparse(fwd_ops):
-    """The JAX package gives an `is_sparse` embedding a SelectedRows
-    gradient (lazy optimizer updates on the touched rows only); the
-    port's dense gradient would update differently, so it refuses."""
+# optimizer ops with a SelectedRows branch (kernels_optim.py; reference
+# operators/sgd_op.cc, adam_op.h, adagrad_op.h, momentum). A gradient
+# may stay sparse only if EVERY tail op that reads it is one of these.
+_SPARSE_OPT_OPS = frozenset(["sgd", "momentum", "adagrad", "adam"])
+
+
+def _find_sparse_sites(fwd_ops, tail_ops, param_names, grad_names, env):
+    """The parameters whose gradient flows as a SelectedRows instead of
+    a dense [vocab, dim] tensor (the JAX package's lowering.py:251-292).
+    A parameter qualifies when every forward reader is an is_sparse
+    `lookup_table` whose Ids are fed or persisted (their shape sizes the
+    site's gradient leaf), and every tail op that reads its gradient
+    has a sparse update branch (_SPARSE_OPT_OPS). Anything else (a
+    dense reader, a regularizer's or clip's op on the gradient, another
+    optimizer) takes the exact dense path.
+
+    Returns {param name: [(lookup output name, Ids name) per site]}."""
+    pset = set(param_names)
+    readers: Dict[str, list] = {}
     for op in fwd_ops:
-        if op.type == "lookup_table" and op.attrs.get("is_sparse", False):
-            raise NotImplementedError(
-                "embedding(is_sparse=True) trains through SelectedRows "
-                "gradients, which are not ported yet (ROADMAP Queue A, "
-                "Fluid); build the embedding with is_sparse=False")
+        for names in op.inputs.values():
+            for n in names:
+                if n in pset:
+                    readers.setdefault(n, []).append(op)
+    sites = {}
+    for p in param_names:
+        ops_r = readers.get(p, [])
+        if not ops_r or not all(
+                op.type == "lookup_table"
+                and op.attrs.get("is_sparse", False)
+                and op.inputs.get("W") == [p]
+                and all(i in env for i in op.inputs.get("Ids", []))
+                for op in ops_r):
+            continue
+        gname = grad_names[p]
+        consumers = [o for o in tail_ops if gname in o.input_arg_names]
+        if not consumers or any(o.type not in _SPARSE_OPT_OPS
+                                for o in consumers):
+            continue
+        sites[p] = [(op.outputs["Out"][0], op.inputs["Ids"][0])
+                    for op in ops_r]
+    return sites
 
 
 def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
@@ -281,27 +321,45 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
         with torch.no_grad():
             run_ops(ctx, fwd_ops, env)
         return env
-    _refuse_sparse(fwd_ops)
 
     loss_name = ad_op.attrs["loss_name"]
     param_names = [p for p in ad_op.attrs["param_names"] if p in env]
     grad_names = dict(zip(ad_op.attrs["param_names"],
                           ad_op.attrs["grad_names"]))
     amp = bool(getattr(block.program, "amp", False))
+    # the SelectedRows path: a qualifying table is no autograd leaf; each
+    # of its lookups gets a zero [n_ids, dim] leaf instead, whose
+    # gradient is the site's value block
+    sparse = _find_sparse_sites(fwd_ops, tail_ops, param_names, grad_names,
+                                env)
+    dense_names = [p for p in param_names if p not in sparse]
 
     fenv = dict(env)
     if amp:
         # cast ONLY what the forward region reads (feeds, params, BN
-        # state) to bf16; optimizer state and scalar accumulators stay f32
+        # state) to bf16; optimizer state and scalar accumulators stay
+        # f32, and a sparse table is cast row by row after its gather
         for op in fwd_ops:
             for k in op.input_arg_names:
                 v = fenv.get(k)
-                if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
+                if isinstance(v, torch.Tensor) and v.dtype == torch.float32 \
+                        and k not in sparse:
                     fenv[k] = v.to(torch.bfloat16)
-    leaves = {p: env[p].detach().requires_grad_(True) for p in param_names}
+    leaves = {p: env[p].detach().requires_grad_(True) for p in dense_names}
     for p, leaf in leaves.items():
         fenv[p] = (leaf.to(torch.bfloat16)
                    if amp and leaf.dtype == torch.float32 else leaf)
+    site_leaf = {}  # lookup output name -> its gradient leaf's name
+    for p, sites in sparse.items():
+        w = env[p]
+        for out, ids in sites:
+            name = site_leaf[out] = out + "@sparse_grad"
+            leaves[name] = torch.zeros(
+                (env[ids].numel(), w.shape[1]), device=w.device,
+                dtype=torch.bfloat16 if amp else w.dtype,
+                requires_grad=True)
+            fenv[name] = leaves[name]
+    ctx.sparse_sites = site_leaf
     ctx.amp_region = amp
     try:
         with torch.enable_grad(), record_function("fluid/forward"):
@@ -309,6 +367,7 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     finally:
         ctx.amp_region = False
     loss = fenv[loss_name].float()
+    site_rows = {out: fenv[out + "@sparse_rows"] for out in site_leaf}
 
     live = set(env) | set(keep)
     for op in tail_ops:
@@ -323,15 +382,26 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     else:
         grads = [None] * len(leaves)
 
+    grads = dict(zip(leaves, grads))
     # forward-region values win, but the parameters go back to the
     # scope's own f32 tensors (the tail updates those in place)
     originals = {p: env[p] for p in param_names}
     env.clear()
     env.update(fenv)
     env.update(originals)
-    for p, g in zip(param_names, grads):
-        env[grad_names[p]] = (g if g is not None
-                              else torch.zeros_like(originals[p]))
+    for p in dense_names:
+        g = grads[p]
+        env[grad_names[p]] = g if g is not None \
+            else torch.zeros_like(originals[p])
+    for p, sites in sparse.items():
+        vals = []
+        for out, _ in sites:
+            g = grads[site_leaf[out]]
+            vals.append(g if g is not None
+                        else torch.zeros_like(leaves[site_leaf[out]]))
+        env[grad_names[p]] = SelectedRows(
+            torch.cat([site_rows[out].reshape(-1) for out, _ in sites]),
+            torch.cat(vals).float(), originals[p].shape[0])
     with torch.no_grad(), record_function("fluid/optimizer"):
         run_ops(ctx, tail_ops, env)
     return env

@@ -127,6 +127,9 @@ class LoweringContext(object):
         # early-exit gate (kernels_control.py) must not freeze them
         self.fetch_names = frozenset()
         self.downstream_reads = frozenset()
+        # lookup output name -> its gradient leaf's name, for the
+        # SelectedRows sparse-gradient path (lowering._find_sparse_sites)
+        self.sparse_sites: dict = {}
 
     @property
     def has_lod(self) -> bool:

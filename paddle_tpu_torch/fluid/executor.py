@@ -44,6 +44,7 @@ from .core.kernels_sequence import LOD_SRC, lod_key
 from .core.lowering import _backward_slice, run_block
 from .core.program import Program, Variable
 from .core.registry import torch_dtype
+from .core.selected_rows import as_dense
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "switch_scope",
            "fetch_var", "as_numpy", "scope_from_numpy", "scope_to_numpy"]
@@ -419,7 +420,8 @@ class Executor(object):
             scope.set(n, v)
         fetches = []
         for n in fetch_names:
-            v = env[n].detach()
+            # a sparse gradient is fetched as its dense equivalent
+            v = as_dense(env[n]).detach()
             if not return_numpy and n in persist_out:
                 v = v.clone()  # the scope's tensor is updated in place
             fetches.append(v)

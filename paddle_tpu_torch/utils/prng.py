@@ -21,6 +21,8 @@ _gumbel (mode "low") and categorical):
   split(key, num)      -> threefry(key, (0, i)) for i < num
   categorical(key, l)  -> argmax(gumbel(key, l.shape) + l)
   uniform(key, s, lo, hi) -> max(lo, floats * (hi - lo) + lo)
+  randint(key, s, lo, hi) -> lo + (hi_bits % span * (2^16 % span)^2
+                                   + lo_bits % span) % span, int32
   normal(key, s)       -> sqrt(2) * erfinv(uniform(key, s, -1+ulp, 1))
   truncated_normal(key, lo, hi, s) -> the same through erf(lo), erf(hi)
 
@@ -33,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "fold_in", "split", "uniform", "normal",
+__all__ = ["PRNGKey", "fold_in", "split", "uniform", "randint", "normal",
            "truncated_normal", "categorical"]
 
 _M = 0xFFFFFFFF
@@ -102,6 +104,37 @@ def uniform(key, shape, minval=0.0, maxval=1.0):
     return _to_uniform(bits, minval, maxval).reshape(shape)
 
 
+def _mul32(a, b):
+    """a * b mod 2^32 for int64 tensors of uint32 values, without the
+    int64 overflow of a full product: b in 16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & _M) << 16
+    return (lo + hi) & _M
+
+
+def randint(key, shape, minval, maxval):
+    """jax.random.randint(key, shape, minval, maxval) with its default
+    int32 dtype, for one key [2] and integer bounds (jax/_src/random.py
+    _randint): 32 bits from each half of split(key), combined modulo
+    span = maxval - minval (1 when maxval <= minval) through the
+    multiplier (2^16 mod span)^2 mod span, every product and sum
+    wrapping at 2^32 as uint32 arithmetic does."""
+    shape = tuple(shape)
+    lo, hi = int(minval), int(maxval)
+    if not (-2 ** 31 <= lo < 2 ** 31 and -2 ** 31 <= hi < 2 ** 31):
+        raise ValueError("randint bounds must fit int32: [%d, %d)" % (lo, hi))
+    span = (hi - lo) & _M if hi > lo else 1
+    n = int(np.prod(shape, dtype=np.int64))
+    k1, k2 = split(key, 2)
+    higher, lower = _bits32(k1, n), _bits32(k2, n)
+    mult = (((1 << 16) % span) ** 2 & _M) % span
+    off = (_mul32(higher % span, torch.full_like(higher, mult))
+           + lower % span) & _M
+    out = (lo + off % span) & _M
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(
+        torch.int32).reshape(shape)
+
+
 _SQRT2_F32 = float(np.float32(np.sqrt(2)))
 
 
@@ -142,14 +175,23 @@ def _to_uniform(bits, minval, maxval):
     return out.clamp_min(float(lo))
 
 
-def categorical(key, logits):
+def categorical(key, logits, shape=None):
     """Sample over the last axis of float32 `logits` with the Gumbel-max
     trick, as jax.random.categorical(key, logits, axis=-1) (gumbel mode
     "low"). `key` is one key [2] — the gumbel noise then spans the
     whole logits shape, as in JAX — or per-row keys [*B, 2] for logits
-    [*B, V], which is `jax.vmap(categorical)` over the rows."""
+    [*B, V], which is `jax.vmap(categorical)` over the rows. `shape`
+    (one key only) draws samples of that shape from logits whose batch
+    dims broadcast to it, as JAX's `shape=` does: the noise then spans
+    shape + [V]."""
     V = logits.shape[-1]
-    if key.dim() == 1:
+    if shape is not None:
+        if key.dim() != 1:
+            raise ValueError("categorical(shape=...) takes one key")
+        noise_shape = tuple(shape) + (V,)
+        bits = _bits32(key, int(np.prod(noise_shape, dtype=np.int64)))
+        bits = bits.reshape(noise_shape)
+    elif key.dim() == 1:
         bits = _bits32(key, logits.numel()).reshape(logits.shape)
     else:
         if tuple(key.shape[:-1]) != tuple(logits.shape[:-1]):

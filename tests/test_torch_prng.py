@@ -75,3 +75,41 @@ def test_categorical_identical(V):
         np.testing.assert_array_equal(
             prng.categorical(kts, torch.from_numpy(lg)).numpy(),
             np.asarray(jax.vmap(jax.random.categorical)(keys, lg)))
+
+
+@pytest.mark.parametrize("bounds", [(0, 1), (0, 40), (5, 17), (-10, 3),
+                                    (0, 65536), (0, 100000), (0, 1040000),
+                                    (0, 2 ** 31 - 1), (-2 ** 31, 2 ** 31 - 1),
+                                    (4, 4)],
+                         ids=lambda b: "%d_%d" % b)
+def test_randint_bit_identical(bounds):
+    """jax.random.randint with its default int32 dtype, as `nce` draws
+    its uniform noise: spans of 1 (and empty), powers of two and not,
+    ones whose (2^16 mod span)^2 wraps at 2^32, and the full int32
+    range."""
+    lo, hi = bounds
+    for seed in SEEDS:
+        for shape in [(7,), (16, 8), (3, 1, 5)]:
+            key = jax.random.fold_in(jax.random.PRNGKey(seed), 2)
+            want = np.asarray(jax.random.randint(key, shape, lo, hi))
+            got = prng.randint(prng.fold_in(prng.PRNGKey(seed), 2), shape,
+                               lo, hi).numpy()
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(4, 3), (16, 8), (5,)])
+def test_categorical_shape_identical(shape):
+    """jax.random.categorical(key, logits[1, V], shape=...), as `nce`
+    draws noise from `neg_distribution`."""
+    rng = np.random.RandomState(len(shape))
+    dist = rng.uniform(0, 1, 40).astype(np.float32)
+    dist[3] = 0.0  # log 0 = -inf: a class never drawn
+    with np.errstate(divide="ignore"):
+        logp = np.log(dist / dist.sum())[None, :]
+    for seed in SEEDS:
+        k = jax.random.fold_in(jax.random.PRNGKey(seed), 1)
+        kt = prng.fold_in(prng.PRNGKey(seed), 1)
+        np.testing.assert_array_equal(
+            prng.categorical(kt, torch.from_numpy(logp), shape=shape).numpy(),
+            np.asarray(jax.random.categorical(k, logp, shape=shape)))
