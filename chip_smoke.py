@@ -210,11 +210,43 @@ Phases (any failure exits non-zero):
      timed steps (ms/step, examples/s, peak device memory), then to 30
      steps: the loss must fall; AUC of the last training step and of a
      held-out batch through the for_test clone;
+ 28. every op the zoo, SRL and SSD slice ports on the card against the
+     same kernel on the CPU (seeded inputs): lrn in f32 and bf16, the
+     four CRF ops (59 labels, ragged sentences of 1-60 tokens, ties),
+     the eight detection ops (NMS over 21 classes x 2000 boxes), with
+     the gradients of lrn, linear_chain_crf, roi_pool and
+     ssd_multibox_loss; the five learning-rate schedules over 5 SGD
+     steps on a force_cpu global step; Accuracy, ChunkEvaluator and
+     DetectionMAP (f32 within 1e-5, integers equal, bf16 within 2e-2);
+ 29. the BASELINE.json image configs, MNIST LeNet (batch 64) and
+     VGG-16-bn-drop CIFAR-10 (batch 128), f32 with the books'
+     Adam(1e-3) on seeded zero-mean batches: 2 warm-up and 10 timed
+     steps (ms/step, img/s, peak memory), the loss falling over 30
+     steps, the Accuracy evaluator; 3 f32 Momentum steps at batch 8
+     (LeNet) and 32 (VGG), card vs CPU, parameters within 1e-4;
+ 30. bench.py's ImageNet zoo cells (AlexNet 128, GoogLeNet 128, VGG-16
+     64, MobileNet-v1 128 at [3, 224, 224], 1000 classes, bf16 AMP,
+     Momentum(0.01, 0.9)): 2 warm-up and 5 timed steps (ms/step, img/s,
+     bench.py's FLOP share of 989 TFLOP/s) beside the reference's own
+     K40m img/s where bench.py names one; GoogLeNet's lrn ops per step;
+ 31. the book's SRL at its published widths (word 32, mark 5, hidden
+     512, depth 8; conll05's 44,068 words, 3,162 predicates, 59 labels),
+     batch 10 synthetic sentences of 10-60 tokens, SGD at
+     exponential_decay (base 5e-4: the book's 0.01 diverges on them) on
+     a force_cpu global step: ms/step, tokens/s,
+     the loss over 30 steps, crf_decoding, ChunkEvaluator P/R/F1; a step
+     under torch.cuda.set_sync_debug_mode("error");
+ 32. ssd_detector at [32, 3, 300, 300] with 21 classes (20,982 priors),
+     f32 Adam(2e-3) on seeded single-object images: ms/step, the loss
+     falling over 30 steps, a step under set_sync_debug_mode("error"),
+     peak memory; the detection_output eval step (ms), its -1-padded
+     rows and the host DetectionMAP;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases 13
  and 14, the flash entries their Fluid launches in phase 18; no Hopper
- kernel lies on the path of phases 20-27, whose recurrences, segment
- ops, CTC, loops, beam search, sparse updates and sampled losses are
+ kernel lies on the path of phases 20-32, whose recurrences, segment
+ ops, CTC, loops, beam search, sparse updates, sampled losses,
+ convolutions, CRF recursions and detection ops are cuDNN, cuBLAS and
  plain torch ops), then the device line last.
 
 No request count of phases 9, 11 and 13 is cut; phases 10 and 12 run the
@@ -226,8 +258,10 @@ over 3 train steps, over 24 steps of the serving_quant configuration
 with kv_quant none and int8, and over 12 steps of 16 megabatch requests
 at K=1 sync and K=8 async, and over 3 Fluid ResNet-50 steps, 3 Fluid
 LSTM steps, 3 Fluid NMT training steps, one NMT beam decode, 3 steps of
-each phase-25 configuration and 3 Wide&Deep and DeepFM steps (device
-time by class and by region: forward, backward, optimizer).
+each phase-25 configuration, 3 Wide&Deep and DeepFM steps, 2 steps of
+each phase-30 zoo model (with lrn's forward device time), 3 SRL steps,
+3 SSD training steps and one SSD eval step (device time by class and by
+region: forward, backward, optimizer).
 
 Tolerances: f32 atol/rtol 1e-4 (reduction order only); bf16 output
 atol/rtol 2e-2 against the plain version computed in f32 on the same
@@ -1991,14 +2025,16 @@ def _fluid_class(name):
 FLUID_REGIONS = ("fluid/forward", "fluid/optimizer")
 
 
-def profile_fluid(torch, run, n, label):
+def profile_fluid(torch, run, n, label, extra_regions=()):
     """torch.profiler over `run()` n times: wall, device-busy share and
     device ops per step; device ms per step by kernel class; and the
     forward and optimizer regions (the lowering's record_function ranges)
     as the sum of their kernels' device time; autograd's engine thread
     launches the backward's kernels, so the backward is the rest of the
     busy time. The optimizer's
-    kernels are elementwise: the elementwise class includes them."""
+    kernels are elementwise: the elementwise class includes them.
+    `extra_regions` names more ranges (inside the forward region, as
+    _OpCounter's per-op ones) whose device time to report alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2013,19 +2049,21 @@ def profile_fluid(torch, run, n, label):
     avgs = prof.key_averages()
     kernels = [e for e in avgs
                if getattr(e, "device_type", None) == DeviceType.CUDA
-               and _device_us(e) > 0 and e.key not in FLUID_REGIONS]
+               and _device_us(e) > 0 and e.key not in FLUID_REGIONS
+               and e.key not in extra_regions]
     busy = sum(_device_us(e) for e in kernels) / 1e6
     classes = {}
     for e in kernels:
         c = _fluid_class(e.key)
         classes[c] = classes.get(c, 0.0) + _device_us(e) / 1e3 / n
-    regions = {}
+    regions, extra = {}, {}
     for e in avgs:
-        if e.key in FLUID_REGIONS and getattr(
+        if e.key in FLUID_REGIONS + tuple(extra_regions) and getattr(
                 e, "device_type", None) == DeviceType.CPU:
             total = getattr(e, "device_time_total",
                             getattr(e, "cuda_time_total", 0.0))
-            regions[e.key] = total / 1e3 / n
+            (regions if e.key in FLUID_REGIONS else extra)[e.key] = \
+                total / 1e3 / n
     ops = sum(e.count for e in kernels) / n
     log("  profile %s: %.3f ms/step wall (profiled), device busy %.4f "
         "ms/step = %.4f of wall, %.0f device ops/step"
@@ -2038,12 +2076,18 @@ def profile_fluid(torch, run, n, label):
         log("    region %-33s %s" % (r, "%.4f ms/step device (kernels)"
                                     % regions[r] if r in regions
                                     else "not measured"))
+    for r in extra_regions:
+        log("    range %-34s %s" % (r, "%.4f ms/step device (forward "
+                                   "kernels), %.4f of busy" % (
+                                       extra[r], extra[r] / (busy / n * 1e3))
+                                   if r in extra and busy else
+                                   "not measured"))
     for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
         log("    %-60s %6d calls %9.3f ms device"
             % (e.key[:60], e.count, _device_us(e) / 1e3))
     return dict(wall_ms=wall / n * 1e3, busy_ms=busy / n * 1e3,
                 busy_share=busy / wall, ops_per_step=ops, classes=classes,
-                regions=regions)
+                regions=dict(regions, **extra))
 
 
 def phase_fluid_resnet(torch, fluid, resnet, profile=False, warm=2,
@@ -3512,6 +3556,977 @@ def phase_ctr(torch, fluid, ctr, profile=False, warm=2, steps=10, total=30,
     return out
 
 
+# ---------------------------------------------------------------------
+# phases 28-32: lrn, the image zoo, the CRF ops and the book's SRL, the
+# detection ops and SSD, the learning-rate schedules and the evaluators
+# ---------------------------------------------------------------------
+
+# bench.py:198-205: forward FLOPs per 224x224 image
+ZOO_FWD_FLOPS = {"alexnet": 1.43e9, "googlenet": 3.0e9, "vgg16": 15.47e9,
+                 "mobilenet": 1.14e9}
+# bench.py:4433-4445's cells: (batch, the reference's own img/s on a K40m
+# where bench.py names one, benchmark/README.md:37,50)
+ZOO_CELLS = {"alexnet": (128, 383.2), "googlenet": (128, 111.4),
+             "vgg16": (64, None), "mobilenet": (128, None)}
+# the two BASELINE.json configs the zoo adds: the book's recognize_digits
+# (MNIST, LeNet) and image_classification (CIFAR-10, vgg16_bn_drop), each
+# with the book's Adam(1e-3). The card-vs-CPU check runs VGG at batch 32:
+# at batch 8 its fc batch norm normalises 8 values a channel, and two CPU
+# runs that differ only in their thread count already part by more than
+# the check's 1e-4 in 3 steps
+BOOK_IMAGE = {"lenet_mnist": dict(shape=[1, 28, 28], classes=10, batch=64,
+                                  parity_batch=8),
+              "vgg16_bn_drop_cifar10": dict(shape=[3, 32, 32], classes=10,
+                                            batch=128, parity_batch=32)}
+# the book's label_semantic_roles at its published widths over conll05's
+# dictionaries (44,068 words, 3,162 predicates, 59 IOB labels = 29 chunk
+# types); batch 10 sentences of 10-60 tokens. The schedule's base rate is
+# 5e-4: the book's 0.01 diverges to nan on these synthetic sentences, on
+# the card and on the CPU alike
+SRL = dict(word_dict=44068, pred_dict=3162, labels=59, mark_dict=2,
+           word_dim=32, mark_dim=5, hidden=512, depth=8, batch=10, lo=10,
+           hi=60, lr=5e-4, crf_lr=1e-3)
+# ssd_detector at VOC's shape: [32, 3, 300, 300], 20 classes + background
+SSD = dict(size=300, batch=32, classes=21, lr=2e-3)
+
+
+def _on_card(card, msg):
+    log("  [%s] %s" % (card, msg))
+
+
+def _kernel_run(torch, dev, op_type, ins, attrs, lods=None, keep=(),
+                outs=(), wrt=(), out=None, dtype=None):
+    """One op kernel called through the port's registry on `dev`:
+    ({slot: numpy}, [numpy gradients of `out` towards the `wrt` slots]).
+    `lods` maps an input slot to its offsets (fed with their host copy),
+    `outs` names output slots whose side-bands to return
+    ("<slot>@LOD0"), `keep` the outputs that count as read; `dtype`
+    casts float inputs (bfloat16 for the AMP check)."""
+    import types
+
+    from paddle_tpu_torch.fluid.core.registry import LoweringContext, \
+        get_kernel
+    from paddle_tpu_torch.utils import prng
+
+    dev = torch.device(dev)
+    op = types.SimpleNamespace(
+        type=op_type, inputs={s: [s] for s in ins},
+        outputs={s: [s] for s in set(outs) | set(keep) | (
+            {out} if out else set())})
+    ctx = LoweringContext(None, prng.PRNGKey(0), dev)
+    ctx.op, ctx.keep, ctx.env = op, tuple(keep) + ((out,) if out else ()), {}
+    for slot, off in (lods or {}).items():
+        host = np.asarray(off, np.int32)
+        ctx.set_lod(slot, torch.from_numpy(host.copy()).to(dev), host)
+    tins = {}
+    for slot, arrays in ins.items():
+        vals = []
+        for a in arrays:
+            t = torch.from_numpy(np.array(a)).to(dev)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            if slot in wrt:
+                t.requires_grad_(True)
+            vals.append(t)
+        tins[slot] = vals
+    with torch.enable_grad():
+        res = get_kernel(op_type)(ctx, tins, dict(attrs))
+    grads = []
+    if wrt:
+        y = res[out]
+        cot = torch.from_numpy(np.random.RandomState(0).randn(
+            *y.shape).astype(np.float32)).to(dev, y.dtype)
+        grads = [g.float().cpu().numpy() for g in torch.autograd.grad(
+            y, [tins[s][0] for s in wrt], cot)]
+    got = {k: (v[0] if isinstance(v, (list, tuple)) else v)
+           for k, v in res.items()}
+    got = {k: v.detach().float().cpu().numpy() if v.is_floating_point()
+           else v.detach().cpu().numpy() for k, v in got.items()}
+    for slot in outs:
+        key = slot + "@LOD0"
+        if key in ctx.env:
+            got[key] = ctx.env[key].cpu().numpy()
+    return got, grads
+
+
+def _boxes(rng, n, lo=0.05, hi=0.3):
+    centers = rng.rand(n, 2).astype(np.float32)
+    sizes = lo + (hi - lo) * rng.rand(n, 2).astype(np.float32)
+    return np.concatenate([centers - sizes / 2, centers + sizes / 2],
+                          axis=1).astype(np.float32)
+
+
+def _offsets(lens):
+    return np.cumsum([0] + list(lens)).astype(np.int32)
+
+
+def new_op_cases(rng):
+    """(name, op, ins, attrs, lods, exact slots, float slots, outs, wrt,
+    out) of phase 28: every op this slice ports, at a few hundred to a
+    few million elements."""
+    cases = []
+
+    def add(name, op, ins, attrs, lods=None, exact=(), floats=(), outs=(),
+            wrt=(), out=None):
+        cases.append((name, op, ins, attrs, lods or {}, exact, floats,
+                      outs, wrt, out))
+
+    x = rng.randn(8, 64, 28, 28).astype(np.float32)
+    add("lrn", "lrn", {"X": [x]}, dict(n=5, k=1.0, alpha=1e-4, beta=0.75),
+        floats=("Out", "MidOut"), wrt=("X",), out="Out")
+    lens = [1, 17, 40, 8, 1, 60, 25, 33, 12, 5]
+    total = sum(lens)
+    n = SRL["labels"]
+    crf = {"Emission": [rng.randn(total, n).astype(np.float32)],
+           "Transition": [0.5 * rng.randn(n + 2, n).astype(np.float32)],
+           "Label": [rng.randint(0, n, (total, 1)).astype(np.int64)]}
+    add("linear_chain_crf", "linear_chain_crf", crf, {},
+        {"Emission": _offsets(lens)},
+        floats=("LogLikelihood", "Alpha", "EmissionExps", "TransitionExps"),
+        outs=("Alpha", "EmissionExps", "TransitionExps"),
+        wrt=("Emission", "Transition"), out="LogLikelihood")
+    add("crf_decoding", "crf_decoding",
+        {"Emission": crf["Emission"], "Transition": crf["Transition"]}, {},
+        {"Emission": _offsets(lens)}, exact=("ViterbiPath",))
+    tied = {"Emission": [rng.randint(0, 2, (total, 4)).astype(np.float32)],
+            "Transition": [rng.randint(0, 2, (6, 4)).astype(np.float32)]}
+    add("crf_decoding (ties)", "crf_decoding", tied, {},
+        {"Emission": _offsets(lens)}, exact=("ViterbiPath",))
+    label = rng.randint(0, n, total)
+    infer = np.where(rng.rand(total) < 0.7, label, rng.randint(0, n, total))
+    for scheme, types_, excl in (("IOB", 29, []), ("IOE", 29, [3]),
+                                 ("IOBES", 14, []), ("plain", 58, [0])):
+        add("chunk_eval %s" % scheme, "chunk_eval",
+            {"Inference": [infer.reshape(-1, 1).astype(np.int64)],
+             "Label": [label.reshape(-1, 1).astype(np.int64)]},
+            dict(chunk_scheme=scheme, num_chunk_types=types_,
+                 excluded_chunk_types=excl), {"Label": _offsets(lens)},
+            exact=("NumInferChunks", "NumLabelChunks", "NumCorrectChunks"),
+            floats=("Precision", "Recall", "F1-Score"))
+    C = 10
+    add("precision_recall", "precision_recall",
+        {"Indices": [rng.randint(0, C, (4096, 1)).astype(np.int64)],
+         "Labels": [rng.randint(0, C, (4096, 1)).astype(np.int64)],
+         "Weights": [rng.rand(4096, 1).astype(np.float32)],
+         "StatesInfo": [rng.randint(0, 50, (C, 4)).astype(np.float32)]},
+        dict(class_number=C),
+        floats=("BatchMetrics", "AccumMetrics", "AccumStatesInfo"))
+    add("prior_box", "prior_box",
+        {"Input": [rng.rand(2, 16, 75, 75).astype(np.float32)],
+         "Image": [rng.rand(2, 3, 300, 300).astype(np.float32)]},
+        dict(min_sizes=[60.0], max_sizes=[111.0], aspect_ratios=[2.0, 3.0],
+             flip=True, clip=True), floats=("Boxes", "Variances"))
+    M = 2000
+    priors = _boxes(rng, M, 0.05, 0.5)
+    pvar = np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (M, 1))
+    add("box_coder encode", "box_coder",
+        {"PriorBox": [priors], "PriorBoxVar": [pvar],
+         "TargetBox": [_boxes(rng, M, 0.05, 0.5)]},
+        dict(code_type="encode_center_size"), floats=("OutputBox",))
+    add("box_coder decode", "box_coder",
+        {"PriorBox": [priors], "PriorBoxVar": [pvar],
+         "TargetBox": [0.5 * rng.randn(4, M, 4).astype(np.float32)]},
+        dict(code_type="decode_center_size"), floats=("OutputBox",))
+    add("bipartite_match", "bipartite_match",
+        {"DistMat": [rng.rand(12, 300).astype(np.float32)]}, {},
+        exact=("ColToRowMatchIndices",), floats=("ColToRowMatchDist",))
+    Cn = 21
+    boxes = _boxes(rng, M, 0.05, 0.3)
+    add("multiclass_nms", "multiclass_nms",
+        {"Scores": [rng.rand(4, Cn, M).astype(np.float32) ** 4],
+         "BBoxes": [np.stack([boxes] * 4)]},
+        dict(background_label=0, score_threshold=0.1, nms_top_k=400,
+             nms_threshold=0.45, keep_top_k=200), exact=("Out@LOD0",),
+        floats=("Out",), outs=("Out",))
+    add("roi_pool", "roi_pool",
+        {"X": [rng.randn(4, 32, 38, 38).astype(np.float32)],
+         "ROIs": [np.concatenate([rng.randint(0, 30, (64, 2)),
+                                  rng.randint(40, 76, (64, 2))],
+                                 1)[:, [0, 1, 2, 3]].astype(np.float32)]},
+        dict(pooled_height=7, pooled_width=7, spatial_scale=0.5),
+        {"ROIs": _offsets([16, 16, 16, 16])}, floats=("Out",),
+        outs=("Out",), wrt=("X",), out="Out")
+    gts = [2, 0, 3, 1, 4, 1, 1, 2]
+    P, Ccls = 1000, 21
+    add("ssd_multibox_loss", "ssd_multibox_loss",
+        {"Loc": [0.5 * rng.randn(len(gts), P, 4).astype(np.float32)],
+         "Conf": [rng.randn(len(gts), P, Ccls).astype(np.float32)],
+         "GTBox": [_boxes(rng, sum(gts), 0.2, 0.5)],
+         "GTLabel": [rng.randint(1, Ccls, (sum(gts), 1)).astype(np.int64)],
+         "PriorBox": [_boxes(rng, P, 0.1, 0.5)],
+         "PriorVar": [np.tile(np.float32([0.1, 0.1, 0.2, 0.2]), (P, 1))]},
+        dict(overlap_threshold=0.5, neg_pos_ratio=3.0, neg_overlap=0.5,
+             background_id=0), {"GTBox": _offsets(gts)}, floats=("Out",),
+        wrt=("Loc", "Conf"), out="Out")
+    glens, K = [3, 1, 2, 4], 50
+    gt = _boxes(rng, sum(glens), 0.2, 0.4)
+    glab = rng.randint(1, 5, (sum(glens), 1))
+    det = np.full((len(glens) * K, 6), -1.0, np.float32)
+    lod = _offsets(glens)
+    for i in range(len(glens)):
+        for k in range(40):
+            g = lod[i] + k % glens[i]
+            own = k < 2 * glens[i]
+            det[i * K + k] = [glab[g, 0] if own else rng.randint(0, 5),
+                              rng.rand(), *(gt[g] + 0.02 * rng.randn(4)
+                                            if own else _boxes(rng, 1)[0])]
+    add("detection_map", "detection_map",
+        {"Detection": [det], "GTBox": [gt], "GTLabel": [glab],
+         "GTDifficult": [(rng.rand(sum(glens), 1) < 0.2).astype(
+             np.float32)]},
+        dict(overlap_threshold=0.5, num_classes=5, pad_stride=K,
+             background_id=0), {"GTBox": lod}, floats=("MAP",))
+    add("pnpair_eval", "pnpair_eval",
+        {"Score": [np.round(rng.rand(2000, 1) * 20).astype(np.float32)],
+         "Label": [rng.randint(0, 3, (2000, 1)).astype(np.float32)],
+         "QueryID": [rng.randint(0, 40, (2000, 1)).astype(np.int64)],
+         "Weight": [rng.rand(2000, 1).astype(np.float32)]}, {},
+        floats=("Out",))
+    return cases
+
+
+def _rel_err(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) \
+        if a.size else 0.0
+
+
+def schedule_program(fluid, kind, on):
+    """A regression trained by SGD at one of the five schedules' rates,
+    on a force_cpu global step the optimizer advances (the book's SRL
+    pattern, tests/test_label_semantic_roles.py:158-170)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        y = fluid.layers.data(name="y", shape=[1], dtype="float32")
+        loss = fluid.layers.mean(x=fluid.layers.square_error_cost(
+            input=fluid.layers.fc(input=x, size=1), label=y))
+        gs = fluid.layers.create_global_var(
+            shape=[1], value=0, dtype="float32", force_cpu=True,
+            persistable=True)
+        d = fluid.learning_rate_decay
+        lr = {
+            "exponential": lambda: d.exponential_decay(0.1, gs, 2, 0.5, on),
+            "natural_exp": lambda: d.natural_exp_decay(0.1, gs, 2, 0.5, on),
+            "inverse_time": lambda: d.inverse_time_decay(0.1, gs, 2, 0.5,
+                                                         on),
+            "polynomial": lambda: d.polynomial_decay(0.1, gs, 3, 0.01, 2.0,
+                                                     cycle=on),
+            "piecewise": lambda: d.piecewise_decay(gs, [1.5, 3],
+                                                   [0.1, 0.05, 0.01]),
+        }[kind]()
+        fluid.optimizer.SGD(learning_rate=lr, global_step=gs).minimize(loss)
+    return main, startup, [loss, lr, gs]
+
+
+def phase_new_op_parity(torch, fluid, place=None, card="cpu"):
+    """Phase 28: every op this slice ports on the card against the same
+    kernel on the CPU on the same seeded inputs: lrn (f32, and bf16 as
+    under AMP), the four CRF ops, the eight detection ops, with the
+    gradients of lrn, linear_chain_crf, roi_pool and ssd_multibox_loss;
+    the five learning-rate schedules over 5 SGD steps; the Accuracy,
+    ChunkEvaluator and DetectionMAP evaluators. f32 within 1e-5 (relative
+    to each output's largest magnitude), integers and chunk counts
+    equal, bf16 within 2e-2."""
+    dev = "cuda" if place is None else fluid.Executor(place).device.type
+    rng = np.random.RandomState(28)
+    results = {}
+    for (name, op, ins, attrs, lods, exact, floats, outs, wrt,
+         out) in new_op_cases(rng):
+        slots = tuple(s.split("@")[0] for s in exact + floats)
+        kw = dict(lods=lods, keep=slots, outs=outs, wrt=wrt, out=out)
+        c, cg = _kernel_run(torch, dev, op, ins, attrs, **kw)
+        h, hg = _kernel_run(torch, "cpu", op, ins, attrs, **kw)
+        same = all(np.array_equal(c[s], h[s]) for s in exact)
+        errs = [_rel_err(c[s], h[s]) for s in floats] + \
+            [_rel_err(a, b) for a, b in zip(cg, hg)]
+        err = max(errs) if errs else 0.0
+        ok = same and err <= 1e-5
+        _on_card(card, "%s: %smax rel diff card vs CPU %.3e (outputs%s) "
+                 "%s" % (name, "%s equal, " % ", ".join(exact) if exact
+                         else "", err, " and gradients towards %s"
+                         % ", ".join(wrt) if wrt else "",
+                         "ok" if ok else "FAIL"))
+        check(ok, "phase 28: %s differs on the card" % name)
+        results[name] = dict(rel_err=err, exact=same)
+    # lrn under AMP: bf16 in, bf16 out, the window sum in f32
+    x = rng.randn(8, 64, 28, 28).astype(np.float32)
+    kw = dict(keep=("Out", "MidOut"), wrt=("X",), out="Out",
+              dtype=torch.bfloat16)
+    attrs = dict(n=5, k=1.0, alpha=1e-4, beta=0.75)
+    c, cg = _kernel_run(torch, dev, "lrn", {"X": [x]}, attrs, **kw)
+    h, hg = _kernel_run(torch, "cpu", "lrn", {"X": [x]}, attrs, **kw)
+    err = max(_rel_err(c["Out"], h["Out"]), _rel_err(cg[0], hg[0]))
+    mid = _rel_err(c["MidOut"], h["MidOut"])
+    ok = err <= 2e-2 and mid <= 1e-5
+    _on_card(card, "lrn bf16 (AMP): Out and grad max rel diff %.3e, MidOut "
+             "(f32) %.3e %s" % (err, mid, "ok" if ok else "FAIL"))
+    check(ok, "phase 28: bf16 lrn differs on the card")
+    results["lrn bf16"] = dict(rel_err=err, midout_rel_err=mid)
+
+    feed_rng = np.random.RandomState(29)
+    feed = dict(x=feed_rng.randn(32, 16).astype(np.float32),
+                y=feed_rng.randn(32, 1).astype(np.float32))
+    for kind in ("exponential", "natural_exp", "inverse_time",
+                 "polynomial", "piecewise"):
+        for on in ((False, True) if kind != "piecewise" else (False,)):
+            main, startup, fetch = schedule_program(fluid, kind, on)
+
+            def run(exe):
+                return [exe.run(main, feed=feed, fetch_list=fetch)
+                        for _ in range(5)]
+
+            runs, _ = _card_and_cpu(fluid, startup, run, place)
+            (c, _), (h, _) = runs["card"], runs["cpu"]
+            rate = max(_rel_err(a[1], b[1]) for a, b in zip(c, h))
+            loss = max(_rel_err(a[0], b[0]) for a, b in zip(c, h))
+            steps = [float(a[2][0]) for a in c]
+            ok = rate <= 1e-6 and loss <= 1e-5 and steps == [1, 2, 3, 4, 5]
+            label = "%s%s" % (kind, " (staircase)" if on and kind !=
+                              "polynomial" else " (cycle)" if on else "")
+            _on_card(card, "schedule %s: rates %s, max rel diff rate %.3e, "
+                     "loss %.3e, global step %s %s" % (
+                         label, ["%.6f" % float(a[1][0]) for a in c], rate,
+                         loss, steps, "ok" if ok else "FAIL"))
+            check(ok, "phase 28: the %s schedule differs" % label)
+            results["schedule " + label] = dict(rate_rel_err=rate)
+
+    # Accuracy and ChunkEvaluator through the executor, DetectionMAP on
+    # the host over each device's multiclass_nms rows
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        xv = fluid.layers.data(name="x", shape=[16], dtype="float32")
+        lbl = fluid.layers.data(name="lbl", shape=[1], dtype="int64")
+        inf = fluid.layers.data(name="inf", shape=[1], dtype="int64",
+                                lod_level=1)
+        lab = fluid.layers.data(name="lab", shape=[1], dtype="int64",
+                                lod_level=1)
+        acc = fluid.evaluator.Accuracy(
+            input=fluid.layers.fc(input=xv, size=10, act="softmax"),
+            label=lbl)
+        chunk = fluid.evaluator.ChunkEvaluator(
+            input=inf, label=lab, chunk_scheme="IOB", num_chunk_types=29)
+
+    def batches(seed):
+        r = np.random.RandomState(seed)
+        lens = r.randint(1, 60, 10)
+        label = r.randint(0, 59, int(lens.sum()))
+        infer = np.where(r.rand(label.size) < 0.6, label,
+                         r.randint(0, 59, label.size))
+        lod = [_offsets(lens)]
+        return dict(x=r.randn(64, 16).astype(np.float32),
+                    lbl=r.randint(0, 10, (64, 1)).astype(np.int64),
+                    inf=(infer.reshape(-1, 1).astype(np.int64), lod),
+                    lab=(label.reshape(-1, 1).astype(np.int64), lod))
+
+    def evaluate(exe):
+        acc.reset(exe)
+        chunk.reset(exe)
+        for s in range(3):
+            exe.run(main, feed=batches(s), fetch_list=acc.metrics)
+        return float(acc.eval(exe)), chunk.eval(exe)
+
+    runs, _ = _card_and_cpu(fluid, startup, evaluate, place)
+    (ca, cc), (ha, hc) = runs["card"][0], runs["cpu"][0]
+    ok = ca == ha and np.array_equal(cc, hc) and cc[0] > 0
+    _on_card(card, "Accuracy %.6f vs CPU %.6f; ChunkEvaluator P/R/F1 %s vs "
+             "CPU %s %s" % (ca, ha, cc.tolist(), hc.tolist(),
+                            "ok" if ok else "FAIL"))
+    check(ok, "phase 28: an evaluator differs on the card")
+    nms = [c for c in new_op_cases(np.random.RandomState(28))
+           if c[0] == "multiclass_nms"][0]
+    maps = []
+    for d in (dev, "cpu"):
+        got, _ = _kernel_run(torch, d, "multiclass_nms", nms[2], nms[3],
+                             outs=("Out",), keep=("Out",))
+        rows = got["Out"].reshape(4, -1, 6)
+        boxes, scores = nms[2]["BBoxes"][0], nms[2]["Scores"][0]
+        ev = fluid.evaluator.DetectionMAP(overlap_threshold=0.5)
+        # ground truth: each image's best-scored box of classes 1..3
+        ev.update([r[r[:, 0] >= 0] for r in rows],
+                  [boxes[i][scores[i, 1:4].argmax(1)] for i in range(4)],
+                  [np.array([1, 2, 3]) for _ in range(4)])
+        maps.append(ev.eval())
+    ok = abs(maps[0] - maps[1]) <= 1e-6 and maps[0] > 0
+    _on_card(card, "DetectionMAP over the card's NMS rows %.6f vs the CPU's "
+             "%.6f %s" % (maps[0], maps[1], "ok" if ok else "FAIL"))
+    check(ok, "phase 28: DetectionMAP differs on the card")
+    results["evaluators"] = dict(accuracy=ca, chunk=cc.tolist(),
+                                 detection_map=maps[0])
+    return results
+
+
+def book_image_program(fluid, model, cfg, opt):
+    """(main, startup, loss, accuracy evaluator) of the book's
+    recognize_digits / image_classification: model -> cross_entropy ->
+    mean, an Accuracy evaluator, `opt` minimising the loss."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        image = fluid.layers.data(name="image", shape=cfg["shape"],
+                                  dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        predict = model(image, cfg["classes"])
+        avg = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=predict, label=label))
+        acc = fluid.evaluator.Accuracy(input=predict, label=label)
+        opt(fluid).minimize(avg)
+    return main, startup, avg, acc
+
+
+def book_image_feed(torch, cfg, batch, dev, seed=0):
+    """A seeded synthetic batch, zero-mean as the books normalise their
+    images: labels in [0, classes), each image its class's fixed random
+    template plus as much noise."""
+    rng = np.random.RandomState(seed)
+    templates = np.random.RandomState(1234).randn(cfg["classes"],
+                                                  *cfg["shape"])
+    label = rng.randint(0, cfg["classes"], (batch, 1)).astype(np.int64)
+    image = (templates[label[:, 0]] + rng.randn(batch, *cfg["shape"])
+             ).astype(np.float32) / np.float32(np.sqrt(2.0))
+    return {"image": torch.from_numpy(image).to(dev),
+            "label": torch.from_numpy(label).to(dev)}
+
+
+def _timed_steps(torch, step, dev, warm, steps):
+    """(results of warm + steps calls, warm-up s, timed wall s, peak
+    bytes the timed steps reached)."""
+    t0 = time.monotonic()
+    outs = [step() for _ in range(warm)]
+    _sync(torch, dev.type)
+    warm_s = time.monotonic() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    outs += [step() for _ in range(steps)]
+    _sync(torch, dev.type)
+    wall = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    return outs, warm_s, wall, peak
+
+
+def phase_book_images(torch, fluid, lenet, vgg, warm=2, steps=10, total=30,
+                      place=None, cfgs=BOOK_IMAGE, card="cpu"):
+    """Phase 29: the two BASELINE.json image configs, MNIST LeNet and
+    VGG-16-bn-drop CIFAR-10, in f32 with the books' Adam(1e-3): 2 warm-up
+    and 10 timed steps on one seeded batch ending in a sync (ms/step,
+    img/s, peak memory), then to 30 steps (the loss must fall) with the
+    Accuracy evaluator over the timed and later steps; then 3 Momentum
+    (0.01, 0.9) steps at the config's parity batch (LeNet 8, VGG 32) on
+    the card and on the CPU from one set of startup weights: losses
+    within rtol 1e-4, parameters and
+    batch-norm statistics within atol 1e-4 (Momentum, not Adam: Adam
+    steps every noise-level gradient, such as a conv bias before batch
+    norm, by up to lr in either direction)."""
+    models = {"lenet_mnist": lenet.lenet,
+              "vgg16_bn_drop_cifar10": vgg.vgg16_bn_drop}
+    out = {}
+    for name, cfg in cfgs.items():
+        adam = lambda f: f.optimizer.Adam(learning_rate=1e-3)  # noqa: E731
+        main, startup, avg, acc = book_image_program(
+            fluid, models[name], cfg, adam)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place or fluid.CUDAPlace(0))
+            dev = exe.device
+            exe.run(startup)
+            feed = book_image_feed(torch, cfg, cfg["batch"], dev)
+
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[avg],
+                               return_numpy=False)[0]
+
+            acc.reset(exe)
+            losses, warm_s, wall, peak = _timed_steps(torch, step, dev,
+                                                      warm, steps)
+            losses += [step() for _ in range(total - warm - steps)]
+            losses = [float(x.reshape(())) for x in losses]
+            accuracy = float(acc.eval(exe))
+            ok = all(math.isfinite(x) for x in losses) and \
+                np.mean(losses[-5:]) < np.mean(losses[:5])
+            ips = cfg["batch"] * steps / wall
+            _on_card(card, "%s: %d steps of batch %d, f32 Adam(1e-3): %.3f "
+                     "ms/step, %.1f img/s, peak device memory %.3f GiB; "
+                     "losses %.4f -> %.4f over %d steps; Accuracy "
+                     "evaluator over them %.4f %s" % (
+                         name, steps, cfg["batch"], wall / steps * 1e3, ips,
+                         peak / 2 ** 30, losses[0], losses[-1], total,
+                         accuracy, "ok" if ok else "FAIL"))
+            check(ok, "%s: the loss did not fall: %s" % (name, losses))
+            out[name] = dict(ms_per_step=wall / steps * 1e3, img_per_s=ips,
+                             peak_mem_gib=peak / 2 ** 30, warm_s=warm_s,
+                             losses=losses, accuracy=accuracy)
+        del scope, exe, feed, step
+
+        momentum = lambda f: f.optimizer.Momentum(  # noqa: E731
+            learning_rate=0.01, momentum=0.9)
+        main, startup, avg, _ = book_image_program(fluid, models[name], cfg,
+                                                   momentum)
+
+        def train(exe):
+            feed = book_image_feed(torch, cfg, cfg["parity_batch"],
+                                   exe.device, 1)
+            return [float(exe.run(main, feed=feed, fetch_list=[avg])[0][0])
+                    for _ in range(3)]
+
+        runs, init = _card_and_cpu(fluid, startup, train, place)
+        (lc, sc), (lh, sh) = runs["card"], runs["cpu"]
+        block = main.global_block()
+        state = {p.name for p in block.all_parameters()}
+        for op in block.ops:
+            if op.type == "batch_norm":
+                state |= set(op.input("Mean") + op.input("Variance"))
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        p_err = max(float(np.abs(sc[n] - sh[n]).max()) for n in state)
+        moved = max(float(np.abs(sh[n] - init[n]).max()) for n in state)
+        ok = loss_err <= 1e-4 and p_err <= 1e-4
+        _on_card(card, "%s f32 card vs CPU, 3 Momentum steps at batch %d: "
+                 "max rel loss diff %.3e, max param/statistic diff %.3e "
+                 "(moved up to %.3e) %s" % (name, cfg["parity_batch"],
+                                            loss_err,
+                                            p_err, moved,
+                                            "ok" if ok else "FAIL"))
+        check(ok, "%s: f32 training on the card diverged from the CPU"
+              % name)
+        out[name].update(loss_rel_err=loss_err, param_abs_err=p_err)
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+class _OpCounter(object):
+    """Counts the calls of some op kernels (and, with `ranges`, wraps
+    each in a torch.profiler range "fluid/op/<type>") while active."""
+
+    def __init__(self, types, ranges=False):
+        from paddle_tpu_torch.fluid.core import registry
+
+        self.registry, self.types, self.ranges = registry, types, ranges
+        self.counts = dict.fromkeys(types, 0)
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        self.saved = {t: self.registry._KERNELS[t] for t in self.types}
+        for t, fn in self.saved.items():
+            def wrapped(ctx, ins, attrs, _t=t, _fn=fn):
+                self.counts[_t] += 1
+                if not self.ranges:
+                    return _fn(ctx, ins, attrs)
+                with record_function("fluid/op/" + _t):
+                    return _fn(ctx, ins, attrs)
+            self.registry._KERNELS[t] = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.registry._KERNELS.update(self.saved)
+
+
+def phase_image_zoo(torch, fluid, zoo, profile=False, warm=2, steps=5,
+                    place=None, shape=(3, 224, 224), cells=ZOO_CELLS,
+                    card="cpu"):
+    """Phase 30: bench.py's ImageNet zoo cells (bench.py:4437-4445,
+    _build_image_workload): AlexNet 128, GoogLeNet 128, VGG-16 64 and
+    MobileNet-v1 128 images of [3, 224, 224], 1000 classes,
+    Momentum(0.01, 0.9), bf16 AMP; 2 warm-up and 5 timed steps on one
+    batch ending in a sync (ms/step, img/s, bench.py's FLOP share of 989
+    TFLOP/s, peak memory) beside the reference's own K40m img/s where
+    bench.py names one; GoogLeNet's lrn ops counted over one step. With
+    --profile, 2 profiled steps of each (GoogLeNet's with lrn's forward
+    device time as its own range)."""
+    out = {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        for name, (batch, k40m) in cells.items():
+            main, startup, avg = fluid_image_program(
+                fluid, zoo[name], list(shape), 1000, amp=True)
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(place or fluid.CUDAPlace(0))
+                dev = exe.device
+                exe.run(startup)
+                feed = image_feed(torch, batch, list(shape), 1000, dev)
+
+                def step():
+                    return exe.run(main, feed=feed, fetch_list=[avg],
+                                   return_numpy=False)[0]
+
+                losses, warm_s, wall, peak = _timed_steps(torch, step, dev,
+                                                          warm, steps)
+                losses = [float(x.reshape(())) for x in losses]
+                ok = all(math.isfinite(x) for x in losses)
+                ips = batch * steps / wall
+                share = ips * 3 * ZOO_FWD_FLOPS[name] / PEAK_FLOPS["bfloat16"]
+                with _OpCounter(["lrn"]) as counted:
+                    step()
+                _on_card(card, "%s: %d steps of batch %d, bf16 AMP: %.3f "
+                         "ms/step, %.1f img/s, FLOP share %.4f of 989 "
+                         "TFLOP/s (bench.py's count), peak %.2f GiB, warm-up "
+                         "%.1f s; lrn ops per step %d; losses %s%s %s" % (
+                             name, steps, batch, wall / steps * 1e3, ips,
+                             share, peak / 2 ** 30, warm_s,
+                             counted.counts["lrn"],
+                             ", ".join("%.4f" % x for x in losses),
+                             "; the reference's own K40m figure %.1f img/s "
+                             "(bench.py:4433-4440, context only)" % k40m
+                             if k40m else "", "ok" if ok else "FAIL"))
+                check(ok, "%s: a loss is not finite: %s" % (name, losses))
+                if name == "googlenet":
+                    check(counted.counts["lrn"] == 2, "GoogLeNet ran %d lrn "
+                          "ops in a step" % counted.counts["lrn"])
+                out[name] = dict(batch=batch, ms_per_step=wall / steps * 1e3,
+                                 img_per_s=ips, flop_share=share,
+                                 peak_mem_gib=peak / 2 ** 30, warm_s=warm_s,
+                                 losses=losses,
+                                 lrn_ops_per_step=counted.counts["lrn"],
+                                 reference_k40m_img_per_s=k40m)
+                if profile:
+                    with _OpCounter(["lrn"], ranges=True):
+                        out[name]["profile"] = profile_fluid(
+                            torch, step, 2, "2 %s steps" % name,
+                            extra_regions=("fluid/op/lrn",)
+                            if counted.counts["lrn"] else ())
+            del scope, exe, feed, step
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    return out
+
+
+def srl_program(fluid, cfg):
+    """The book's label_semantic_roles (tests/test_label_semantic_roles.py:
+    31-200: db_lstm over 8 slots, linear_chain_crf with the transitions'
+    per-parameter learning rate, exponential_decay on a force_cpu global
+    step, SGD, crf_decoding, ChunkEvaluator) at `cfg`'s widths.
+    Returns (main, startup, avg_cost, crf_decode, chunk evaluator,
+    global step, learning rate)."""
+    pd = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        slots = [pd.data(name=n, shape=[1], dtype="int64", lod_level=1)
+                 for n in ("word", "verb", "ctx_n2", "ctx_n1", "ctx_0",
+                           "ctx_p1", "ctx_p2", "mark")]
+        word_slots, predicate, mark = slots[:1] + slots[2:7], slots[1], \
+            slots[7]
+        embs = [pd.embedding(input=x, size=[cfg["word_dict"],
+                                            cfg["word_dim"]],
+                             param_attr=fluid.ParamAttr(name="emb",
+                                                        trainable=False))
+                for x in word_slots]
+        embs.append(pd.embedding(input=predicate, size=[cfg["pred_dict"],
+                                                        cfg["word_dim"]],
+                                 param_attr="vemb"))
+        embs.append(pd.embedding(input=mark, size=[cfg["mark_dict"],
+                                                   cfg["mark_dim"]]))
+        H = cfg["hidden"]
+        hidden_0 = pd.sums(input=[pd.fc(input=e, size=H) for e in embs])
+        lstm_0 = pd.dynamic_lstm(input=hidden_0, size=H,
+                                 candidate_activation="relu",
+                                 gate_activation="sigmoid",
+                                 cell_activation="sigmoid")[0]
+        input_tmp = [hidden_0, lstm_0]
+        for i in range(1, cfg["depth"]):
+            mix = pd.sums(input=[pd.fc(input=input_tmp[0], size=H),
+                                 pd.fc(input=input_tmp[1], size=H)])
+            lstm = pd.dynamic_lstm(input=mix, size=H,
+                                   candidate_activation="relu",
+                                   gate_activation="sigmoid",
+                                   cell_activation="sigmoid",
+                                   is_reverse=(i % 2) == 1)[0]
+            input_tmp = [mix, lstm]
+        feature_out = pd.sums(input=[
+            pd.fc(input=input_tmp[0], size=cfg["labels"]),
+            pd.fc(input=input_tmp[1], size=cfg["labels"])])
+        target = pd.data(name="target", shape=[1], dtype="int64",
+                         lod_level=1)
+        crf_cost = pd.linear_chain_crf(
+            input=feature_out, label=target,
+            param_attr=fluid.ParamAttr(name="crfw",
+                                       learning_rate=cfg["crf_lr"]))
+        avg_cost = pd.mean(x=crf_cost)
+        global_step = pd.create_global_var(
+            shape=[1], value=0, dtype="float32", force_cpu=True,
+            persistable=True)
+        lr = fluid.learning_rate_decay.exponential_decay(
+            learning_rate=cfg["lr"], global_step=global_step,
+            decay_steps=100000, decay_rate=0.5, staircase=True)
+        fluid.optimizer.SGD(learning_rate=lr,
+                            global_step=global_step).minimize(avg_cost)
+        crf_decode = pd.crf_decoding(input=feature_out,
+                                     param_attr=fluid.ParamAttr(name="crfw"))
+        chunk = fluid.evaluator.ChunkEvaluator(
+            input=crf_decode, label=target, chunk_scheme="IOB",
+            num_chunk_types=(cfg["labels"] - 1) // 2)
+    return main, startup, avg_cost, crf_decode, chunk, global_step, lr
+
+
+def srl_feed(torch, cfg, dev, seed=0):
+    """Seeded sentences of lo..hi tokens with tests/test_label_semantic_
+    roles.py's derivable labels, scaled to conll05's dictionaries: a
+    marked predicate is B of chunk type 1, a low word id (the first third
+    of the dictionary) B of chunk type 0, another word id divisible by 7
+    B of chunk type (id mod 29), the rest O (the last label). Returns
+    (feed, tokens)."""
+    rng = np.random.RandomState(seed)
+    lens = ragged_lengths(rng, cfg["batch"], cfg["lo"], cfg["hi"],
+                          one=False)
+    cols = {k: [] for k in ("word", "verb", "ctx_n2", "ctx_n1", "ctx_0",
+                            "ctx_p1", "ctx_p2", "mark", "target")}
+    outside = cfg["labels"] - 1
+    for ln in lens:
+        words = rng.randint(2, cfg["word_dict"], ln)
+        pred_pos = rng.randint(0, ln)
+        mark = (np.arange(ln) == pred_pos).astype(np.int64)
+        labels = np.full(ln, outside)
+        labels[words < cfg["word_dict"] // 3] = 0
+        labels[mark == 1] = 2
+        typ = words % ((cfg["labels"] - 1) // 2)
+        labels[(words % 7 == 0) & (labels == outside)] = 2 * typ[
+            (words % 7 == 0) & (labels == outside)]
+        cols["word"].append(words)
+        cols["verb"].append(np.full(ln, rng.randint(0, cfg["pred_dict"])))
+        for k, s in (("ctx_n2", 2), ("ctx_n1", 1), ("ctx_0", 0),
+                     ("ctx_p1", -1), ("ctx_p2", -2)):
+            cols[k].append(np.roll(words, s))
+        cols["mark"].append(mark)
+        cols["target"].append(labels)
+    lod = [_offsets(lens)]
+    feed = {k: (torch.from_numpy(np.concatenate(v).reshape(-1, 1)
+                                 .astype(np.int64)).to(dev), lod)
+            for k, v in cols.items()}
+    return feed, int(lens.sum())
+
+
+def phase_srl(torch, fluid, profile=False, warm=2, steps=10, total=30,
+              place=None, cfg=SRL, card="cpu"):
+    """Phase 31: the book's SRL at its published widths (word_dim 32,
+    mark_dim 5, hidden 512, depth 8) over conll05's dictionaries, batch
+    10 synthetic sentences of 10-60 tokens, SGD at exponential_decay
+    (base 5e-4, SRL's note) on a force_cpu global step, crfw at 1e-3 of
+    it: 2 warm-up and 10 timed
+    steps on one batch ending in a sync (ms/step, tokens/s), then to 30
+    steps (the loss must fall), with crf_decoding and the ChunkEvaluator
+    over those steps; one more step under
+    torch.cuda.set_sync_debug_mode("error"), with the global step and
+    the learning rate on the card."""
+    main, startup, avg, decode, chunk, gstep, lr = srl_program(fluid, cfg)
+    scope = fluid.Scope()
+    out = {}
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        dev = exe.device
+        exe.run(startup)
+        feed, tokens = srl_feed(torch, cfg, dev)
+
+        def step():
+            return exe.run(main, feed=feed, fetch_list=[avg, decode, lr],
+                           return_numpy=False)
+
+        chunk.reset(exe)
+        runs, warm_s, wall, peak = _timed_steps(torch, step, dev, warm,
+                                                steps)
+        runs += [step() for _ in range(total - warm - steps)]
+        losses = [float(r[0].reshape(())) for r in runs]
+        path = fluid.as_numpy(runs[-1][1])
+        p, r, f1 = (float(v) for v in chunk.eval(exe))
+        rate = runs[-1][2]
+        ok = all(math.isfinite(x) for x in losses) and \
+            np.mean(losses[-5:]) < np.mean(losses[:5]) and \
+            path.shape == (tokens, 1) and \
+            bool(((path >= 0) & (path < cfg["labels"])).all()) and \
+            rate.device.type == dev.type and \
+            scope.get(gstep.name).device.type == dev.type and \
+            int(fluid.as_numpy(scope.get(gstep.name))[0]) == total
+        _on_card(card, "SRL (hidden %d, depth %d, %d labels): %d steps of %d "
+                 "sentences (%d tokens): %.3f ms/step, %.1f tokens/s, peak "
+                 "%.3f GiB; losses %.4f -> %.4f over %d steps; crf_decoding "
+                 "path %s; ChunkEvaluator over the steps P %.4f R %.4f F1 "
+                 "%.4f; global step %d, learning rate %.6f on %s %s" % (
+                     cfg["hidden"], cfg["depth"], cfg["labels"], steps,
+                     cfg["batch"], tokens, wall / steps * 1e3,
+                     tokens * steps / wall, peak / 2 ** 30, losses[0],
+                     losses[-1], total, list(path.shape), p, r, f1,
+                     int(fluid.as_numpy(scope.get(gstep.name))[0]),
+                     float(fluid.as_numpy(rate)[0]), rate.device,
+                     "ok" if ok else "FAIL"))
+        check(ok, "the SRL phase failed: losses %s" % losses)
+        out = dict(ms_per_step=wall / steps * 1e3,
+                   tokens_per_s=tokens * steps / wall, tokens=tokens,
+                   peak_mem_gib=peak / 2 ** 30, warm_s=warm_s,
+                   losses=losses, precision=p, recall=r, f1=f1)
+        if dev.type == "cuda":
+            _sync(torch, "cuda")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                last = step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(math.isfinite(float(last[0].reshape(()))),
+                  "the SRL's sync-checked step gave a non-finite loss")
+            _on_card(card, "SRL training step under set_sync_debug_mode("
+                     "'error'): no host sync")
+            out["no_host_sync"] = True
+        if profile:
+            out["profile"] = profile_fluid(torch, step, 3,
+                                           "3 SRL training steps")
+    del scope, exe, feed, step
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssd_batch(rng, cfg):
+    """tests/test_ssd_model.py's _sample scaled to cfg["size"]: one
+    bright square of a class in 1..classes-1 on noise per image, side
+    S/4..S/2, its box in normalized corners."""
+    S, n = cfg["size"], cfg["batch"]
+    imgs = 0.1 * rng.rand(n, 3, S, S).astype(np.float32)
+    boxes, labels = [], []
+    for i in range(n):
+        cls = int(rng.randint(1, cfg["classes"]))
+        size = int(rng.randint(S // 4, S // 2))
+        x0, y0 = (int(rng.randint(0, S - size)) for _ in range(2))
+        imgs[i, :, y0:y0 + size, x0:x0 + size] = 0.3 + 0.7 * cls / \
+            cfg["classes"]
+        boxes.append([x0 / S, y0 / S, (x0 + size) / S, (y0 + size) / S])
+        labels.append(cls)
+    return imgs, np.asarray(boxes, np.float32), \
+        np.asarray(labels, np.int64).reshape(-1, 1)
+
+
+def ssd_program(fluid, ssd, cfg):
+    """(main, startup, for_test clone, avg_cost, detections) of
+    models/ssd.ssd_detector with Adam(cfg lr)."""
+    main, startup = fluid.Program(), fluid.Program()
+    S, n = cfg["size"], cfg["batch"]
+    with fluid.program_guard(main, startup):
+        image = fluid.layers.data(name="image", shape=[3, S, S],
+                                  dtype="float32")
+        gt_box = fluid.layers.data(name="gt_box", shape=[4],
+                                   dtype="float32", lod_level=1)
+        gt_label = fluid.layers.data(name="gt_label", shape=[1],
+                                     dtype="int64", lod_level=1)
+        avg_cost, dets = ssd.ssd_detector(
+            image, gt_box, gt_label, num_classes=cfg["classes"],
+            image_size=S, batch=n)
+        test = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(avg_cost)
+    return main, startup, test, avg_cost, dets
+
+
+def phase_ssd(torch, fluid, ssd, profile=False, warm=2, steps=10, total=30,
+              place=None, cfg=SSD, card="cpu"):
+    """Phase 32: ssd_detector at VOC's shape ([32, 3, 300, 300], 21
+    classes; 20,982 priors: 3 per location of the 75x75 stride-4 and
+    the 37x37 stride-8 maps) on seeded single-object images, f32
+    Adam(2e-3): 2 warm-up and 10 timed training steps on one batch ending
+    in a sync (ms/step, img/s, peak memory), then to 30 steps (the loss
+    must fall); one more step under set_sync_debug_mode("error"); the
+    detection_output eval step through the for_test clone (ms, after a
+    warm-up), its rows well formed and -1 padded, and the host
+    DetectionMAP over them and over the training batch's detections."""
+    main, startup, test, avg, dets = ssd_program(fluid, ssd, cfg)
+    n = cfg["batch"]
+    scope = fluid.Scope()
+    out = {}
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        dev = exe.device
+        exe.run(startup)
+        imgs, boxes, labels = ssd_batch(np.random.RandomState(0), cfg)
+        lod = [np.arange(n + 1, dtype=np.int32)]
+        feed = {"image": torch.from_numpy(imgs).to(dev),
+                "gt_box": (torch.from_numpy(boxes).to(dev), lod),
+                "gt_label": (torch.from_numpy(labels).to(dev), lod)}
+
+        def step():
+            return exe.run(main, feed=feed, fetch_list=[avg],
+                           return_numpy=False)[0]
+
+        losses, warm_s, wall, peak = _timed_steps(torch, step, dev, warm,
+                                                  steps)
+        losses += [step() for _ in range(total - warm - steps)]
+        losses = [float(x.reshape(())) for x in losses]
+        ok = all(math.isfinite(x) for x in losses) and \
+            np.mean(losses[-5:]) < np.mean(losses[:5])
+        _on_card(card, "SSD [%d, 3, %d, %d], %d classes, f32 Adam(%g): %d "
+                 "steps: %.3f ms/step, %.1f img/s, peak %.3f GiB, warm-up "
+                 "%.1f s; losses %.4f -> %.4f over %d steps %s" % (
+                     n, cfg["size"], cfg["size"], cfg["classes"], cfg["lr"],
+                     steps, wall / steps * 1e3, n * steps / wall,
+                     peak / 2 ** 30, warm_s, losses[0], losses[-1], total,
+                     "ok" if ok else "FAIL"))
+        check(ok, "the SSD loss did not fall: %s" % losses)
+        out = dict(ms_per_step=wall / steps * 1e3, img_per_s=n * steps / wall,
+                   peak_mem_gib=peak / 2 ** 30, warm_s=warm_s, losses=losses)
+        if dev.type == "cuda":
+            _sync(torch, "cuda")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                last = step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            check(math.isfinite(float(last.reshape(()))),
+                  "the SSD's sync-checked step gave a non-finite loss")
+            _on_card(card, "SSD training step under set_sync_debug_mode("
+                     "'error'): no host sync")
+            out["no_host_sync"] = True
+
+        eimgs, eboxes, elabels = ssd_batch(np.random.RandomState(1), cfg)
+        efeed = {"image": torch.from_numpy(eimgs).to(dev)}
+
+        def evaluate():
+            return exe.run(test, feed=efeed, fetch_list=[dets],
+                           return_numpy=False)[0]
+
+        evaluate()
+        _sync(torch, dev.type)
+        t0 = time.monotonic()
+        got = fluid.as_numpy(evaluate())  # the fetch reads the rows back
+        eval_ms = (time.monotonic() - t0) * 1e3
+        stride = got.shape[0] // n
+        rows = got.reshape(n, stride, 6)
+        valid = rows[..., 0] >= 0
+        # valid rows first per image, the rest -1 filler
+        first = bool((np.sort(~valid, axis=1, kind="stable") == ~valid).all())
+        well = got.shape == (n * 8, 6) and first and bool(
+            (rows[~valid] == -1).all()) and bool(
+            ((rows[valid][:, 0] >= 0) & (rows[valid][:, 0] < cfg["classes"])
+             & (rows[valid][:, 1] >= 0) & (rows[valid][:, 1] <= 1)).all())
+        def detection_map(dets, boxes, labels):
+            rows = dets.reshape(n, -1, 6)
+            ev = fluid.evaluator.DetectionMAP(overlap_threshold=0.5)
+            ev.update([r[r[:, 0] >= 0] for r in rows],
+                      [boxes[i:i + 1] for i in range(n)],
+                      [labels[i:i + 1, 0] for i in range(n)])
+            return ev.eval()
+
+        m = detection_map(got, eboxes, elabels)
+        seen = detection_map(fluid.as_numpy(exe.run(
+            test, feed={"image": feed["image"]}, fetch_list=[dets],
+            return_numpy=False)[0]), boxes, labels)
+        _on_card(card, "SSD detection_output eval step (for_test clone, "
+                 "prior_box + box_coder + multiclass_nms over %d priors): "
+                 "%.3f ms; detections %s, %d valid rows, -1 padded: %s; "
+                 "DetectionMAP %.4f on a held-out batch, %.4f on the "
+                 "training batch %s" % (
+                     3 * ((cfg["size"] // 4) ** 2
+                          + (cfg["size"] // 8) ** 2), eval_ms,
+                     list(got.shape), int(valid.sum()), well, m, seen,
+                     "ok" if well else "FAIL"))
+        check(well, "the SSD detections are malformed")
+        out.update(eval_ms=eval_ms, valid_detections=int(valid.sum()),
+                   detection_map=m, detection_map_training_batch=seen)
+        if profile:
+            out["profile"] = profile_fluid(torch, step, 3,
+                                           "3 SSD training steps")
+            out["eval_profile"] = profile_fluid(torch, evaluate, 1,
+                                                "1 SSD eval step")
+    del scope, exe, feed, step
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
 def _tree_map(fn, x):
     if isinstance(x, dict):
         return {k: _tree_map(fn, v) for k, v in x.items()}
@@ -3672,6 +4687,33 @@ def main():
     ctr_models = phase_ctr(torch, fluid, ctr,
                            profile="--profile" in sys.argv[1:])
 
+    from paddle_tpu_torch.models import (alexnet, googlenet, lenet,
+                                         mobilenet, ssd, vgg)
+    log("phase 28: lrn, the CRF and detection ops, the learning-rate "
+        "schedules and the evaluators, card vs CPU")
+    new_ops = phase_new_op_parity(torch, fluid, card=card)
+
+    log("phase 29: the book's MNIST LeNet (batch 64) and VGG-16-bn-drop "
+        "CIFAR-10 (batch 128), f32 Adam(1e-3); card vs CPU")
+    book_images = phase_book_images(torch, fluid, lenet, vgg, card=card)
+
+    log("phase 30: bench.py's ImageNet zoo (AlexNet, GoogLeNet, VGG-16, "
+        "MobileNet-v1) at [N, 3, 224, 224], bf16 AMP, Momentum(0.01, 0.9)")
+    zoo = phase_image_zoo(torch, fluid, dict(
+        alexnet=alexnet.alexnet, googlenet=googlenet.googlenet,
+        vgg16=vgg.vgg16, mobilenet=mobilenet.mobilenet_v1),
+        profile="--profile" in sys.argv[1:], card=card)
+
+    log("phase 31: the book's SRL at its published widths (hidden 512, "
+        "depth 8, conll05's dictionaries), batch 10 sentences")
+    srl = phase_srl(torch, fluid, profile="--profile" in sys.argv[1:],
+                    card=card)
+
+    log("phase 32: SSD at VOC's shape ([32, 3, 300, 300], 21 classes, "
+        "20,982 priors), f32 Adam(2e-3)")
+    ssd_run = phase_ssd(torch, fluid, ssd,
+                        profile="--profile" in sys.argv[1:], card=card)
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -3791,7 +4833,10 @@ def main():
                                       crnn=crnn, control_f32_parity=control,
                                       nmt=nmt, sparse_bench=sparse,
                                       sparse_f32_parity=sparse_parity,
-                                      ctr=ctr_models)))
+                                      ctr=ctr_models, new_ops=new_ops,
+                                      book_images=book_images,
+                                      image_zoo=zoo, srl=srl,
+                                      ssd=ssd_run)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,10 @@ optimizers, regularizers, clipping and model save/load in the JAX
 package's on-disk format; LoD (ragged) feeds, the sequence ops, the
 dynamic LSTM and GRU, CTC, `nets` and `DataFeeder`; control flow
 (While, tensor arrays, DynamicRNN, IfElse, Switch, StaticRNN, beam
-search) and 2-level LoD feeds. ROADMAP Queue A lists what of Fluid is
-left.
+search) and 2-level LoD feeds; SelectedRows sparse gradients, nce,
+hsigmoid and auc; the CRF ops, the detection ops and layers, the
+learning-rate schedules (`learning_rate_decay`) and the evaluators
+(`evaluator`). ROADMAP Queue A lists what of Fluid is left.
 """
 
 from . import core
@@ -23,7 +25,9 @@ from . import backward
 from . import regularizer
 from . import initializer
 from . import clip
+from . import evaluator
 from . import io
+from . import learning_rate_decay
 
 from .framework import (
     Program,
@@ -80,6 +84,8 @@ from .clip import (
 
 __all__ = [
     "io",
+    "evaluator",
+    "learning_rate_decay",
     "initializer",
     "layers",
     "nets",

@@ -4,8 +4,6 @@
 program.py (the IR, a copy of the JAX package's), registry.py +
 kernels_*.py (the op set as torch functions), lowering.py (a block's ops
 run eagerly on the executor's device, autograd for the backward).
-The kernel modules of CRF and detection are not ported yet (ROADMAP,
-Queue A).
 """
 
 import torch
@@ -36,6 +34,8 @@ from . import kernels_rnn  # noqa: F401
 from . import kernels_control  # noqa: F401
 from . import kernels_ctc  # noqa: F401
 from . import kernels_sampled  # noqa: F401
+from . import kernels_crf  # noqa: F401
+from . import kernels_detection  # noqa: F401
 from .lowering import AUTODIFF_OP, run_block
 from ... import resolve_device
 

@@ -8,8 +8,11 @@ the input's dtype). The `flash_attention` op calls the port's flash
 wrapper, which launches the Hopper kernels on CUDA tensors
 (csrc/flash_attention.cu) and runs their plain versions on CPU tensors.
 
+`lrn` sums the squares of a channel window in f32 and applies the
+result in the input's dtype, as batch norm does.
+
 Not ported yet (ROADMAP, Queue A): conv2d_transpose, conv3d, pool3d,
-lrn, auc, gaussian_random_noise, max_pool*_with_index, unpool, spp,
+gaussian_random_noise, max_pool*_with_index, unpool, spp,
 conv3d_transpose, norm, bilinear_tensor_product, modified_huber_loss,
 soft_relu.
 """
@@ -161,6 +164,28 @@ def _layer_norm(ctx, ins, attrs):
     lead = tuple(x.shape[:begin])
     return {"Y": y, "Mean": mean.reshape(lead),
             "Variance": var.reshape(lead)}
+
+
+@register_op("lrn")
+def _lrn(ctx, ins, attrs):
+    """Local response normalisation across channels (reference
+    operators/lrn_op.h): MidOut = k + alpha * (the sum of x^2 over a
+    window of n channels, padded n//2 before and n-1-n//2 after, in
+    f32), Out = x * MidOut^-beta in x's dtype. Not on the AMP deny-list:
+    only the window sum is f32, the big activation keeps its dtype."""
+    x = ins["X"][0]  # NCHW
+    n = int(attrs.get("n", 5))
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    half = n // 2
+    C = x.shape[1]
+    sq = F.pad(torch.square(x.float()), (0, 0, 0, 0, half, n - 1 - half))
+    acc = sq[:, 0:C]
+    for i in range(1, n):
+        acc = acc + sq[:, i:i + C]
+    mid = k + alpha * acc
+    return {"Out": x * torch.pow(mid, -beta).to(x.dtype), "MidOut": mid}
 
 
 # --- activations --------------------------------------------------------

@@ -34,6 +34,8 @@ LOD_SUFFIX = "@LOD0"
 LOD_SRC = "@LOD_SRC"
 # beam-search states: explicit parent pointers of each row
 BEAM_PARENTS = "@BEAM_PARENTS"
+# a padded detection buffer's rows per image (kernels_detection.py)
+PAD_STRIDE = "@PAD_STRIDE"
 
 
 def lod_key(name: str) -> str:

@@ -48,7 +48,7 @@ import torch
 from torch.profiler import record_function
 
 from .kernels_control import TensorArray, place_hosted
-from .kernels_sequence import LOD_SUFFIX, lod_key
+from .kernels_sequence import LOD_SUFFIX, PAD_STRIDE, lod_key
 from .registry import LoweringContext, get_kernel
 from .selected_rows import SelectedRows
 
@@ -372,8 +372,9 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     live = set(env) | set(keep)
     for op in tail_ops:
         live |= set(op.input_arg_names)
-    # a kept ragged value keeps its offsets
-    live |= {lod_key(k) for k in live}
+    # a kept ragged value keeps its offsets (and a padded detection
+    # buffer its pad stride)
+    live |= {lod_key(k) for k in live} | {k + PAD_STRIDE for k in live}
     fenv = {k: v for k, v in fenv.items() if k in live}
     if loss.requires_grad:
         grads = torch.autograd.grad(loss, list(leaves.values()),

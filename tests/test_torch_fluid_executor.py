@@ -235,7 +235,7 @@ def test_executor_places():
 def test_unported_ops_raise_and_sparse_grads_train():
     """An is_sparse embedding trains through SelectedRows gradients (it
     was refused until the sparse path came), as the JAX package trains
-    it; an unported op (`lrn`) still raises."""
+    it; an unported op (`soft_relu`) still raises."""
     def build(fluid, resnet):
         ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
         emb = fluid.layers.embedding(input=ids, size=[10, 4],
@@ -253,8 +253,8 @@ def test_unported_ops_raise_and_sparse_grads_train():
     main, startup = TF.Program(), TF.Program()
     with TF.program_guard(main, startup):
         x = TF.layers.data(name="x", shape=[2, 4, 4], dtype="float32")
-        y = TF.layers.lrn(input=x)
-    with pytest.raises(NotImplementedError, match="'lrn'"):
+        y = TF.layers.soft_relu(x=x)
+    with pytest.raises(NotImplementedError, match="'soft_relu'"):
         TF.Executor(TF.CPUPlace()).run(
             main, feed=dict(x=np.ones((1, 2, 4, 4), np.float32)),
             fetch_list=[y])

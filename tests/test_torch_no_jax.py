@@ -36,9 +36,12 @@ def test_importing_every_module_leaves_jax_out():
                  "core.kernels_rnn", "core.kernels_ctc", "nets",
                  "data_feeder", "core.kernels_control",
                  "layers.control_flow", "layers.device",
-                 "core.selected_rows", "core.kernels_sampled"):
+                 "core.selected_rows", "core.kernels_sampled",
+                 "evaluator", "learning_rate_decay", "core.kernels_crf",
+                 "core.kernels_detection", "layers.detection"):
         assert "paddle_tpu_torch.fluid." + name in mods
-    for name in ("resnet", "ocr_crnn", "ctr"):
+    for name in ("resnet", "ocr_crnn", "ctr", "lenet", "vgg", "alexnet",
+                 "googlenet", "mobilenet", "ssd"):
         assert "paddle_tpu_torch.models." + name in mods
     code = (
         "import importlib, sys\n"
