@@ -2034,7 +2034,8 @@ def profile_fluid(torch, run, n, label, extra_regions=()):
     busy time. The optimizer's
     kernels are elementwise: the elementwise class includes them.
     `extra_regions` names more ranges (inside the forward region, as
-    _OpCounter's per-op ones) whose device time to report alone."""
+    profiler.OpCounter's per-op ones) whose device time to report
+    alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4092,34 +4093,6 @@ def phase_book_images(torch, fluid, lenet, vgg, warm=2, steps=10, total=30,
     return out
 
 
-class _OpCounter(object):
-    """Counts the calls of some op kernels (and, with `ranges`, wraps
-    each in a torch.profiler range "fluid/op/<type>") while active."""
-
-    def __init__(self, types, ranges=False):
-        from paddle_tpu_torch.fluid.core import registry
-
-        self.registry, self.types, self.ranges = registry, types, ranges
-        self.counts = dict.fromkeys(types, 0)
-
-    def __enter__(self):
-        from torch.profiler import record_function
-
-        self.saved = {t: self.registry._KERNELS[t] for t in self.types}
-        for t, fn in self.saved.items():
-            def wrapped(ctx, ins, attrs, _t=t, _fn=fn):
-                self.counts[_t] += 1
-                if not self.ranges:
-                    return _fn(ctx, ins, attrs)
-                with record_function("fluid/op/" + _t):
-                    return _fn(ctx, ins, attrs)
-            self.registry._KERNELS[t] = wrapped
-        return self
-
-    def __exit__(self, *exc):
-        self.registry._KERNELS.update(self.saved)
-
-
 def phase_image_zoo(torch, fluid, zoo, profile=False, warm=2, steps=5,
                     place=None, shape=(3, 224, 224), cells=ZOO_CELLS,
                     card="cpu"):
@@ -4132,6 +4105,8 @@ def phase_image_zoo(torch, fluid, zoo, profile=False, warm=2, steps=5,
     bench.py names one; GoogLeNet's lrn ops counted over one step. With
     --profile, 2 profiled steps of each (GoogLeNet's with lrn's forward
     device time as its own range)."""
+    from paddle_tpu_torch.fluid.profiler import OpCounter
+
     out = {}
     torch.backends.cudnn.benchmark = True
     try:
@@ -4155,7 +4130,7 @@ def phase_image_zoo(torch, fluid, zoo, profile=False, warm=2, steps=5,
                 ok = all(math.isfinite(x) for x in losses)
                 ips = batch * steps / wall
                 share = ips * 3 * ZOO_FWD_FLOPS[name] / PEAK_FLOPS["bfloat16"]
-                with _OpCounter(["lrn"]) as counted:
+                with OpCounter(["lrn"]) as counted:
                     step()
                 _on_card(card, "%s: %d steps of batch %d, bf16 AMP: %.3f "
                          "ms/step, %.1f img/s, FLOP share %.4f of 989 "
@@ -4179,7 +4154,7 @@ def phase_image_zoo(torch, fluid, zoo, profile=False, warm=2, steps=5,
                                  lrn_ops_per_step=counted.counts["lrn"],
                                  reference_k40m_img_per_s=k40m)
                 if profile:
-                    with _OpCounter(["lrn"], ranges=True):
+                    with OpCounter(["lrn"], ranges=True):
                         out[name]["profile"] = profile_fluid(
                             torch, step, 2, "2 %s steps" % name,
                             extra_regions=("fluid/op/lrn",)
@@ -4535,6 +4510,811 @@ def _tree_map(fn, x):
     return fn(x)
 
 
+# ---------------------------------------------------------------------
+# phases 33-37: the rest of single-device Fluid (the last 14 ops,
+# memory_optimize, run_grad_accum, ModelAverage and StaticPruning, the
+# verifier, the numerics guard, AsyncDeviceFeeder and the profiler)
+# ---------------------------------------------------------------------
+
+# ResNet-50 in f32 for the remat parameter parity (one step at batch 16)
+REMAT_PARITY = dict(FLUID_RESNET, batch=16)
+# ResNet-50 f32 at the headline batch for run_grad_accum (the JAX package
+# refuses AMP there), 4 micro-batches of 32
+ACCUM_RESNET = dict(FLUID_RESNET, micro_batches=4)
+# bench.py:763's profiler_reconciliation configuration: ResNet-50, batch
+# 32, bf16 AMP
+PROFILE_RESNET = dict(FLUID_RESNET, batch=32)
+
+
+def _unpool_case(rng):
+    """A 2x2 / 2 max pool of an [2, 2, 8, 8] plane and its flat argmax
+    indices (first maximum), as tests/test_op_numeric.py feeds unpool."""
+    x = rng.randn(2, 2, 8, 8).astype(np.float32)
+    w = x.reshape(2, 2, 4, 2, 4, 2).transpose(0, 1, 2, 4, 3, 5).reshape(
+        2, 2, 4, 4, 4)
+    arg = w.argmax(-1)
+    oh, ow = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    idx = ((oh * 2 + arg // 2) * 8 + (ow * 2 + arg % 2)).astype(np.int32)
+    return w.max(-1), idx
+
+
+def rest_op_cases(rng):
+    """(name, op, ins, attrs, exact outputs, float outputs, wrt, out) for
+    the ops of phase 33, at the shapes of tests/test_op_numeric.py."""
+    def f(*shape):
+        return rng.randn(*shape).astype(np.float32)
+
+    conv = [], ["Output"], ["Input", "Filter"], "Output"
+    unp_x, unp_idx = _unpool_case(rng)
+    cases = [
+        ("conv2d_transpose", "conv2d_transpose",
+         {"Input": [f(2, 3, 4, 4)], "Filter": [f(3, 2, 3, 3)]}, {}) + conv,
+        ("conv2d_transpose s2 p1", "conv2d_transpose",
+         {"Input": [f(1, 3, 5, 5)], "Filter": [f(3, 2, 3, 3)]},
+         dict(strides=[2, 2], paddings=[1, 1])) + conv,
+        ("conv3d", "conv3d",
+         {"Input": [f(1, 2, 4, 4, 4)], "Filter": [f(3, 2, 2, 2, 2)]},
+         {}) + conv,
+        ("conv3d s2 p1", "conv3d",
+         {"Input": [f(1, 2, 5, 5, 5)], "Filter": [f(3, 2, 3, 3, 3)]},
+         dict(strides=[2, 2, 2], paddings=[1, 1, 1])) + conv,
+        ("conv3d_transpose s2 p1", "conv3d_transpose",
+         {"Input": [f(1, 2, 3, 3, 3)], "Filter": [f(2, 3, 2, 2, 2)]},
+         dict(strides=[2, 2, 2], paddings=[1, 1, 1])) + conv,
+        ("pool3d avg", "pool3d", {"X": [f(1, 2, 4, 4, 4)]},
+         dict(pooling_type="avg", ksize=[2, 2, 2], strides=[2, 2, 2]),
+         [], ["Out"], ["X"], "Out"),
+        ("pool3d max k3 s2 p1 ceil", "pool3d", {"X": [f(2, 2, 5, 5, 5)]},
+         dict(pooling_type="max", ksize=[3, 3, 3], strides=[2, 2, 2],
+              paddings=[1, 1, 1], ceil_mode=True),
+         [], ["Out"], ["X"], "Out"),
+        ("max_pool2d_with_index", "max_pool2d_with_index",
+         {"X": [f(2, 2, 7, 7)]},
+         dict(ksize=[3, 3], strides=[2, 2], paddings=[1, 1]),
+         ["Mask"], ["Out"], ["X"], "Out"),
+        ("max_pool3d_with_index", "max_pool3d_with_index",
+         {"X": [f(1, 2, 5, 5, 5)]},
+         dict(ksize=[2, 2, 2], strides=[2, 2, 2]),
+         ["Mask"], ["Out"], ["X"], "Out"),
+        ("unpool", "unpool", {"X": [unp_x], "Indices": [unp_idx]},
+         dict(unpooling_type="max", ksize=[2, 2], strides=[2, 2]),
+         [], ["Out"], ["X"], "Out"),
+        ("spp max", "spp", {"X": [f(2, 3, 7, 7)]},
+         dict(pyramid_height=3, pooling_type="max"), [], ["Out"], ["X"],
+         "Out"),
+        ("spp avg", "spp", {"X": [f(2, 3, 6, 6)]},
+         dict(pyramid_height=2, pooling_type="avg"), [], ["Out"], ["X"],
+         "Out"),
+        ("norm", "norm", {"X": [f(2, 3, 4, 4)], "Scale": [
+            rng.uniform(0.5, 1.5, 3).astype(np.float32)]},
+         dict(epsilon=1e-10), [], ["Out"], ["X", "Scale"], "Out"),
+        ("bilinear_tensor_product", "bilinear_tensor_product",
+         {"X": [f(3, 4)], "Y": [f(3, 5)], "Weight": [f(6, 4, 5) * 0.3],
+          "Bias": [f(1, 6)]}, {}, [], ["Out"],
+         ["X", "Y", "Weight", "Bias"], "Out"),
+        ("modified_huber_loss", "modified_huber_loss",
+         {"X": [rng.uniform(-2.5, 2.5, (8, 1)).astype(np.float32)],
+          "Y": [rng.randint(0, 2, (8, 1)).astype(np.float32)]}, {}, [],
+         ["IntermediateVal", "Out"], ["X"], "Out"),
+        ("soft_relu", "soft_relu", {"X": [f(3, 4)]},
+         dict(threshold=40.0), [], ["Out"], ["X"], "Out"),
+        ("soft_relu saturated", "soft_relu", {"X": [f(3, 4) * 3]},
+         dict(threshold=1.5), [], ["Out"], ["X"], "Out"),
+        ("average_accumulates (shift)", "average_accumulates",
+         {"Param": [f(4, 3)], "InSum1": [f(4, 3)], "InSum2": [f(4, 3)],
+          "InSum3": [f(4, 3)],
+          "InNumAccumulates": [np.array([3], np.int32)],
+          "InOldNumAccumulates": [np.array([5], np.int32)],
+          "InNumUpdates": [np.array([7], np.int32)]},
+         dict(average_window=0.5, min_average_window=2,
+              max_average_window=100),
+         ["OutNumAccumulates", "OutOldNumAccumulates", "OutNumUpdates"],
+         ["OutSum1", "OutSum2", "OutSum3"], [], None),
+        ("average_accumulates (fold)", "average_accumulates",
+         {"Param": [f(4, 3)], "InSum1": [f(4, 3)], "InSum2": [f(4, 3)],
+          "InSum3": [f(4, 3)],
+          "InNumAccumulates": [np.array([10], np.int32)],
+          "InOldNumAccumulates": [np.array([0], np.int32)],
+          "InNumUpdates": [np.array([15], np.int32)]},
+         dict(average_window=1.0, min_average_window=1000,
+              max_average_window=10000, k_max_num_accumulates=16),
+         ["OutNumAccumulates", "OutOldNumAccumulates", "OutNumUpdates"],
+         ["OutSum1", "OutSum2", "OutSum3"], [], None),
+    ]
+    return cases
+
+
+def phase_rest_op_parity(torch, fluid, place=None, card="cpu"):
+    """Phase 33: the last 14 ops of the port on the card against the same
+    kernels on the CPU on the same seeded inputs, forward and gradient
+    (tests/test_op_numeric.py's shapes; f32, TF32 off): within 1e-5
+    relative to each output's largest magnitude; integer outputs (the
+    pool masks, the averaging counters) equal.
+    gaussian_random_noise runs through the executor on each device from
+    one seed: the threefry uniforms behind it are equal bit for bit, and
+    the samples (erfinv of them, CUDA's or the CPU's) agree within 1e-5
+    (reported bit-equal or not)."""
+    dev = "cuda" if place is None else fluid.Executor(place).device.type
+    rng = np.random.RandomState(33)
+    results = {}
+    for (name, op, ins, attrs, exact, floats, wrt, out) in \
+            rest_op_cases(rng):
+        kw = dict(keep=tuple(exact + floats), wrt=wrt, out=out)
+        c, cg = _kernel_run(torch, dev, op, ins, attrs, **kw)
+        h, hg = _kernel_run(torch, "cpu", op, ins, attrs, **kw)
+        same = all(np.array_equal(c[s], h[s]) and c[s].dtype == h[s].dtype
+                   for s in exact)
+        errs = [_rel_err(c[s], h[s]) for s in floats] + \
+            [_rel_err(a, b) for a, b in zip(cg, hg)]
+        err = max(errs) if errs else 0.0
+        ok = same and err <= 1e-5
+        _on_card(card, "%s: %smax rel diff card vs CPU %.3e (outputs%s) "
+                 "%s" % (name, "%s equal, " % ", ".join(exact) if exact
+                         else "", err, " and gradients towards %s"
+                         % ", ".join(wrt) if wrt else "",
+                         "ok" if ok else "FAIL"))
+        check(ok, "phase 33: %s differs on the card" % name)
+        results[name] = dict(rel_err=err, exact=same)
+    x = np.random.RandomState(34).randn(4, 3, 8, 8).astype(np.float32)
+    noise = {}
+    for side, where in (("card", place or fluid.CUDAPlace(0)),
+                        ("cpu", fluid.CPUPlace())):
+        main = fluid.Program()
+        block = main.global_block()
+        block.create_var(name="x", shape=(-1, 3, 8, 8), dtype="float32",
+                         is_data=True)
+        block.create_var(name="y", dtype="float32")
+        block.append_op(type="gaussian_random_noise", inputs={"X": ["x"]},
+                        outputs={"Out": ["y"]}, attrs={"std": 0.5})
+        main.random_seed = 7
+        (noise[side],) = fluid.Executor(where).run(
+            main, feed={"x": x}, fetch_list=["y"])
+    err = _rel_err(noise["card"], noise["cpu"])
+    equal = bool(np.array_equal(noise["card"], noise["cpu"]))
+    # the random part: the threefry uniforms behind the samples, equal
+    # bit for bit (erfinv, CUDA's or the CPU's, maps them to normals)
+    from paddle_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(7), 1), 1)
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = [prng.uniform(key.to(d), x.shape, lo, 1.0).cpu().numpy()
+         for d in (dev, "cpu")]
+    bits = bool(np.array_equal(u[0], u[1]))
+    ok = err <= 1e-5 and bits and \
+        0.45 < float((noise["cpu"] - x).std()) < 0.55
+    _on_card(card, "gaussian_random_noise (executor, seed 7, std 0.5, "
+             "[4, 3, 8, 8]): threefry uniforms bit-equal %s; samples %s, max "
+             "rel diff card vs CPU %.3e %s"
+             % (bits, "bit-equal" if equal else "not bit-equal", err,
+                "ok" if ok else "FAIL"))
+    check(ok, "phase 33: gaussian_random_noise differs on the card")
+    results["gaussian_random_noise"] = dict(rel_err=err, bit_equal=equal,
+                                            uniform_bits_equal=bits)
+    return results
+
+
+def _steps_from(fluid, exe, main, weights, feed, fetch, n, dev):
+    """n executor runs of `main` from `weights` in a fresh scope: (loss
+    of each, final scope as numpy)."""
+    scope = fluid.scope_from_numpy(fluid.Scope(), weights, dev)
+    with fluid.scope_guard(scope):
+        losses = [float(exe.run(main, feed=feed, fetch_list=[fetch])[0]
+                        .reshape(-1)[0]) for _ in range(n)]
+    return losses, fluid.scope_to_numpy(scope)
+
+
+def phase_resnet_remat(torch, fluid, resnet, phase16, warm=2, steps=10,
+                       place=None, cfg=FLUID_RESNET, parity=REMAT_PARITY,
+                       card="cpu"):
+    """Phase 34: bench.py's resnet50_remat cell (bench.py:4446-4448):
+    ResNet-50 at phase 16's configuration (batch 128, [3, 224, 224],
+    1000 classes, bf16 AMP, Momentum(0.01, 0.9)) under
+    fluid.memory_optimize: 2 warm-up and 10 timed steps on one batch
+    (ms/step, img/s, peak device memory beside phase 16's, measured in
+    this run); losses finite and falling. From one set of startup
+    weights the unmarked and the marked program's first two bf16 losses
+    agree within rtol 2e-2 (tests/test_memory_optimize.py's AMP bar), and
+    in f32 at batch 16 their parameters after one step within 1e-5."""
+    model = lambda x, c: resnet.resnet_imagenet(  # noqa: E731
+        x, c, depth=cfg["depth"])
+    out = {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        main, startup, avg = fluid_image_program(
+            fluid, model, cfg["shape"], cfg["classes"], amp=True)
+        fluid.memory_optimize(main)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place or fluid.CUDAPlace(0))
+            dev = exe.device
+            exe.run(startup)
+            weights = fluid.scope_to_numpy(scope)
+            feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                              cfg["classes"], dev)
+
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[avg],
+                               return_numpy=False)[0]
+
+            losses, warm_s, wall, peak = _timed_steps(torch, step, dev,
+                                                      warm, steps)
+        del scope
+        losses = [float(x.reshape(())) for x in losses]
+        ok = all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+        ips = cfg["batch"] * steps / wall
+        _on_card(card, "memory_optimize: %d steps of batch %d, bf16 AMP: "
+                 "%.3f ms/step, %.1f img/s, peak device memory %.3f GiB "
+                 "(phase 16, unmarked, this run: %.3f ms/step, %.1f img/s, "
+                 "%.3f GiB); losses %s %s" % (
+                     steps, cfg["batch"], wall / steps * 1e3, ips,
+                     peak / 2 ** 30, phase16["ms_per_step"],
+                     phase16["img_per_s"], phase16["peak_mem_gib"],
+                     ", ".join("%.4f" % x for x in losses),
+                     "ok" if ok else "FAIL"))
+        check(ok, "phase 34: the remat loss is not finite or did not "
+              "fall: %s" % losses)
+        out.update(ms_per_step=wall / steps * 1e3, img_per_s=ips,
+                   peak_mem_gib=peak / 2 ** 30, warm_s=warm_s,
+                   losses=losses,
+                   phase16=dict((k, phase16[k]) for k in (
+                       "ms_per_step", "img_per_s", "peak_mem_gib")))
+
+        # bf16: unmarked vs marked, two steps from the same weights (a
+        # clone keeps the variable names)
+        plain = main.clone()
+        plain.remat = False
+        l_plain, _ = _steps_from(fluid, exe, plain, weights, feed, avg, 2,
+                                 dev)
+        l_remat, _ = _steps_from(fluid, exe, main, weights, feed, avg, 2,
+                                 dev)
+        diff = max(abs(a - b) / abs(b) for a, b in zip(l_remat, l_plain))
+        ok = diff <= 2e-2
+        _on_card(card, "bf16 batch %d, unmarked vs marked from one set of "
+                 "weights: losses %s vs %s, max rel diff %.3e %s" % (
+                     cfg["batch"], ["%.5f" % x for x in l_plain],
+                     ["%.5f" % x for x in l_remat], diff,
+                     "ok" if ok else "FAIL"))
+        check(ok, "phase 34: remat bf16 losses differ from the unmarked "
+              "program's")
+        out["bf16_loss_rel_diff"] = diff
+        del weights, feed
+
+        # f32 at batch 16: parameters after one step
+        m32, s32, a32 = fluid_image_program(
+            fluid, model, parity["shape"], parity["classes"], amp=False)
+        marked = m32.clone()
+        fluid.memory_optimize(marked)
+        scope0 = fluid.Scope()
+        with fluid.scope_guard(scope0):
+            exe.run(s32)
+        w0 = fluid.scope_to_numpy(scope0)
+        del scope0
+        feed = image_feed(torch, parity["batch"], parity["shape"],
+                          parity["classes"], dev)
+        # deterministic cuDNN algorithms: both runs pick the same ones,
+        # and none sums with atomics
+        torch.backends.cudnn.deterministic = True
+        try:
+            _, st_plain = _steps_from(fluid, exe, m32, w0, feed, a32, 1,
+                                      dev)
+            _, st_remat = _steps_from(fluid, exe, marked, w0, feed, a32, 1,
+                                      dev)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        params = [p.name for p in m32.global_block().all_parameters()]
+        moved = max(float(np.abs(st_plain[n] - w0[n]).max())
+                    for n in params)
+        p_err = max(float(np.abs(st_remat[n] - st_plain[n]).max())
+                    for n in params)
+        s_err = max(_rel_err(st_remat[n], st_plain[n]) for n in st_plain
+                    if n not in params)
+        ok = p_err <= 1e-5 and moved > 0
+        _on_card(card, "f32 ResNet-50 batch %d, one Momentum step, unmarked "
+                 "vs marked (cuDNN deterministic): max parameter diff %.3e "
+                 "(the step moved them up to %.3e); batch-norm statistics "
+                 "and velocities max rel diff %.3e %s" % (
+                     parity["batch"], p_err, moved, s_err,
+                     "ok" if ok else "FAIL"))
+        check(ok, "phase 34: remat f32 parameters differ after one step")
+        out.update(f32_param_abs_err=p_err, f32_state_rel_err=s_err)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_grad_accum(torch, fluid, resnet, lenet, warm=2, steps=3,
+                     place=None, cfg=ACCUM_RESNET, lenet_cfg=None,
+                     card="cpu"):
+    """Phase 35: Executor.run_grad_accum. ResNet-50 in f32 at batch 128
+    with micro_batches=4 beside a plain f32 batch-128 step (ms/step and
+    peak device memory of 3 timed steps after 2 warm-up ones); LeNet
+    (no batch norm) at batch 64 in 4 chunks: its updated parameters
+    equal one full-batch step's within 1e-5 from the same weights."""
+    lenet_cfg = lenet_cfg or BOOK_IMAGE["lenet_mnist"]
+    out = {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        main, startup, avg = fluid_image_program(
+            fluid, lambda x, c: resnet.resnet_imagenet(
+                x, c, depth=cfg["depth"]),
+            cfg["shape"], cfg["classes"], amp=False)
+        for mode in ("plain", "accum"):
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(place or fluid.CUDAPlace(0))
+                dev = exe.device
+                exe.run(startup)
+                feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                                  cfg["classes"], dev)
+                if mode == "plain":
+                    def step():
+                        return exe.run(main, feed=feed, fetch_list=[avg],
+                                       return_numpy=False)[0]
+                else:
+                    def step():
+                        return exe.run_grad_accum(
+                            main, feed=feed, fetch_list=[avg],
+                            micro_batches=cfg["micro_batches"],
+                            return_numpy=False)[0]
+                losses, _, wall, peak = _timed_steps(
+                    torch, step, dev, warm, steps)
+            losses = [float(x.reshape(())) for x in losses]
+            ok = all(math.isfinite(x) for x in losses)
+            _on_card(card, "ResNet-50 f32 batch %d, %s: %.3f ms/step, "
+                     "%.1f img/s, peak device memory %.3f GiB; losses %s %s"
+                     % (cfg["batch"], "one step" if mode == "plain" else
+                        "run_grad_accum, %d micro-batches of %d" % (
+                            cfg["micro_batches"],
+                            cfg["batch"] // cfg["micro_batches"]),
+                        wall / steps * 1e3, cfg["batch"] * steps / wall,
+                        peak / 2 ** 30,
+                        ", ".join("%.4f" % x for x in losses),
+                        "ok" if ok else "FAIL"))
+            check(ok, "phase 35: a %s ResNet-50 loss is not finite" % mode)
+            out["resnet50_" + mode] = dict(
+                ms_per_step=wall / steps * 1e3,
+                img_per_s=cfg["batch"] * steps / wall,
+                peak_mem_gib=peak / 2 ** 30, losses=losses)
+            del scope, feed, step
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+    main, startup, avg = fluid_image_program(
+        fluid, lenet.lenet, lenet_cfg["shape"], lenet_cfg["classes"],
+        amp=False)
+    exe = fluid.Executor(place or fluid.CUDAPlace(0))
+    scope0 = fluid.Scope()
+    with fluid.scope_guard(scope0):
+        exe.run(startup)
+    w0 = fluid.scope_to_numpy(scope0)
+    feed = book_image_feed(torch, lenet_cfg, lenet_cfg["batch"], exe.device)
+    finals = {}
+    for k in (None, 4):
+        scope = fluid.scope_from_numpy(fluid.Scope(), w0, exe.device)
+        with fluid.scope_guard(scope):
+            if k is None:
+                exe.run(main, feed=feed, fetch_list=[avg])
+            else:
+                exe.run_grad_accum(main, feed=feed, fetch_list=[avg],
+                                   micro_batches=k)
+        finals[k] = fluid.scope_to_numpy(scope)
+    params = [p.name for p in main.global_block().all_parameters()]
+    err = max(float(np.abs(finals[4][n] - finals[None][n]).max())
+              for n in params)
+    moved = max(float(np.abs(finals[None][n] - w0[n]).max())
+                for n in params)
+    ok = err <= 1e-5 and moved > 1e-4
+    _on_card(card, "LeNet batch %d: 4 accumulated chunks vs one full-batch "
+             "step from the same weights: max parameter diff %.3e (the step "
+             "moved them up to %.3e) %s" % (lenet_cfg["batch"], err, moved,
+                                            "ok" if ok else "FAIL"))
+    check(ok, "phase 35: LeNet's accumulated step differs from the "
+          "full-batch step")
+    out["lenet_param_abs_err"] = err
+    return out
+
+
+def ma_prune_program(fluid, vgg, cfg, opt):
+    """VGG-16-bn-drop (the book's CIFAR-10 net) with StaticPruning at
+    sparsity 0.5 on its fc weights and ModelAverage(0.15): (main,
+    startup, for_test clone, loss, pruning, average)."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        image = fluid.layers.data(name="image", shape=cfg["shape"],
+                                  dtype="float32")
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        predict = vgg.vgg16_bn_drop(image, cfg["classes"])
+        avg = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=predict, label=label))
+        test = main.clone(for_test=True)
+        opt(fluid).minimize(avg)
+        block = main.global_block()
+        fc = {op.input("Y")[0] for op in block.ops if op.type == "mul"}
+        pruning = fluid.optimizer.StaticPruning(sparsity_ratio=0.5).build(
+            main, startup, targets=[p for p in block.all_parameters()
+                                    if p.name in fc])
+        average = fluid.optimizer.ModelAverage(average_window=0.15).build()
+    return main, startup, test, avg, pruning, average
+
+
+def _pruned_ok(torch, scope, pruning):
+    """(every pruned entry exactly zero, fraction pruned, the stated
+    fraction) over the pruned weights, read back together."""
+    bad, zeros, total, want = [], [], 0, 0
+    for pname, mname in pruning.masks.items():
+        w, m = scope.get(pname), scope.get(mname)
+        bad.append(((m == 0) & (w != 0)).sum())
+        zeros.append((m == 0).sum())
+        keep = max(1, int(round(m.numel() * 0.5)))
+        total += m.numel()
+        want += m.numel() - keep
+    b, z = torch.stack(bad).sum().item(), torch.stack(zeros).sum().item()
+    return b == 0, z / total, want / total
+
+
+def phase_ma_prune(torch, fluid, vgg, steps=30, place=None, card="cpu"):
+    """Phase 36: phase 29's VGG-16-bn-drop CIFAR-10 (batch 128, f32,
+    Adam(1e-3)) with StaticPruning at sparsity 0.5 on its fc weights and
+    ModelAverage(0.15): 30 steps, after every one the pruned weights are
+    exactly zero at the stated fraction; the for_test clone evaluated
+    under apply() (the averages zero where pruned), then restore() gives
+    the raw weights back bit for bit. Card vs CPU at phase 29's parity
+    batch (32) under Momentum(0.01, 0.9) for 3 steps: losses within rtol
+    1e-4, parameters and batch-norm statistics within atol 1e-4 (phase
+    29's bar), the averaged weights within 1e-4, the counters equal; the
+    window sums and velocities are reported."""
+    cfg = BOOK_IMAGE["vgg16_bn_drop_cifar10"]
+    adam = lambda f: f.optimizer.Adam(learning_rate=1e-3)  # noqa: E731
+    main, startup, test, avg, pruning, average = ma_prune_program(
+        fluid, vgg, cfg, adam)
+    out = {}
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        exe.run(startup)
+        feed = book_image_feed(torch, cfg, cfg["batch"], exe.device)
+        losses, fracs = [], []
+        t0 = time.monotonic()
+        for _ in range(steps):
+            losses.append(float(exe.run(main, feed=feed, fetch_list=[avg])
+                                [0].reshape(-1)[0]))
+            zero, frac, want = _pruned_ok(torch, scope, pruning)
+            check(zero and frac == want, "phase 36: a pruned weight is "
+                  "not zero, or the fraction %.6f is not %.6f"
+                  % (frac, want))
+            fracs.append(frac)
+        wall = time.monotonic() - t0
+        raw = {p: scope.get(p).clone() for p in average._param_names}
+        with average.apply(scope=scope):
+            (t_loss,) = exe.run(test, feed=feed, fetch_list=[avg.name])
+            sparse_avg = all(
+                bool(((scope.get(m) == 0) & (scope.get(p) != 0)).sum()
+                     .item() == 0) for p, m in pruning.masks.items())
+        restored = all(torch.equal(scope.get(p), raw[p]) for p in raw)
+        (live_loss,) = exe.run(test, feed=feed, fetch_list=[avg.name])
+    ok = all(math.isfinite(x) for x in losses) and \
+        np.mean(losses[-5:]) < np.mean(losses[:5]) and sparse_avg and \
+        restored
+    _on_card(card, "VGG-16-bn-drop CIFAR-10 batch %d, Adam(1e-3), fc "
+             "weights pruned at 0.5 (%d tensors), ModelAverage(0.15) over "
+             "%d parameters: %d steps in %.3f s (with the per-step checks); "
+             "pruned entries exactly zero after every step at fraction "
+             "%.6f; losses %.4f -> %.4f; test loss under apply() %.4f "
+             "(averages zero where pruned: %s), live %.4f; restore() bit "
+             "for bit: %s %s" % (
+                 cfg["batch"], len(pruning.masks),
+                 len(average._param_names), steps, wall, fracs[-1],
+                 losses[0], losses[-1], float(np.ravel(t_loss)[0]),
+                 sparse_avg, float(np.ravel(live_loss)[0]), restored,
+                 "ok" if ok else "FAIL"))
+    check(ok, "phase 36: pruning / averaging failed: losses %s, sparse "
+          "averages %s, restored %s" % (losses, sparse_avg, restored))
+    out.update(losses=losses, pruned_fraction=fracs[-1],
+               averaged_test_loss=float(np.ravel(t_loss)[0]),
+               restored_bit_for_bit=restored, seconds=wall)
+    del scope, exe, feed
+
+    momentum = lambda f: f.optimizer.Momentum(  # noqa: E731
+        learning_rate=0.01, momentum=0.9)
+    main, startup, test, avg, pruning, average = ma_prune_program(
+        fluid, vgg, cfg, momentum)
+
+    def train(exe):
+        feed = book_image_feed(torch, cfg, cfg["parity_batch"], exe.device,
+                               1)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[avg])[0][0])
+                  for _ in range(3)]
+        sc = fluid.global_scope()
+        with average.apply(scope=sc):
+            averaged = {p: fluid.as_numpy(sc.get(p))
+                        for p in average._param_names}
+        return losses, averaged
+
+    # deterministic cuDNN algorithms: the card's side repeats run to run
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs, _ = _card_and_cpu(fluid, startup, train, place)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ((lc, ac), sc), ((lh, ah), sh) = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    # phase 29's comparison: the parameters and the batch-norm statistics
+    block = main.global_block()
+    state = {p.name for p in block.all_parameters()}
+    for op in block.ops:
+        if op.type == "batch_norm":
+            state |= set(op.input("Mean") + op.input("Variance"))
+    ints = [n for n in sh if sh[n].dtype.kind in "iu"]
+    worst = sorted((float(np.abs(sc[n] - sh[n]).max()), n) for n in state)
+    p_err = worst[-1][0]
+    a_err = max(float(np.abs(ac[n] - ah[n]).max()) for n in ah)
+    rest = sorted((_rel_err(sc[n], sh[n]), n) for n in sh
+                  if n not in state and n not in ints)[-2:]
+    same = all(np.array_equal(sc[n], sh[n]) for n in ints)
+    ok = loss_err <= 1e-4 and p_err <= 1e-4 and a_err <= 1e-4 and same
+    _on_card(card, "card vs CPU, 3 Momentum steps at batch %d with pruning "
+             "and averaging: max rel loss diff %.3e, max parameter / "
+             "batch-norm statistic diff %.3e, averaged weights %.3e, %d "
+             "counters equal: %s; the largest parameter / statistic "
+             "diffs %s; the other state (window sums, velocities, masks) "
+             "by max rel diff: %s %s" % (
+                 cfg["parity_batch"], loss_err, p_err, a_err, len(ints),
+                 same, ", ".join("%s %.3e (of %.3e)" % (
+                     n, e, float(np.abs(sh[n]).max())) for e, n in worst[-3:]),
+                 ", ".join("%s %.3e" % (n, e) for e, n in rest),
+                 "ok" if ok else "FAIL"))
+    check(ok, "phase 36: pruning / averaging on the card diverged from "
+          "the CPU")
+    out.update(loss_rel_err=loss_err, state_abs_err=p_err,
+               averaged_abs_err=a_err)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+class _RunRecorder(object):
+    """Records the (program, feed names, fetch names) of every executor
+    run while active, through the hook each run entry point calls
+    (Executor._maybe_preflight), so that phase 37 can verify them all.
+    The runs themselves are unchanged: the verifier stays off in the
+    timed windows, and recording costs one dict update a run."""
+
+    def __init__(self, fluid):
+        self.executor, self.fluid = fluid.Executor, fluid
+        self.runs = {}
+
+    def __enter__(self):
+        real = self.real = self.executor._maybe_preflight
+        runs, default = self.runs, self.fluid.default_main_program
+
+        def recorded(exe, program, feed, fetch_list, force=False):
+            prog = program if program is not None else default()
+            fetches = tuple(sorted(f.name if hasattr(f, "name") else str(f)
+                                   for f in fetch_list or ()))
+            runs.setdefault((prog.uid, frozenset(feed or ()), fetches),
+                            prog)
+            real(exe, program, feed, fetch_list, force)
+        self.executor._maybe_preflight = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.executor._maybe_preflight = self.real
+
+    def verify(self):
+        """(number of runs verified, error diagnostics found) over the
+        recorded runs, each program as it stands now."""
+        from paddle_tpu_torch.analysis.program_lint import verify_program
+
+        errors = []
+        for (_, feeds, fetches), prog in self.runs.items():
+            errors += [d for d in verify_program(
+                prog, feeds=feeds, fetches=fetches,
+                label="<program uid=%d>" % prog.uid)
+                if d.severity == "error"]
+        return len(self.runs), errors
+
+
+def _malformed(fluid, kind):
+    p = fluid.Program()
+    b = p.global_block()
+    b.create_var(name="x", shape=(4,), dtype="float32", is_data=True)
+    b.create_var(name="y", shape=(4,), dtype="int32", is_data=True)
+    b.create_var(name="out", shape=(4,), dtype="float32")
+    other = "ghost" if kind == "P001" else "y"
+    b.append_op("elementwise_add", inputs={"X": ["x"], "Y": [other]},
+                outputs={"Out": ["out"]})
+    return p
+
+
+def phase_executor_surface(torch, fluid, resnet, lenet, recorder,
+                           place=None, card="cpu", feeder_cfg=FLUID_RESNET,
+                           feeder_steps=10, profile_cfg=PROFILE_RESNET):
+    """Phase 37: the executor's surface on the card. The verifier passes
+    every (program, feed, fetch) phases 16-36 ran (recorded then, checked
+    here, so their timed windows ran without it); two malformed programs
+    raise P001 and P003 through run(validate=True). PADDLE_TPU_CHECK_NUMERICS=1 names an injected NaN and passes a
+    clean LeNet step. ResNet-50 at batch 128 (bf16 AMP) is fed 10 steps
+    from pinned host batches through AsyncDeviceFeeder and through the
+    synchronous feed from the same weights, cuDNN deterministic: losses
+    equal, img/s of both. profiler() and trace_profile on ResNet-50 at
+    batch 32 (bench.py:763): the top rows, measured_total_ms,
+    unmatched_ms and top5_max_disagreement (reported, not gated); gated:
+    the measured rows hold between 0.9 and 1.01 of the profiled device
+    time."""
+    import os
+
+    from paddle_tpu_torch.analysis import ProgramVerifyError
+    from paddle_tpu_torch.fluid import profiler
+    from paddle_tpu_torch.fluid.data_feeder import AsyncDeviceFeeder
+
+    out = {}
+    where = place or fluid.CUDAPlace(0)
+    exe = fluid.Executor(where)
+    dev = exe.device
+    codes = {}
+    for kind in ("P001", "P003"):
+        feed = {"x": np.ones(4, np.float32), "y": np.ones(4, np.int32)}
+        try:
+            exe.run(_malformed(fluid, kind), feed=feed, fetch_list=["out"],
+                    validate=True)
+            codes[kind] = []
+        except ProgramVerifyError as e:
+            codes[kind] = [d.code for d in e.diagnostics]
+    n_runs, errors = recorder.verify()
+    ok = n_runs > 0 and not errors and all(
+        codes[k] == [k] for k in codes)
+    _on_card(card, "verifier: %d distinct (program, feed, fetch) runs of "
+             "phases 16-36, %d errors %s; run(validate=True) raised %s %s"
+             % (n_runs, len(errors), [d.fingerprint for d in errors[:3]], codes,
+                "ok" if ok else "FAIL"))
+    check(ok, "phase 37: the verifier refused a run of phases 16-36 or "
+          "missed a malformed program")
+    out["verified_runs"] = n_runs
+
+    # the numerics guard
+    os.environ["PADDLE_TPU_CHECK_NUMERICS"] = "1"
+    try:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data("x", shape=[4], dtype="float32")
+            m = fluid.layers.mean(x=x)
+        bad = {"x": np.array([[1.0, np.nan, 2.0, 3.0]], np.float32)}
+        try:
+            exe.run(main, feed=bad, fetch_list=[m, "x"])
+            msg = None
+        except FloatingPointError as e:
+            msg = str(e)
+        lmain, lstart, lavg = fluid_image_program(
+            fluid, lenet.lenet, [1, 28, 28], 10, amp=False)
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(lstart)
+            (clean,) = exe.run(lmain, feed=book_image_feed(
+                torch, BOOK_IMAGE["lenet_mnist"], 64, dev),
+                fetch_list=[lavg])
+    finally:
+        os.environ.pop("PADDLE_TPU_CHECK_NUMERICS", None)
+    ok = msg is not None and "fetch %r (1/1 non-finite)" % m.name in msg \
+        and "fetch 'x' (1/4 non-finite)" in msg and \
+        math.isfinite(float(clean[0]))
+    _on_card(card, "PADDLE_TPU_CHECK_NUMERICS=1: %r; a clean LeNet step "
+             "passed (loss %.4f) %s" % (msg, float(clean[0]),
+                                        "ok" if ok else "FAIL"))
+    check(ok, "phase 37: the numerics guard missed the NaN or refused a "
+          "clean step")
+
+    # AsyncDeviceFeeder vs the synchronous feed
+    cfg = feeder_cfg
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=cfg["depth"]),
+        cfg["shape"], cfg["classes"], amp=True)
+    rng = np.random.RandomState(37)
+    def pinned(a):
+        t = torch.from_numpy(a)
+        return t.pin_memory() if dev.type == "cuda" else t
+
+    batches = [{"image": pinned(rng.rand(cfg["batch"], *cfg["shape"]).astype(
+        np.float32)), "label": pinned(rng.randint(
+            0, cfg["classes"], (cfg["batch"], 1)).astype(np.int64))}
+        for _ in range(feeder_steps)]
+    scope0 = fluid.Scope()
+    with fluid.scope_guard(scope0):
+        exe.run(startup)
+    w0 = fluid.scope_to_numpy(scope0)
+    del scope0
+    runs = {}
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("warm", "sync", "async"):
+            scope = fluid.scope_from_numpy(fluid.Scope(), w0, dev)
+            with fluid.scope_guard(scope):
+                feeds = AsyncDeviceFeeder(iter(batches), capacity=2,
+                                          place=where) \
+                    if mode == "async" else iter(batches)
+                _sync(torch, dev.type)
+                t0 = time.monotonic()
+                losses = [exe.run(main, feed=f, fetch_list=[avg],
+                                  return_numpy=False)[0] for f in feeds]
+                _sync(torch, dev.type)
+                wall = time.monotonic() - t0
+            runs[mode] = ([float(x.reshape(())) for x in losses],
+                          cfg["batch"] * len(losses) / wall)
+            del scope
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = False
+    ok = runs["async"][0] == runs["sync"][0] and \
+        len(runs["async"][0]) == feeder_steps
+    _on_card(card, "AsyncDeviceFeeder, ResNet-50 bf16 batch %d, %d pinned "
+             "host batches: %.1f img/s vs %.1f img/s synchronous; losses "
+             "equal: %s (%.4f -> %.4f) %s" % (
+                 cfg["batch"], feeder_steps, runs["async"][1],
+                 runs["sync"][1], runs["async"][0] == runs["sync"][0],
+                 runs["async"][0][0], runs["async"][0][-1],
+                 "ok" if ok else "FAIL"))
+    check(ok, "phase 37: the fed losses differ from the synchronous "
+          "feed's: %s vs %s" % (runs["async"][0], runs["sync"][0]))
+    out["feeder"] = dict(async_img_per_s=runs["async"][1],
+                         sync_img_per_s=runs["sync"][1],
+                         losses=runs["async"][0])
+    del batches, w0
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    # the profiler on bench.py:763's configuration
+    cfg = profile_cfg
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=cfg["depth"]),
+        cfg["shape"], cfg["classes"], amp=True)
+    torch.backends.cudnn.benchmark = True
+    try:
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                              cfg["classes"], dev)
+            exe.run(main, feed=feed, fetch_list=[avg])
+            with profiler.profiler("All", sorted_key="total"):
+                for _ in range(2):
+                    exe.run(main, feed=feed, fetch_list=[avg])
+            table = profiler.last_profile()
+            rows, meta = profiler.trace_profile(exe, main, feed, [avg],
+                                                runs=3)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    covered = meta["matched_ms"] / max(meta["measured_total_ms"], 1e-9)
+    # on the CPU (a rehearsal) the rows read host time, which the
+    # executor's own work dilutes: the gate is the card's. Rows holding
+    # more than the device ran would be kernels counted twice.
+    ok = bool(table) and any(r["Event"] == profiler.BACKWARD_ROW
+                             for r in table) and (
+        0.9 <= covered <= 1.01 or dev.type != "cuda")
+    for r in rows[:6]:
+        _on_card(card, "trace_profile row %-24s measured %.4f ms (share "
+                 "%.4f), modelled share %.4f, disagreement %.4f" % (
+                     r["Event"], r["measured_ms"], r["measured_share"],
+                     r["modeled_share"], r["disagreement"]))
+    _on_card(card, "profiler(): %d rows, top %s; trace_profile: "
+             "measured_total_ms %.4f, unmatched_ms %.4f, rows hold %.4f of "
+             "the device time, top5_max_disagreement %.4f (reported, not "
+             "gated) %s" % (
+                 len(table), ["%s %.3f ms" % (r["Event"], r["Total"])
+                              for r in table[:4]],
+                 meta["measured_total_ms"], meta["unmatched_ms"], covered,
+                 meta["top5_max_disagreement"], "ok" if ok else "FAIL"))
+    check(ok, "phase 37: the profiler's rows do not cover the device time")
+    out["profiler"] = dict(top_rows=table[:6], trace_rows=rows[:6],
+                           measured_total_ms=meta["measured_total_ms"],
+                           unmatched_ms=meta["unmatched_ms"],
+                           covered=covered,
+                           top5_max_disagreement=meta[
+                               "top5_max_disagreement"])
+    return out
+
+
 def main():
     import torch
 
@@ -4636,6 +5416,8 @@ def main():
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.models import resnet
     torch.cuda.empty_cache()
+    # every run of phases 16-36 is recorded; phase 37 verifies them
+    recorder = _RunRecorder(fluid).__enter__()
     log("phase 16: Fluid ResNet-50 training, bf16 AMP, batch 128, 224x224")
     fluid_resnet = phase_fluid_resnet(torch, fluid, resnet,
                                       profile="--profile" in sys.argv[1:])
@@ -4713,6 +5495,32 @@ def main():
         "20,982 priors), f32 Adam(2e-3)")
     ssd_run = phase_ssd(torch, fluid, ssd,
                         profile="--profile" in sys.argv[1:], card=card)
+
+    log("phase 33: the last 14 ops (3-D and transposed convolutions, "
+        "pool3d, the _with_index pools, unpool, spp, norm, "
+        "bilinear_tensor_product, modified_huber_loss, soft_relu, "
+        "gaussian_random_noise, average_accumulates), card vs CPU")
+    rest_ops = phase_rest_op_parity(torch, fluid, card=card)
+
+    log("phase 34: ResNet-50 under memory_optimize (bench.py's "
+        "resnet50_remat), bf16 AMP, batch 128")
+    remat = phase_resnet_remat(torch, fluid, resnet, fluid_resnet,
+                               card=card)
+
+    log("phase 35: run_grad_accum: ResNet-50 f32 batch 128 in 4 "
+        "micro-batches beside a plain step; LeNet vs its full-batch step")
+    accum = phase_grad_accum(torch, fluid, resnet, lenet, card=card)
+
+    log("phase 36: ModelAverage(0.15) and StaticPruning(0.5) on "
+        "VGG-16-bn-drop CIFAR-10, batch 128, f32 Adam(1e-3)")
+    ma_prune = phase_ma_prune(torch, fluid, vgg, card=card)
+    recorder.__exit__()
+
+    log("phase 37: the executor's surface: the verifier, the numerics "
+        "guard, AsyncDeviceFeeder (ResNet-50 bf16 batch 128), profiler() "
+        "and trace_profile (ResNet-50 bf16 batch 32)")
+    surface = phase_executor_surface(torch, fluid, resnet, lenet,
+                                     recorder, card=card)
 
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
@@ -4836,7 +5644,11 @@ def main():
                                       ctr=ctr_models, new_ops=new_ops,
                                       book_images=book_images,
                                       image_zoo=zoo, srl=srl,
-                                      ssd=ssd_run)))
+                                      ssd=ssd_run, rest_ops=rest_ops,
+                                      resnet50_remat=remat,
+                                      grad_accum=accum,
+                                      model_average_pruning=ma_prune,
+                                      executor_surface=surface)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

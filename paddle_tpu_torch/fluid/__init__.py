@@ -4,16 +4,21 @@ PyTorch (counterpart of paddle_tpu.fluid, with the same Python API).
 A program built with these layers runs through `Executor`, on the card
 by default (`Executor()`, `CUDAPlace(i)`; raising where there is none)
 or on the CPU when asked (`CPUPlace()`). The slice ported so far: the
-IR, the executor and autograd backward, the math / tensor / nn /
-optimizer op kernels, the layers of io, nn, tensor and ops, the
-optimizers, regularizers, clipping and model save/load in the JAX
-package's on-disk format; LoD (ragged) feeds, the sequence ops, the
-dynamic LSTM and GRU, CTC, `nets` and `DataFeeder`; control flow
-(While, tensor arrays, DynamicRNN, IfElse, Switch, StaticRNN, beam
-search) and 2-level LoD feeds; SelectedRows sparse gradients, nce,
-hsigmoid and auc; the CRF ops, the detection ops and layers, the
-learning-rate schedules (`learning_rate_decay`) and the evaluators
-(`evaluator`). ROADMAP Queue A lists what of Fluid is left.
+IR, the executor and autograd backward, every op kernel the JAX package
+registers, the layers of io, nn, tensor and ops, the optimizers (with
+`ModelAverage` and `StaticPruning`), regularizers, clipping and model
+save/load in the JAX package's on-disk format; LoD (ragged) feeds, the
+sequence ops, the dynamic LSTM and GRU, CTC, `nets`, `DataFeeder` and
+`AsyncDeviceFeeder`; control flow (While, tensor arrays, DynamicRNN,
+IfElse, Switch, StaticRNN, beam search) and 2-level LoD feeds;
+SelectedRows sparse gradients, nce, hsigmoid and auc; the CRF ops, the
+detection ops and layers, the learning-rate schedules
+(`learning_rate_decay`) and the evaluators (`evaluator`);
+`memory_optimize`, `Executor.run_grad_accum`, the program verifier
+(`run(validate=True)`), the numerics guard, the `profiler`, `debugger`,
+`op`, `default_scope_funcs`, `net_drawer` and `graphviz`. What is left
+is the mesh executor and the distribute transpiler (ROADMAP Queue A,
+the mesh item).
 """
 
 from . import core
@@ -27,7 +32,11 @@ from . import initializer
 from . import clip
 from . import evaluator
 from . import io
+from . import profiler
 from . import learning_rate_decay
+from . import memory_optimization_transpiler
+from . import debugger
+from . import debugger as debuger  # reference module name (sic)
 
 from .framework import (
     Program,
@@ -51,6 +60,7 @@ from .executor import (
     scope_to_numpy,
 )
 from .data_feeder import DataFeeder
+from .memory_optimization_transpiler import memory_optimize, release_memory
 from .param_attr import ParamAttr, WeightNormParamAttr
 from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier, MSRA
 from .optimizer import (
@@ -93,7 +103,10 @@ __all__ = [
     "backward",
     "calc_gradient",
     "regularizer",
+    "profiler",
     "clip",
+    "memory_optimize",
+    "release_memory",
     "Program",
     "Variable",
     "Parameter",

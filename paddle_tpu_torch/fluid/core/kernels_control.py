@@ -266,7 +266,9 @@ LAST_WHILE_STATS = {"peeled": 0, "remaining": 0, "executed": 0,
                     "early_exit_armed": False}
 
 
-def _stats(peeled, remaining=0, executed=0, armed=False):
+def _stats(ctx, peeled, remaining=0, executed=0, armed=False):
+    if ctx.recomputing:  # a checkpointed forward segment runs again
+        return
     LAST_WHILE_STATS.update(peeled=peeled, remaining=remaining,
                             executed=executed, early_exit_armed=armed)
 
@@ -417,7 +419,7 @@ def _run_steady(sub_ctx, sub, env, plan, remaining, iters):
                 while len(arr) < full:
                     arr.items.append(zero[0])
                     arr.bands.append(dict(zero[1]))
-    _stats(iters, remaining, executed, plan.early)
+    _stats(sub_ctx, iters, remaining, executed, plan.early)
 
 
 def _fill_frozen_tail(arr, full):
@@ -479,7 +481,7 @@ def _while(ctx, ins, attrs):
     steady_ok = True
     while True:
         if not _truth(env[cond_name]):
-            _stats(iters)
+            _stats(ctx, iters)
             return {}
         sig = _env_signature(env, written)
         if steady_ok and iters >= _MIN_PEEL and sig == prev_sig and sig:
@@ -488,7 +490,7 @@ def _while(ctx, ins, attrs):
             if remaining is None:
                 steady_ok = False
             elif remaining == 0:
-                _stats(iters)
+                _stats(ctx, iters)
                 return {}
             else:
                 plan = _steady_plan(sub, env, written, iters,
@@ -906,7 +908,9 @@ def _print_op(ctx, ins, attrs):
             bits.append("lod=%s" % lod_val.cpu().numpy().tolist())
         print("%s data=%s" % (" ".join(bits), flat), flush=True)
 
-    if phase in ("FORWARD", "BOTH"):
+    # a checkpointed forward segment recomputed in the backward
+    # (memory_optimize) prints nothing: the op fired in the forward
+    if phase in ("FORWARD", "BOTH") and not ctx.recomputing:
         emit("", x, lod)
     if phase in ("BACKWARD", "BOTH") and x.requires_grad:
         x = _GradTap.apply(x, emit)

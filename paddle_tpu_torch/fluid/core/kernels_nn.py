@@ -11,16 +11,20 @@ wrapper, which launches the Hopper kernels on CUDA tensors
 `lrn` sums the squares of a channel window in f32 and applies the
 result in the input's dtype, as batch norm does.
 
-Not ported yet (ROADMAP, Queue A): conv2d_transpose, conv3d, pool3d,
-gaussian_random_noise, max_pool*_with_index, unpool, spp,
-conv3d_transpose, norm, bilinear_tensor_product, modified_huber_loss,
-soft_relu.
+The 3-D and transposed convolutions are cuDNN's too (F.conv3d,
+F.conv_transpose2d / 3d); `pool3d` shares pool2d's semantics. The
+`_with_index` pools gather each window's first maximum from strided
+views (`unfold`) and give its flat index in the unpadded plane, which
+`unpool` scatters by; `spp` pools each pyramid level through `_pool`.
+`gaussian_random_noise` draws with the port's threefry, so its samples
+are the JAX package's. Every op the JAX module registers is here.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -33,6 +37,12 @@ def _pair(v):
     if isinstance(v, (list, tuple)):
         return tuple(int(x) for x in v)
     return (int(v), int(v))
+
+
+def _triple(v):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * 3
 
 
 @register_op("conv2d")
@@ -53,54 +63,112 @@ def _depthwise_conv2d(ctx, ins, attrs):
     return _conv2d(ctx, ins, attrs)
 
 
-def _pool2d(x, pooling_type, ksize, strides, pads, global_pooling,
-            ceil_mode=False, exclusive=True):
-    """The JAX package's `_pool` (reduce_window) on cuDNN's pooling: max
-    pads with -inf, avg sums in f32 and divides by the count of unpadded
-    cells when `exclusive` (else by the window size); `ceil_mode` widens
-    the upper pad so the last partial window is kept. torch's own
-    padding covers pads up to half the window without ceil_mode; any
-    other case pads explicitly first."""
+@register_op("conv3d")
+def _conv3d(ctx, ins, attrs):
+    x = ins["Input"][0]  # NCDHW
+    w = ins["Filter"][0]  # OIDHW
+    out = F.conv3d(x, w, stride=_triple(attrs.get("strides", [1, 1, 1])),
+                   padding=_triple(attrs.get("paddings", [0, 0, 0])),
+                   dilation=_triple(attrs.get("dilations", [1, 1, 1])),
+                   groups=int(attrs.get("groups", 1) or 1))
+    return {"Output": out}
+
+
+def _conv_transpose(ins, attrs, nd):
+    """Paddle's conv{2,3}d_transpose: conv's input-gradient with an
+    [C_in, C_out, k...] filter (torch's own transposed-conv layout), so
+    the output extent is (i - 1) * s - 2p + d * (k - 1) + 1 per spatial
+    dim (conv_transpose_op.cc) with no output padding; the JAX package
+    dilates the input and runs the flipped kernel, which is the same
+    map. The reference op enforces groups == 1, as the JAX package
+    does."""
+    if int(attrs.get("groups", 1) or 1) != 1:
+        raise NotImplementedError(
+            "conv%dd_transpose requires groups == 1 (reference "
+            "conv_transpose_op.cc)" % nd)
+    tup = _pair if nd == 2 else _triple
+    fn = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    ones = [1] * nd
+    zeros = [0] * nd
+    return {"Output": fn(
+        ins["Input"][0], ins["Filter"][0],
+        stride=tup(attrs.get("strides", ones)),
+        padding=tup(attrs.get("paddings", zeros)),
+        dilation=tup(attrs.get("dilations", ones)))}
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    return _conv_transpose(ins, attrs, 2)
+
+
+@register_op("conv3d_transpose")
+def _conv3d_transpose(ctx, ins, attrs):
+    return _conv_transpose(ins, attrs, 3)
+
+
+def _pool(x, pooling_type, ksize, strides, pads, global_pooling,
+          ceil_mode=False, exclusive=True, nd=2):
+    """The JAX package's `_pool` (reduce_window) on cuDNN's pooling, over
+    the last `nd` dims: max pads with -inf, avg sums in f32 and divides
+    by the count of unpadded cells when `exclusive` (else by the window
+    size); `ceil_mode` widens the upper pad so the last partial window
+    is kept. torch's own padding covers pads up to half the window
+    without ceil_mode; any other case pads explicitly first."""
     if global_pooling:
-        ksize = tuple(x.shape[-2:])
-        pads = (0, 0)
-    extra = [0, 0]
+        ksize = tuple(x.shape[-nd:])
+        pads = (0,) * nd
+    extra = [0] * nd
     if ceil_mode:
-        for i in range(2):
+        for i in range(nd):
             rem = (x.shape[2 + i] + 2 * pads[i] - ksize[i]) % strides[i]
             extra[i] = (strides[i] - rem) % strides[i] if rem else 0
     native = not any(extra) and all(p <= k // 2 for p, k in zip(pads, ksize))
-    explicit = (pads[1], pads[1] + extra[1], pads[0], pads[0] + extra[0])
+    explicit = ()
+    for i in reversed(range(nd)):  # F.pad takes the last dim first
+        explicit += (pads[i], pads[i] + extra[i])
+    max_pool = F.max_pool2d if nd == 2 else F.max_pool3d
+    avg_pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
     if pooling_type == "max":
         if native:
-            return F.max_pool2d(x, ksize, strides, pads)
+            return max_pool(x, ksize, strides, pads)
         low = -math.inf if x.is_floating_point() else torch.iinfo(x.dtype).min
-        return F.max_pool2d(F.pad(x, explicit, value=low), ksize, strides)
+        return max_pool(F.pad(x, explicit, value=low), ksize, strides)
     xf = x.float()
     padded = any(pads) or any(extra)
     if native:
-        out = F.avg_pool2d(xf, ksize, strides, pads,
-                           count_include_pad=not (exclusive and padded))
+        out = avg_pool(xf, ksize, strides, pads,
+                       count_include_pad=not (exclusive and padded))
     else:
-        summed = F.avg_pool2d(F.pad(xf, explicit), ksize, strides,
-                              divisor_override=1)
+        summed = avg_pool(F.pad(xf, explicit), ksize, strides,
+                          divisor_override=1)
         if exclusive and padded:
             ones = F.pad(torch.ones_like(xf[:1, :1]), explicit)
-            out = summed / F.avg_pool2d(ones, ksize, strides,
-                                        divisor_override=1)
+            out = summed / avg_pool(ones, ksize, strides, divisor_override=1)
         else:
-            out = summed / float(ksize[0] * ksize[1])
+            out = summed / float(math.prod(ksize))
     return out.to(x.dtype)
 
 
 @register_op("pool2d")
 def _pool2d_op(ctx, ins, attrs):
-    return {"Out": _pool2d(
+    return {"Out": _pool(
         ins["X"][0], attrs.get("pooling_type", "max"),
         _pair(attrs.get("ksize", [1, 1])), _pair(attrs.get("strides", [1, 1])),
         _pair(attrs.get("paddings", [0, 0])),
         attrs.get("global_pooling", False), attrs.get("ceil_mode", False),
         attrs.get("exclusive", True))}
+
+
+@register_op("pool3d")
+def _pool3d_op(ctx, ins, attrs):
+    return {"Out": _pool(
+        ins["X"][0], attrs.get("pooling_type", "max"),
+        _triple(attrs.get("ksize", [1, 1, 1])),
+        _triple(attrs.get("strides", [1, 1, 1])),
+        _triple(attrs.get("paddings", [0, 0, 0])),
+        attrs.get("global_pooling", False), attrs.get("ceil_mode", False),
+        attrs.get("exclusive", True), nd=3)}
 
 
 @register_op("batch_norm")
@@ -357,6 +425,16 @@ def _dropout(ctx, ins, attrs):
     return {"Out": x * mask, "Mask": mask}
 
 
+@register_op("gaussian_random_noise")
+def _gaussian_noise(ctx, ins, attrs):
+    """x + std * N(0, 1), the noise drawn with the port's threefry from
+    the op's key, so the samples are the JAX package's own (float32; a
+    bf16 x takes the f32 draw cast to bf16, where JAX draws in bf16)."""
+    x = ins["X"][0]
+    z = prng.normal(ctx.next_key(), tuple(x.shape)).to(x.device)
+    return {"Out": x + (z * attrs.get("std", 1.0)).to(x.dtype)}
+
+
 # --- metrics ------------------------------------------------------------
 
 def stable_topk(x, k):
@@ -421,3 +499,168 @@ def _flash_attention(ctx, ins, attrs):
     return {"Out": flash_attention(
         q, k, v, causal=bool(attrs.get("causal", False)),
         scale=attrs.get("scale") or None)}
+
+
+# --- pooling with index, unpool, spp -------------------------------------
+
+def _pool_with_index(x, ksize, strides, pads, global_pooling, nd):
+    """Max pooling that also returns the argmax's flat index within the
+    UNPADDED input plane (reference math/pooling.cc
+    MaxPool2dWithIndexFunctor: index = h * input_w + w), as the JAX
+    package's `_pool_with_index`: the pad cells hold the dtype's lowest
+    finite value, so an input cell wins any tie with one; the windows
+    are strided views of the padded input (`unfold`), and ties take the
+    first maximum in window scan order (torch.argmax and jnp.argmax
+    both return the first). Out is gathered at the argmax, so the
+    gradient goes to that one cell, as jax.vjp routes it."""
+    spatial = tuple(x.shape[2:])
+    if global_pooling:
+        ksize, pads = spatial, (0,) * nd
+    low = torch.finfo(x.dtype).min if x.is_floating_point() \
+        else torch.iinfo(x.dtype).min
+    pad = ()
+    for i in reversed(range(nd)):
+        pad += (pads[i], pads[i])
+    win = F.pad(x, pad, value=low)
+    for i in range(nd):
+        win = win.unfold(2 + i, ksize[i], strides[i])
+    out_dims = tuple(win.shape[2:2 + nd])
+    kprod = math.prod(ksize)
+    win = win.reshape(win.shape[:2 + nd] + (kprod,))
+    arg = torch.argmax(win, dim=-1, keepdim=True)
+    out = torch.gather(win, -1, arg)[..., 0]
+    # each window cell's flat index in the unpadded plane, row-major (a
+    # host constant of the static shapes, as in the JAX package)
+    mult = np.cumprod((spatial[1:] + (1,))[::-1])[::-1]
+    o_grid = np.meshgrid(*[np.arange(o) for o in out_dims], indexing="ij")
+    k_grid = np.meshgrid(*[np.arange(k) for k in ksize], indexing="ij")
+    coord = np.zeros((math.prod(out_dims), kprod), np.int64)
+    for i in range(nd):
+        coord += (o_grid[i].reshape(-1, 1) * strides[i]
+                  + k_grid[i].reshape(1, -1) - pads[i]) * int(mult[i])
+    coord = torch.from_numpy(coord.reshape(out_dims + (kprod,)).astype(
+        np.int32)).to(x.device, non_blocking=True)
+    mask = torch.gather(coord.expand(arg.shape[:-1] + (kprod,)), -1,
+                        arg)[..., 0]
+    return out, mask
+
+
+@register_op("max_pool2d_with_index")
+def _max_pool2d_with_index(ctx, ins, attrs):
+    """Reference operators/pool_with_index_op.cc (2-D)."""
+    out, mask = _pool_with_index(
+        ins["X"][0], _pair(attrs.get("ksize", [1, 1])),
+        _pair(attrs.get("strides", [1, 1])),
+        _pair(attrs.get("paddings", [0, 0])),
+        attrs.get("global_pooling", False), nd=2)
+    return {"Out": out, "Mask": mask}
+
+
+@register_op("max_pool3d_with_index")
+def _max_pool3d_with_index(ctx, ins, attrs):
+    """Reference operators/pool_with_index_op.cc (3-D, NCDHW)."""
+    out, mask = _pool_with_index(
+        ins["X"][0], _triple(attrs.get("ksize", [1, 1, 1])),
+        _triple(attrs.get("strides", [1, 1, 1])),
+        _triple(attrs.get("paddings", [0, 0, 0])),
+        attrs.get("global_pooling", False), nd=3)
+    return {"Out": out, "Mask": mask}
+
+
+@register_op("unpool")
+def _unpool(ctx, ins, attrs):
+    """Max unpooling (reference operators/unpool_op.cc +
+    math/unpooling.cc): each input element goes to the output-plane
+    position its Indices entry names (the `_with_index` pools' Mask);
+    everything else is zero. Output size = (in - 1) * stride - 2 * pad
+    + ksize per spatial dim. An index outside the plane is dropped, as
+    the JAX package's `mode="drop"` scatter drops it (negative indices
+    count from the end first, as JAX normalises them): it is aimed at
+    one spare slot past the plane, cut off afterwards."""
+    x = ins["X"][0]  # [N, C, H, W]
+    ksize = _pair(attrs.get("ksize", [1, 1]))
+    strides = _pair(attrs.get("strides", [1, 1]))
+    pads = _pair(attrs.get("paddings", [0, 0]))
+    n, c, h, w = x.shape
+    oh = (h - 1) * strides[0] - 2 * pads[0] + ksize[0]
+    ow = (w - 1) * strides[1] - 2 * pads[1] + ksize[1]
+    plane = oh * ow
+    idx = ins["Indices"][0].reshape(n, c, -1).long()
+    idx = torch.where(idx < 0, idx + plane, idx)
+    idx = torch.where((idx < 0) | (idx >= plane), plane, idx)
+    flat = torch.zeros((n, c, plane + 1), dtype=x.dtype, device=x.device)
+    out = flat.scatter(2, idx, x.reshape(n, c, -1))
+    return {"Out": out[..., :plane].reshape(n, c, oh, ow)}
+
+
+@register_op("spp")
+def _spp(ctx, ins, attrs):
+    """Spatial pyramid pooling (reference operators/spp_op.cc): level p
+    of pyramid_height pools to 2^p x 2^p bins (ksize = ceil(in / bins),
+    stride = ksize, the pad centring the grid), flattened and
+    concatenated along channels * bins^2."""
+    x = ins["X"][0]
+    height = int(attrs.get("pyramid_height", 1))
+    ptype = attrs.get("pooling_type", "max")
+    n, c, h, w = x.shape
+    parts = []
+    for p in range(height):
+        bins = 2 ** p
+        kh, kw = -(-h // bins), -(-w // bins)
+        ph, pw = (kh * bins - h + 1) // 2, (kw * bins - w + 1) // 2
+        lvl = _pool(x, ptype, (kh, kw), (kh, kw), (ph, pw),
+                    global_pooling=False, exclusive=True)
+        parts.append(lvl.reshape(n, c * bins * bins))
+    return {"Out": torch.cat(parts, dim=1)}
+
+
+# --- norm, bilinear product, the last loss and activation ----------------
+
+@register_op("norm")
+def _norm(ctx, ins, attrs):
+    """SSD-style cross-channel L2 normalisation with a learned
+    per-channel scale (reference operators/norm_op.h): out = x /
+    sqrt(eps + sum_c x^2) * scale[c], the sum of squares in f32."""
+    x = ins["X"][0]
+    scale = ins["Scale"][0].reshape(-1)
+    eps = attrs.get("epsilon", 1e-10)
+    denom = torch.sqrt(eps + torch.sum(torch.square(x.float()), dim=1,
+                                       keepdim=True))
+    out = (x / denom) * scale.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": out.to(x.dtype)}
+
+
+@register_op("bilinear_tensor_product")
+def _bilinear_tensor_product(ctx, ins, attrs):
+    """out[b, k] = x[b, :] @ W[k] @ y[b, :] + bias[k] (reference
+    operators/bilinear_tensor_product_op.h)."""
+    x, y, w = ins["X"][0], ins["Y"][0], ins["Weight"][0]  # W [size, M, N]
+    out = torch.einsum("bm,kmn,bn->bk", x, w, y)
+    if ins.get("Bias") and ins["Bias"][0] is not None:
+        out = out + ins["Bias"][0].reshape(1, -1)
+    return {"Out": out}
+
+
+@register_op("modified_huber_loss")
+def _modified_huber_loss(ctx, ins, attrs):
+    """Reference operators/modified_huber_loss_op.h: a = x * (2y - 1);
+    loss = -4a for a < -1, (1 - a)^2 for a < 1, else 0. Y in {0, 1}."""
+    x = ins["X"][0]
+    a = x * (2.0 * ins["Y"][0].to(x.dtype) - 1.0)
+    loss = torch.where(a < -1.0, -4.0 * a,
+                       torch.where(a < 1.0, torch.square(1.0 - a),
+                                   torch.zeros_like(a)))
+    return {"IntermediateVal": a, "Out": loss}
+
+
+@register_op("soft_relu")
+def _soft_relu(ctx, ins, attrs):
+    """out = log(1 + exp(clip(x, -t, t))) (reference activation_op.h
+    SoftReluFunctor), the clip straight-through for the gradient: the
+    reference backward dx = dout * (1 - exp(-out)) is the sigmoid of
+    the CLIPPED input everywhere, where a plain clamp would zero the
+    gradient outside [-t, t]."""
+    x = ins["X"][0]
+    t = attrs.get("threshold", 40.0)
+    xc = x + (torch.clamp(x, -t, t) - x).detach()
+    return {"Out": torch.log1p(torch.exp(xc))}

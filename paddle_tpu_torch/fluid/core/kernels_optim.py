@@ -279,3 +279,40 @@ def _proximal_adagrad(ctx, ins, attrs):
     prox = p - lr * g / torch.sqrt(m)
     return {"ParamOut": p.copy_(_prox_project(prox, lr, attrs)),
             "MomentOut": m}
+
+
+@register_op("average_accumulates")
+def _average_accumulates(ctx, ins, attrs):
+    """Sliding-window parameter averaging accumulator (the JAX package's
+    kernels_optim.py:242; reference parameter/AverageOptimizer.cpp:60-115).
+    Per step: sum_1 += param and the counters advance; every
+    k_max_num_accumulates updates sum_1 folds into sum_2; once the
+    window min(max_average_window, num_updates * average_window) is
+    reached the sums shift into sum_3 and the window restarts. Every
+    branch is a select on the device (no host read); the counters stay
+    int32 and the sums keep their dtype."""
+    p = ins["Param"][0]
+    s1, s2, s3 = ins["InSum1"][0], ins["InSum2"][0], ins["InSum3"][0]
+    na = ins["InNumAccumulates"][0] + 1
+    ona = ins["InOldNumAccumulates"][0]
+    nu = ins["InNumUpdates"][0] + 1
+    rate = float(attrs.get("average_window", 0.0))
+    max_w = int(attrs.get("max_average_window", 10000))
+    min_w = int(attrs.get("min_average_window", 10000))
+    k_max = int(attrs.get("k_max_num_accumulates", 16384))
+
+    zero = torch.zeros((), dtype=s1.dtype, device=s1.device)
+    s1 = s1 + p.to(s1.dtype)
+    fold = (nu % k_max) == 0
+    s2 = torch.where(fold, s2 + s1, s2)
+    s1 = torch.where(fold, zero, s1)
+    window = torch.clamp_max(nu.float() * rate, float(max_w))
+    shift = (na >= min_w) & (na.float() >= window)
+    s3 = torch.where(shift, s1 + s2, s3)
+    s1 = torch.where(shift, zero, s1)
+    s2 = torch.where(shift, zero, s2)
+    ona = torch.where(shift, na, ona)
+    na = torch.where(shift, torch.zeros_like(na), na)
+    return {"OutSum1": s1, "OutSum2": s2, "OutSum3": s3,
+            "OutNumAccumulates": na, "OutOldNumAccumulates": ona,
+            "OutNumUpdates": nu}

@@ -25,6 +25,18 @@ rows' gradients and never a [vocab, dim] one, and the table's `@GRAD`
 is a SelectedRows of the touched rows (selected_rows.py) that the
 optimizer applies to those rows only.
 
+`program.remat` (`memory_optimize`): the forward region runs as about
+sqrt(n) segments of its n ops, each under `torch.utils.checkpoint`
+(non-reentrant), so only the values that cross a segment's end stay
+alive and the backward recomputes one segment at a time (`_run_remat`;
+the JAX package wraps the whole region in `jax.checkpoint`). A
+recompute repeats no side effect: random ops draw the same keys (the
+segment's RNG counter is rewound), `Print` and the While statistics
+stay quiet (`LoweringContext.recomputing`), and the values the forward
+wrote (batch-norm running statistics, side-bands) are the first pass's.
+A region with tensor arrays or control flow, whose host-held arrays
+change in place, is one segment.
+
 A program without the marker (startup, inference) runs all its ops under
 torch.no_grad(). The forward and tail regions of a training run are
 `torch.profiler.record_function` ranges ("fluid/forward",
@@ -41,11 +53,15 @@ as the JAX package does; a run with no side-band skips it at once.
 
 from __future__ import annotations
 
+import contextlib
+import math
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from .kernels_control import TensorArray, place_hosted
 from .kernels_sequence import LOD_SUFFIX, PAD_STRIDE, lod_key
@@ -213,6 +229,7 @@ def _run_op_f32(ctx: LoweringContext, op, env: Dict[str, Any]):
 
 
 def run_ops(ctx: LoweringContext, ops, env: Dict[str, Any]):
+    timer = ctx.op_timer
     for op in ops:
         if op.type in _SKIP_OPS:
             continue
@@ -220,10 +237,13 @@ def run_ops(ctx: LoweringContext, ops, env: Dict[str, Any]):
             raise RuntimeError(
                 "autodiff op reached sequential execution; programs with "
                 "append_backward must run through run_block")
-        if ctx.amp_region and op.type in _AMP_F32_OPS:
-            _run_op_f32(ctx, op, env)
+        run = _run_op_f32 if ctx.amp_region and op.type in _AMP_F32_OPS \
+            else run_op
+        if timer is None:
+            run(ctx, op, env)
         else:
-            run_op(ctx, op, env)
+            with timer(op.type, op, env):
+                run(ctx, op, env)
 
 
 def _split_at_autodiff(ops) -> Tuple[list, Optional[Any], list]:
@@ -298,14 +318,16 @@ def _find_sparse_sites(fwd_ops, tail_ops, param_names, grad_names, env):
 
 
 def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
-              is_test: bool = False, keep=(), host_lods=None
-              ) -> Dict[str, Any]:
+              is_test: bool = False, keep=(), host_lods=None,
+              op_timer=None) -> Dict[str, Any]:
     """Run `ops` of `block` over `env` (feeds and persistables by name)
     and return the final environment. `keep` names the values the caller
     reads afterwards besides the persistables (the fetches): the forward
     region's other intermediates are dropped before the backward pass so
     autograd can free them as it goes. `host_lods` maps each fed
-    side-band of `env` ("x@LOD0") to its host copy."""
+    side-band of `env` ("x@LOD0") to its host copy. `op_timer` (the
+    profiler's, fluid/profiler.py) times each op of the forward region
+    and the backward with the tail as one row."""
     host_lods = host_lods or {}
     lengths = [int(np.diff(h).max()) for k, h in host_lods.items()
                if k.endswith(LOD_SUFFIX) and h.shape[0] > 1]
@@ -313,6 +335,7 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
                           seq_maxlen=max(lengths) if lengths else None)
     ctx.ops, ctx.keep = ops, keep
     ctx.fetch_names = frozenset(keep)
+    ctx.op_timer = op_timer
     for key, host in host_lods.items():
         ctx.note_host_lod(env[key], host)
         ctx.has_lod = True
@@ -360,30 +383,64 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
                 requires_grad=True)
             fenv[name] = leaves[name]
     ctx.sparse_sites = site_leaf
-    ctx.amp_region = amp
-    try:
-        with torch.enable_grad(), record_function("fluid/forward"):
-            run_ops(ctx, fwd_ops, fenv)
-    finally:
-        ctx.amp_region = False
-    loss = fenv[loss_name].float()
-    site_rows = {out: fenv[out + "@sparse_rows"] for out in site_leaf}
-
-    live = set(env) | set(keep)
+    live = set(env) | set(keep) | {loss_name}
+    live |= {out + "@sparse_rows" for out in site_leaf}
     for op in tail_ops:
         live |= set(op.input_arg_names)
     # a kept ragged value keeps its offsets (and a padded detection
     # buffer its pad stride)
     live |= {lod_key(k) for k in live} | {k + PAD_STRIDE for k in live}
-    fenv = {k: v for k, v in fenv.items() if k in live}
-    if loss.requires_grad:
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    grad_outputs=torch.ones_like(loss),
-                                    allow_unused=True)
-    else:
-        grads = [None] * len(leaves)
+    fenv = _forward_region(ctx, fwd_ops, fenv, live, amp=amp,
+                           remat=getattr(block.program, "remat", False))
+    loss = fenv[loss_name].float()
+    site_rows = {out: fenv[out + "@sparse_rows"] for out in site_leaf}
+    ctx.op_timer = None
+    with (contextlib.nullcontext() if op_timer is None
+          else op_timer(BACKWARD_ROW, None, None)):
+        _backward_and_tail(ctx, env, fenv, loss, leaves, dense_names,
+                           sparse, site_leaf, site_rows, grad_names,
+                           param_names, tail_ops)
+    return env
 
-    grads = dict(zip(leaves, grads))
+
+# the profiler's row for a training run's backward and optimizer update
+BACKWARD_ROW = "backward+update"
+
+
+def _forward_region(ctx, fwd_ops, fenv, live, amp=False, remat=False):
+    """Run the forward region over `fenv` under autograd (checkpointed
+    segments when `remat`) and return the environment after it holding
+    only the `live` values: the other intermediates are dropped before
+    the backward so autograd can free what it saved for them as it
+    goes (run_block, run_accum)."""
+    ctx.amp_region = amp
+    try:
+        with torch.enable_grad(), record_function("fluid/forward"):
+            if remat:
+                fenv = _run_remat(ctx, fwd_ops, fenv, live)
+            else:
+                run_ops(ctx, fwd_ops, fenv)
+    finally:
+        ctx.amp_region = False
+    return {k: v for k, v in fenv.items() if k in live}
+
+
+def _loss_grads(loss, leaves):
+    """The gradients of `loss` w.r.t. `leaves`, by leaf name (None for a
+    leaf the loss does not reach)."""
+    if not loss.requires_grad:
+        return dict.fromkeys(leaves)
+    return dict(zip(leaves, torch.autograd.grad(
+        loss, list(leaves.values()), grad_outputs=torch.ones_like(loss),
+        allow_unused=True)))
+
+
+def _backward_and_tail(ctx, env, fenv, loss, leaves, dense_names, sparse,
+                       site_leaf, site_rows, grad_names, param_names,
+                       tail_ops):
+    """The gradients of the forward region's loss bound to their @GRAD
+    names in `env`, then the tail ops under no_grad (run_block)."""
+    grads = _loss_grads(loss, leaves)
     # forward-region values win, but the parameters go back to the
     # scope's own f32 tensors (the tail updates those in place)
     originals = {p: env[p] for p in param_names}
@@ -405,4 +462,188 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
             torch.cat(vals).float(), originals[p].shape[0])
     with torch.no_grad(), record_function("fluid/optimizer"):
         run_ops(ctx, tail_ops, env)
-    return env
+
+
+# ops that keep host-held tensor arrays or run sub-blocks over the
+# environment: a checkpoint cut must not fall between an array's writes
+# and its reads (an array changes in place, so a recompute would see
+# later writes)
+_NO_CUT_OPS = _ENV_OPS | frozenset(
+    ["lod_tensor_to_array", "array_to_lod_tensor", "shrink_rnn_memory",
+     "beam_search", "beam_init"])
+
+
+def _remat_segments(ops):
+    """The forward region cut into about sqrt(len(ops)) runs of ops (one
+    run when it holds an op of _NO_CUT_OPS)."""
+    if not ops or any(op.type in _NO_CUT_OPS for op in ops):
+        return [list(ops)]
+    size = math.ceil(len(ops) / max(1, round(math.sqrt(len(ops)))))
+    return [list(ops[i:i + size]) for i in range(0, len(ops), size)]
+
+
+def _is_live(name, names):
+    """`name` or the variable whose side-band it is ("x@LOD0" of x)."""
+    return name in names or name.partition("@")[0] in names
+
+
+def _run_remat(ctx, ops, fenv, live):
+    """Run the forward region as checkpointed segments (memory_optimize)
+    and return the environment after it, holding only the values read
+    later (`live` names those read after the region). Each segment runs
+    once now and once more in the backward, when autograd first needs a
+    value it saved; that second run starts from the RNG counter the
+    first one started from and runs with `ctx.recomputing` set."""
+    program = ctx.block.program
+    segments = _remat_segments(ops)
+    after, reads = [], set(live)
+    for seg in reversed(segments):
+        after.append(set(reads))
+        for op in seg:
+            reads |= set(op.input_arg_names)
+            reads |= program._sub_block_outer_reads(op)
+    for seg, later in zip(segments, reversed(after)):
+        state = {"start": ctx._rng_counter, "amp": ctx.amp_region,
+                 "runs": 0}
+
+        def region(env_in, seg=seg, state=state):
+            # the recompute runs in the backward, after the forward has
+            # left its AMP region: it re-enters the region's mode
+            state["runs"] += 1
+            again = state["runs"] > 1
+            resume, amp = ctx._rng_counter, ctx.amp_region
+            if again:
+                ctx._rng_counter = state["start"]
+            ctx.recomputing, ctx.amp_region = again, state["amp"]
+            local = dict(env_in)
+            try:
+                run_ops(ctx, seg, local)
+            finally:
+                ctx.recomputing, ctx.amp_region = False, amp
+                if again:
+                    ctx._rng_counter = resume
+            return local
+
+        out = checkpoint(region, fenv, use_reentrant=False,
+                         preserve_rng_state=False)
+        fenv = {k: v for k, v in out.items() if _is_live(k, later)}
+    return fenv
+
+
+# shape-only wrappers between a loss and the reduction that makes it
+_PASSTHROUGH = ("reshape", "reshape2", "squeeze", "unsqueeze", "cast")
+
+
+def _warn_if_sum_loss(fwd_ops, loss_name):
+    """Chunk gradients are averaged, which is exact only for a
+    mean-reduced loss: warn when the loss comes from a batch-axis
+    `reduce_sum` (the JAX package's build_accum_step_fn rule; op `sum`
+    adds tensors elementwise and stays exact)."""
+    producers = {}
+    for op in fwd_ops:
+        for name in op.output_arg_names:
+            producers[name] = op
+    op = producers.get(loss_name)
+    for _ in range(8):
+        if op is None or op.type not in _PASSTHROUGH:
+            break
+        src = op.input_arg_names
+        op = producers.get(src[0]) if src else None
+    if op is None or op.type != "reduce_sum":
+        return
+    dims = op.attrs.get("dim", 0)
+    dims = list(dims) if isinstance(dims, (list, tuple)) else [dims]
+    if op.attrs.get("reduce_all", False) or 0 in dims or any(
+            d < 0 for d in dims):
+        warnings.warn(
+            "gradient accumulation averages chunk gradients (exact for "
+            "mean-reduced losses) but the loss %r is produced by %r — a "
+            "SUM reduction trains with gradients scaled by 1/"
+            "micro_batches; reduce the loss with mean() instead"
+            % (loss_name, op.type), stacklevel=4)
+
+
+def run_accum(block, ops, env: Dict[str, Any], feeds: Dict[str, Any],
+              device, micro_batches: int, base_key, fetch_names=()):
+    """ONE optimizer step over `micro_batches` forward/backward passes
+    (the JAX package's build_accum_step_fn): each feed splits into equal
+    chunks along axis 0; chunk i runs the forward region under autograd
+    with its own context on fold_in(base_key, i), and the gradients of
+    its loss add up; the tail ops (regularizers, clipping, the optimizer)
+    run once, on the mean of the chunk gradients, with a context on
+    base_key. Values the forward writes to persistables (batch-norm
+    statistics) carry from chunk to chunk, as over K small batches.
+    Every gradient is dense (a sparse table's included) and the
+    activations of one chunk at a time are alive.
+
+    `env` holds the persistables and is updated in place; returns the
+    fetches: the loss as the mean of the chunk losses, or a value the
+    tail ops leave in the environment. `base_key` is the run's key on
+    the host; each chunk's key goes to the device without a wait."""
+    from ...utils import prng
+    from .kernels_control import to_device_async
+
+    fwd_ops, ad_op, tail_ops = _split_at_autodiff(ops)
+    if ad_op is None:
+        raise ValueError("gradient accumulation requires a training "
+                         "program (optimizer.minimize before run)")
+    loss_name = ad_op.attrs["loss_name"]
+    _warn_if_sum_loss(fwd_ops, loss_name)
+    k = int(micro_batches)
+    chunks = {}
+    for n, v in feeds.items():
+        if v.shape[0] % k:
+            raise ValueError("batch dim %d of feed %r is not divisible by "
+                             "micro_batches=%d" % (v.shape[0], n, k))
+        chunks[n] = v.reshape((k, v.shape[0] // k) + tuple(v.shape[1:]))
+    param_names = [p for p in ad_op.attrs["param_names"] if p in env]
+    grad_names = dict(zip(ad_op.attrs["param_names"],
+                          ad_op.attrs["grad_names"]))
+    gsum = {p: torch.zeros(env[p].shape, dtype=torch.float32,
+                           device=env[p].device) for p in param_names}
+    live = set(env) | {loss_name}
+    for op in tail_ops:
+        live |= set(op.input_arg_names)
+    live |= {lod_key(n) for n in live} | {n + PAD_STRIDE for n in live}
+    losses = []
+    for i in range(k):
+        ctx = LoweringContext(block, to_device_async(
+            prng.fold_in(base_key, i), device), device)
+        ctx.ops, ctx.keep = ops, tuple(fetch_names)
+        fenv = dict(env)
+        fenv.update({n: c[i] for n, c in chunks.items()})
+        leaves = {p: env[p].detach().requires_grad_(True)
+                  for p in param_names}
+        fenv.update(leaves)
+        fenv = _forward_region(ctx, fwd_ops, fenv, live)
+        loss = fenv[loss_name].float()
+        with torch.no_grad():
+            for p, g in _loss_grads(loss, leaves).items():
+                if g is not None:
+                    gsum[p] += g
+        losses.append(loss.detach())
+        # persistables the forward wrote carry to the next chunk
+        for n in env:
+            v = fenv.get(n)
+            if n not in leaves and isinstance(v, torch.Tensor) \
+                    and v is not env[n]:
+                env[n] = v.detach().to(env[n].dtype)
+    for p in param_names:
+        env[grad_names[p]] = gsum[p] / float(k)
+    ctx = LoweringContext(block, to_device_async(base_key, device), device)
+    ctx.ops, ctx.keep = ops, tuple(fetch_names)
+    with torch.no_grad(), record_function("fluid/optimizer"):
+        run_ops(ctx, tail_ops, env)
+    fetches = []
+    for n in fetch_names:
+        if n == loss_name:
+            # the mean over the chunks keeps the mean op's [1] shape
+            fetches.append(torch.stack(losses).mean(0))
+        elif n in env:
+            fetches.append(env[n])
+        else:
+            raise KeyError(
+                "fetch %r is neither the loss nor a tail-op output; "
+                "per-chunk intermediates are not retained under gradient "
+                "accumulation" % n)
+    return fetches

@@ -62,9 +62,10 @@ def get_kernel(op_type: str) -> Callable:
     try:
         return _KERNELS[op_type]
     except KeyError:
+        # the JAX package's error for an op type it does not register
         raise NotImplementedError(
-            "op %r has no kernel in paddle_tpu_torch.fluid yet (have %d "
-            "ops; ROADMAP Queue A lists the Fluid modules still to port)"
+            "no kernel registered for op type %r in paddle_tpu_torch.fluid "
+            "(have %d ops: every op the JAX package registers)"
             % (op_type, len(_KERNELS)))
 
 
@@ -117,6 +118,10 @@ class LoweringContext(object):
         # [True] once any side-band exists: lowering._share_lod returns
         # at once while it is False. A list, shared with sub-contexts
         self._lod_flag = [False]
+        # [True] while a checkpointed forward segment is recomputed in the
+        # backward (lowering._run_remat): host side effects (a Print, the
+        # While statistics) must not happen twice. Shared with sub-contexts
+        self._recompute_flag = [False]
         self._host_lods = {}  # id(device offsets) -> (tensor, ndarray)
         # the ops of the run and the names read after it, for `is_read`
         self.ops = ()
@@ -130,6 +135,8 @@ class LoweringContext(object):
         # lookup output name -> its gradient leaf's name, for the
         # SelectedRows sparse-gradient path (lowering._find_sparse_sites)
         self.sparse_sites: dict = {}
+        # the profiler's per-op timer (fluid/profiler.py), or None
+        self.op_timer = None
 
     @property
     def has_lod(self) -> bool:
@@ -138,6 +145,14 @@ class LoweringContext(object):
     @has_lod.setter
     def has_lod(self, value):
         self._lod_flag[0] = bool(value)
+
+    @property
+    def recomputing(self) -> bool:
+        return self._recompute_flag[0]
+
+    @recomputing.setter
+    def recomputing(self, value):
+        self._recompute_flag[0] = bool(value)
 
     @property
     def host_names(self) -> frozenset:
@@ -152,14 +167,15 @@ class LoweringContext(object):
         """A context for a control-flow op's sub-block: a fresh RNG
         counter on the same base key (the JAX package builds a new
         LoweringContext there), the run's device, `is_test`,
-        `seq_maxlen`, AMP region and fetches, and the host copies of
-        LoD offsets shared both ways. Every output counts as read."""
+        `seq_maxlen`, AMP region, recompute flag and fetches, and the host
+        copies of LoD offsets shared both ways. Every output counts as read."""
         sub = LoweringContext(block, self._base_key, self.device,
                               is_test=self.is_test,
                               seq_maxlen=self.seq_maxlen)
         sub.amp_region = self.amp_region
         sub.fetch_names = self.fetch_names
         sub._lod_flag = self._lod_flag
+        sub._recompute_flag = self._recompute_flag
         sub._host_lods = self._host_lods
         sub._reads = _ALL
         return sub

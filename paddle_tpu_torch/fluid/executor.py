@@ -23,15 +23,31 @@ A 2-level LoD (`[outer, finest]`, as beam search's init ids come) feeds
 its finest level as `name@LOD0` and its outer level as `name@LOD_SRC`,
 both with host copies.
 
-Not ported yet (ROADMAP, Queue A): the mesh (`Executor(mesh=...)`),
-`run_grad_accum`, `run_async_local`, the profiler hooks, the program
-verifier (`validate=True`).
+A feed that is already a tensor on the executor's device (as
+`data_feeder.AsyncDeviceFeeder` delivers them) is used as it is, with
+no second copy.
+
+`run(validate=True)` (or PADDLE_TPU_VALIDATE=1, on every run entry
+point) verifies the program first (analysis/program_lint.py) and raises
+ProgramVerifyError with the JAX package's P-codes, memoized per program
+version and feed/fetch signature. PADDLE_TPU_CHECK_NUMERICS=1 (or
+FLAGS.check_nan_inf) makes every run check its fetches and the
+persistables it wrote for non-finite values (one count per tensor,
+summed on the device and read back together) and raise
+FloatingPointError naming each. Inside `profiler.profiler()` a run
+times each forward op (CUDA events on the card) and the backward with
+the update as one row. `run_grad_accum` takes one optimizer step over
+micro-batches (core/lowering.py `run_accum`).
+
+Not ported yet (ROADMAP, Queue A, the mesh item): the mesh
+(`Executor(mesh=...)`) and `run_async_local`.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import os
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -41,7 +57,7 @@ from ..utils import prng
 from . import core
 from .core.kernels_control import to_device_async
 from .core.kernels_sequence import LOD_SRC, lod_key
-from .core.lowering import _backward_slice, run_block
+from .core.lowering import _backward_slice, run_accum, run_block
 from .core.program import Program, Variable
 from .core.registry import torch_dtype
 from .core.selected_rows import as_dense
@@ -282,11 +298,29 @@ class Executor(object):
         if mesh is not None:
             raise NotImplementedError(
                 "the mesh executor is not ported yet (ROADMAP Queue A, "
-                "Fluid)")
+                "the mesh item)")
         self.place = places
         self.device = core.place_device(places)
         self._cache = _PlanCache(cache_capacity or 64)
         self._run_counter = 0
+
+    def _maybe_preflight(self, program, feed, fetch_list, force=False):
+        """The program verifier's pre-flight, shared by every run entry
+        point, so PADDLE_TPU_VALIDATE=1 means what it says whichever
+        loop drives the program."""
+        if force or os.environ.get(
+                "PADDLE_TPU_VALIDATE", "") not in ("", "0"):
+            from ..analysis.program_lint import preflight
+
+            preflight(program if program is not None
+                      else core.default_main_program(),
+                      feeds=list(feed or ()), fetches=fetch_list or ())
+
+    def _next_key(self, program):
+        """The run's key on the host: fold_in(PRNGKey(seed), run count)."""
+        self._run_counter += 1
+        return prng.fold_in(prng.PRNGKey(program.random_seed),
+                            self._run_counter)
 
     # ------------------------------------------------------------------
     def run(
@@ -301,14 +335,15 @@ class Executor(object):
         use_program_cache: bool = True,
         validate: bool = False,
     ):
-        if validate:
-            raise NotImplementedError(
-                "the program verifier is not ported yet (ROADMAP Queue A)")
-        self._run_counter += 1
+        """`validate=True` (or PADDLE_TPU_VALIDATE=1) verifies the program
+        first: a malformed program (dangling input, dtype clash,
+        duplicate parameter, unpaired grad var) raises ProgramVerifyError
+        with P-coded findings before any op runs. Memoized per (program
+        version, feed/fetch signature)."""
+        self._maybe_preflight(program, feed, fetch_list, force=validate)
         program = program if program is not None \
             else core.default_main_program()
-        key = to_device_async(prng.fold_in(prng.PRNGKey(program.random_seed),
-                                      self._run_counter), self.device)
+        key = to_device_async(self._next_key(program), self.device)
         return self._execute(program, feed or {}, fetch_list or [],
                              scope or global_scope(), return_numpy,
                              use_program_cache, key)
@@ -329,13 +364,12 @@ class Executor(object):
         step); otherwise the same feed is reused each step. Fetches
         return stacked [steps, ...]. Step i draws from fold_in(run key,
         i), the JAX package's lax.scan schedule."""
-        self._run_counter += 1
+        self._maybe_preflight(program, feed, fetch_list)
         program = program if program is not None \
             else core.default_main_program()
         feed = feed or {}
         scope = scope or global_scope()
-        base = prng.fold_in(prng.PRNGKey(program.random_seed),
-                            self._run_counter)
+        base = self._next_key(program)
         per_step = []
         for i in range(int(steps)):
             f = {n: _step_feed(v, i) for n, v in feed.items()} \
@@ -347,14 +381,69 @@ class Executor(object):
                for j in range(len(fetch_list or []))]
         return as_numpy(out) if return_numpy else out
 
-    def run_grad_accum(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_grad_accum is not ported yet (ROADMAP Queue A, Fluid)")
+    def run_grad_accum(
+        self,
+        program: Optional[Program] = None,
+        feed: Optional[Dict[str, Any]] = None,
+        fetch_list: Optional[List[Any]] = None,
+        micro_batches: int = 2,
+        scope: Optional[Scope] = None,
+        return_numpy: bool = True,
+    ):
+        """ONE optimizer step over `micro_batches` forward/backward
+        passes (gradient accumulation): every feed splits into equal
+        chunks along axis 0, the mean of the chunk gradients is
+        accumulated, and the update applies once; the activations of
+        one chunk at a time are alive (core/lowering.py run_accum).
+
+        Exactness caveat: chunk gradients are AVERAGED, which matches
+        the full-batch step only for mean-reduced losses (a warning
+        fires when the loss comes from a batch-axis sum). Refused, as in
+        the JAX package: program.amp, program.remat, ragged (LoD) feeds,
+        micro_batches < 1."""
+        self._maybe_preflight(program, feed, fetch_list)
+        program = program if program is not None \
+            else core.default_main_program()
+        if int(micro_batches) < 1:
+            raise ValueError("micro_batches must be >= 1")
+        if program.amp or program.remat:
+            raise NotImplementedError(
+                "gradient accumulation does not compose with program.amp/"
+                "remat (as in the JAX package)")
+        scope = scope or global_scope()
+        block = program.global_block()
+        fetch_names = [_feed_name(f) for f in fetch_list or []]
+        persist_names = sorted(v.name for v in program.list_vars()
+                               if v.persistable)
+        feeds = {}
+        for name, value in (feed or {}).items():
+            data, lod = _split_lod_feed(value)
+            if lod is not None:
+                raise NotImplementedError(
+                    "gradient accumulation with ragged (LoD) feeds is not "
+                    "supported (as in the JAX package)")
+            var = block.var(name) if block.has_var(name) else None
+            feeds[name] = _host_to_device(data, var, self.device)
+        env = self._persist_env(block, persist_names, scope)
+        ops, persist_out = self._plan(program, fetch_names, env,
+                                      persist_names, True)
+        missing = set(persist_out) - set(env)
+        if missing:
+            raise ValueError(
+                "gradient accumulation requires the program to update (not "
+                "create) persistables; missing from scope: %r"
+                % sorted(missing))
+        persist_in = dict(env)
+        fetches = run_accum(block, ops, env, feeds, self.device,
+                            micro_batches, self._next_key(program),
+                            fetch_names)
+        return self._finish(scope, env, persist_out, persist_in,
+                            fetch_names, fetches, return_numpy)
 
     def run_async_local(self, *args, **kwargs):
         raise NotImplementedError(
             "run_async_local needs the mesh executor, not ported yet "
-            "(ROADMAP Queue A, Fluid)")
+            "(ROADMAP Queue A, the mesh item)")
 
     # ------------------------------------------------------------------
     def _plan(self, program, fetch_names, persist_in, persist_names,
@@ -375,23 +464,30 @@ class Executor(object):
                 self._cache[key] = plan
         return plan
 
-    def _execute(self, program, feed, fetch_list, scope, return_numpy,
-                 use_cache, rng_key):
-        block = program.global_block()
-        fetch_names = [_feed_name(f) for f in fetch_list]
-        persist_names = sorted(v.name for v in program.list_vars()
-                               if v.persistable)
+    def _persist_env(self, block, persist_names, scope):
+        """The persistables the scope holds, on the executor's device (a
+        value loaded from the host moves there once)."""
         env: Dict[str, Any] = {}
         for name in persist_names:
             if name not in scope or scope.get(name) is None:
                 continue
             v = scope.get(name)
             if not (isinstance(v, torch.Tensor) and v.device == self.device):
-                # a value loaded from the host moves to the device once
                 var = block.var(name) if block.has_var(name) else None
                 v = _host_to_device(v, var, self.device)
                 scope.set(name, v)
             env[name] = v
+        return env
+
+    def _execute(self, program, feed, fetch_list, scope, return_numpy,
+                 use_cache, rng_key):
+        from .profiler import active_hook
+
+        block = program.global_block()
+        fetch_names = [_feed_name(f) for f in fetch_list]
+        persist_names = sorted(v.name for v in program.list_vars()
+                               if v.persistable)
+        env = self._persist_env(block, persist_names, scope)
         persist_in = dict(env)
         host_lods = {}
         for name, value in feed.items():
@@ -409,8 +505,21 @@ class Executor(object):
                     env[key] = _offsets_to_device(host, self.device)
         ops, persist_out = self._plan(program, fetch_names, persist_in,
                                       persist_names, use_cache)
+        timer = active_hook(self.device)
         env = run_block(block, ops, env, self.device, base_key=rng_key,
-                        keep=fetch_names, host_lods=host_lods)
+                        keep=fetch_names, host_lods=host_lods,
+                        op_timer=timer)
+        if timer is not None:
+            timer.flush()
+        fetches = [env[n] for n in fetch_names]
+        return self._finish(scope, env, persist_out, persist_in,
+                            fetch_names, fetches, return_numpy)
+
+    def _finish(self, scope, env, persist_out, persist_in, fetch_names,
+                fetches, return_numpy):
+        """The run's tail: persistables written back to the scope, the
+        numerics guard, the fetches (a sparse gradient as its dense
+        equivalent; on the host when return_numpy)."""
         for n in persist_out:
             v = env[n].detach()
             old = persist_in.get(n)
@@ -418,14 +527,15 @@ class Executor(object):
             if old is not None and v.dtype != old.dtype:
                 v = v.to(old.dtype)
             scope.set(n, v)
-        fetches = []
-        for n in fetch_names:
-            # a sparse gradient is fetched as its dense equivalent
-            v = as_dense(env[n]).detach()
+        out = []
+        for n, f in zip(fetch_names, fetches):
+            v = as_dense(f).detach()
             if not return_numpy and n in persist_out:
                 v = v.clone()  # the scope's tensor is updated in place
-            fetches.append(v)
-        return as_numpy(fetches) if return_numpy else fetches
+            out.append(v)
+        _maybe_check_nan_inf(fetch_names, out,
+                             [(n, scope.get(n)) for n in persist_out])
+        return as_numpy(out) if return_numpy else out
 
     def close(self):
         self._cache.clear()
@@ -434,3 +544,31 @@ class Executor(object):
         """Plan-cache occupancy counters: size/capacity/hits/misses/
         evictions."""
         return self._cache.stats()
+
+
+def _maybe_check_nan_inf(fetch_names, fetches, persisted):
+    """Opt-in numerics guard: with PADDLE_TPU_CHECK_NUMERICS=1 (or
+    FLAGS.check_nan_inf / PADDLE_FLAG_CHECK_NAN_INF) every run checks its
+    fetches and the persistables it wrote for NaN/Inf and raises
+    FloatingPointError naming each offending value, whether a fetch or a
+    persistable, and its count (the JAX package's message; reference
+    executor.cc:30,132-140). The non-finite counts are summed on the
+    device and read back together, one copy for the whole run."""
+    from ..utils import FLAGS
+
+    if not (FLAGS.check_nan_inf or os.environ.get(
+            "PADDLE_TPU_CHECK_NUMERICS", "") not in ("", "0")):
+        return
+    named = [(kind, name, v) for kind, pairs in (
+        ("fetch", zip(fetch_names, fetches)), ("persistable", persisted))
+        for name, v in pairs
+        if isinstance(v, torch.Tensor) and v.is_floating_point()]
+    if not named:
+        return
+    counts = torch.stack([(~torch.isfinite(v)).sum()
+                          for _, _, v in named]).cpu().tolist()
+    bad = ["%s %r (%d/%d non-finite)" % (kind, name, n, v.numel())
+           for (kind, name, v), n in zip(named, counts) if n]
+    if bad:
+        raise FloatingPointError(
+            "check_numerics: non-finite values in %s" % "; ".join(bad))

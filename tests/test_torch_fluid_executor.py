@@ -235,7 +235,10 @@ def test_executor_places():
 def test_unported_ops_raise_and_sparse_grads_train():
     """An is_sparse embedding trains through SelectedRows gradients (it
     was refused until the sparse path came), as the JAX package trains
-    it; an unported op (`soft_relu`) still raises."""
+    it; `soft_relu`, the op this test once used as the unported one,
+    runs as the JAX package runs it since every op is ported, and an op
+    type neither package registers raises NotImplementedError naming
+    itself, as in the JAX package."""
     def build(fluid, resnet):
         ids = fluid.layers.data(name="ids", shape=[1], dtype="int64")
         emb = fluid.layers.embedding(input=ids, size=[10, 4],
@@ -250,11 +253,22 @@ def test_unported_ops_raise_and_sparse_grads_train():
         j, t = pair.run(feed, ["loss"])
         np.testing.assert_allclose(t[0], j[0], rtol=1e-6)
     assert max(pair.state_diff().values()) < 1e-6
+
+    def relu_build(fluid, resnet):
+        x = fluid.layers.data(name="x", shape=[2, 4, 4], dtype="float32")
+        return dict(y=fluid.layers.soft_relu(x=x))
+
+    relu = tp.FluidPair(relu_build)
+    x = np.linspace(-3, 3, 32, dtype=np.float32).reshape(1, 2, 4, 4)
+    j, t = relu.run(dict(x=x), ["y"])
+    np.testing.assert_allclose(t[0], j[0], rtol=1e-6)
     main, startup = TF.Program(), TF.Program()
     with TF.program_guard(main, startup):
         x = TF.layers.data(name="x", shape=[2, 4, 4], dtype="float32")
-        y = TF.layers.soft_relu(x=x)
-    with pytest.raises(NotImplementedError, match="'soft_relu'"):
+        y = main.global_block().create_var(name="y", dtype="float32")
+        main.global_block().append_op(
+            type="no_such_op", inputs={"X": [x]}, outputs={"Out": [y]})
+    with pytest.raises(NotImplementedError, match="'no_such_op'"):
         TF.Executor(TF.CPUPlace()).run(
             main, feed=dict(x=np.ones((1, 2, 4, 4), np.float32)),
             fetch_list=[y])

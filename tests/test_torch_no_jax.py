@@ -38,8 +38,14 @@ def test_importing_every_module_leaves_jax_out():
                  "layers.control_flow", "layers.device",
                  "core.selected_rows", "core.kernels_sampled",
                  "evaluator", "learning_rate_decay", "core.kernels_crf",
-                 "core.kernels_detection", "layers.detection"):
+                 "core.kernels_detection", "layers.detection",
+                 "memory_optimization_transpiler", "profiler", "debugger",
+                 "debuger", "net_drawer", "graphviz", "op",
+                 "default_scope_funcs"):
         assert "paddle_tpu_torch.fluid." + name in mods
+    for name in ("analysis", "analysis.program_lint",
+                 "analysis.diagnostics", "utils.flags"):
+        assert "paddle_tpu_torch." + name in mods
     for name in ("resnet", "ocr_crnn", "ctr", "lenet", "vgg", "alexnet",
                  "googlenet", "mobilenet", "ssd"):
         assert "paddle_tpu_torch.models." + name in mods
