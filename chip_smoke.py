@@ -241,9 +241,32 @@ Phases (any failure exits non-zero):
      falling over 30 steps, a step under set_sync_debug_mode("error"),
      peak memory; the detection_output eval step (ms), its -1-padded
      rows and the host DetectionMAP;
+ 33-37. the last 14 ops card vs CPU; ResNet-50 under memory_optimize;
+     run_grad_accum; ModelAverage and StaticPruning; the executor's
+     surface (the verifier, the numerics guard, AsyncDeviceFeeder, the
+     profiler) - see each phase function;
+ 38. the mesh executor on a world of one NCCL rank
+     (Executor(mesh=make_mesh({'data': 1}))): phase 16's ResNet-50 loop
+     (ms/step, the gradient sync's bytes, buckets and device time a
+     step from CUDA events, peak memory) beside phase 16's numbers, its
+     losses held against phase 16's; the plain and the mesh executor in
+     turns (plain, mesh, mesh, plain; 5 steps a turn); the two executors
+     from one startup with cuDNN deterministic, 2 steps: losses and
+     every persistable bit-equal; phase 18's flash program on the mesh,
+     counters zeroed just before and read just after: one launch each;
+ 39. two ranks of this script (--mesh-worker RANK DIR) on cuda:0 in a
+     gloo group (NCCL refuses two ranks on one card; gloo is named, not
+     a fallback) against this process's one-device runs: ResNet-50 f32
+     {data: 2} 2 steps of the global batch 128 (first loss within 1e-4:
+     batch norm over the global batch; the rest within 1e-4 or twice the
+     noise floor of the one-device steps on the batch with its halves
+     swapped), LeNet with its fc split over 'model' and with FSDP
+     (1e-5), DeepFM at phase 27's width with both tables split along
+     their rows (2e-5 absolute), run_async_local at sync_every 1 and 4
+     (1e-5); a failing rank fails the phase;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases 13
- and 14, the flash entries their Fluid launches in phase 18; no Hopper
+ and 14, the flash entries their Fluid launches in phases 18 and 38; no Hopper
  kernel lies on the path of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
  convolutions, CRF recursions and detection ops are cuDNN, cuBLAS and
@@ -2207,11 +2230,12 @@ def phase_fluid_parity(torch, fluid, resnet, steps=3, place=None):
                 optimizer_state_abs_err=v_err)
 
 
-def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH):
+def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH,
+                      mesh=None):
     """Phase 18: a Fluid program whose flash_attention op reaches the
     Hopper kernels, forward and backward, through one bf16 SGD step of
     the Executor (on the CPU, a rehearsal: the plain versions run and no
-    kernel launches)."""
+    kernel launches; phase 38 runs it on `mesh`)."""
     B, T, H, D = cfg["batch"], cfg["seq"], cfg["heads"], cfg["dim"]
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
@@ -2226,7 +2250,8 @@ def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH):
     w = main.global_block().all_parameters()[0].name
     scope = fluid.Scope()
     with fluid.scope_guard(scope):
-        exe = fluid.Executor(place or fluid.CUDAPlace(0))
+        exe = fluid.Executor(mesh=mesh) if mesh is not None else \
+            fluid.Executor(place or fluid.CUDAPlace(0))
         rng = np.random.RandomState(18)
         feed = {n: torch.from_numpy(rng.randn(B, T, H, D).astype(
             np.float32)).to(exe.device) for n in "qkv"}
@@ -4068,7 +4093,13 @@ def phase_book_images(torch, fluid, lenet, vgg, warm=2, steps=10, total=30,
             return [float(exe.run(main, feed=feed, fetch_list=[avg])[0][0])
                     for _ in range(3)]
 
-        runs, init = _card_and_cpu(fluid, startup, train, place)
+        # deterministic cuDNN algorithms: the card's side repeats run to
+        # run (as phase 36's)
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs, init = _card_and_cpu(fluid, startup, train, place)
+        finally:
+            torch.backends.cudnn.deterministic = False
         (lc, sc), (lh, sh) = runs["card"], runs["cpu"]
         block = main.global_block()
         state = {p.name for p in block.all_parameters()}
@@ -5315,12 +5346,517 @@ def phase_executor_surface(torch, fluid, resnet, lenet, recorder,
     return out
 
 
+# ---------------------------------------------------------------------
+# phases 38-39: the mesh executor (paddle_tpu_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------
+
+# phase 39's LeNet and DeepFM configurations: the book's MNIST batch 64
+# in f32 with Momentum (LeNet's one fc split over 'model' for tensor
+# parallelism), and phase 27's DeepFM at full width with its two tables
+# split along their rows over 'model'
+MESH_LENET = dict(BOOK_IMAGE["lenet_mnist"], steps=3)
+MESH_CTR = dict(CTR, steps=2)
+MESH_ASYNC_STEPS = 4
+
+
+def _params_of(fluid, main, scope):
+    """Every parameter's whole value, in all_parameters order."""
+    with fluid.scope_guard(scope):
+        return [fluid.fetch_var(p.name)
+                for p in main.global_block().all_parameters()]
+
+
+def _rel_diff(got, want):
+    """max |got - want| over max |want| of each tensor; the largest."""
+    return max(float(np.abs(a.astype(np.float64) - b).max())
+               / max(float(np.abs(b).max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def phase_mesh_world1(torch, fluid, resnet, tfa, phase16, warm=2, steps=10,
+                      check_steps=2, cfg=FLUID_RESNET, card="cpu",
+                      mesh=None, flash_cfg=FLUID_FLASH, turn_steps=5):
+    """Phase 38: a world of one NCCL rank. ResNet-50 at phase 16's
+    configuration through Executor(mesh=make_mesh({'data': 1})): the
+    timed loop of phase 16 (ms/step, the gradient sync's bytes, buckets
+    and device time per step, peak memory) beside phase 16's numbers;
+    the plain and the mesh executor timed in turns (plain, mesh, mesh,
+    plain) within one window, the host cost of the mesh path; then the
+    plain executor and the mesh executor from one startup with
+    cuDNN in deterministic mode, 2 steps each: losses and every
+    persistable bit-equal. Last, phase 18's flash program on the mesh:
+    one launch of each flash kernel. (A rehearsal passes a CPU `mesh`
+    and small configurations.)"""
+    from paddle_tpu_torch import parallel
+
+    on_card = mesh is None
+    mesh = mesh or parallel.make_mesh({"data": 1})
+    check(not on_card or (mesh.backend == "nccl"
+                          and mesh.device.type == "cuda"),
+          "phase 38: the world of one is not NCCL on the card: %r" % mesh)
+    out = dict(backend=mesh.backend)
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=cfg["depth"]),
+        cfg["shape"], cfg["classes"], amp=True)
+    torch.backends.cudnn.benchmark = True
+    try:
+        with fluid.scope_guard(fluid.Scope()):
+            exe = fluid.Executor(mesh=mesh)
+            dev = exe.device
+            exe.run(startup)
+            feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                              cfg["classes"], dev)
+
+            def step():
+                return exe.run(main, feed=feed, fetch_list=[avg],
+                               return_numpy=False)[0]
+
+            # the warm-up steps also create the NCCL communicator
+            losses = [step() for _ in range(warm)]
+            _sync(torch, dev.type)
+            stats = mesh.sync_stats
+            stats.reset()
+            stats.timed = True
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            losses += [step() for _ in range(steps)]
+            _sync(torch, dev.type)
+            wall = time.monotonic() - t0
+            stats.timed = False
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            sync_ms = stats.device_ms() / steps if on_card else 0.0
+        losses = [float(x.reshape(())) for x in losses]
+        ref = phase16["losses"]
+        same = losses == ref
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        _on_card(card, "ResNet-50 bf16 b%d on the world-of-one NCCL mesh: "
+                 "%.3f ms/step (phase 16: %.3f), peak %.2f GiB (phase 16: "
+                 "%.2f); gradient sync %.0f bytes in %.1f buckets, %.4f ms "
+                 "device a step; losses %s phase 16's (max rel diff %.3e)"
+                 % (cfg["batch"], wall / steps * 1e3, phase16["ms_per_step"],
+                    peak / 2 ** 30, phase16["peak_mem_gib"],
+                    stats.bytes / steps, stats.buckets / steps,
+                    sync_ms, "bit-equal to" if same else "differ from",
+                    diff))
+        check(all(math.isfinite(x) for x in losses) and diff < 2e-2,
+              "phase 38: the mesh ResNet-50 losses %s left phase 16's %s"
+              % (losses, ref))
+        out.update(ms_per_step=wall / steps * 1e3,
+                   phase16_ms_per_step=phase16["ms_per_step"],
+                   peak_mem_gib=peak / 2 ** 30,
+                   sync_bytes_per_step=stats.bytes / steps,
+                   sync_buckets_per_step=stats.buckets / steps,
+                   sync_device_ms_per_step=sync_ms, losses=losses,
+                   losses_bit_equal_phase16=same,
+                   loss_rel_diff_phase16=diff)
+        del exe, feed, step
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+    # the mesh executor's host cost, within one window: the plain and
+    # the mesh executor in turns (plain, mesh, mesh, plain), 5 steps a
+    # turn after 2 warm-up steps each
+    torch.backends.cudnn.benchmark = True
+    try:
+        sides = {}
+        for kind in ("plain", "mesh"):
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(mesh=mesh) if kind == "mesh" else \
+                    fluid.Executor(fluid.CUDAPlace(0) if on_card
+                                   else fluid.CPUPlace())
+                exe.run(startup)
+                feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                                  cfg["classes"], exe.device)
+                for _ in range(warm):
+                    exe.run(main, feed=feed, fetch_list=[avg],
+                            return_numpy=False)
+            sides[kind] = (scope, exe, feed)
+        turns = {"plain": [], "mesh": []}
+        for kind in ("plain", "mesh", "mesh", "plain"):
+            scope, exe, feed = sides[kind]
+            with fluid.scope_guard(scope):
+                _sync(torch, exe.device.type)
+                t0 = time.monotonic()
+                for _ in range(turn_steps):
+                    exe.run(main, feed=feed, fetch_list=[avg],
+                            return_numpy=False)
+                _sync(torch, exe.device.type)
+                turns[kind].append((time.monotonic() - t0) / turn_steps
+                                   * 1e3)
+        del sides, scope, exe, feed
+        if on_card:
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = False
+    plain_ms, mesh_ms = (float(np.mean(turns[k])) for k in ("plain", "mesh"))
+    _on_card(card, "in turns (plain, mesh, mesh, plain; %d steps a turn): "
+             "plain %s ms/step, mesh %s ms/step; mesh / plain %.4f"
+             % (turn_steps, ["%.3f" % x for x in turns["plain"]],
+                ["%.3f" % x for x in turns["mesh"]], mesh_ms / plain_ms))
+    out.update(abba_plain_ms=turns["plain"], abba_mesh_ms=turns["mesh"],
+               abba_mesh_over_plain=mesh_ms / plain_ms)
+
+    # plain vs mesh from one startup, deterministic cuDNN: bit-equal
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for kind in ("plain", "mesh"):
+            scope = fluid.Scope()
+            with fluid.scope_guard(scope):
+                exe = fluid.Executor(mesh=mesh) if kind == "mesh" else \
+                    fluid.Executor(fluid.CUDAPlace(0) if on_card
+                                   else fluid.CPUPlace())
+                exe.run(startup)
+                feed = image_feed(torch, cfg["batch"], cfg["shape"],
+                                  cfg["classes"], exe.device)
+                ls = [exe.run(main, feed=feed, fetch_list=[avg])[0]
+                      for _ in range(check_steps)]
+            runs[kind] = (ls, fluid.scope_to_numpy(scope))
+            del scope, exe, feed
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lp, sp), (lm, sm) = runs["plain"], runs["mesh"]
+    bit = all(np.array_equal(a, b) for a, b in zip(lp, lm)) and \
+        sp.keys() == sm.keys() and all(np.array_equal(sp[n], sm[n])
+                                       for n in sp)
+    _on_card(card, "deterministic cuDNN, %d steps from one startup: plain "
+             "losses %s, mesh %s; losses and %d persistables %s"
+             % (check_steps, [float(x[0]) for x in lp],
+                [float(x[0]) for x in lm], len(sp),
+                "bit-equal" if bit else "DIFFER"))
+    check(bit, "phase 38: the world-of-one mesh step is not the plain step")
+    out["deterministic_bit_equal"] = bit
+
+    flash = phase_fluid_flash(torch, fluid, tfa, mesh=mesh, cfg=flash_cfg)
+    out["flash_launches"] = flash["launches"]
+    out["flash_max_abs_err"] = flash["max_abs_err"]
+    return out
+
+
+def _mesh_lenet(fluid, lenet):
+    return fluid_image_program(fluid, lenet.lenet, MESH_LENET["shape"],
+                               MESH_LENET["classes"], amp=False)
+
+
+def _mesh_ctr(fluid, ctr):
+    main, startup, _, loss, _ = ctr_program(fluid, ctr, "deepfm", MESH_CTR)
+    return main, startup, loss
+
+
+def _train(torch, fluid, main, startup, loss, feeds, exe):
+    """Startup, then one run a feed; (losses, every parameter whole)."""
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(np.ravel(exe.run(main, feed=f,
+                                         fetch_list=[loss])[0])[0])
+                  for f in feeds]
+    return losses, _params_of(fluid, main, scope)
+
+
+def _rows_of(feed, i, n):
+    """Block i of n along the batch of every feed value."""
+    return {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+            for k, v in feed.items()}
+
+
+def _mesh_feeds(torch, dev):
+    """The seeded batches phase 39 trains on (both sides build them)."""
+    res = image_feed(torch, FLUID_RESNET["batch"], FLUID_RESNET["shape"],
+                     FLUID_RESNET["classes"], dev)
+    lenet_feeds = [book_image_feed(torch, MESH_LENET, MESH_LENET["batch"],
+                                   dev, seed=s)
+                   for s in range(MESH_LENET["steps"])]
+    ctr_feeds = [ctr_batch(torch, dev, s, MESH_CTR)
+                 for s in range(MESH_CTR["steps"])]
+    async_feed = book_image_feed(torch, MESH_LENET, MESH_LENET["batch"]
+                                 * MESH_ASYNC_STEPS, dev, seed=39)
+    return res, lenet_feeds, ctr_feeds, async_feed
+
+
+def mesh_worker(rank, tmp, dev="cuda:0"):
+    """One of phase 39's two ranks (`chip_smoke.py --mesh-worker RANK
+    DIR`): a gloo group over a file store in DIR, both ranks on cuda:0
+    (NCCL refuses two ranks on one card, so gloo is named: a test
+    configuration, not a fallback). Runs (a)-(d) and writes its results
+    to DIR/rank<RANK>.npz."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid, parallel
+    from paddle_tpu_torch.models import ctr, lenet, resnet
+    from paddle_tpu_torch.parallel.mesh import P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), rank=rank, world_size=2)
+    res, lenet_feeds, ctr_feeds, async_feed = _mesh_feeds(torch, dev)
+    out = {}
+    dp = parallel.make_mesh({"data": 2}, device=dev)
+    tp = parallel.make_mesh({"data": 1, "model": 2}, device=dev)
+
+    # (a) ResNet-50 f32, 64 rows a rank of the global batch of 128
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=50),
+        FLUID_RESNET["shape"], FLUID_RESNET["classes"], amp=False)
+    losses, params = _train(torch, fluid, main, startup, avg,
+                            [_rows_of(res, rank, 2)] * 2,
+                            fluid.Executor(mesh=dp))
+    out["a_losses"] = np.asarray(losses)
+    for i, p in enumerate(params):
+        out["a_p%d" % i] = p
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) LeNet: its fc split over 'model', then FSDP over 'data'
+    main, startup, avg = _mesh_lenet(fluid, lenet)
+    fc_w = [op.inputs["Y"][0] for op in main.global_block().ops
+            if op.type == "mul"][0]
+    parallel.shard_parameter(main.global_block().var(fc_w), P("model", None))
+    losses, params = _train(torch, fluid, main, startup, avg, lenet_feeds,
+                            fluid.Executor(mesh=tp))
+    out["b_tp_losses"] = np.asarray(losses)
+    for i, p in enumerate(params):
+        out["b_tp_p%d" % i] = p
+    main, startup, avg = _mesh_lenet(fluid, lenet)
+    sharded = parallel.shard_parameters_fsdp(main, dp, min_size=1024)
+    check(len(sharded) >= 2, "phase 39: FSDP sharded %s" % sharded)
+    scope_shapes = {}
+    scope = fluid.Scope()
+    exe = fluid.Executor(mesh=dp)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        losses = [float(exe.run(main, feed=_rows_of(f, rank, 2),
+                                fetch_list=[avg])[0][0])
+                  for f in lenet_feeds]
+        for n in sharded:
+            scope_shapes[n] = (tuple(scope.get(n).shape),
+                               tuple(main.global_block().var(n).shape))
+    out["b_fsdp_losses"] = np.asarray(losses)
+    for i, p in enumerate(_params_of(fluid, main, scope)):
+        out["b_fsdp_p%d" % i] = p
+    out["b_fsdp_shapes"] = np.asarray(
+        [list(here) + list(full) for here, full in scope_shapes.values()
+         if len(here) == 2] or [[0, 0, 0, 0]])
+
+    # (c) DeepFM, both tables split along their rows over 'model'
+    main, startup, loss = _mesh_ctr(fluid, ctr)
+    for t in ("fm_table", "fm_w_table"):
+        parallel.shard_parameter(main.global_block().var(t), P("model", None))
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(mesh=tp)
+        exe.run(startup)
+        losses = [float(exe.run(main, feed=f, fetch_list=[loss])[0][0])
+                  for f in ctr_feeds]
+        out["c_rows_here"] = np.asarray(scope.get("fm_table").shape)
+    out["c_losses"] = np.asarray(losses)
+    for i, p in enumerate(_params_of(fluid, main, scope)):
+        out["c_p%d" % i] = p
+    del scope
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) local SGD: sync_every=1 against the synchronous step on the
+    # same mesh, and sync_every=4 (one round of independent replicas)
+    half = {k: v.reshape((MESH_ASYNC_STEPS, -1) + tuple(v.shape[1:]))
+            for k, v in async_feed.items()}
+    mine = {k: v[:, rank * (v.shape[1] // 2):(rank + 1) * (v.shape[1] // 2)]
+            for k, v in half.items()}
+    for every in (1, MESH_ASYNC_STEPS):
+        main, startup, avg = _mesh_lenet(fluid, lenet)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(mesh=dp)
+            exe.run(startup)
+            out["d_losses_%d" % every] = exe.run_async_local(
+                main, feed=mine, fetch_list=[avg],
+                steps=MESH_ASYNC_STEPS, sync_every=every)[0].ravel()
+        for i, p in enumerate(_params_of(fluid, main, scope)):
+            out["d%d_p%d" % (every, i)] = p
+    main, startup, avg = _mesh_lenet(fluid, lenet)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(mesh=dp)
+        exe.run(startup)
+        out["d_sync_losses"] = exe.run_repeated(
+            main, feed=mine, fetch_list=[avg], steps=MESH_ASYNC_STEPS,
+            scan_feeds=True)[0].ravel()
+    for i, p in enumerate(_params_of(fluid, main, scope)):
+        out["dsync_p%d" % i] = p
+    np.savez(os.path.join(tmp, "rank%d.npz" % rank), **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr, card="cpu",
+                         timeout=600, dev="cuda:0", worker_argv=None):
+    """Phase 39: two ranks of this script (`--mesh-worker`) on the one
+    card in a gloo group, against this process's single-device runs on
+    the same seeded batches: (a) ResNet-50 f32 2 steps, 64 rows a rank
+    of the global batch of 128 on {'data': 2} (batch norm over the
+    global batch), losses and parameters within 1e-4 relative; (b)
+    LeNet with its fc split over 'model' ({'data': 1, 'model': 2}) and
+    with FSDP ({'data': 2}) 3 Momentum steps, within 1e-5; (c) DeepFM
+    at full width with both tables split along their rows over 'model',
+    2 Adam steps, within 2e-5 absolute; (d) run_async_local on
+    {'data': 2}: sync_every=1 equals the synchronous step, sync_every=4
+    equals two independent replicas averaged, within 1e-5. Relative:
+    max |difference| over max |reference| of each tensor. (`dev` and
+    `worker_argv` let a rehearsal run both sides on the CPU.)"""
+    import tempfile
+
+    dev = torch.device(dev)
+    place = fluid.CUDAPlace(0) if dev.type == "cuda" else fluid.CPUPlace()
+    res, lenet_feeds, ctr_feeds, async_feed = _mesh_feeds(torch, dev)
+    ref = {}
+    t0 = time.monotonic()
+    main, startup, avg = fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=50),
+        FLUID_RESNET["shape"], FLUID_RESNET["classes"], amp=False)
+    ref["a"] = _train(torch, fluid, main, startup, avg, [res] * 2,
+                      fluid.Executor(place))
+    # the noise floor of (a): the same one-process steps on the batch
+    # with its halves swapped (the loss is the same function of it)
+    half = FLUID_RESNET["batch"] // 2
+    swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in res.items()}
+    ref["a_swapped"] = _train(torch, fluid, main, startup, avg,
+                              [swapped] * 2, fluid.Executor(place))
+    del swapped
+    _sync(torch, dev.type)
+    main, startup, avg = _mesh_lenet(fluid, lenet)
+    ref["b"] = _train(torch, fluid, main, startup, avg, lenet_feeds,
+                      fluid.Executor(place))
+    main, startup, loss = _mesh_ctr(fluid, ctr)
+    ref["c"] = _train(torch, fluid, main, startup, loss, ctr_feeds,
+                      fluid.Executor(place))
+    # (d)'s oracle: each replica trained alone on its half, then averaged
+    replicas = []
+    for r in range(2):
+        main, startup, avg = _mesh_lenet(fluid, lenet)
+        feeds = [_rows_of(_rows_of(async_feed, s, MESH_ASYNC_STEPS), r, 2)
+                 for s in range(MESH_ASYNC_STEPS)]
+        replicas.append(_train(torch, fluid, main, startup, avg, feeds,
+                               fluid.Executor(place))[1])
+    ref["d"] = [(a + b) / 2 for a, b in zip(*replicas)]
+    ref_s = time.monotonic() - t0
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks need the card's memory
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    here = os.path.abspath(__file__)
+    argv = worker_argv or [sys.executable, here, "--mesh-worker"]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(argv + [str(r), tmp], cwd=os.path.dirname(here),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and any(
+                p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate() for p in procs]
+    ranks_s = time.monotonic() - t0
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log("  rank %d exited %s; its stderr ends:\n%s"
+                % (r, p.returncode, se[-3000:]))
+        check(p.returncode == 0, "phase 39: rank %d failed" % r)
+    got = [dict(np.load(os.path.join(tmp, "rank%d.npz" % r)))
+           for r in range(2)]
+
+    def params(o, key):
+        return [o["%s_p%d" % (key, i)]
+                for i in range(sum(1 for k in o if k.startswith(key + "_p")))]
+
+    out = dict(reference_s=ref_s, ranks_s=ranks_s)
+    floor_loss = _rel_diff([np.asarray(ref["a_swapped"][0])],
+                           [np.asarray(ref["a"][0])])
+    floor_params = _rel_diff(ref["a_swapped"][1], ref["a"][1])
+    rows = []
+    for o in got:
+        la1 = abs(o["a_losses"][0] - ref["a"][0][0]) / abs(ref["a"][0][0])
+        la = _rel_diff([o["a_losses"]], [np.asarray(ref["a"][0])])
+        pa = _rel_diff(params(o, "a"), ref["a"][1])
+        lb = _rel_diff([o["b_tp_losses"], o["b_fsdp_losses"]],
+                       [np.asarray(ref["b"][0])] * 2)
+        pb = max(_rel_diff(params(o, "b_tp"), ref["b"][1]),
+                 _rel_diff(params(o, "b_fsdp"), ref["b"][1]))
+        lc = float(np.abs(o["c_losses"] - np.asarray(ref["c"][0])).max())
+        pc = max(float(np.abs(a - b).max())
+                 for a, b in zip(params(o, "c"), ref["c"][1]))
+        d1 = max(_rel_diff([o["d_losses_1"]], [o["d_sync_losses"]]),
+                 _rel_diff(params(o, "d1"), params(o, "dsync")))
+        d4 = _rel_diff(params(o, "d%d" % MESH_ASYNC_STEPS), ref["d"])
+        rows.append(dict(a_loss1=la1, a_loss=la, a_params=pa, b_loss=lb,
+                         b_params=pb,
+                         c_loss_abs=lc, c_params_abs=pc, d_sync1=d1,
+                         d_local4=d4))
+    worst = {k: max(r[k] for r in rows) for k in rows[0]}
+    fsdp = got[0]["b_fsdp_shapes"]
+    halved = all(h[0] * h[1] * 2 == f[0] * f[1]
+                 for h, f in zip(fsdp[:, :2], fsdp[:, 2:]))
+    rows_here = got[0]["c_rows_here"].tolist()
+    bar_loss = max(1e-4, 2 * floor_loss)
+    bar_params = max(1e-4, 2 * floor_params)
+    _on_card(card, "two gloo ranks on %s: (a) ResNet-50 f32 {data: 2} "
+             "first loss %.3e rel (bar 1e-4: batch norm over the global "
+             "batch); losses %.3e, params %.3e rel against a noise floor "
+             "of %.3e / %.3e (the one-process steps on the batch with its "
+             "halves swapped; bars 1e-4 or twice the floor); (b) LeNet TP "
+             "{data: "
+             "1, model: 2} and FSDP {data: 2} losses %.3e, params %.3e rel "
+             "(1e-5; FSDP shards hold half: %s); (c) DeepFM rows split "
+             "(%s a rank) losses %.3e, params %.3e abs (2e-5); (d) local "
+             "SGD sync_every=1 vs the synchronous step %.3e, sync_every=%d "
+             "vs independent replicas averaged %.3e rel (1e-5); references "
+             "%.1f s, ranks %.1f s"
+             % (dev, worst["a_loss1"], worst["a_loss"], worst["a_params"],
+                floor_loss, floor_params, worst["b_loss"],
+                worst["b_params"], halved, rows_here, worst["c_loss_abs"],
+                worst["c_params_abs"], worst["d_sync1"], MESH_ASYNC_STEPS,
+                worst["d_local4"], ref_s, ranks_s))
+    check(worst["a_loss1"] <= 1e-4 and worst["a_loss"] <= bar_loss
+          and worst["a_params"] <= bar_params,
+          "phase 39 (a): ResNet-50 on two ranks left the one-process step")
+    check(worst["b_loss"] <= 1e-5 and worst["b_params"] <= 1e-5 and halved,
+          "phase 39 (b): LeNet TP/FSDP left the one-process run")
+    check(worst["c_loss_abs"] <= 2e-5 and worst["c_params_abs"] <= 2e-5
+          and rows_here[0] * 2 == MESH_CTR["fields"] * MESH_CTR["per_field"],
+          "phase 39 (c): the row-split DeepFM left the one-process run")
+    check(worst["d_sync1"] <= 1e-5 and worst["d_local4"] <= 1e-5,
+          "phase 39 (d): local SGD left its references")
+    out.update(worst)
+    out.update(fsdp_half=halved, deepfm_rows_a_rank=rows_here[0],
+               a_floor_loss=floor_loss, a_floor_params=floor_params)
+    return out
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        return mesh_worker(int(sys.argv[2]), sys.argv[3])
     import importlib
 
     from paddle_tpu_torch import _build
@@ -5522,6 +6058,19 @@ def main():
     surface = phase_executor_surface(torch, fluid, resnet, lenet,
                                      recorder, card=card)
 
+    log("phase 38: the mesh executor on a world of one NCCL rank: "
+        "ResNet-50 bf16 AMP batch 128 beside phase 16, the flash program")
+    t0 = time.monotonic()
+    mesh1 = phase_mesh_world1(torch, fluid, resnet, tfa, fluid_resnet,
+                              card=card)
+    log("phase 39: two ranks on the card (gloo): ResNet-50 f32, LeNet "
+        "tensor-parallel and FSDP, row-split DeepFM, local SGD")
+    mesh2 = phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr,
+                                 card=card)
+    log("  phases 38-39 took %.1f s" % (time.monotonic() - t0))
+    from paddle_tpu_torch.parallel import DistributedContext
+    DistributedContext.shutdown()
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -5609,6 +6158,7 @@ def main():
             "replaces": FLASH_REPLACES[which],
             "launches": flash_launches[which],
             "fluid_launches": fluid_flash["launches"][which],
+            "mesh_launches": mesh1["flash_launches"][which],
             "max_abs_err": flash_errs["bfloat16"][which],
             "max_abs_err_f32": flash_errs["float32"][which],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -5648,7 +6198,9 @@ def main():
                                       resnet50_remat=remat,
                                       grad_accum=accum,
                                       model_average_pruning=ma_prune,
-                                      executor_surface=surface)))
+                                      executor_surface=surface,
+                                      mesh_world1=mesh1,
+                                      mesh_two_ranks=mesh2)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,10 @@ detection ops and layers, the learning-rate schedules
 (`learning_rate_decay`) and the evaluators (`evaluator`);
 `memory_optimize`, `Executor.run_grad_accum`, the program verifier
 (`run(validate=True)`), the numerics guard, the `profiler`, `debugger`,
-`op`, `default_scope_funcs`, `net_drawer` and `graphviz`. What is left
-is the mesh executor and the distribute transpiler (ROADMAP Queue A,
-the mesh item).
+`op`, `default_scope_funcs`, `net_drawer` and `graphviz`; the mesh
+executor (`Executor(mesh=...)`: data-, tensor- and FSDP-parallel
+programs, `run_async_local`, row-sharded tables; parallel/mesh.py) and
+the distribute transpiler with the pserver shims of `layers.io`.
 """
 
 from . import core
@@ -34,6 +35,7 @@ from . import evaluator
 from . import io
 from . import profiler
 from . import learning_rate_decay
+from . import distribute_transpiler
 from . import memory_optimization_transpiler
 from . import debugger
 from . import debugger as debuger  # reference module name (sic)
@@ -60,6 +62,8 @@ from .executor import (
     scope_to_numpy,
 )
 from .data_feeder import DataFeeder
+from .distribute_transpiler import (DistributeTranspiler,
+                                    SimpleDistributeTranspiler)
 from .memory_optimization_transpiler import memory_optimize, release_memory
 from .param_attr import ParamAttr, WeightNormParamAttr
 from .initializer import Constant, Normal, TruncatedNormal, Uniform, Xavier, MSRA
@@ -121,6 +125,8 @@ __all__ = [
     "scope_from_numpy",
     "scope_to_numpy",
     "DataFeeder",
+    "DistributeTranspiler",
+    "SimpleDistributeTranspiler",
     "ParamAttr",
     "WeightNormParamAttr",
     "CPUPlace",

@@ -124,7 +124,14 @@ def _scale(ctx, ins, attrs):
 @register_op("mean")
 def _mean(ctx, ins, attrs):
     # reference mean_op produces a [1] tensor
-    return {"Out": torch.mean(ins["X"][0]).reshape(1)}
+    x = ins["X"][0]
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
+    if sp:
+        # the global mean: the ranks' sums over the global count
+        total = ctx.spmd.all_reduce(torch.sum(x), sp.axes)
+        return {"Out": (total / (x.numel() * ctx.spmd.extent(sp.axes))
+                        ).reshape(1)}
+    return {"Out": torch.mean(x).reshape(1)}
 
 
 def _prod(x, dim, keepdim):
@@ -133,29 +140,60 @@ def _prod(x, dim, keepdim):
     return x
 
 
-def _reduce(fn):
+def _reduce(fn, kind):
     def kern(ctx, ins, attrs):
         x = ins["X"][0]
         keep = attrs.get("keep_dim", False)
         if attrs.get("reduce_all", False):
-            out = fn(x, tuple(range(x.dim())), False)
-            return {"Out": out.reshape((1,) * x.dim() if keep else (1,))}
-        dim = attrs.get("dim", 0)
-        dims = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
-        return {"Out": fn(x, dims, keep)}
+            dims = tuple(range(x.dim()))
+        else:
+            dim = attrs.get("dim", 0)
+            dims = tuple(d % max(x.dim(), 1) for d in (
+                dim if isinstance(dim, (list, tuple)) else (dim,)))
+        sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
+        if sp and sp.dim in dims:
+            out = _global_reduce(ctx.spmd, sp, x, dims, keep, fn, kind)
+        else:
+            out = fn(x, dims, keep)
+            if sp:  # a reduction over other dims keeps the split
+                d = sp.dim if keep else sp.dim - sum(1 for a in dims
+                                                     if a < sp.dim)
+                ctx.spmd.mark(ctx.op.outputs["Out"][0], sp._replace(dim=d))
+        if attrs.get("reduce_all", False):
+            out = out.reshape((1,) * x.dim() if keep else (1,))
+        return {"Out": out}
 
     return kern
 
 
+def _global_reduce(spmd, sp, x, dims, keep, fn, kind):
+    """A reduction over dims that include the split one: sums (and means,
+    over the global count) all-reduce the local result; max, min and
+    prod gather the ranks' partial results along the split dim and
+    reduce them again (both differentiable)."""
+    if kind in ("sum", "mean"):
+        out = spmd.all_reduce(torch.sum(x, dim=dims, keepdim=keep),
+                              sp.axes)
+        if kind == "mean":
+            count = spmd.extent(sp.axes)
+            for d in dims:
+                count *= x.shape[d]
+            out = out / count
+        return out
+    part = spmd.gather(fn(x, dims, True), sp)
+    out = fn(part, (sp.dim,), True)
+    return out if keep else out.squeeze(dims)
+
+
 register_op("reduce_sum")(_reduce(
-    lambda x, d, k: torch.sum(x, dim=d, keepdim=k)))
+    lambda x, d, k: torch.sum(x, dim=d, keepdim=k), "sum"))
 register_op("reduce_mean")(_reduce(
-    lambda x, d, k: torch.mean(x, dim=d, keepdim=k)))
+    lambda x, d, k: torch.mean(x, dim=d, keepdim=k), "mean"))
 register_op("reduce_max")(_reduce(
-    lambda x, d, k: torch.amax(x, dim=d, keepdim=k)))
+    lambda x, d, k: torch.amax(x, dim=d, keepdim=k), "max"))
 register_op("reduce_min")(_reduce(
-    lambda x, d, k: torch.amin(x, dim=d, keepdim=k)))
-register_op("reduce_prod")(_reduce(_prod))
+    lambda x, d, k: torch.amin(x, dim=d, keepdim=k), "min"))
+register_op("reduce_prod")(_reduce(_prod, "prod"))
 
 
 def _unary(fn):
@@ -194,16 +232,25 @@ def _clip(ctx, ins, attrs):
 def _clip_by_norm(ctx, ins, attrs):
     x = ins["X"][0]
     max_norm = attrs["max_norm"]
-    norm = torch.sqrt(torch.sum(torch.square(x)))
+    norm = torch.sqrt(_global_sum(ctx, "X", torch.sum(torch.square(x))))
     scale = torch.where(norm > max_norm,
                         max_norm / torch.clamp_min(norm, 1e-12),
                         torch.ones_like(norm))
     return {"Out": x * scale}
 
 
+def _global_sum(ctx, slot, local):
+    """`local`, a sum over all of input `slot`, summed over the ranks its
+    blocks lie on when that input is split (a shard's norm is its
+    parameter's)."""
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, slot)
+    return ctx.spmd.all_reduce(local, sp.axes) if sp else local
+
+
 @register_op("squared_l2_norm")
 def _squared_l2_norm(ctx, ins, attrs):
-    return {"Out": torch.sum(torch.square(ins["X"][0])).reshape(1)}
+    return {"Out": _global_sum(ctx, "X", torch.sum(
+        torch.square(ins["X"][0]))).reshape(1)}
 
 
 @register_op("squared_l2_distance")
@@ -277,7 +324,8 @@ def _cumsum(ctx, ins, attrs):
 @register_op("l1_norm")
 def _l1_norm(ctx, ins, attrs):
     """Out = sum(|x|) (reference operators/l1_norm_op.h)."""
-    return {"Out": torch.sum(torch.abs(ins["X"][0])).reshape(1)}
+    return {"Out": _global_sum(ctx, "X", torch.sum(
+        torch.abs(ins["X"][0]))).reshape(1)}
 
 
 @register_op("label_smooth")

@@ -197,8 +197,26 @@ def _batch_norm(ctx, ins, attrs):
         mean_out, var_out = mean_in, var_in
     else:
         xs = x.float()
-        mean = torch.mean(xs, dim=axes)
-        var = torch.mean(torch.square(xs), dim=axes) - torch.square(mean)
+        sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
+        if sp:
+            # the global batch's statistics: the ranks' per-channel sums
+            # of x and x^2 summed (differentiable), over the global count
+            if sp.dim == c_axis:
+                raise NotImplementedError(
+                    "batch_norm over a tensor split along its channel axis")
+            count = ctx.spmd.extent(sp.axes)
+            for d in axes:
+                count *= x.shape[d]
+            sums = ctx.spmd.all_reduce(torch.stack([
+                torch.sum(xs, dim=axes),
+                torch.sum(torch.square(xs), dim=axes)]), sp.axes) / count
+            mean = sums[0]
+            var = sums[1] - torch.square(mean)
+            ctx.spmd.mark(ctx.op.outputs["Y"][0], sp)
+        else:
+            mean = torch.mean(xs, dim=axes)
+            var = torch.mean(torch.square(xs), dim=axes) \
+                - torch.square(mean)
         with torch.no_grad():
             mean_out = mean_in.float() * momentum + mean * (1.0 - momentum)
             var_out = var_in.float() * momentum + var * (1.0 - momentum)
@@ -419,10 +437,19 @@ def _dropout(ctx, ins, attrs):
     if attrs.get("is_test", False) or ctx.is_test:
         # reference downscales at inference (upscale_in_train=False)
         return {"Out": x * (1.0 - p), "Mask": torch.ones_like(x)}
-    # jax.random.bernoulli(key, 1 - p, shape): uniform bits < 1 - p
-    keep = prng.uniform(ctx.next_key(), tuple(x.shape)) < (1.0 - p)
+    # jax.random.bernoulli(key, 1 - p, shape): uniform bits < 1 - p; on
+    # a mesh, this rank's rows of the draw over the global batch
+    keep = prng.uniform(ctx.next_key(), tuple(x.shape),
+                        offset=_draw_offset(ctx, "X", x.shape)) < (1.0 - p)
     mask = keep.to(x.dtype)
     return {"Out": x * mask, "Mask": mask}
+
+
+def _draw_offset(ctx, slot, shape):
+    """The flat offset of this rank's rows in a draw over the global
+    batch when input `slot` is split over the batch (0 off a mesh)."""
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, slot)
+    return ctx.spmd.global_draw(shape, sp)[1] if sp else 0
 
 
 @register_op("gaussian_random_noise")
@@ -431,7 +458,8 @@ def _gaussian_noise(ctx, ins, attrs):
     the op's key, so the samples are the JAX package's own (float32; a
     bf16 x takes the f32 draw cast to bf16, where JAX draws in bf16)."""
     x = ins["X"][0]
-    z = prng.normal(ctx.next_key(), tuple(x.shape)).to(x.device)
+    z = prng.normal(ctx.next_key(), tuple(x.shape),
+                    offset=_draw_offset(ctx, "X", x.shape)).to(x.device)
     return {"Out": x + (z * attrs.get("std", 1.0)).to(x.dtype)}
 
 
@@ -457,8 +485,12 @@ def _accuracy(ctx, ins, attrs):
     indices, label = ins["Indices"][0], ins["Label"][0]
     lbl = label.reshape(label.shape[0], 1).to(indices.dtype)
     num_correct = torch.any(indices == lbl, dim=1).to(torch.int32).sum()
-    total = torch.tensor(label.shape[0], dtype=torch.int32,
-                         device=indices.device)
+    rows = label.shape[0]
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "Indices")
+    if sp:  # the global batch's counts
+        num_correct = ctx.spmd.all_reduce(num_correct, sp.axes)
+        rows *= ctx.spmd.extent(sp.axes)
+    total = torch.tensor(rows, dtype=torch.int32, device=indices.device)
     return {"Accuracy": (num_correct.float() / total.float()).reshape(1),
             "Correct": num_correct.reshape(1), "Total": total.reshape(1)}
 
@@ -483,8 +515,15 @@ def _auc(ctx, ins, attrs):
     pos = (label > 0).float()
     neg = 1.0 - pos
     above = (score.float()[None, :] >= thresholds[:, None]).float()
-    tpr = (above * pos).sum(1) / torch.clamp_min(pos.sum(), 1.0)
-    fpr = (above * neg).sum(1) / torch.clamp_min(neg.sum(), 1.0)
+    # per threshold: positives above, negatives above; then the totals
+    counts = torch.cat([(above * pos).sum(1), (above * neg).sum(1),
+                        pos.sum().reshape(1), neg.sum().reshape(1)])
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "Out")
+    if sp:  # the global batch's counts
+        counts = ctx.spmd.all_reduce(counts, sp.axes)
+    n = thresholds.shape[0]
+    tpr = counts[:n] / torch.clamp_min(counts[2 * n], 1.0)
+    fpr = counts[n:2 * n] / torch.clamp_min(counts[2 * n + 1], 1.0)
     area = 0.5 * ((fpr[1:] - fpr[:-1]) * (tpr[1:] + tpr[:-1])).sum()
     return {"AUC": (-area).reshape(1)}
 

@@ -48,16 +48,19 @@ def _nce(ctx, ins, attrs):
             "neg_distribution has %d entries but num_total_classes is %d"
             % (len(neg_dist), num_total))
     key = ctx.next_key()
+    # on a mesh, this rank's rows of the noise drawn for the global batch
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "Input")
+    row0 = ctx.spmd.global_draw((N,), sp)[1] if sp else 0
     if neg_dist:
         # legacy NCELayer custom distribution (MultinomialSampler): noise
         # ids drawn ~ dist, and the NCE noise prob becomes k * q(id)
         dist = torch.tensor(neg_dist, dtype=torch.float32, device=x.device)
         dist = dist / torch.sum(dist)
         samples = prng.categorical(key, torch.log(dist)[None, :],
-                                   shape=(N, k))
+                                   shape=(N, k), offset=row0 * k * num_total)
     else:
         # the reference's default uniform Sampler
-        samples = prng.randint(key, (N, k), 0, num_total)
+        samples = prng.randint(key, (N, k), 0, num_total, offset=row0 * k)
     all_ids = torch.cat([label, samples.long()], dim=1)  # [N, T+k]
     flat = all_ids.reshape(-1)
     logits = torch.einsum("nd,nkd->nk", x,

@@ -206,6 +206,14 @@ def _lookup_table(ctx, ins, attrs):
     has_pad = padding_idx is not None and padding_idx >= 0
     out_name = ctx.op.outputs["Out"][0]
     leaf_name = ctx.sparse_sites.get(out_name)
+    spmd = ctx.spmd
+    if spmd is not None:
+        spmd.mark(out_name, spmd.input_split(ctx, "Ids"))
+        wsp = spmd.input_split(ctx, "W")
+        if wsp is not None:
+            out = _sharded_lookup(ctx, w, flat, wsp, leaf_name, out_name,
+                                  padding_idx if has_pad else None)
+            return {"Out": out.reshape(_lookup_shape(ids, w))}
     if leaf_name is not None:
         leaf = ctx.env[leaf_name]
         out = w[flat].to(leaf.dtype) + leaf
@@ -219,11 +227,40 @@ def _lookup_table(ctx, ins, attrs):
         # positions too
         out = torch.where((flat == padding_idx)[:, None],
                           torch.zeros_like(out), out)
-    if ids.shape[-1] == 1:
-        out_shape = tuple(ids.shape[:-1]) + (w.shape[1],)
-    else:
-        out_shape = tuple(ids.shape) + (w.shape[1],)
-    return {"Out": out.reshape(out_shape)}
+    return {"Out": out.reshape(_lookup_shape(ids, w))}
+
+
+def _lookup_shape(ids, w):
+    lead = tuple(ids.shape[:-1]) if ids.shape[-1] == 1 else tuple(ids.shape)
+    return lead + (w.shape[1],)
+
+
+def _sharded_lookup(ctx, w, flat, wsp, leaf_name, out_name, padding_idx):
+    """Lookup in a table split along its rows over `wsp.axes`
+    (parallel/embedding.py sharded_lookup): this rank gathers the ids in
+    its row range, zero rows for the rest, and the sum over the axes
+    gives every row once. A sparse site's leaf is added before the sum,
+    masked, so its gradient holds exactly the rows this rank owns, and
+    the site's rows are local row numbers with the sentinel `height`
+    (this shard's row count) for the others."""
+    from ...parallel.embedding import local_rows
+
+    local, owned = local_rows(flat, w.shape[0],
+                              ctx.spmd.index(wsp.axes))
+    rows = w[local]
+    if leaf_name is not None:
+        leaf = ctx.env[leaf_name]
+        rows = rows.to(leaf.dtype) + leaf
+        keep = owned if padding_idx is None else owned & (
+            flat != padding_idx)
+        ctx.env[out_name + "@sparse_rows"] = torch.where(
+            keep, local, w.shape[0])
+    rows = torch.where(owned[:, None], rows, torch.zeros_like(rows))
+    out = ctx.spmd.all_reduce(rows, wsp.axes)
+    if padding_idx is not None:
+        out = torch.where((flat == padding_idx)[:, None],
+                          torch.zeros_like(out), out)
+    return out
 
 
 @register_op("one_hot")
@@ -276,7 +313,10 @@ def _sampling_id(ctx, ins, attrs):
     (reference sampling_id_op.cc), through the ported categorical."""
     p = ins["X"][0]
     logits = torch.log(torch.clamp_min(p.float(), 1e-20))
-    ids = prng.categorical(ctx.next_key(), logits)
+    # on a mesh, this rank's rows of the draw over the global batch
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
+    ids = prng.categorical(ctx.next_key(), logits, offset=ctx.spmd
+                           .global_draw(p.shape, sp)[1] if sp else 0)
     return {"Out": ids.to(torch.int32)}
 
 

@@ -45,6 +45,12 @@ torch.no_grad(). The forward and tail regions of a training run are
 kernels, so a range around it would hold none); with no profiler active
 a range costs a few microseconds of host time per run.
 
+On a mesh (`spmd`, core/spmd.py) the same regions run on this rank's
+shard of the batch: split values carry marks as side-bands do, a
+parameter with a spec is read gathered, the loss's backward is seeded
+with 1/ranks, and the gradients are summed over the ranks (in buckets)
+before the tail runs on this rank's shards.
+
 LoD: ragged values carry their offsets as `x@LOD0` side-bands in the
 environment (registry.LoweringContext). After each op, `_share_lod`
 hands the first ragged input's offsets to every output that set none,
@@ -152,6 +158,8 @@ def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
                 val = val.detach()
             env[name] = val
     _share_lod(ctx, op, env)
+    if ctx.spmd is not None:
+        ctx.spmd.propagate(op, env)
 
 
 # ops whose outputs are dense even when inputs are ragged (the JAX
@@ -319,7 +327,7 @@ def _find_sparse_sites(fwd_ops, tail_ops, param_names, grad_names, env):
 
 def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
               is_test: bool = False, keep=(), host_lods=None,
-              op_timer=None) -> Dict[str, Any]:
+              op_timer=None, spmd=None) -> Dict[str, Any]:
     """Run `ops` of `block` over `env` (feeds and persistables by name)
     and return the final environment. `keep` names the values the caller
     reads afterwards besides the persistables (the fetches): the forward
@@ -327,7 +335,10 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     autograd can free them as it goes. `host_lods` maps each fed
     side-band of `env` ("x@LOD0") to its host copy. `op_timer` (the
     profiler's, fluid/profiler.py) times each op of the forward region
-    and the backward with the tail as one row."""
+    and the backward with the tail as one row. `spmd` (core/spmd.py) is
+    the run's view of a mesh: parameters with a spec are read gathered,
+    the loss's backward is seeded for the mesh, and the gradients are
+    summed over the ranks before the tail runs."""
     host_lods = host_lods or {}
     lengths = [int(np.diff(h).max()) for k, h in host_lods.items()
                if k.endswith(LOD_SUFFIX) and h.shape[0] > 1]
@@ -336,13 +347,23 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
     ctx.ops, ctx.keep = ops, keep
     ctx.fetch_names = frozenset(keep)
     ctx.op_timer = op_timer
+    ctx.spmd = spmd
     for key, host in host_lods.items():
         ctx.note_host_lod(env[key], host)
         ctx.has_lod = True
     fwd_ops, ad_op, tail_ops = _split_at_autodiff(ops)
     if ad_op is None:
         with torch.no_grad():
-            run_ops(ctx, fwd_ops, env)
+            if spmd is None:
+                run_ops(ctx, fwd_ops, env)
+            else:
+                work = dict(env)
+                bound = spmd.forward_reads(fwd_ops, work)
+                run_ops(ctx, fwd_ops, work)
+                # the environment keeps the shards the ops only read
+                env.update((k, v) for k, v in work.items()
+                           if bound.get(k) is not v)
+                spmd.mark_shards(env)
         return env
 
     loss_name = ad_op.attrs["loss_name"]
@@ -383,6 +404,8 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
                 requires_grad=True)
             fenv[name] = leaves[name]
     ctx.sparse_sites = site_leaf
+    if spmd is not None:
+        spmd.forward_reads(fwd_ops, fenv, sparse)
     live = set(env) | set(keep) | {loss_name}
     live |= {out + "@sparse_rows" for out in site_leaf}
     for op in tail_ops:
@@ -399,7 +422,7 @@ def run_block(block, ops, env: Dict[str, Any], device, base_key=None,
           else op_timer(BACKWARD_ROW, None, None)):
         _backward_and_tail(ctx, env, fenv, loss, leaves, dense_names,
                            sparse, site_leaf, site_rows, grad_names,
-                           param_names, tail_ops)
+                           param_names, tail_ops, loss_name)
     return env
 
 
@@ -425,30 +448,37 @@ def _forward_region(ctx, fwd_ops, fenv, live, amp=False, remat=False):
     return {k: v for k, v in fenv.items() if k in live}
 
 
-def _loss_grads(loss, leaves):
+def _loss_grads(loss, leaves, seed: float = 1.0):
     """The gradients of `loss` w.r.t. `leaves`, by leaf name (None for a
-    leaf the loss does not reach)."""
+    leaf the loss does not reach), the backward seeded with `seed`."""
     if not loss.requires_grad:
         return dict.fromkeys(leaves)
     return dict(zip(leaves, torch.autograd.grad(
-        loss, list(leaves.values()), grad_outputs=torch.ones_like(loss),
-        allow_unused=True)))
+        loss, list(leaves.values()),
+        grad_outputs=torch.full_like(loss, seed), allow_unused=True)))
 
 
 def _backward_and_tail(ctx, env, fenv, loss, leaves, dense_names, sparse,
                        site_leaf, site_rows, grad_names, param_names,
-                       tail_ops):
+                       tail_ops, loss_name=None):
     """The gradients of the forward region's loss bound to their @GRAD
-    names in `env`, then the tail ops under no_grad (run_block)."""
-    grads = _loss_grads(loss, leaves)
+    names in `env` (summed over the mesh's ranks on a mesh), then the
+    tail ops under no_grad (run_block)."""
+    spmd = ctx.spmd
+    seed = 1.0 if spmd is None else spmd.loss_seed(loss_name)
+    grads = _loss_grads(loss, leaves, seed)
     # forward-region values win, but the parameters go back to the
     # scope's own f32 tensors (the tail updates those in place)
     originals = {p: env[p] for p in param_names}
     env.clear()
     env.update(fenv)
     env.update(originals)
+    dense = {p: grads[p] for p in dense_names if grads[p] is not None}
+    if spmd is not None:
+        with torch.no_grad(), record_function("fluid/grad_sync"):
+            dense = spmd.sync_dense(dense)
     for p in dense_names:
-        g = grads[p]
+        g = dense.get(p)
         env[grad_names[p]] = g if g is not None \
             else torch.zeros_like(originals[p])
     for p, sites in sparse.items():
@@ -457,9 +487,15 @@ def _backward_and_tail(ctx, env, fenv, loss, leaves, dense_names, sparse,
             g = grads[site_leaf[out]]
             vals.append(g if g is not None
                         else torch.zeros_like(leaves[site_leaf[out]]))
-        env[grad_names[p]] = SelectedRows(
+        sr = SelectedRows(
             torch.cat([site_rows[out].reshape(-1) for out, _ in sites]),
             torch.cat(vals).float(), originals[p].shape[0])
+        if spmd is not None:
+            with torch.no_grad():
+                sr = spmd.sync_sparse(p, sr)
+        env[grad_names[p]] = sr
+    if spmd is not None:
+        spmd.mark_shards(env, grad_names)
     with torch.no_grad(), record_function("fluid/optimizer"):
         run_ops(ctx, tail_ops, env)
 

@@ -137,6 +137,8 @@ class LoweringContext(object):
         self.sparse_sites: dict = {}
         # the profiler's per-op timer (fluid/profiler.py), or None
         self.op_timer = None
+        # the run's view of a mesh (spmd.py), or None off a mesh
+        self.spmd = None
 
     @property
     def has_lod(self) -> bool:
@@ -177,6 +179,7 @@ class LoweringContext(object):
         sub._lod_flag = self._lod_flag
         sub._recompute_flag = self._recompute_flag
         sub._host_lods = self._host_lods
+        sub.spmd = self.spmd
         sub._reads = _ALL
         return sub
 

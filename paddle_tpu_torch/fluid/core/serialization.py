@@ -78,9 +78,12 @@ def _spec_to_json(spec):
 
 
 def _spec_from_json(entries):
-    """The port runs no mesh yet: a spec read from a file is kept as the
-    tuple of its entries, so the program writes it back unchanged."""
-    return tuple(tuple(e) if isinstance(e, list) else e for e in entries)
+    """A spec read from a file, as the port's PartitionSpec
+    (parallel/mesh.py)."""
+    from ...parallel.mesh import PartitionSpec
+
+    return PartitionSpec(*(tuple(e) if isinstance(e, list) else e
+                           for e in entries))
 
 
 def program_to_dict(program: Program) -> Dict[str, Any]:

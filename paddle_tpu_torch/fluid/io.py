@@ -66,7 +66,7 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None):
         # (inference.cc load_npy) can mmap-read it directly
         np.save(
             os.path.join(dirname, _escape(name) + ".npy"),
-            np.ascontiguousarray(as_numpy(scope.get(name))),
+            np.ascontiguousarray(as_numpy(scope.full(name))),
         )
 
 

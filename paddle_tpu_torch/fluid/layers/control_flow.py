@@ -68,16 +68,22 @@ def Print(input, first_n=-1, message=None, summarize=20,
 
 
 def get_places(device_count=None, device_type=None):
-    """Reference layers/device.py get_places: the devices a ParallelDo
-    would split over. Here: the CUDA devices torch sees, or one CPU
-    place where there is none (informational: ParallelDo inlines its ops
-    on the executor's one device)."""
+    """Reference layers/device.py get_places: the places a ParallelDo
+    would split over: one per rank of the default mesh (informational,
+    since the mesh executor does the splitting), else the CUDA devices
+    torch sees, or one CPU place where there is none."""
     import torch
 
+    from ...parallel.mesh import get_default_mesh
     from ..core import CPUPlace, CUDAPlace
 
     n = device_count
     if not n:
+        mesh = get_default_mesh()
+        if mesh is not None:
+            place = CUDAPlace if mesh.device.type == "cuda" else \
+                (lambda i: CPUPlace())
+            return [place(i) for i in range(mesh.size)]
         n = torch.cuda.device_count()
         if not n:
             return [CPUPlace()]
@@ -90,12 +96,13 @@ class ParallelDo(object):
     which splits the batch across per-place scopes, runs the sub-block on
     each device and averages gradients).
 
-    The port's executor runs one device (the mesh executor is not
-    ported), so the ops written inside `do()` inline straight into the
-    parent program (no sub-block), as the JAX package does without a
-    mesh, and the per-place output-gather is the identity: a per-example
-    output already spans the batch, and a per-place mean over equal
-    splits equals the global mean. The reference API (read_input /
+    On a mesh the executor already runs every rank over its shard of
+    the batch and sums the gradients, so the mesh IS the per-place split
+    (the JAX package's redesign): the ops written inside `do()` inline
+    straight into the parent program (no sub-block), and the per-place
+    output-gather is the identity: a per-example output already spans
+    the global batch, and a per-place mean over equal splits equals the
+    global mean (a mean over the batch is global on a mesh). The reference API (read_input /
     write_output / `pd()`) is kept so scripts like benchmark/cluster/
     vgg16/vgg16_fluid.py run unchanged."""
 

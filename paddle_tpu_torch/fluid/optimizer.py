@@ -598,12 +598,16 @@ class ModelAverage(object):
             # ParamAttr(do_model_average=False) opts a parameter out
             if not p.trainable or getattr(p, "do_model_average", True) is False:
                 continue
+            spec = program.shardings.get(p.name)
             sums = []
             for sfx in self.SUM_SUFFIXES:
                 v = tensor_layers.create_global_var(
                     name=self._slot(p.name, sfx), shape=list(p.shape),
                     value=0.0, dtype=p.dtype, persistable=True,
                 )
+                # sum slots of sharded params live on the param's spec
+                if spec is not None:
+                    program.shardings[v.name] = spec
                 sums.append(v)
             cnts = [
                 tensor_layers.create_global_var(
@@ -704,13 +708,13 @@ class ModelAverage(object):
                 )
                 n = count(sc.get(self._slot(pname, "@NUM_ACC"))) + count(
                     sc.get(self._slot(pname, "@OLD_NUM_ACC")))
-                sc.set(pname, (s / max(n, 1)).to(live.dtype))
+                sc.update(pname, (s / max(n, 1)).to(live.dtype))
             try:
                 yield
             finally:
                 if need_restore:
                     for pname, val in saved.items():
-                        sc.set(pname, val)
+                        sc.update(pname, val)
 
         return _ctx()
 

@@ -1,12 +1,22 @@
-"""Attention primitives and the kernel wrappers (counterpart of
-paddle_tpu/parallel/). Only the single-device pieces the serving and
-training slices need are ported: `reference_attention`,
+"""Attention primitives, the kernel wrappers and the mesh (counterpart
+of paddle_tpu/parallel/). Ported: `reference_attention`,
 `sequence_parallel_attention` without a mesh, the flash-attention
 wrapper and the three paged-attention wrappers (each taking int8/fp8
-pools with per-block scales) with their plain version."""
+pools with per-block scales) with their plain version; the mesh over
+torch.distributed (mesh.py: `make_mesh`, `make_hybrid_mesh`,
+`shard_parameter`, `shard_parameters_fsdp`, `DistributedContext`), its
+collectives (collectives.py), local SGD (async_sgd.py) and row-sharded
+embedding tables (embedding.py). The Fluid executor runs programs on a
+mesh (fluid/executor.py). Not ported yet (ROADMAP Queue A): ring,
+Ulysses and zigzag sequence parallelism, the MoE and pipeline layers."""
 
 from .attention import reference_attention, sequence_parallel_attention
+from .embedding import ShardedEmbedding, sharded_lookup
 from .flash_attention import flash_attention
+from .mesh import (DistributedContext, PartitionSpec, data_parallel_axes,
+                   data_sharding, get_default_mesh, make_hybrid_mesh,
+                   make_mesh, replicated, set_default_mesh, shard_parameter,
+                   shard_parameters_fsdp, spans_processes)
 from .paged_attention import (paged_attention_plain, paged_decode_attention,
                               paged_prefill_attention,
                               paged_verify_attention)
@@ -14,4 +24,8 @@ from .paged_attention import (paged_attention_plain, paged_decode_attention,
 __all__ = ["reference_attention", "sequence_parallel_attention",
            "flash_attention", "paged_decode_attention",
            "paged_verify_attention", "paged_prefill_attention",
-           "paged_attention_plain"]
+           "paged_attention_plain", "make_mesh", "make_hybrid_mesh",
+           "get_default_mesh", "set_default_mesh", "shard_parameter",
+           "shard_parameters_fsdp", "data_sharding", "replicated",
+           "data_parallel_axes", "spans_processes", "PartitionSpec",
+           "DistributedContext", "sharded_lookup", "ShardedEmbedding"]

@@ -86,21 +86,26 @@ def split(key, num: int = 2):
     return torch.stack([y1, y2], dim=-1)
 
 
-def _bits32(key, n: int):
+def _bits32(key, n: int, offset: int = 0):
     """32 random bits per element of a flat [n] counter range for each
     key in the batch: keys [..., 2] -> [..., n] (partitionable layout:
-    counter i is the uint64 (hi, lo) = (i >> 32, i & 0xffffffff))."""
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    counter i is the uint64 (hi, lo) = (i >> 32, i & 0xffffffff)). With
+    `offset`, the range starts at counter `offset`: elements offset ..
+    offset + n - 1 of a larger draw, bit for bit (a rank's slice of a
+    draw over the global batch, fluid/core/spmd.py)."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64,
+                     device=key.device)
     b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], i >> 32, i & _M)
     return b1 ^ b2
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0):
+def uniform(key, shape, minval=0.0, maxval=1.0, offset=0):
     """jax.random.uniform(key, shape, float32, minval, maxval) for one
     key [2]: the mantissa of 1.0 filled with the top 23 random bits,
-    scaled into [minval, maxval)."""
+    scaled into [minval, maxval). `offset`: the elements from flat index
+    `offset` on of a larger draw (_bits32)."""
     shape = tuple(shape)
-    bits = _bits32(key, int(np.prod(shape, dtype=np.int64)))
+    bits = _bits32(key, int(np.prod(shape, dtype=np.int64)), offset)
     return _to_uniform(bits, minval, maxval).reshape(shape)
 
 
@@ -112,7 +117,7 @@ def _mul32(a, b):
     return (lo + hi) & _M
 
 
-def randint(key, shape, minval, maxval):
+def randint(key, shape, minval, maxval, offset=0):
     """jax.random.randint(key, shape, minval, maxval) with its default
     int32 dtype, for one key [2] and integer bounds (jax/_src/random.py
     _randint): 32 bits from each half of split(key), combined modulo
@@ -126,7 +131,7 @@ def randint(key, shape, minval, maxval):
     span = (hi - lo) & _M if hi > lo else 1
     n = int(np.prod(shape, dtype=np.int64))
     k1, k2 = split(key, 2)
-    higher, lower = _bits32(k1, n), _bits32(k2, n)
+    higher, lower = _bits32(k1, n, offset), _bits32(k2, n, offset)
     mult = (((1 << 16) % span) ** 2 & _M) % span
     off = (_mul32(higher % span, torch.full_like(higher, mult))
            + lower % span) & _M
@@ -138,11 +143,11 @@ def randint(key, shape, minval, maxval):
 _SQRT2_F32 = float(np.float32(np.sqrt(2)))
 
 
-def normal(key, shape):
+def normal(key, shape, offset=0):
     """jax.random.normal(key, shape) in float32: sqrt(2) * erfinv(u) over
     uniform bits in (-1, 1) (jax/_src/random.py _normal_real)."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
-    return _SQRT2_F32 * torch.erfinv(uniform(key, shape, lo, 1.0))
+    return _SQRT2_F32 * torch.erfinv(uniform(key, shape, lo, 1.0, offset))
 
 
 def truncated_normal(key, lower, upper, shape):
@@ -175,7 +180,7 @@ def _to_uniform(bits, minval, maxval):
     return out.clamp_min(float(lo))
 
 
-def categorical(key, logits, shape=None):
+def categorical(key, logits, shape=None, offset=0):
     """Sample over the last axis of float32 `logits` with the Gumbel-max
     trick, as jax.random.categorical(key, logits, axis=-1) (gumbel mode
     "low"). `key` is one key [2] — the gumbel noise then spans the
@@ -183,16 +188,18 @@ def categorical(key, logits, shape=None):
     [*B, V], which is `jax.vmap(categorical)` over the rows. `shape`
     (one key only) draws samples of that shape from logits whose batch
     dims broadcast to it, as JAX's `shape=` does: the noise then spans
-    shape + [V]."""
+    shape + [V]. `offset` (one key only) starts the noise at that flat
+    element of a larger draw (_bits32)."""
     V = logits.shape[-1]
     if shape is not None:
         if key.dim() != 1:
             raise ValueError("categorical(shape=...) takes one key")
         noise_shape = tuple(shape) + (V,)
-        bits = _bits32(key, int(np.prod(noise_shape, dtype=np.int64)))
+        bits = _bits32(key, int(np.prod(noise_shape, dtype=np.int64)),
+                       offset)
         bits = bits.reshape(noise_shape)
     elif key.dim() == 1:
-        bits = _bits32(key, logits.numel()).reshape(logits.shape)
+        bits = _bits32(key, logits.numel(), offset).reshape(logits.shape)
     else:
         if tuple(key.shape[:-1]) != tuple(logits.shape[:-1]):
             raise ValueError("per-row keys %s do not match logits %s"

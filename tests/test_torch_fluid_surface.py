@@ -414,14 +414,18 @@ def test_fluid_all_covers_the_jax_packages():
         assert hasattr(TF, name), name
     missing = {n for n in dir(JF) if not n.startswith("_")
                and not hasattr(TF, n)}
-    # the mesh item of ROADMAP Queue A
-    assert missing == {"DistributeTranspiler", "SimpleDistributeTranspiler",
-                       "distribute_transpiler"}
+    # the mesh executor and the transpiler are ported too: nothing left
+    assert missing == set()
 
 
 def test_only_the_mesh_refuses():
+    """What still refuses is about the mesh, and says so: local SGD
+    without a mesh, gradient accumulation on one (as in the JAX
+    package); the mesh executor itself takes a mesh."""
     exe = TF.Executor(TF.CPUPlace())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh with a 'data' axis"):
         exe.run_async_local()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TF.Executor(TF.CPUPlace(), mesh=object())
+    mesh_exe = TF.Executor(TF.CPUPlace(), mesh=object())
+    assert mesh_exe.mesh is not None
+    with pytest.raises(NotImplementedError, match="on a mesh"):
+        mesh_exe.run_grad_accum()

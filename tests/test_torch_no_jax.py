@@ -41,8 +41,12 @@ def test_importing_every_module_leaves_jax_out():
                  "core.kernels_detection", "layers.detection",
                  "memory_optimization_transpiler", "profiler", "debugger",
                  "debuger", "net_drawer", "graphviz", "op",
-                 "default_scope_funcs"):
+                 "default_scope_funcs", "distribute_transpiler",
+                 "distribute_transpiler_simple", "distributed_spliter",
+                 "core.spmd"):
         assert "paddle_tpu_torch.fluid." + name in mods
+    for name in ("mesh", "collectives", "async_sgd", "embedding"):
+        assert "paddle_tpu_torch.parallel." + name in mods
     for name in ("analysis", "analysis.program_lint",
                  "analysis.diagnostics", "utils.flags"):
         assert "paddle_tpu_torch." + name in mods
