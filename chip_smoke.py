@@ -264,6 +264,23 @@ Phases (any failure exits non-zero):
      (1e-5), DeepFM at phase 27's width with both tables split along
      their rows (2e-5 absolute), run_async_local at sync_every 1 and 4
      (1e-5); a failing rank fails the phase;
+ 40. the legacy `paddle train` stack (paddle_tpu_torch.trainer, the
+     configs of benchmarks/paddle as they stand): run_config(job="time")
+     on resnet.py (ResNet-50, 224, batch 64), alexnet.py, googlenet.py
+     and smallnet_mnist_cifar.py (batch 128), vgg.py (VGG-19, batch 64)
+     and rnn/rnn.py (batch 128, hidden 128, 100 tokens), f32, with
+     cudnn.benchmark on; num_samples is cut to 15 batches a config (the
+     trainer reports how many it timed after its warm-up: 10); each
+     config's ms/batch and samples/s from the trainer's own "Time:"
+     line; ResNet-50's time job beside its own program on one fixed
+     batch on the card (no provider, no feeder), timed twice: with the
+     cost read back every step, as the trainer reads it, and queued
+     with one sync at the end, as phase 16 times its program; and
+     phase 16's Fluid ResNet-50 program at the same batch 64 and f32;
+     smallnet card vs CPU for 3 batches from one saved init (costs and
+     every saved value within 1e-4, cuDNN deterministic); a save_dir ->
+     init_model_path resume on the card whose pass equals the
+     uninterrupted run's second pass (costs within 1e-6);
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases 13
  and 14, the flash entries their Fluid launches in phases 18 and 38; no Hopper
@@ -2115,13 +2132,13 @@ def profile_fluid(torch, run, n, label, extra_regions=()):
 
 
 def phase_fluid_resnet(torch, fluid, resnet, profile=False, warm=2,
-                       steps=10, place=None, cfg=FLUID_RESNET):
+                       steps=10, place=None, cfg=FLUID_RESNET, amp=True):
     """Phase 16: the headline ResNet-50 configuration trained through the
     port's Fluid Executor on the card (`place` and `cfg` shrink it for a
-    rehearsal on the CPU)."""
+    rehearsal on the CPU; phase 40 runs it in f32, `amp=False`)."""
     main, startup, avg = fluid_image_program(
         fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=cfg["depth"]),
-        cfg["shape"], cfg["classes"], amp=True)
+        cfg["shape"], cfg["classes"], amp=amp)
     scope = fluid.Scope()
     torch.backends.cudnn.benchmark = True
     try:
@@ -2159,14 +2176,16 @@ def phase_fluid_resnet(torch, fluid, resnet, profile=False, warm=2,
             check(losses[-1] < losses[0], "the Fluid ResNet-50 loss did not "
                   "fall on a fixed batch: %s" % losses)
             ips = cfg["batch"] * steps / wall
-            share = ips * 3 * RESNET50_FWD_FLOPS / PEAK_FLOPS["bfloat16"]
+            peak_flops = PEAK_FLOPS["bfloat16" if amp else "float32"]
+            share = ips * 3 * RESNET50_FWD_FLOPS / peak_flops
             log("  %d parameters; startup %.1f s, %d warm-up steps %.1f s "
                 "(cudnn.benchmark on)" % (n_params, startup_s, warm, warm_s))
             log("  losses %s" % ", ".join("%.4f" % x for x in losses))
             log("  %d steps of batch %d: %.3f ms/step, %.1f img/s, peak "
-                "device memory %.2f GiB, FLOP share %.4f of 989 TFLOP/s "
+                "device memory %.2f GiB, FLOP share %.4f of %.0f TFLOP/s "
                 "(bench.py's count)" % (steps, cfg["batch"], wall / steps
-                                        * 1e3, ips, peak / 2 ** 30, share))
+                                        * 1e3, ips, peak / 2 ** 30, share,
+                                        peak_flops / 1e12))
             out = dict(img_per_s=ips, ms_per_step=wall / steps * 1e3,
                        peak_mem_gib=peak / 2 ** 30, flop_share=share,
                        losses=losses, startup_s=startup_s, warm_s=warm_s)
@@ -5849,6 +5868,253 @@ def phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr, card="cpu",
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 40: the legacy `paddle train` stack on the benchmark configs
+# ---------------------------------------------------------------------
+
+# (name, config in the checkout, its default batch); every other knob
+# of the configs stays at its default
+LEGACY_CONFIGS = (
+    ("resnet", "benchmarks/paddle/image/resnet.py", 64),
+    ("alexnet", "benchmarks/paddle/image/alexnet.py", 128),
+    ("googlenet", "benchmarks/paddle/image/googlenet.py", 128),
+    ("smallnet", "benchmarks/paddle/image/smallnet_mnist_cifar.py", 128),
+    ("vgg", "benchmarks/paddle/image/vgg.py", 64),
+    ("rnn", "benchmarks/paddle/rnn/rnn.py", 128),
+)
+# batches: each time job's num_samples in batches (the trainer leaves
+# its warm-up out of "Time:" and reports how many it timed); steps: the
+# timed steps of ResNet-50's program alone and of phase 16's; args:
+# extra config_args by config name; fluid: phase 16's configuration at
+# resnet.py's batch; parity: smallnet's config_args for the card-vs-CPU
+# and resume checks. A rehearsal on the CPU shrinks them.
+LEGACY = dict(batches=15, steps=10, args={},
+              fluid=dict(FLUID_RESNET, batch=64), parity={})
+LEGACY_LOG_PERIOD = 5  # the CLI's --log_period
+
+
+def _here(rel):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def _fresh_legacy_names():
+    """A config names its layers and parameters from counters of the
+    process, which a new process starts at zero: two runs in this
+    process name alike (one's checkpoint loads into the other, as across
+    two `python -m paddle_tpu_torch.trainer` processes) only from zeroed
+    counters."""
+    from paddle_tpu_torch.fluid.core import program
+    from paddle_tpu_torch.v2.layer import Layer
+
+    Layer._counters.clear()
+    program._unique_counters.clear()
+
+
+def _legacy_build(path, args):
+    """A config's Topology from fresh names: (topo, its cost, settings)."""
+    from paddle_tpu_torch import trainer
+
+    _fresh_legacy_names()
+    state, topo, cost = trainer.build_topology(path, args)
+    return topo, cost, state["settings"]
+
+
+def _legacy_run(**kw):
+    """One run_config from fresh names: (stats, with the cost of every
+    batch it trained, its stdout, wall seconds)."""
+    import contextlib
+    import io
+
+    from paddle_tpu_torch import trainer
+
+    _fresh_legacy_names()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        stats = trainer.run_config(log_period=LEGACY_LOG_PERIOD, **kw)
+    return stats, buf.getvalue(), time.monotonic() - t0
+
+
+def _legacy_program_ms(torch, fluid, path, args, place, steps, warm=2):
+    """ms/step of a config's program (its Topology and optimizer, as
+    run_config builds them) on one fixed batch already on the device:
+    the legacy lowering's step without the provider and the feeder.
+    Timed twice: `read_back` fetches the cost to the host every step, as
+    the trainer does; `queued` leaves it on the device and syncs once,
+    as phase 16 times its program."""
+    topo, cost, st = _legacy_build(path, args)
+    with fluid.program_guard(topo.main_program, topo.startup_program):
+        st["learning_method"].make(st["learning_rate"]).minimize(cost)
+    exe = fluid.Executor(place or fluid.CUDAPlace(0))
+    dev = exe.device
+    rng = np.random.RandomState(0)
+    batch = st["batch_size"]
+    feed = {}
+    for name, node in topo.data_layers().items():
+        t = node.attrs["type"]
+        if t.type == 3:  # an integer label
+            v = rng.randint(0, t.dim, (batch, 1)).astype(np.int64)
+        else:
+            v = rng.rand(batch, t.dim).astype(np.float32)
+        feed[name] = torch.from_numpy(v).to(dev)
+    out = {}
+    with fluid.scope_guard(fluid.Scope()):
+        exe.run(topo.startup_program)
+        for mode, numpy in (("read_back", True), ("queued", False)):
+            for _ in range(warm):
+                exe.run(topo.main_program, feed=feed, fetch_list=[cost],
+                        return_numpy=numpy)
+            _sync(torch, dev.type)
+            t0 = time.monotonic()
+            for _ in range(steps):
+                exe.run(topo.main_program, feed=feed, fetch_list=[cost],
+                        return_numpy=numpy)
+            _sync(torch, dev.type)
+            out[mode] = (time.monotonic() - t0) / steps * 1e3
+    return out
+
+
+def _legacy_saved(fluid, path):
+    from paddle_tpu_torch.distributed import load_checkpoint
+
+    scope = fluid.Scope()
+    load_checkpoint(scope, path)
+    return {n: np.asarray(scope.get(n)) for n in scope.keys()}
+
+
+def phase_legacy(torch, fluid, resnet, card="cpu", place=None, cfg=LEGACY):
+    """Phase 40 (see the module docstring); `place` (a CPUPlace) and
+    `cfg` shrink it for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed import save_checkpoint
+
+    use_gpu = place is None
+    paths = dict((n, _here(r)) for n, r, _ in LEGACY_CONFIGS)
+    out = {"card": card, "batches": cfg["batches"]}
+    torch.backends.cudnn.benchmark = True
+    try:
+        prog = _legacy_program_ms(torch, fluid, paths["resnet"],
+                                  cfg["args"].get("resnet", {}), place,
+                                  cfg["steps"])
+        out["resnet_program_ms"] = prog
+        log("  resnet.py's program alone, one fixed batch on the device: "
+            "%.3f ms/step reading the cost back every step, %.3f queued "
+            "with one sync" % (prog["read_back"], prog["queued"]))
+        for name, rel, batch in LEGACY_CONFIGS:
+            extra = dict(cfg["args"].get(name, {}))
+            b = int(extra.get("batch_size", batch))
+            stats, text, wall = _legacy_run(
+                config_path=paths[name], job="time", use_gpu=use_gpu,
+                config_args=dict(extra,
+                                 num_samples=str(b * cfg["batches"])))
+            for line in text.splitlines():
+                log("  %s: %s" % (name, line))
+            m = re.search(r"^Time: ([0-9.]+) ms/batch \(([0-9.]+) "
+                          r"samples/sec\)$", text, re.M)
+            check(m is not None, "phase 40: %s printed no Time line" % name)
+            costs = stats["costs"]
+            check(stats["batches"] == cfg["batches"] and stats["timed"] > 0
+                  and all(math.isfinite(c) for c in costs),
+                  "phase 40: %s trained %d batches, timed %d, costs %s"
+                  % (name, stats["batches"], stats["timed"], costs))
+            out[name] = dict(batch=b, ms_per_batch=float(m.group(1)),
+                             samples_per_s=float(m.group(2)),
+                             trainer_ms_unrounded=stats["ms_per_batch"],
+                             timed=stats["timed"], wall_s=wall,
+                             first_cost=costs[0], last_cost=costs[-1])
+            log("  %s batch %d: %.3f ms/batch over %d timed batches, %.1f "
+                "samples/s (the trainer's line), %.1f s for the whole "
+                "run_config" % (name, b, stats["ms_per_batch"],
+                                stats["timed"], stats["img_per_sec"], wall))
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+    # ResNet-50 through the legacy lowering beside phase 16's Fluid
+    # program at the legacy config's batch and precision: the time job
+    # over its program read back every step (the provider and the
+    # feeder), that over the program queued (the per-step read-back),
+    # that over phase 16's program, timed alike (the lowering)
+    fl = phase_fluid_resnet(torch, fluid, resnet, warm=2, steps=cfg["steps"],
+                            amp=False, place=place, cfg=cfg["fluid"])
+    job = out["resnet"]["ms_per_batch"]
+    out["resnet_fluid_program"] = dict(ms_per_step=fl["ms_per_step"],
+                                       img_per_s=fl["img_per_s"])
+    out["resnet_split"] = dict(
+        job_over_fluid=job / fl["ms_per_step"],
+        provider_feeder=job / prog["read_back"],
+        read_back=prog["read_back"] / prog["queued"],
+        lowering=prog["queued"] / fl["ms_per_step"])
+    log("  ResNet-50 batch %d f32: legacy resnet.py %.3f ms/batch; its "
+        "program alone %.3f (read back) / %.3f (queued); phase 16's Fluid "
+        "program %.3f ms/step queued; ratios %s"
+        % (out["resnet"]["batch"], job, prog["read_back"], prog["queued"],
+           fl["ms_per_step"], json.dumps(out["resnet_split"])))
+
+    tmp = tempfile.mkdtemp(prefix="phase40_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        small = paths["smallnet"]
+        pargs = dict(cfg["parity"])
+        pb = int(pargs.get("batch_size", 128))
+        # one init: the port's startup on the CPU, saved
+        topo, _cost, _st = _legacy_build(small, pargs)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            fluid.Executor(fluid.CPUPlace()).run(topo.startup_program)
+        save_checkpoint(scope, os.path.join(tmp, "init"), step=0)
+        runs = {}
+        for side, ug in (("card", use_gpu), ("cpu", False)):
+            stats = _legacy_run(
+                config_path=small, job="train",
+                config_args=dict(pargs, num_samples=str(3 * pb)),
+                init_model_path=os.path.join(tmp, "init"),
+                save_dir=os.path.join(tmp, side), use_gpu=ug)[0]
+            runs[side] = (stats["costs"], _legacy_saved(
+                fluid, os.path.join(tmp, side, "pass-00000")))
+        (cc, cs), (pc, ps) = runs["card"], runs["cpu"]
+        cost_err = max(abs(a - b) / max(abs(b), 1e-12)
+                       for a, b in zip(cc, pc))
+        val_err = max(float(np.abs(cs[n] - ps[n]).max()
+                            / max(np.abs(ps[n]).max(), 1e-12)) for n in ps)
+        log("  smallnet card vs CPU, 3 batches of %d from one init: costs "
+            "%s vs %s, max rel err %.3e; saved values max rel err %.3e"
+            % (pb, cc, pc, cost_err, val_err))
+        check(len(cc) == len(pc) == 3 and sorted(cs) == sorted(ps),
+              "phase 40: the card and CPU runs differ in shape")
+        check(cost_err <= 1e-4 and val_err <= 1e-4,
+              "phase 40: smallnet card vs CPU beyond 1e-4 (%.3e, %.3e)"
+              % (cost_err, val_err))
+        out["smallnet_card_vs_cpu"] = dict(cost_rel_err=cost_err,
+                                           saved_rel_err=val_err)
+
+        # save_dir -> init_model_path on the card: the resumed pass is the
+        # uninterrupted run's second pass
+        rargs = dict(pargs, num_samples=str(4 * pb))
+        full = _legacy_run(
+            config_path=small, job="train", config_args=rargs,
+            num_passes=2, save_dir=os.path.join(tmp, "resume"),
+            use_gpu=use_gpu)[0]["costs"]
+        resumed = _legacy_run(
+            config_path=small, job="train", config_args=rargs,
+            init_model_path=os.path.join(tmp, "resume", "pass-00000"),
+            use_gpu=use_gpu)[0]["costs"]
+        resume_err = max(abs(a - b) / max(abs(b), 1e-12)
+                         for a, b in zip(resumed, full[4:]))
+        log("  resume: uninterrupted pass 2 %s, resumed %s, max rel err "
+            "%.3e" % (full[4:], resumed, resume_err))
+        check(len(full) == 8 and len(resumed) == 4 and resume_err <= 1e-6,
+              "phase 40: the resumed pass differs from the uninterrupted "
+              "run's (%.3e)" % resume_err)
+        out["resume_rel_err"] = resume_err
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
 
@@ -6071,6 +6337,12 @@ def main():
     from paddle_tpu_torch.parallel import DistributedContext
     DistributedContext.shutdown()
 
+    log("phase 40: the legacy paddle train stack on benchmarks/paddle "
+        "(ResNet-50, AlexNet, GoogLeNet, smallnet, VGG-19, the LSTM), f32")
+    t0 = time.monotonic()
+    legacy = phase_legacy(torch, fluid, resnet, card=card)
+    log("  phase 40 took %.1f s" % (time.monotonic() - t0))
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -6200,7 +6472,8 @@ def main():
                                       model_average_pruning=ma_prune,
                                       executor_surface=surface,
                                       mesh_world1=mesh1,
-                                      mesh_two_ranks=mesh2)))
+                                      mesh_two_ranks=mesh2,
+                                      legacy_trainer=legacy)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -87,16 +87,20 @@ def _col(v, ndim):
 
 
 def segment_sum(x, ids, n):
-    return torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype,
-                       device=x.device).index_add(0, ids, x)
+    """Per-segment sums. Rows past the last offset (id n: the padding of a
+    static buffer, as sub_nested_seq leaves) land in a spill row that is
+    dropped, as the JAX package's segment_sum drops them."""
+    return torch.zeros((n + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                       device=x.device).index_add(0, ids, x)[:n]
 
 
 def segment_max(x, ids, n):
-    """Per-segment max; an empty segment holds -inf."""
+    """Per-segment max; an empty segment holds -inf (rows past the last
+    offset are dropped, as in segment_sum)."""
     idx = _col(ids, x.dim()).expand_as(x)
-    return torch.full((n,) + tuple(x.shape[1:]), float("-inf"),
+    return torch.full((n + 1,) + tuple(x.shape[1:]), float("-inf"),
                       dtype=x.dtype, device=x.device).scatter_reduce(
-        0, idx, x, "amax", include_self=False)
+        0, idx, x, "amax", include_self=False)[:n]
 
 
 def _compact(x, kept, total):

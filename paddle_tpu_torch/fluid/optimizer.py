@@ -563,6 +563,18 @@ class ModelAverage(object):
     SUM_SUFFIXES = ("@SUM_1", "@SUM_2", "@SUM_3")
     CNT_SUFFIXES = ("@NUM_ACC", "@OLD_NUM_ACC", "@NUM_UPD")
 
+    @classmethod
+    def from_spec(cls, spec):
+        """Build from a settings-object spec (tch/v2 ModelAverage). The
+        specs carry no min knob; the reference derives it as
+        min(10000, max_average_window) (AverageOptimizer.cpp:47-49)."""
+        max_w = getattr(spec, "max_average_window", None) or 10000
+        return cls(
+            average_window=getattr(spec, "average_window", 0.15),
+            min_average_window=min(10000, int(max_w)),
+            max_average_window=max_w,
+        )
+
     def __init__(self, average_window=0.15, min_average_window=100,
                  max_average_window=10000):
         self.average_window = float(average_window)

@@ -53,6 +53,29 @@ def test_importing_every_module_leaves_jax_out():
     for name in ("resnet", "ocr_crnn", "ctr", "lenet", "vgg", "alexnet",
                  "googlenet", "mobilenet", "ssd"):
         assert "paddle_tpu_torch.models." + name in mods
+    for name in ("trainer", "trainer.__main__", "trainer.PyDataProvider2",
+                 "trainer.PyDataProviderWrapper", "trainer.recurrent_units",
+                 "trainer.config_parser", "trainer.config_parser_extension",
+                 "trainer_config_helpers",
+                 "trainer_config_helpers.networks",
+                 "trainer_config_helpers.evaluators",
+                 "trainer_config_helpers.layer_math",
+                 "trainer_config_helpers.activations",
+                 "trainer_config_helpers.attrs",
+                 "trainer_config_helpers.poolings",
+                 "trainer_config_helpers.optimizers",
+                 "trainer_config_helpers.data_sources",
+                 "trainer_config_helpers.default_decorators",
+                 "trainer_config_helpers.layers",
+                 "trainer_config_helpers.utils",
+                 "trainer_config_helpers.config_parser_utils",
+                 "v2", "v2.data_type", "v2.event", "v2.minibatch",
+                 "v2.reader", "v2.reader.creator", "v2.layer", "v2.topology",
+                 "v2.parameters", "v2.trainer", "v2.inference",
+                 "v2.optimizer", "v2.activation", "v2.attr", "v2.pooling",
+                 "v2.networks", "v2.evaluator", "v2.op", "v2.config_base",
+                 "v2.data_feeder", "distributed.checkpoint"):
+        assert "paddle_tpu_torch." + name in mods
     code = (
         "import importlib, sys\n"
         "for m in %r: importlib.import_module(m)\n"
