@@ -281,6 +281,32 @@ Phases (any failure exits non-zero):
      every saved value within 1e-4, cuDNN deterministic); a save_dir ->
      init_model_path resume on the card whose pass equals the
      uninterrupted run's second pass (costs within 1e-6);
+ 41. the elastic data plane (paddle_tpu_torch.native, .data and
+     .distributed's coordinator, supervisor and sentinel): (a) 768
+     records in bench.py's layout ([label u16][uint8 3x224x224],
+     bench.py:580) written with the native RecordWriter into two files,
+     converted to RecordShards (64-record chunks) by from_recordio, and
+     read by ShardedDataset -> DataLoader(num_workers=2,
+     prefetch_batches=4, device_put=True) into ResNet-50 b64 f32 with
+     bench.py's uint8 input (cast and scaled by 1/255 on the card,
+     bench.py:214-220): 2 warm-up and 10 timed steps queued with one
+     sync, beside the same program on one fixed batch on the card and
+     phase 40's phase-16 program at b64 f32; ms/step, img/s and the
+     loader's wait_fraction; the delivered labels, each batch's pixel
+     sum and the first batch's pixels equal the synchronous
+     (num_workers=0) pass's; (b) smallnet_mnist_cifar.py through
+     run_config(recordio=[a glob of two record files of pickled
+     instances]) for 3 batches of 128 on the card and on the CPU from
+     one saved init, costs within 1e-4 (cuDNN deterministic); (c) a
+     CoordinatorServer and a Supervisor over two worker processes of
+     this script (--data-worker OUT CKPT ADDR SHARDS), each training
+     LeNet on the card from chunks leased through
+     CoordinatedChunkSource (1,024 MNIST-shaped records in 16 chunks,
+     batch 32) with the training sentinel and a checkpoint a step; w0
+     runs with PADDLE_FAULT=kill@5, w1 with nanloss@7: the delivered
+     record multiset equals the dataset, the queue drains, w0 restarts
+     for `crash` from its checkpoint and w1 for `sentinel_rollback`
+     from its known-good step;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases 13
  and 14, the flash entries their Fluid launches in phases 18 and 38; no Hopper
@@ -6115,6 +6141,517 @@ def phase_legacy(torch, fluid, resnet, card="cpu", place=None, cfg=LEGACY):
     return out
 
 
+# --- phase 41: the elastic data plane ----------------------------------
+
+# (a): ResNet-50 at phase 16's batch 64 in f32, fed from RecordShards in
+# bench.py's record layout (bench.py:580: [label u16][uint8 3x224x224]);
+# `batches` is the pass's length (warm-up and timed steps together)
+DATA_PLANE = dict(batch=64, shape=[3, 224, 224], classes=1000, depth=50,
+                  warm=2, steps=10, files=2, workers=2, prefetch=4, seed=7)
+# (b): smallnet's config_args (its defaults: 32x32x3, batch 128), 3 batches
+DATA_PLANE_SMALLNET = {}
+# (c): two LeNet workers over one coordinator queue; record =
+# [u32 id][u8 label][uint8 1x28x28]; lease and idle-grace deadlines sized
+# several times above a worker's start on the card (~8-10 s to a first
+# step) and a step (~0.1 s with its checkpoint)
+DRILL = dict(shards=2, chunks_per_shard=8, records_per_chunk=64, batch=32,
+             seed=11, lease_s=8.0, idle_grace_s=10.0, promote_after=2,
+             heartbeat_s=60.0, faults={"w0": "kill@5", "w1": "nanloss@7"},
+             deadline_s=240.0)
+
+
+def _rio_image_records(native, path, n, rng, shape, classes):
+    """n records of bench.py's layout, [label u16][raw uint8 image],
+    written with the native RecordWriter."""
+    import struct
+
+    size = int(np.prod(shape))
+    with native.RecordWriter(path) as w:
+        for _ in range(n):
+            label = int(rng.randint(0, classes))
+            img = rng.randint(0, 256, size, dtype=np.uint8)
+            w.write(struct.pack("<H", label) + img.tobytes())
+
+
+def _image_record_decoder(shape):
+    def decode(rec):
+        label = int.from_bytes(rec[:2], "little")
+        img = np.frombuffer(rec, np.uint8, offset=2).reshape(shape)
+        return img, np.array([label], np.int64)
+
+    return decode
+
+
+def uint8_image_program(fluid, model, shape, classes, amp=False):
+    """fluid_image_program with bench.py's uint8 input
+    (`_build_image_workload(uint8_input=True)`, bench.py:214-220): uint8
+    images cross to the card and are cast and scaled by 1/255 there."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        raw = fluid.layers.data(name="image", shape=shape, dtype="uint8")
+        image = fluid.layers.scale(x=fluid.layers.cast(raw, "float32"),
+                                   scale=1.0 / 255.0)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        predict = model(image, classes)
+        avg = fluid.layers.mean(
+            x=fluid.layers.cross_entropy(input=predict, label=label))
+        fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
+            avg)
+    main.amp = amp
+    return main, startup, avg
+
+
+def _data_plane_resnet(torch, fluid, resnet, tmp, place, cfg, fluid16_ms):
+    """(a) of phase 41; returns its record."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.data import DataLoader, DataMetrics, \
+        ShardedDataset, from_recordio
+
+    b, n = cfg["batch"], cfg["warm"] + cfg["steps"]
+    per_file = b * n // cfg["files"]
+    rng = np.random.RandomState(cfg["seed"])
+    t0 = time.monotonic()
+    shards = []
+    for k in range(cfg["files"]):
+        rio = os.path.join(tmp, "images%d.rio" % k)
+        _rio_image_records(native, rio, per_file, rng, cfg["shape"],
+                           cfg["classes"])
+        shards.append(os.path.join(tmp, "images%d.rs" % k))
+        from_recordio(rio, shards[-1], records_per_chunk=b)
+        os.remove(rio)
+    write_s = time.monotonic() - t0
+    decode = _image_record_decoder(cfg["shape"])
+    ds = ShardedDataset(shards, decode_fn=decode, seed=cfg["seed"])
+    check(ds.num_records == b * n, "phase 41: %d records in the shards"
+          % ds.num_records)
+    # the delivery oracle: the synchronous loader's stream, on the host
+    ref = DataLoader(ds, b, num_workers=0)
+    ref_labels, ref_sums, first = [], [], None
+    for img, lab in ref:
+        first = img if first is None else first
+        ref_labels.append(lab)
+        ref_sums.append(int(img.sum(dtype=np.int64)))
+    ref.close()
+    ref_labels = np.concatenate(ref_labels)
+
+    main, startup, avg = uint8_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=cfg["depth"]),
+        cfg["shape"], cfg["classes"])
+    scope = fluid.Scope()
+    torch.backends.cudnn.benchmark = True
+    try:
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(place or fluid.CUDAPlace(0))
+            dev = exe.device
+            exe.run(startup)
+            # the same program on one fixed batch already on the device
+            fixed = {"image": torch.from_numpy(first).to(dev),
+                     "label": torch.from_numpy(ref_labels[:b]).to(dev)}
+            for _ in range(cfg["warm"]):
+                exe.run(main, feed=fixed, fetch_list=[avg],
+                        return_numpy=False)
+            _sync(torch, dev.type)
+            t0 = time.monotonic()
+            for _ in range(cfg["steps"]):
+                exe.run(main, feed=fixed, fetch_list=[avg],
+                        return_numpy=False)
+            _sync(torch, dev.type)
+            fixed_ms = (time.monotonic() - t0) / cfg["steps"] * 1e3
+            del fixed
+
+            loader = DataLoader(ds, b, num_workers=cfg["workers"],
+                                prefetch_batches=cfg["prefetch"],
+                                device_put=True, place=place)
+            it = iter(loader)
+            losses, labels, sums, first_dev = [], [], [], None
+            t0 = time.monotonic()
+            for k in range(n):
+                if k == cfg["warm"]:
+                    _sync(torch, dev.type)
+                    loader.metrics = DataMetrics()  # the timed steps only
+                    warm_s, t0 = time.monotonic() - t0, time.monotonic()
+                img, lab = next(it)
+                check(img.device.type == dev.type and img.dtype ==
+                      torch.uint8, "phase 41: a batch arrived as %s on %s"
+                      % (img.dtype, img.device))
+                first_dev = img if first_dev is None else first_dev
+                losses.append(exe.run(main, feed={"image": img,
+                                                  "label": lab},
+                                      fetch_list=[avg],
+                                      return_numpy=False)[0])
+                labels.append(lab)
+                sums.append(img.sum(dtype=torch.int64))
+            _sync(torch, dev.type)
+            wall = time.monotonic() - t0
+            check(next(it, None) is None, "phase 41: the loader delivered "
+                  "more than the pass")
+            rep = loader.metrics.report()
+            loader.close()
+            got_labels = torch.cat(labels).cpu().numpy()
+            got_sums = [int(s) for s in torch.stack(sums).cpu()]
+            first_equal = bool(np.array_equal(first_dev.cpu().numpy(),
+                                              first))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    losses = [float(x.reshape(())) for x in losses]
+    check(all(math.isfinite(x) for x in losses),
+          "phase 41: a ResNet-50 loss from shards is not finite: %s" % losses)
+    check(np.array_equal(got_labels, ref_labels),
+          "phase 41: the delivered label stream differs from the "
+          "synchronous loader's")
+    check(got_sums == ref_sums and first_equal,
+          "phase 41: uploaded pixels differ from the host's batches "
+          "(sums %s vs %s, first batch equal %s)"
+          % (got_sums[:4], ref_sums[:4], first_equal))
+    ms = wall / cfg["steps"] * 1e3
+    out = dict(batch=b, records=ds.num_records, chunks=ds.num_chunks,
+               write_s=write_s, ms_per_step=ms, img_per_s=b / ms * 1e3,
+               wait_fraction=rep["wait_fraction"],
+               mean_wait_ms=(rep["mean_wait_s"] or 0.0) * 1e3,
+               warm_s=warm_s,
+               fixed_batch_ms=fixed_ms, loader_over_fixed=ms / fixed_ms,
+               fluid16_ms=fluid16_ms,
+               over_phase16=(ms / fluid16_ms if fluid16_ms else None),
+               losses=losses)
+    log("  (a) ResNet-50 b%d f32 from %d shards (%d chunks, written in "
+        "%.1f s): %.3f ms/step, %.1f img/s, wait_fraction %s (mean wait "
+        "%.3f ms); the same uint8 program on a fixed batch %.3f ms/step "
+        "(loader / fixed %.4f); phase 16's f32 program at b%d %s "
+        "(ratio %s); labels and pixels equal to the synchronous pass"
+        % (b, len(shards), ds.num_chunks, write_s, ms, out["img_per_s"],
+           rep["wait_fraction"], out["mean_wait_ms"], fixed_ms,
+           out["loader_over_fixed"], b,
+           "%.3f ms/step" % fluid16_ms if fluid16_ms else "not measured",
+           "%.4f" % out["over_phase16"] if fluid16_ms else "-"))
+    del scope, exe
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _data_plane_smallnet(torch, fluid, tmp, use_gpu, args):
+    """(b) of phase 41: smallnet through run_config(recordio=...) on the
+    device and on the CPU from one init."""
+    import glob
+    import pickle
+
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed import save_checkpoint
+
+    small = _here("benchmarks/paddle/image/smallnet_mnist_cifar.py")
+    topo, _cost, st = _legacy_build(small, args)
+    b = int(st["batch_size"])
+    rng = np.random.RandomState(3)
+    for k in range(2):  # 3 batches over two files, found by a glob
+        with native.RecordWriter(os.path.join(tmp, "cifar-%d.rio" % k)) as w:
+            for _ in range(3 * b // 2 + k * (3 * b % 2)):
+                x = rng.rand(3 * 32 * 32).astype(np.float32)
+                w.write(pickle.dumps((x, int(rng.randint(0, 10)))))
+    rio = [os.path.join(tmp, "cifar-*.rio")]
+    check(len(glob.glob(rio[0])) == 2, "phase 41: the record files")
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.Executor(fluid.CPUPlace()).run(topo.startup_program)
+    init = os.path.join(tmp, "smallnet_init")
+    save_checkpoint(scope, init, step=0)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        costs = {}
+        for side, ug in (("card", use_gpu), ("cpu", False)):
+            costs[side] = _legacy_run(config_path=small, job="train",
+                                      config_args=dict(args), recordio=rio,
+                                      init_model_path=init,
+                                      use_gpu=ug)[0]["costs"]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    cc, pc = costs["card"], costs["cpu"]
+    err = max(abs(a - c) / max(abs(c), 1e-12) for a, c in zip(cc, pc))
+    log("  (b) smallnet b%d from record files, card vs CPU from one init: "
+        "costs %s vs %s, max rel err %.3e" % (b, cc, pc, err))
+    check(len(cc) == len(pc) == 3 and err <= 1e-4,
+          "phase 41: smallnet from record files, card vs CPU beyond 1e-4 "
+          "(%d / %d batches, %.3e)" % (len(cc), len(pc), err))
+    return dict(batch=b, batches=len(cc), cost_rel_err=err, costs_card=cc)
+
+
+def _drill_decode(rec):
+    rid = int.from_bytes(rec[:4], "little")
+    img = np.frombuffer(rec, np.uint8, offset=5).reshape(1, 28, 28)
+    return rid, img.astype(np.float32) / 255.0, np.array([rec[4]], np.int64)
+
+
+def _drill_collate(items):
+    """(images, labels, ids): arrays for the card, the ids a host list."""
+    return (np.stack([it[1] for it in items]),
+            np.stack([it[2] for it in items]), [it[0] for it in items])
+
+
+def _drill_shards(data, sdir, cfg):
+    rng = np.random.RandomState(cfg["seed"])
+    paths, rid = [], 0
+    for s in range(cfg["shards"]):
+        p = os.path.join(sdir, "mnist%02d.rs" % s)
+        with data.ShardWriter(p, records_per_chunk=cfg[
+                "records_per_chunk"]) as w:
+            for _ in range(cfg["chunks_per_shard"] *
+                           cfg["records_per_chunk"]):
+                img = rng.randint(0, 256, 28 * 28, dtype=np.uint8)
+                w.write(rid.to_bytes(4, "little")
+                        + bytes([int(rng.randint(0, 10))]) + img.tobytes())
+                rid += 1
+        paths.append(p)
+    return paths, rid
+
+
+def _flush_acks(client, cursor):
+    """Send the coordinator the acks a checkpointed loader cursor holds:
+    what the known-good checkpoint delivered becomes durable there, and
+    nothing newer (a sentinel rollback may still undo it)."""
+    pending = (cursor or {}).get("pending") or {}
+    for tid, lease in pending.get("finish") or []:
+        client.task_finished(tid, lease=lease)
+    prog = pending.get("progress")
+    if prog:
+        client.task_progress(prog["task_id"], prog["offset"],
+                             lease=prog.get("lease"))
+
+
+def data_worker(out_path, ckpt_dir, addr, shard_dir):
+    """One of phase 41(c)'s supervised workers (`chip_smoke.py
+    --data-worker OUT CKPT ADDR SHARDS`): LeNet trained on the card (on
+    the CPU when DRILL_PLACE=cpu, for a rehearsal) from chunks leased
+    through CoordinatedChunkSource, batches uploaded by the loader, the
+    training sentinel over the loss the loop reads back each step, a
+    checkpoint each step with the loader cursor and the detector in it.
+    The coordinator hears of a chunk's records only once a checkpoint
+    that holds them is known-good (`_flush_acks`), so a rollback never
+    loses records the coordinator counts as delivered. Exits 75 on a
+    sentinel trip."""
+    import glob
+
+    import torch
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.data import (CoordinatedChunkSource, DataLoader,
+                                       ShardedDataset)
+    from paddle_tpu_torch.distributed import (RemoteCoordinator,
+                                              checkpoint as ckpt,
+                                              fault_injection as fi,
+                                              sentinel as sent_mod)
+    from paddle_tpu_torch.models import lenet
+
+    cfg = DRILL
+    wid = os.environ.get("PADDLE_WORKER_ID", "w?")
+    reason = os.environ.get("PADDLE_RESTART_REASON", "none")
+    place = (fluid.CPUPlace() if os.environ.get("DRILL_PLACE") == "cpu"
+             else fluid.CUDAPlace(0))
+    client = RemoteCoordinator(addr, retry_deadline_s=30.0,
+                               backoff_base_s=0.05)
+    ds = ShardedDataset(sorted(glob.glob(os.path.join(shard_dir, "*.rs"))),
+                        decode_fn=_drill_decode, seed=cfg["seed"])
+    loader = DataLoader(
+        ds, cfg["batch"], num_workers=2, collate_fn=_drill_collate,
+        source=CoordinatedChunkSource(client,
+                                      idle_grace_s=cfg["idle_grace_s"],
+                                      poll_s=0.1),
+        device_put=True, place=place, auto_commit=False)
+    main, startup, avg = fluid_image_program(fluid, lenet.lenet,
+                                             [1, 28, 28], 10, amp=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    detector = sent_mod.DivergenceDetector(hysteresis=1, warmup=2)
+    sent = sent_mod.TrainingSentinel(ckpt_dir, dataset=ds,
+                                     promote_after=cfg["promote_after"],
+                                     detector=detector)
+    stateful = {"loader": loader, "detector": detector}
+    meta = ckpt.resume_or_init(scope, ckpt_dir, stateful=stateful)
+    if meta is not None:
+        step = resumed_from = int(meta["extra"]["step"])
+        history = list(meta["extra"]["history"])
+        sent.align(step)
+        loader.commit()  # the resumed checkpoint's acks are durable
+    else:
+        step, resumed_from, history = 0, None, []
+    # registered once set up; both workers up before either leases
+    client.register_worker(wid, meta={"restart_reason": reason})
+    while len(client.membership()) < len(cfg["faults"]):
+        time.sleep(0.05)
+    injector = fi.default_injector()
+    flushed = sent.known_good_step
+    first_step_at, losses = None, []
+    with fluid.scope_guard(scope):
+        for img, label, ids in loader:
+            injector.tick()
+            client.heartbeat(wid, step=step)
+            loss = exe.run(main, feed={"image": img, "label": label},
+                           fetch_list=[avg], return_numpy=False)[0]
+            # the loop's one read of the step; the sentinel takes it
+            loss = injector.poison_loss(float(loss.reshape(())))
+            first_step_at = first_step_at or time.time()
+            step += 1
+            losses.append(loss)
+            decision = sent.observe(step, loss, cursor=loader.state_dict())
+            if decision is not None:
+                client.heartbeat(wid, step=step)
+                client.close()
+                loader.close()
+                return (sent_mod.SENTINEL_EXIT_CODE
+                        if decision["action"] != "abandon" else 1)
+            history.extend(ids)
+            ckpt.save_checkpoint(scope, ckpt_dir, step=step,
+                                 extra={"step": step, "history": history},
+                                 stateful=stateful, keep_last=4,
+                                 protect=sent.known_good_step)
+            sent.on_checkpoint(step, cursor=loader.state_dict())
+            if sent.known_good_step != flushed:
+                _flush_acks(client, sent.known_good_cursor)
+                flushed = sent.known_good_step
+    loader.commit()  # the pass is over: every delivered record is final
+    client.heartbeat(wid, step=step)
+    client.close()
+    loader.close()
+    tmp = out_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"worker": wid, "resumed_from": resumed_from,
+                   "restart_reason": reason, "steps_done": step,
+                   "history": history, "known_good": sent.known_good_step,
+                   "trips": sent.trips, "first_step_at": first_step_at,
+                   "losses": losses, "device": str(exe.device),
+                   "restart_count": int(os.environ.get(
+                       "PADDLE_RESTART_COUNT", "0"))}, f)
+    os.replace(tmp, out_path)
+    return 0
+
+
+def _data_plane_drill(tmp, cfg=DRILL, worker_argv=None, env_extra=None):
+    """(c) of phase 41: a CoordinatorServer and a Supervisor over two
+    data_worker processes, one killed (kill@N) and one whose loss turns
+    NaN (nanloss@M)."""
+    from paddle_tpu_torch import data
+    from paddle_tpu_torch.distributed import (Coordinator,
+                                              CoordinatorServer, Supervisor)
+
+    sdir = os.path.join(tmp, "drill_shards")
+    os.makedirs(sdir)
+    paths, n_records = _drill_shards(data, sdir, cfg)
+    ds = data.ShardedDataset(paths, seed=cfg["seed"])
+    coord = Coordinator(timeout_s=cfg["lease_s"], failure_max=10,
+                        heartbeat_timeout_s=cfg["heartbeat_s"])
+    coord.set_dataset(ds.payloads())
+    server = CoordinatorServer(coord).start()
+    here = os.path.abspath(__file__)
+    argv = worker_argv or [sys.executable, here, "--data-worker"]
+
+    def files(wid):
+        return (os.path.join(tmp, "drill_%s.json" % wid),
+                os.path.join(tmp, "drill_ckpt_%s" % wid))
+
+    def env_for(wid):
+        env = dict(os.environ, PADDLE_FAULT=cfg["faults"][wid])
+        env.update(env_extra or {})
+        return env
+
+    sup = Supervisor(lambda wid: argv + [*files(wid), server.address, sdir],
+                     sorted(cfg["faults"]), env_for=env_for,
+                     coordinator=coord, min_uptime_s=2.0,
+                     ckpt_dir_for=lambda wid: files(wid)[1],
+                     ckpt_keep_last=4)
+    t0 = time.time()
+    try:
+        report = sup.run(deadline_s=cfg["deadline_s"])
+    finally:
+        server.stop()
+    wall = time.time() - t0
+    workers = report["workers"]
+    log("  (c) supervisor: %s in %.1f s" % (json.dumps(
+        {w: {k: v[k] for k in ("restarts", "restart_reasons", "exit_codes",
+                               "abandoned", "done")}
+         for w, v in workers.items()}), wall))
+    check(report["ok"], "phase 41: the drill did not drain: %s"
+          % json.dumps(report)[:2000])
+    recs = {w: json.load(open(files(w)[0])) for w in sorted(cfg["faults"])}
+    union = [i for r in recs.values() for i in r["history"]]
+    check(sorted(union) == list(range(n_records)),
+          "phase 41: the delivered multiset is not the dataset: %d "
+          "delivered, %d distinct, %d records" % (len(union), len(set(union)),
+                                                 n_records))
+    check(len(coord.done) == ds.num_chunks and not coord.pending
+          and not coord.todo, "phase 41: the coordinator's queue did not "
+          "drain (%d done, %d pending, %d todo)"
+          % (len(coord.done), len(coord.pending), len(coord.todo)))
+    check(workers["w0"]["restart_reasons"] == ["crash"]
+          and workers["w0"]["exit_codes"][0] == -9,
+          "phase 41: w0's restarts read %s" % workers["w0"])
+    check(workers["w1"]["restart_reasons"] == ["sentinel_rollback"]
+          and workers["w1"]["exit_codes"][0] == 75,
+          "phase 41: w1's restarts read %s" % workers["w1"])
+    trip = recs["w1"]["trips"][-1] if recs["w1"]["trips"] else None
+    check(trip is not None and trip["verdict"] == "nonfinite"
+          and trip["action"] == "rollback"
+          and trip["rollback_to"] is not None
+          and recs["w1"]["resumed_from"] == trip["rollback_to"],
+          "phase 41: w1 was not rolled back to its known-good step "
+          "(trip %s, resumed from %s)" % (trip, recs["w1"]["resumed_from"]))
+    check(recs["w0"]["restart_reason"] == "crash"
+          and recs["w1"]["restart_reason"] == "sentinel_rollback",
+          "phase 41: the replacements were told %s / %s"
+          % (recs["w0"]["restart_reason"], recs["w1"]["restart_reason"]))
+    check(all(math.isfinite(x) for r in recs.values() for x in r["losses"]),
+          "phase 41: a replacement's loss is not finite")
+    deaths = {e["worker"]: e["t"] for e in report["events"]
+              if e["kind"] in ("crash", "sentinel_rollback")}
+    recover = {w: recs[w]["first_step_at"] - deaths[w] for w in deaths
+               if recs[w]["first_step_at"]}
+    out = dict(records=n_records, chunks=ds.num_chunks, wall_s=wall,
+               steps={w: r["steps_done"] for w, r in recs.items()},
+               delivered={w: len(r["history"]) for w, r in recs.items()},
+               resumed_from={w: r["resumed_from"] for w, r in recs.items()},
+               rollback_to=trip["rollback_to"], trip_step=trip["step"],
+               restart_reasons={w: v["restart_reasons"]
+                                for w, v in workers.items()},
+               recover_s=recover,
+               devices={w: r["device"] for w, r in recs.items()})
+    log("  (c) %d records over %d chunks delivered exactly once (%s); w0 "
+        "killed, resumed from step %s; w1 tripped at step %d, rolled back "
+        "to known-good step %d; death to the replacement's first step %s s"
+        % (n_records, ds.num_chunks, out["delivered"],
+           out["resumed_from"]["w0"], trip["step"], trip["rollback_to"],
+           {w: round(s, 1) for w, s in recover.items()}))
+    return out
+
+
+def phase_data_plane(torch, fluid, resnet, card="cpu", place=None,
+                     fluid16_ms=None, cfg=DATA_PLANE,
+                     smallnet_args=DATA_PLANE_SMALLNET, drill=DRILL,
+                     drill_argv=None, drill_env=None):
+    """Phase 41 (see the module docstring); `place` (a CPUPlace), the
+    configurations and `drill_argv` / `drill_env` shrink it for a
+    rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="phase41_")
+    out = {"card": card}
+    try:
+        t0 = time.monotonic()
+        out["resnet_from_shards"] = _data_plane_resnet(
+            torch, fluid, resnet, tmp, place, cfg, fluid16_ms)
+        t1 = time.monotonic()
+        out["smallnet_recordio"] = _data_plane_smallnet(
+            torch, fluid, tmp, place is None, smallnet_args)
+        t2 = time.monotonic()
+        out["drill"] = _data_plane_drill(tmp, drill, worker_argv=drill_argv,
+                                         env_extra=drill_env)
+        out["seconds"] = dict(resnet=t1 - t0, smallnet=t2 - t1,
+                              drill=time.monotonic() - t2)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     import torch
 
@@ -6123,6 +6660,8 @@ def main():
         return 2
     if sys.argv[1:2] == ["--mesh-worker"]:
         return mesh_worker(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--data-worker"]:
+        return data_worker(*sys.argv[2:6])
     import importlib
 
     from paddle_tpu_torch import _build
@@ -6343,6 +6882,14 @@ def main():
     legacy = phase_legacy(torch, fluid, resnet, card=card)
     log("  phase 40 took %.1f s" % (time.monotonic() - t0))
 
+    log("phase 41: the elastic data plane: ResNet-50 b64 f32 from "
+        "RecordShards, smallnet from record files, the supervised drill")
+    t0 = time.monotonic()
+    data_plane = phase_data_plane(
+        torch, fluid, resnet, card=card,
+        fluid16_ms=legacy["resnet_fluid_program"]["ms_per_step"])
+    log("  phase 41 took %.1f s" % (time.monotonic() - t0))
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -6473,7 +7020,8 @@ def main():
                                       executor_surface=surface,
                                       mesh_world1=mesh1,
                                       mesh_two_ranks=mesh2,
-                                      legacy_trainer=legacy)))
+                                      legacy_trainer=legacy,
+                                      data_plane=data_plane)))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ lod_level-1 slots pack to `(data [total, ...], [offsets])` pairs, the
 Executor's ragged feed (core/kernels_sequence.py). Integer slots keep
 their declared width (the port's Executor runs int64 ids as int64);
 float64 narrows to float32. `AsyncDeviceFeeder` uploads feed dicts to
-the card from a background thread, ahead of the training loop."""
+the card from a background thread, ahead of the training loop, through
+`HostToDevice`, the upload `data.DataLoader` takes too."""
 
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from .core.program import Variable
 
-__all__ = ["DataFeeder", "AsyncDeviceFeeder"]
+__all__ = ["DataFeeder", "AsyncDeviceFeeder", "HostToDevice"]
 
 _DTYPE_MAP = {"float64": "float32"}
 
@@ -79,6 +80,91 @@ class DataFeeder(object):
             yield self.feed(rows)
 
 
+def _map_arrays(fn, tree):
+    """`tree` with `fn` applied to every numpy array and tensor in it,
+    through tuples, lists and dicts; other leaves stay as they are."""
+    if isinstance(tree, (np.ndarray, torch.Tensor)):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        return tuple(_map_arrays(fn, v) for v in tree)
+    if isinstance(tree, list):
+        return [_map_arrays(fn, v) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _map_arrays(fn, v) for k, v in tree.items()}
+    return tree
+
+
+class HostToDevice(object):
+    """The port's one host->device upload of input batches, shared by
+    `AsyncDeviceFeeder` and `data.DataLoader`. It has two halves, one
+    for each side of a producer/consumer queue:
+
+      upload(tree) -> (tree, ready)   producer side: every numpy array
+                                      and tensor in `tree` (through
+                                      tuples, lists and dicts) is copied
+                                      to `device`
+      take(tree, ready) -> tree       consumer side, before the batch
+                                      is used
+
+    On the card `upload` copies each array into fresh pinned memory
+    (a tensor already pinned is taken as it is) and uploads it with
+    `non_blocking=True` on a side stream of its own, recording the
+    event `ready` after the copies. The caching host allocator keeps a
+    pinned block until the copy that reads it is done, so no host
+    buffer is reused in flight. `take` makes the consumer's current
+    stream wait on `ready` and records each uploaded tensor on that
+    stream, so the caching device allocator does not hand its memory
+    out again before the consumer's kernels that read it have run.
+    Elsewhere (`CPUPlace()`) each array becomes a tensor with a buffer
+    of its own, and `ready` is None."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._stream = torch.cuda.Stream(self.device) if self.cuda \
+            else None
+
+    def _to_device(self, v):
+        if isinstance(v, np.ndarray):
+            if not self.cuda:
+                return torch.from_numpy(np.array(v))  # an array of its own
+            a = np.ascontiguousarray(v)
+            v = torch.from_numpy(a if a.flags.writeable else a.copy())
+        if not self.cuda:
+            return v.to(self.device)
+        if not v.is_cuda and not v.is_pinned():
+            v = v.pin_memory()
+        return v.to(self.device, non_blocking=True)
+
+    def upload(self, tree):
+        if not self.cuda:
+            return _map_arrays(self._to_device, tree), None
+        with torch.cuda.device(self.device), torch.cuda.stream(
+                self._stream):
+            out = _map_arrays(self._to_device, tree)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return out, ready
+
+    def take(self, tree, ready):
+        if ready is None:
+            return tree
+        consumer = torch.cuda.current_stream(self.device)
+        consumer.wait_event(ready)
+
+        def _record(t):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                t.record_stream(consumer)
+            return t
+
+        _map_arrays(_record, tree)
+        return tree
+
+
+def _is_lod_pair(v) -> bool:
+    return isinstance(v, tuple) and len(v) == 2 and not np.isscalar(v[0])
+
+
 class AsyncDeviceFeeder(object):
     """Host->device double buffering (counterpart of the JAX package's
     AsyncDeviceFeeder; the reference's double-buffered DataProvider,
@@ -91,16 +177,13 @@ class AsyncDeviceFeeder(object):
         for feed in feeder:            # feed dicts, tensors on the card
             exe.run(prog, feed=feed, fetch_list=[loss])
 
-    On the card the producer thread copies each array into fresh pinned
-    memory unless it is pinned already (the caching host allocator keeps
-    a pinned block until the copy that reads it is done, so no buffer is
-    reused in flight) and uploads it with `non_blocking=True` on a side stream, recording an
-    event after the copies. The consumer's stream waits on that event
-    before a batch is handed out, and each tensor is recorded on the
-    consumer's stream, so the executor reads it (with no second copy:
-    it is on its device already) only after its upload. A ragged
-    `(data, lod)` feed keeps its offsets on the host. `upload=False`
-    keeps every array on the host, still overlapping the reading.
+    The producer thread uploads each feed dict through `HostToDevice`
+    (pinned memory, a side stream, an event the consumer's stream waits
+    on before the dict is handed out), so the executor reads each
+    tensor (with no second copy: it is on its device already) only
+    after its upload. A ragged `(data, lod)` feed keeps its offsets on
+    the host. `upload=False` keeps every array on the host, still
+    overlapping the reading.
 
     `place` is where the feeds go: the card unless the caller names
     another (`CPUPlace()` makes CPU tensors). The iterator ends when
@@ -116,44 +199,26 @@ class AsyncDeviceFeeder(object):
         self._q = queue.Queue(maxsize=max(1, int(capacity)))
         self._stop = threading.Event()
         self._done = False  # terminal: END/exception delivered or closed
-        self.device = core.place_device(place) if upload else None
-        cuda = self.device is not None and self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if cuda else None
+        self._h2d = HostToDevice(core.place_device(place)) if upload \
+            else None
+        self.device = self._h2d.device if upload else None
 
-        def _upload(v):
-            if isinstance(v, tuple) and len(v) == 2 and not np.isscalar(
-                    v[0]):
-                # (data, lod): the offsets stay on the host
-                return (_upload(v[0]), v[1])
-            if isinstance(v, np.ndarray):
-                v = torch.from_numpy(np.array(v))  # an array of its own
-            elif not isinstance(v, torch.Tensor):
-                return v
-            if not cuda:
-                return v.to(self.device)
-            if not v.is_pinned():
-                v = v.pin_memory()
-            return v.to(self.device, non_blocking=True)
+        def _upload(feed):
+            # (data, lod) feeds upload their data; the offsets stay on
+            # the host
+            arrays = {k: (v[0] if _is_lod_pair(v) else v)
+                      for k, v in feed.items()}
+            arrays, ready = self._h2d.upload(arrays)
+            return ({k: ((arrays[k], v[1]) if _is_lod_pair(v)
+                         else arrays[k]) for k, v in feed.items()}, ready)
 
         def _producer():
             try:
-                if cuda:
-                    torch.cuda.set_device(self.device)
                 for feed in feed_iter:
                     if self._stop.is_set():
                         return
-                    if cuda:
-                        with torch.cuda.stream(self._stream):
-                            item = {k: _upload(v) for k, v in feed.items()}
-                            ready = torch.cuda.Event()
-                            ready.record(self._stream)
-                        item = (item, ready)
-                    elif upload:
-                        item = ({k: _upload(v) for k, v in feed.items()},
-                                None)
-                    else:
-                        item = (dict(feed), None)
-                    self._q.put(item)
+                    self._q.put(_upload(feed) if upload
+                                else (dict(feed), None))
                 self._q.put(self._END)
             except BaseException as e:  # surface in the consumer
                 self._q.put(e)
@@ -185,12 +250,7 @@ class AsyncDeviceFeeder(object):
                 raise item
             feed, ready = item
             if ready is not None:
-                consumer = torch.cuda.current_stream(self.device)
-                consumer.wait_event(ready)
-                for v in feed.values():
-                    t = v[0] if isinstance(v, tuple) else v
-                    if isinstance(t, torch.Tensor) and t.is_cuda:
-                        t.record_stream(consumer)
+                feed = self._h2d.take(feed, ready)
             return feed
 
     def close(self):

@@ -15,6 +15,9 @@ The job runs on the card unless it is given `use_gpu=False`
 back to the CPU. `trainer_count=N` under torchrun (N processes) trains
 data-parallel on a mesh of N ranks, each rank reading its 1/N of the
 provider's instances, so the global batch stays `batch_size`.
+`--recordio=a.rio,b*.rio` feeds the job from record files of pickled
+instance tuples (the JAX package's format) through the native prefetch
+queue instead of the config's provider.
 
 Two names are bound in `sys.modules` only while code of a config runs,
 and restored afterwards: `paddle.trainer_config_helpers` (to this
@@ -179,6 +182,43 @@ def _simple_data_provider(data_nodes, n_samples=256, seed=0):
                     vals.append(rng.randn(t.dim).astype("float32"))
             yield tuple(vals)
 
+    return reader, slots
+
+
+def _recordio_provider(paths, data_nodes):
+    """Instances from record files through the native C++ prefetch
+    queue (reference: the Go master dispatches RecordIO chunks;
+    trainer-side records are pickled sample tuples as written by
+    v2.dataset.common.convert). Slot order = data-layer declaration
+    order, like every legacy provider. Paths may be globs."""
+    import glob as _glob
+
+    from ..v2.reader import creator
+
+    if isinstance(paths, str):
+        paths = paths.split(",")
+    files, missing = [], []
+    for p in paths:
+        hits = sorted(_glob.glob(p))
+        if hits:
+            files.extend(hits)
+        elif os.path.exists(p):
+            files.append(p)
+        else:
+            missing.append(p)
+    if missing:
+        raise ValueError(
+            "recordio provider: no files match %r" % (missing,)
+        )
+
+    slots = []
+    for node in data_nodes:
+        t = node.attrs["type"]
+        slots.append(_SimpleSlot(t.type, t.seq_type))
+
+    # non-tuple samples (single-data-layer configs) pass through
+    # unchanged; _batches wraps them — same contract as every reader
+    reader = creator.pickled_records(files, buf_size=256)
     return reader, slots
 
 
@@ -357,13 +397,6 @@ def run_config(config_path, job="train", config_args=None, trainer_count=1,
     torchrun describes it) and trains on a data mesh of
     min(trainer_count, world size) ranks; in one process that is 1 and
     there is no mesh."""
-    if recordio:
-        # never a Python reader in its place
-        raise NotImplementedError(
-            "--recordio reads through the JAX package's native C++ "
-            "prefetch queue (paddle_tpu/native), which paddle_tpu_torch "
-            "does not port yet (ROADMAP Queue A: the native recordio "
-            "reader)")
     use_gpu = _flag(use_gpu)
     place = fluid.CPUPlace() if use_gpu is False else fluid.CUDAPlace(0)
     if use_gpu is not False:
@@ -426,7 +459,11 @@ def run_config(config_path, job="train", config_args=None, trainer_count=1,
             for name in loaded.names():
                 scope.set(name, loaded.get(name))
 
-    if state.get("data_sources") is not None:
+    if recordio:
+        provider_reader, slots = _recordio_provider(
+            recordio, topo._data_layers
+        )
+    elif state.get("data_sources") is not None:
         provider_reader = _load_provider(
             state["data_sources"], os.path.dirname(os.path.abspath(config_path))
         )
@@ -761,8 +798,8 @@ def main(argv=None):
                         "read-only)")
     p.add_argument("--recordio", default=None,
                    help="comma-separated recordio files/globs of pickled "
-                        "sample tuples (not ported yet: raises "
-                        "NotImplementedError)")
+                        "sample tuples (read through the native prefetch "
+                        "queue instead of the config's provider)")
     args = p.parse_args(argv)
     run_config(
         args.config,

@@ -22,8 +22,10 @@ The modules that share their objects with the legacy DSL (`attr`,
 imports this package's `layer`, so importing them here would close an
 import cycle when the DSL is imported first.
 
-Not ported yet (ROADMAP Queue A): `dataset`, `image`, `plot` and
-`master`.
+`master` is the client of the coordinator's task queue
+(`distributed.coordinator`); `reader.creator`'s record readers read the
+JAX package's record files and shards. Not ported yet (ROADMAP Queue
+A): `dataset`, `image` and `plot`.
 """
 
 import importlib
@@ -33,6 +35,7 @@ from . import data_type  # noqa: F401
 from . import evaluator  # noqa: F401
 from . import event  # noqa: F401
 from . import layer  # noqa: F401
+from . import master  # noqa: F401
 from . import minibatch  # noqa: F401
 from . import parameters  # noqa: F401
 from . import reader  # noqa: F401
@@ -49,7 +52,8 @@ from ..fluid import (  # noqa: F401
 
 __all__ = [
     "init", "batch", "infer", "layer", "activation", "data_type",
-    "evaluator", "event", "minibatch", "optimizer", "parameters", "reader",
+    "evaluator", "event", "master", "minibatch", "optimizer", "parameters",
+    "reader",
     "trainer", "attr", "pooling", "networks",
     "default_main_program", "default_startup_program",
     "fluid",

@@ -273,22 +273,89 @@ def test_run_config_needs_the_card_unless_told_cpu(tmp_path):
     assert stats["batches"] == 32
 
 
-def test_recordio_refuses_naming_the_roadmap(tmp_path):
-    from paddle_tpu_torch.trainer import main, run_config
-    from paddle_tpu_torch.v2.reader import creator
+def _write_records(native, path, n=64, seed=0):
+    """n pickled (x f32[4], label) instances, seeded."""
+    import pickle
+
+    rng = np.random.RandomState(seed)
+    with native.RecordWriter(path) as w:
+        for _ in range(n):
+            x = rng.randn(4).astype(np.float32)
+            w.write(pickle.dumps((x, int(x.sum() > 0))))
+
+
+def test_recordio_trains_alike_from_one_init(tmp_path, monkeypatch):
+    """--recordio feeds both trainers from one set of record files (two,
+    the second by a glob, written by each package's native writer) from
+    the JAX startup weights: 2 passes of 4 batches, per-batch costs
+    within rtol 1e-5; the port's run goes through its CLI."""
+    from torch_legacy import fresh_names
+    import paddle_tpu.fluid as JF
+    import paddle_tpu.native as jnative
+    import paddle_tpu.trainer as JT
+    import paddle_tpu_torch.fluid as TF
+    import paddle_tpu_torch.native as tnative
+    import paddle_tpu_torch.trainer as TT
 
     cfg = tmp_path / "cfg.py"
-    cfg.write_text(SIMPLE)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        run_config(str(cfg), use_gpu=False,
-                   recordio=[str(tmp_path / "x.recordio")])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        main(["--config=%s" % cfg, "--use_gpu=False",
-              "--recordio=%s" % (tmp_path / "x.recordio")])
-    for fn in (creator.recordio, creator.pickled_records,
-               creator.record_shard, creator.cloud_reader):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-            fn([str(tmp_path / "x.recordio")])
+    cfg.write_text(SIMPLE.replace("batch_size=8", "batch_size=16"))
+    _write_records(jnative, str(tmp_path / "a.rio"), n=32, seed=0)
+    _write_records(tnative, str(tmp_path / "b-1.rio"), n=32, seed=1)
+    rio = "%s,%s" % (tmp_path / "a.rio", tmp_path / "b-*.rio")
+    init = _jax_init(str(cfg), {}, str(tmp_path), "dir")
+    costs = {"jax": [], "torch": []}
+    _record_costs(monkeypatch, JF.Executor, costs["jax"])
+    _record_costs(monkeypatch, TF.Executor, costs["torch"])
+    with fresh_names():
+        stats = JT.run_config(str(cfg), num_passes=2, log_period=100,
+                              recordio=rio.split(","),
+                              init_model_path=init)
+    with fresh_names():
+        TT.main(["--config=%s" % cfg, "--use_gpu=False", "--num_passes=2",
+                 "--log_period=100", "--recordio=%s" % rio,
+                 "--init_model_path=%s" % init])
+    assert stats["batches"] == 8 and len(costs["torch"]) == 8
+    np.testing.assert_allclose(costs["torch"], costs["jax"], rtol=1e-5)
+    with pytest.raises(ValueError, match="no files match"):
+        TT.run_config(str(cfg), use_gpu=False,
+                      recordio=[str(tmp_path / "missing-*.rio")])
+
+
+def test_record_readers_yield_the_jax_readers_records(tmp_path):
+    """creator.recordio, pickled_records, record_shard and cloud_reader
+    of the port yield what the JAX package's yield on the same files;
+    cloud_reader leases them through an in-process coordinator, one pass
+    per call."""
+    import pickle
+
+    import paddle_tpu.data as jdata
+    import paddle_tpu.native as jnative
+    from paddle_tpu.v2.reader import creator as jcreator
+    from paddle_tpu_torch.v2.reader import creator as tcreator
+
+    rios = [str(tmp_path / ("p%d.rio" % k)) for k in range(3)]
+    for k, p in enumerate(rios):
+        _write_records(jnative, p, n=10, seed=k)
+    shard = str(tmp_path / "s.rs")
+    jdata.write_shard(shard, [pickle.dumps(("r", i)) for i in range(13)],
+                      records_per_chunk=4)
+
+    def same(make, *args, **kw):
+        j = list(getattr(jcreator, make)(*args, **kw)())
+        t = list(getattr(tcreator, make)(*args, **kw)())
+        assert len(t) == len(j) and pickle.dumps(t) == pickle.dumps(j)
+        return t
+
+    assert len(same("recordio", rios, buf_size=4)) == 30
+    assert len(same("recordio", ",".join(rios))) == 30
+    assert len(same("pickled_records", rios)) == 30
+    assert same("record_shard", shard)[3] == pickle.dumps(("r", 3))
+    assert same("record_shard", [shard], decode_fn=pickle.loads)[12] == \
+        ("r", 12)
+    want = sorted(pickle.dumps(r) for r in jcreator.pickled_records(rios)())
+    reader = tcreator.cloud_reader(rios, timeout_sec=10)
+    for _ in range(2):  # each call is one pass of the coordinator
+        assert sorted(pickle.dumps(r) for r in reader()) == want
 
 
 def test_save_per_pass_then_resume_continues_exactly(tmp_path, monkeypatch):

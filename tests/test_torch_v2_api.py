@@ -235,17 +235,17 @@ def test_init_refuses_more_than_one_trainer():
 
 
 def test_surface_and_what_is_left_out():
-    """The v2 modules this slice ports are there (the ones that share the
-    DSL's objects load at first use); dataset, image, plot and master
-    are not ported yet."""
+    """The v2 modules the port has are there (the ones that share the
+    DSL's objects load at first use; master since the data plane);
+    dataset, image and plot are not ported yet."""
     for name in ("activation", "attr", "data_type", "evaluator", "event",
-                 "layer", "minibatch", "networks", "op", "optimizer",
-                 "parameters", "pooling", "reader", "trainer"):
+                 "layer", "master", "minibatch", "networks", "op",
+                 "optimizer", "parameters", "pooling", "reader", "trainer"):
         assert getattr(tpaddle, name).__name__ == \
             "paddle_tpu_torch.v2." + name
     assert tpaddle.attr.Param is tpaddle.attr.ParamAttr
     assert tpaddle.pooling.Max().name == "max"
-    for name in ("dataset", "image", "plot", "master"):
+    for name in ("dataset", "image", "plot"):
         assert not hasattr(tpaddle, name)
     from paddle_tpu_torch.v2 import data_feeder, inference
 
