@@ -307,9 +307,51 @@ Phases (any failure exits non-zero):
      record multiset equals the dataset, the queue drains, w0 restarts
      for `crash` from its checkpoint and w1 for `sentinel_rollback`
      from its known-good step;
+ 42. the serving fleet (paddle_tpu_torch.serving.fleet, .frontdoor,
+     .tenancy, .loadgen; analysis.protocol_lint audits every journal
+     with expect_closed): phase 3's model in bf16 with the ENGINE
+     settings per replica over the POISSON trace (seed 0), every
+     replica thread launching the paged kernels on the one card. (a)
+     ServingFleet(n_replicas=1), n_replicas=3 with prefix affinity,
+     n_replicas=3 with kill_replica of the replica holding the most
+     work once a third of the trace is submitted (failovers == 1), a
+     tiered fleet (one prefill and two decode replicas, kv_store_dir,
+     KV fingerprints: handoff imports > 0 and no closed-block token
+     recomputed at migration, bench.py:3328-3335's bar) and 3-replica
+     fleets with int8 and fp8 pools over the trace's first 8 requests
+     (budgets capped at 32 tokens):
+     every request done with its budget's tokens in the vocabulary,
+     lost 0, one terminal record per rid, the journal clean; the paged
+     counters zeroed just before and read just after each run: decode
+     launches = layers x the engines' decode steps and prefill launches
+     = layers x their prefill chunks (at least that in the kill run);
+     tokens/s at N=1 and N=3; (a') the same drill in f32 over the first
+     16 requests, every third sampled: the fleet's tokens equal one f32
+     engine's for every request; (b) save_weights of a second weight
+     set (the first plus 0.01 N(0, 1), seed 1) and roll_weights to it
+     once a third of 32 requests of the trace (seed 2) is submitted (the
+     rest wait for it), policy
+     "finish", canaries every 0.5 s (each version's known answer from
+     one engine of the fleet's configuration, generate()'s logged
+     beside it): every done's weights_version equals its last
+     assignment's, every rolled replica holds the second set bit for
+     bit in bf16 on the card, no integrity trip; (c) a FrontDoor over
+     a two-replica fleet with two tenants (auth tokens, WFQ weights
+     2:1, bench.py:3413-3620's serving_frontdoor): the wire answer
+     equals the direct one, a capacity estimate from one wave of 16
+     requests, run_open_loop at 0.25x and 1x that rate for 5 s each,
+     every request streamed (chunks concatenate to the done frame, no
+     request without a typed verdict; goodput and TTFT p50 / p99
+     logged), then a streamed request whose client disconnects
+     (journaled `cancelled`); (d) 4 batches of the book's LeNet
+     inference at batch 64 through submit_batch(executor_batch_fn)
+     between 8 f32 LM requests: every fetch within 1e-5 of a direct
+     Executor.run; the flash counters read before (a) and after (d)
+     must not have moved (flash is not on the serving path);
  then print the kernels' JSON line (every kernel must have launched on
- a main path; the paged entries also carry their launches in phases 13
- and 14, the flash entries their Fluid launches in phases 18 and 38; no Hopper
+ a main path; the paged entries also carry their launches in phases
+ 13, 14 and 42, the flash entries their Fluid launches in phases 18 and
+ 38 and their launches over phase 42 (which must be 0); no Hopper
  kernel lies on the path of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
  convolutions, CRF recursions and detection ops are cuDNN, cuBLAS and
@@ -830,9 +872,7 @@ def phase_serve(torch, T, tpa, ServingEngine, params, cfg, dev="cuda"):
     eng = ServingEngine(params, cfg, device=dev, **ENGINE)
     reqs = trace(cfg)
     _sync(torch, dev)
-    tpa.paged_decode_attention.launches = 0
-    tpa.paged_prefill_attention.launches = 0
-    tpa.paged_verify_attention.launches = 0
+    zero_launches(tpa)
     t0 = time.monotonic()
     hs = [eng.submit(**r) for r in reqs[:-1]]
     eng.run()
@@ -840,9 +880,7 @@ def phase_serve(torch, T, tpa, ServingEngine, params, cfg, dev="cuda"):
     eng.run()
     _sync(torch, dev)
     wall = time.monotonic() - t0
-    launches = {"decode": tpa.paged_decode_attention.launches,
-                "prefill": tpa.paged_prefill_attention.launches,
-                "verify": tpa.paged_verify_attention.launches}
+    launches = read_launches(tpa)
     rep = eng.metrics.report()
     check(all(h.done for h in hs), "a request did not finish")
     for h in hs:
@@ -993,15 +1031,12 @@ def greedy_agreement(outs, ref):
 
 
 def zero_launches(tpa):
-    for w in (tpa.paged_decode_attention, tpa.paged_prefill_attention,
-              tpa.paged_verify_attention):
-        w.launches = 0
+    for key in tpa.launches:
+        tpa.launches[key] = 0
 
 
 def read_launches(tpa):
-    return {"decode": tpa.paged_decode_attention.launches,
-            "prefill": tpa.paged_prefill_attention.launches,
-            "verify": tpa.paged_verify_attention.launches}
+    return dict(tpa.launches)
 
 
 def check_served(hs, vocab):
@@ -6652,6 +6687,595 @@ def phase_data_plane(torch, fluid, resnet, card="cpu", place=None,
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 42: the serving fleet at full width
+# ---------------------------------------------------------------------
+
+# phase 42's settings: replicas of the fleet runs, how long the caller
+# waits for a verdict, the f32 drill's request count, the rollout's
+# checkpoint step, perturbation and canary period, the front door's
+# open-loop runs (bench.py:3413-3620's serving_frontdoor: two tenants,
+# every request streamed, 24-token prompts, 32 new tokens) and the
+# batch lane's LeNet batch (the book's MNIST LeNet)
+FLEET = dict(replicas=3, heartbeat_s=300.0, budget_s=600.0, step_s=0.004,
+             f32_requests=16, quant_requests=8, quant_max_new=32,
+             rollout_requests=32, rollout_step=1,
+             perturb=0.01,
+             canary_interval_s=0.5,
+             frontdoor=dict(replicas=2, n_warm=16, prompt_len=24,
+                            max_new=32, duration_s=5.0,
+                            rate_factors=(0.25, 1.0), settle_s=120.0,
+                            weights=(2.0, 1.0)),
+             batch=dict(batch=64, jobs=4, lm_requests=8))
+
+
+def _fleet(ServingFleet, params, cfg, n, journal, dev, engine=ENGINE,
+           **kw):
+    """A fleet of `n` replicas of `engine` on `dev` (the card unless a
+    rehearsal names the CPU), journaling to `journal` with no compaction
+    (the whole history stays for the one-terminal-per-rid check)."""
+    return ServingFleet(params, cfg, n_replicas=n, journal_path=journal,
+                        heartbeat_timeout_s=FLEET["heartbeat_s"],
+                        max_pending=1 << 12, affinity=True,
+                        journal_compact_every=None,
+                        engine_kw=dict(engine, device=dev), **kw)
+
+
+def _fleet_drive(fleet, reqs, arrive, kill_after=None, during=None,
+                 during_after=0, submit_kw=None):
+    """Submit `reqs` [(prompt, max_new)] at their arrival steps
+    (`FLEET["step_s"]` of wall time a step) and wait for every verdict.
+    After `kill_after` submissions, the replica holding the most work
+    is killed (kill_replica) once some of its work has emitted tokens
+    (so the survivors resume from the journal); after `during_after`,
+    `during()` is called once, if given. `submit_kw(i)` adds submit arguments. Returns (handles, wall
+    s, the killed replica's index or None)."""
+    hs, killed, started = [], None, False
+    t0 = time.monotonic()
+    i = step = 0
+    while i < len(reqs):
+        while i < len(reqs) and arrive[i] <= step:
+            prompt, n = reqs[i]
+            kw = dict(publish_len=POISSON["header"])
+            kw.update(submit_kw(i) if submit_kw else {})
+            hs.append(fleet.submit(prompt, n, **kw))
+            i += 1
+        if kill_after is not None and killed is None and i >= kill_after:
+            killed = _kill_busiest(fleet)
+        if during is not None and not started and i >= during_after:
+            during()
+            started = True
+        time.sleep(FLEET["step_s"])
+        step += 1
+    while kill_after is not None and killed is None \
+            and not all(h.done for h in hs):
+        killed = _kill_busiest(fleet)
+        time.sleep(FLEET["step_s"])
+    for h in hs:
+        h.result(timeout=FLEET["budget_s"])
+    return hs, time.monotonic() - t0, killed
+
+
+def _kill_busiest(fleet):
+    """Kill the replica holding the most started in-flight work; None
+    (and nothing killed) while no replica holds any."""
+    killed = fleet.busiest_replica()
+    if killed is not None:
+        fleet.kill_replica(killed)
+    return killed
+
+
+def _journal_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _check_fleet_run(label, fleet, hs, journal, vocab, verify_journal,
+                     format_diag):
+    """The bars every fleet run of phase 42 meets: every request done
+    within its budget with tokens in the vocabulary, nothing lost and
+    nothing answered twice, and the journal clean through the port's
+    DFA with every rid closed. Returns the fleet's stats."""
+    st = fleet.stats()
+    for h in hs:
+        check(h.done and h.error is None and h.tokens is not None
+              and (h.batch_fn is not None
+                   or len(h.tokens) == h.spec["max_new_tokens"]),
+              "phase 42 %s: request %d did not complete" % (label, h.rid))
+        check(all(0 <= t < vocab for t in h.tokens),
+              "phase 42 %s: request %d emitted a token outside the vocab"
+              % (label, h.rid))
+    check(st["lost"] == 0 and st["duplicate_refused"] == 0
+          and st["completed"] >= len(hs),
+          "phase 42 %s: lost %d, duplicates refused %d, completed %d of %d"
+          % (label, st["lost"], st["duplicate_refused"], st["completed"],
+             len(hs)))
+    fleet.close()
+    terminals = {}
+    for r in _journal_records(journal):
+        if r["kind"] in ("done", "rejected", "expired", "cancelled"):
+            terminals[r["rid"]] = terminals.get(r["rid"], 0) + 1
+    check(all(terminals.get(h.rid) == 1 for h in hs)
+          and all(n == 1 for n in terminals.values()),
+          "phase 42 %s: a request has no terminal record or several"
+          % label)
+    diags = verify_journal(journal, expect_closed=True)
+    check(not diags, "phase 42 %s: the journal fails the DFA:\n  %s"
+          % (label, "\n  ".join(format_diag(d) for d in diags)))
+    return st
+
+
+def _engine_counts(fleet):
+    """(decode steps, prefill chunks) of the engines the fleet holds,
+    read after close through `engine_counts()`."""
+    counts = [c for c in fleet.engine_counts() if c is not None]
+    return (sum(c["decode_steps"] for c in counts),
+            sum(c["prefill_chunks"] for c in counts))
+
+
+def _fleet_serve(torch, tpa, ServingFleet, params, cfg, n, reqs, arrive,
+                 tmp, label, verify_journal, format_diag, dev="cuda",
+                 kill=False, exact=True, **kw):
+    """One bf16 fleet run over the trace with the paged counters zeroed
+    just before the first submit and read just after the last verdict."""
+    journal = os.path.join(tmp, label + ".jsonl")
+    fleet = _fleet(ServingFleet, params, cfg, n, journal, dev, **kw)
+    _sync(torch, dev)
+    zero_launches(tpa)
+    hs, wall, killed = _fleet_drive(
+        fleet, reqs, arrive, kill_after=len(reqs) // 3 if kill else None)
+    _sync(torch, dev)
+    launches = read_launches(tpa)
+    st = _check_fleet_run(label, fleet, hs, journal, cfg.vocab,
+                          verify_journal, format_diag)
+    dec, pre = _engine_counts(fleet)
+    toks = sum(len(h.tokens) for h in hs)
+    ttft = sorted(h.ttft_s for h in hs if h.ttft_s is not None)
+    out = dict(replicas=n, requests=len(hs), tokens=toks, wall_s=wall,
+               tokens_per_s=toks / wall, launches=launches,
+               decode_steps=dec, prefill_chunks=pre,
+               failovers=st["failovers"], resubmitted=st["resubmitted"],
+               migrations=st["migrations"],
+               handoff_imports=st["handoff_imports"],
+               tokens_recomputed_at_migration=st[
+                   "tokens_recomputed_at_migration"],
+               prefix_hit_rate=st["prefix_hit_rate"],
+               ttft_p50_s=ttft[len(ttft) // 2] if ttft else None,
+               killed=killed)
+    if dev == "cuda":
+        if exact:
+            check(launches["decode"] == cfg.layers * dec and dec > 0
+                  and launches["prefill"] == cfg.layers * pre and pre > 0,
+                  "phase 42 %s: launches %s != layers x (decode steps "
+                  "%d, prefill chunks %d)" % (label, launches, dec, pre))
+        else:
+            check(launches["decode"] >= cfg.layers * dec
+                  and launches["prefill"] >= cfg.layers * pre,
+                  "phase 42 %s: launches %s below layers x the reported "
+                  "decode steps %d and prefill chunks %d"
+                  % (label, launches, dec, pre))
+    log("  (a) %s: %d requests, %d tokens in %.3f s: %.1f tokens/s; "
+        "launches %s (decode steps %d, prefill chunks %d); failovers %d, "
+        "migrations %d, handoff imports %d, tokens recomputed at "
+        "migration %d" % (label, len(hs), toks, wall, toks / wall,
+                          launches, dec, pre, st["failovers"],
+                          st["migrations"], st["handoff_imports"],
+                          st["tokens_recomputed_at_migration"]))
+    return out, [list(h.tokens) for h in hs]
+
+
+def _fleet_f32_drill(torch, T, ServingEngine, ServingFleet, params, cfg,
+                     tmp, verify_journal, format_diag, dev="cuda"):
+    """(a'): the trace's first requests, every third sampled, through one
+    f32 engine and through a 3-replica f32 fleet that loses a replica
+    holding work: the tokens are equal, request for request."""
+    p32 = _tree_map(lambda t: t.float(), params)
+    cfg32 = T.TransformerConfig(vocab=cfg.vocab, dim=cfg.dim,
+                                heads=cfg.heads, layers=cfg.layers,
+                                max_len=cfg.max_len)
+    reqs, arrive = poisson_trace(cfg.vocab)
+    n = FLEET["f32_requests"]
+    reqs, arrive = reqs[:n], arrive[:n]
+
+    def kw(i):
+        return dict(temperature=0.8 if i % 3 == 1 else 0.0, seed=500 + i)
+
+    eng = ServingEngine(p32, cfg32, device=dev, **ENGINE)
+    ref = []
+    for i, (prompt, m) in enumerate(reqs):
+        ref.append(eng.submit(prompt, m, publish_len=POISSON["header"],
+                              **kw(i)))
+    eng.run()
+    ref = [list(h.tokens) for h in ref]
+    del eng
+    journal = os.path.join(tmp, "f32_kill.jsonl")
+    fleet = _fleet(ServingFleet, p32, cfg32, FLEET["replicas"], journal,
+                   dev)
+    hs, wall, killed = _fleet_drive(fleet, reqs, arrive,
+                                    kill_after=n // 3, submit_kw=kw)
+    st = _check_fleet_run("(a') f32 kill", fleet, hs, journal, cfg.vocab,
+                          verify_journal, format_diag)
+    got = [list(h.tokens) for h in hs]
+    bad = [i for i, (a, b) in enumerate(zip(got, ref)) if a != b]
+    check(not bad, "phase 42 (a'): f32 fleet tokens differ from one f32 "
+          "engine for requests %s" % bad)
+    check(st["failovers"] == 1, "phase 42 (a'): %d failovers, not 1"
+          % st["failovers"])
+    log("  (a') f32, %d requests (%d sampled), 3 replicas, replica %s "
+        "killed: tokens equal one f32 engine's for every request (%d "
+        "tokens); resubmitted %d, resumed tokens %d"
+        % (n, sum(1 for i in range(n) if i % 3 == 1), killed,
+           sum(len(g) for g in got), st["resubmitted"],
+           st["resumed_tokens"]))
+    return dict(requests=n, tokens=sum(len(g) for g in got), wall_s=wall,
+                failovers=st["failovers"], resubmitted=st["resubmitted"],
+                resumed_tokens=st["resumed_tokens"], killed=killed)
+
+
+def _canary_golden(ServingEngine, params, cfg, prompt, n, dev):
+    """A canary's known answer for one weight set: the greedy tokens of
+    one engine of the fleet's configuration on the canary prompt."""
+    eng = ServingEngine(params, cfg, device=dev, **ENGINE)
+    h = eng.submit(np.asarray(prompt, np.int32), n)
+    eng.run()
+    return [int(t) for t in h.tokens]
+
+
+def _fleet_rollout(torch, T, ServingEngine, ServingFleet, save_weights,
+                   params, cfg, tmp, verify_journal, format_diag,
+                   dev="cuda"):
+    """(b): roll a 3-replica bf16 fleet, under load and with canaries on,
+    onto a second weight set written by save_weights: the rollout runs
+    in a thread once a third of the trace is submitted, and the rest of
+    the trace waits for it, so both versions answer requests."""
+    from paddle_tpu_torch.serving.integrity import CANARY_PROMPT
+
+    g = torch.Generator(device=params["embed"].device).manual_seed(1)
+    params2 = _tree_map(lambda t: (t.float() + FLEET["perturb"] * torch.randn(
+        t.shape, generator=g, device=t.device)).to(t.dtype), params)
+    ckpt = os.path.join(tmp, "weights")
+    step = FLEET["rollout_step"]
+    save_weights(params2, ckpt, step)
+    cmax = 4
+    gold1 = _canary_golden(ServingEngine, params, cfg, CANARY_PROMPT, cmax,
+                           dev)
+    gold2 = _canary_golden(ServingEngine, params2, cfg, CANARY_PROMPT, cmax,
+                           dev)
+    p = torch.tensor([list(CANARY_PROMPT)], device=params["embed"].device)
+    gen1 = T.generate(params, p, cfg, cmax)[0, len(CANARY_PROMPT):].tolist()
+    reqs, arrive = poisson_trace(cfg.vocab, seed=2)
+    reqs = reqs[:FLEET["rollout_requests"]]
+    arrive = arrive[:FLEET["rollout_requests"]]
+    journal = os.path.join(tmp, "rollout.jsonl")
+    fleet = _fleet(ServingFleet, params, cfg, FLEET["replicas"], journal,
+                   dev, ckpt_dir=ckpt, rollout_policy="finish",
+                   canary_interval_s=FLEET["canary_interval_s"],
+                   canary_max_new=cmax, canary_golden=gold1)
+    box = {}
+
+    def roll():
+        try:
+            box["out"] = fleet.roll_weights(step, canary_golden=gold2,
+                                            timeout=FLEET["budget_s"])
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            box["err"] = e
+
+    import threading
+
+    roller = threading.Thread(target=roll, name="phase42-rollout")
+    def during():
+        roller.start()
+        roller.join(timeout=FLEET["budget_s"])
+
+    hs, wall, _ = _fleet_drive(fleet, reqs, arrive, during=during,
+                               during_after=len(reqs) // 3)
+    roller.join(timeout=FLEET["budget_s"])
+    check(not roller.is_alive() and "err" not in box,
+          "phase 42 (b): roll_weights failed: %r" % (box.get("err"),))
+    served = fleet.served_weights()
+    st = _check_fleet_run("(b) rollout", fleet, hs, journal, cfg.vocab,
+                          verify_journal, format_diag)
+    leaves2 = T._leaves(params2)
+    for name, version, p in served:
+        got = T._leaves(p)
+        check(version == step and len(got) == len(leaves2)
+              and all(a.dtype == torch.bfloat16 and a.device.type == "cuda"
+                      and torch.equal(a, b) for a, b in zip(got, leaves2))
+              if dev == "cuda" else
+              version == step and all(
+                  torch.equal(a, b) for a, b in zip(got, leaves2)),
+              "phase 42 (b): replica %s does not hold the second weight "
+              "set in bf16 on the card" % name)
+    last_assign, versions = {}, {}
+    for r in _journal_records(journal):
+        if r["kind"] == "assign":
+            last_assign[r["rid"]] = r.get("weights_version")
+        elif r["kind"] == "done":
+            versions[r["rid"]] = (r.get("weights_version"),
+                                  last_assign.get(r["rid"]))
+    check(all(a == b for a, b in versions.values()),
+          "phase 42 (b): a done's weights_version differs from its last "
+          "assignment's")
+    by_version = {}
+    for v, _ in versions.values():
+        by_version[v] = by_version.get(v, 0) + 1
+    check(st["integrity_trips"] == 0 and st["canary_mismatches"] == 0
+          and st["canaries_ok"] >= 1 and st["rollouts_completed"] == 1
+          and by_version.get(0) and by_version.get(step),
+          "phase 42 (b): integrity trips %d, canary mismatches %d, "
+          "canaries ok %d, rollouts %d, dones by version %s"
+          % (st["integrity_trips"], st["canary_mismatches"],
+             st["canaries_ok"], st["rollouts_completed"], by_version))
+    log("  (b) rolled 3 replicas to version %d under load in the %.3f s "
+        "run: dones by version %s; canaries sent %d, ok %d, trips 0; "
+        "every replica holds the second set bit for bit in bf16; the "
+        "canary's engine golden %s, generate()'s %s"
+        % (step, wall, by_version, st["canaries_sent"], st["canaries_ok"],
+           gold1, gen1))
+    return dict(wall_s=wall, dones_by_version={str(k): v for k, v in
+                                               by_version.items()},
+                canaries_sent=st["canaries_sent"],
+                canaries_ok=st["canaries_ok"],
+                replicas_swapped=box["out"]["replicas_swapped"],
+                golden_matches_generate=gold1 == gen1)
+
+
+def _fleet_frontdoor(ServingFleet, params, cfg, tmp, verify_journal,
+                     format_diag, dev="cuda"):
+    """(c): a FrontDoor over a two-replica bf16 fleet with two tenants,
+    as bench.py's serving_frontdoor sets it up: a capacity estimate from
+    one saturating wave, open-loop runs at fractions of it with every
+    request streamed, and a streamed request whose client disconnects."""
+    from paddle_tpu_torch.serving import FrontDoor, TenantRegistry, WireClient
+    from paddle_tpu_torch.serving.loadgen import run_open_loop
+
+    c = FLEET["frontdoor"]
+    wa, wb = c["weights"]
+    treg = TenantRegistry()
+    # generous quotas: the runs measure the fleet, not a token bucket
+    treg.add("alice", rate=1e6, burst=1e6, weight=wa)
+    treg.add("bob", rate=1e6, burst=1e6, weight=wb)
+    auth = {"tok-alice": "alice", "tok-bob": "bob"}
+    tenants = [{"name": "alice", "token": "tok-alice", "weight": wa},
+               {"name": "bob", "token": "tok-bob", "weight": wb}]
+    journal = os.path.join(tmp, "frontdoor.jsonl")
+    fleet = _fleet(ServingFleet, params, cfg, c["replicas"], journal, dev,
+                   tenants=treg)
+    fd = FrontDoor(fleet, auth=auth).start()
+    rng = np.random.RandomState(42)
+    vocab, plen, mnew = cfg.vocab, c["prompt_len"], c["max_new"]
+    try:
+        prompt = rng.randint(1, vocab, plen).astype(np.int32)
+        dh = fleet.submit(prompt, mnew, seed=3, tenant="alice")
+        dh.result(timeout=FLEET["budget_s"])
+        wc = WireClient(fd.address, token="tok-alice")
+        got = wc.generate_blocking("warm", prompt, mnew, seed=3,
+                                   stream=True)
+        wc.close()
+        check(got["tokens"] == [int(t) for t in dh.tokens]
+              and [t for ch in got["chunks"] for t in ch] == got["tokens"],
+              "phase 42 (c): the wire answer or its stream differs from "
+              "the direct answer")
+        hs = [fleet.submit(rng.randint(1, vocab, plen).astype(np.int32),
+                           mnew, seed=100 + i, tenant="alice")
+              for i in range(c["n_warm"])]
+        t0 = time.monotonic()
+        for h in hs:
+            h.result(timeout=FLEET["budget_s"])
+        cap = c["n_warm"] / (time.monotonic() - t0)
+        runs = []
+        for k, f in enumerate(c["rate_factors"]):
+            rate = max(1.0, round(f * cap, 2))
+            rep = run_open_loop(
+                fd.address, tenants, rate, c["duration_s"], seed=7 + k,
+                prompt_len=plen, max_new_tokens=mnew, vocab=vocab,
+                stream=True, settle_s=c["settle_s"])
+            check(rep["stream_divergent"] == 0
+                  and rep["duplicate_rids"] == 0
+                  and rep["wire_unresolved"] == 0,
+                  "phase 42 (c) %.2f rps: %d streams diverged, %d rids "
+                  "duplicated, %d requests without a typed verdict"
+                  % (rate, rep["stream_divergent"], rep["duplicate_rids"],
+                     rep["wire_unresolved"]))
+            runs.append({key: rep[key] for key in (
+                "rate_rps", "offered_rps", "goodput_rps", "ttft_p50_s",
+                "ttft_p99_s", "itl_p50_s", "itl_p99_s", "completed",
+                "sent", "shed")})
+            log("  (c) %.2fx capacity (%.2f rps): goodput %.3f rps, TTFT "
+                "p50 %.4f s p99 %.4f s, %d of %d completed, shed %s"
+                % (f, rate, rep["goodput_rps"], rep["ttft_p50_s"] or -1,
+                   rep["ttft_p99_s"] or -1, rep["completed"], rep["sent"],
+                   rep["shed"]))
+        before = fleet.stats()["cancelled"]
+        dc = WireClient(fd.address, token="tok-bob")
+        dc.generate("drop", rng.randint(1, vocab, plen), 8 * mnew, seed=50,
+                    stream=True)
+        frame = dc.recv()
+        while frame is not None and frame.get("op") not in ("tokens",
+                                                            "done"):
+            frame = dc.recv()
+        dc.close()
+        t1 = time.monotonic()
+        while (fleet.stats()["cancelled"] <= before
+               or not fd.stats()["disconnect_cancels"]) \
+                and time.monotonic() - t1 < 30:
+            time.sleep(0.01)
+        fd_stats = fd.stats()
+        check(fleet.stats()["cancelled"] > before
+              and fd_stats["disconnect_cancels"] >= 1,
+              "phase 42 (c): the dropped stream was not cancelled (last "
+              "frame %r, fleet cancelled %d, front door %s)"
+              % (frame, fleet.stats()["cancelled"], fd_stats))
+    finally:
+        fd.close()
+    st = _check_fleet_run("(c) front door", fleet, [dh] + hs, journal,
+                          vocab, verify_journal, format_diag)
+    kinds = [r["kind"] for r in _journal_records(journal)]
+    check("cancelled" in kinds, "phase 42 (c): no cancelled record")
+    log("  (c) capacity %.2f rps from %d requests; the disconnect "
+        "journaled `cancelled`; cancelled %d, shed %d"
+        % (cap, c["n_warm"], st["cancelled"], st["shed"]))
+    return dict(capacity_rps=cap, runs=runs, cancelled=st["cancelled"],
+                disconnect_cancels=fd_stats["disconnect_cancels"])
+
+
+def _fleet_batch_lane(torch, T, ServingFleet, params, cfg, tmp,
+                      verify_journal, format_diag, dev="cuda"):
+    """(d): Fluid LeNet inference at batch 64 through submit_batch
+    (executor_batch_fn) between f32 LM requests; every job's fetch
+    equals a direct Executor.run of the same program and feed."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.models import lenet
+    from paddle_tpu_torch.serving import TenantRegistry, executor_batch_fn
+
+    c = FLEET["batch"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        image = fluid.layers.data(name="image", shape=[1, 28, 28],
+                                  dtype="float32")
+        predict = lenet.lenet(image, 10)
+    place = fluid.CUDAPlace(0) if dev == "cuda" else fluid.CPUPlace()
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+    feeds = [{"image": book_image_feed(torch, BOOK_IMAGE["lenet_mnist"],
+                                       c["batch"], dev, seed=s)["image"]}
+             for s in range(c["jobs"])]
+    with fluid.scope_guard(scope):
+        direct = [exe.run(main, feed=f, fetch_list=[predict])[0]
+                  for f in feeds]
+    p32 = _tree_map(lambda t: t.float(), params)
+    cfg32 = T.TransformerConfig(vocab=cfg.vocab, dim=cfg.dim,
+                                heads=cfg.heads, layers=cfg.layers,
+                                max_len=cfg.max_len)
+    treg = TenantRegistry()
+    treg.add("lm", rate=1e6, burst=1e6, weight=1.0)
+    treg.add("zoo", rate=1e6, burst=1e6, weight=1.0)
+    journal = os.path.join(tmp, "batch_lane.jsonl")
+    fleet = _fleet(ServingFleet, p32, cfg32, 1, journal, dev, tenants=treg)
+    reqs, _ = poisson_trace(cfg.vocab, seed=3)
+    lm, jobs = [], []
+    for k in range(max(c["lm_requests"], c["jobs"])):
+        if k < c["lm_requests"]:
+            prompt, m = reqs[k]
+            lm.append(fleet.submit(prompt, m, tenant="lm",
+                                   publish_len=POISSON["header"]))
+        if k < c["jobs"]:
+            jobs.append(fleet.submit_batch(
+                executor_batch_fn(exe, main, feeds[k], [predict],
+                                  scope=scope),
+                tenant="zoo", cost=float(c["batch"])))
+    for h in lm + jobs:
+        h.result(timeout=FLEET["budget_s"])
+    err = max(float(np.abs(np.asarray(j.batch_result[0]) - d).max())
+              for j, d in zip(jobs, direct))
+    check(err <= 1e-5, "phase 42 (d): batch-lane fetches differ from the "
+          "direct run by %.3g (bar 1e-5)" % err)
+    st = _check_fleet_run("(d) batch lane", fleet, lm + jobs, journal,
+                          cfg.vocab, verify_journal, format_diag)
+    check(st["batch_jobs_completed"] == c["jobs"],
+          "phase 42 (d): %d batch jobs completed of %d"
+          % (st["batch_jobs_completed"], c["jobs"]))
+    log("  (d) %d LeNet batches of %d through the batch lane between %d "
+        "f32 LM requests: max |fleet - direct| %.3g"
+        % (c["jobs"], c["batch"], len(lm), err))
+    return dict(jobs=c["jobs"], batch=c["batch"], lm_requests=len(lm),
+                max_abs_err=err)
+
+
+def phase_fleet(torch, T, tpa, card="cpu", dev="cuda", full=FULL):
+    """Phase 42 (see the module docstring); `dev="cpu"` and a small
+    `full` rehearse it on the CPU."""
+    import importlib
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.analysis.diagnostics import format_diag
+    from paddle_tpu_torch.analysis.protocol_lint import verify_journal
+    from paddle_tpu_torch.serving import (ServingEngine, ServingFleet,
+                                          save_weights)
+
+    # the module (the package re-exports its function under this name)
+    tfa = importlib.import_module("paddle_tpu_torch.parallel.flash_attention")
+    tmp = tempfile.mkdtemp(prefix="phase42_")
+    cfg = T.TransformerConfig(dtype=torch.bfloat16, **full)
+    params = T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    reqs, arrive = poisson_trace(cfg.vocab, seed=0)
+    out = {"card": card}
+    serve = functools.partial(_fleet_serve, torch, tpa, ServingFleet,
+                              params, cfg, reqs=reqs, arrive=arrive,
+                              tmp=tmp, verify_journal=verify_journal,
+                              format_diag=format_diag, dev=dev)
+    # flash is not on the serving path: its counters must not move
+    # between the first fleet run and the last
+    flash_before = dict(tfa.launches)
+    try:
+        t0 = time.monotonic()
+        out["n1"], _ = serve(n=1, label="N=1")
+        out["n3"], _ = serve(n=FLEET["replicas"], label="N=3")
+        out["n3_kill"], _ = serve(n=FLEET["replicas"], label="N=3 kill",
+                                  kill=True, exact=False)
+        check(out["n3_kill"]["failovers"] == 1,
+              "phase 42 (a): the kill run made %d failovers, not 1"
+              % out["n3_kill"]["failovers"])
+        store = os.path.join(tmp, "kv_store")
+        out["tiered"], _ = serve(
+            n=3, label="tiered", replica_tier=["prefill", "decode",
+                                               "decode"],
+            kv_store_dir=store,
+            engine=dict(ENGINE, kv_fingerprints=True))
+        qreqs = [(p, min(m, FLEET["quant_max_new"]))
+                 for p, m in reqs[:FLEET["quant_requests"]]]
+        for kvq in ("int8", "fp8"):
+            out["n3_" + kvq], _ = serve(
+                n=FLEET["replicas"], label="N=3 %s pool" % kvq,
+                engine=dict(ENGINE, kv_quant=kvq), reqs=qreqs,
+                arrive=arrive[:FLEET["quant_requests"]])
+        check(out["tiered"]["handoff_imports"] > 0
+              and out["tiered"]["migrations"] > 0
+              and out["tiered"]["tokens_recomputed_at_migration"] == 0,
+              "phase 42 (a) tiered: migrations %d, handoff imports %d, "
+              "tokens recomputed at migration %d (bench.py:3328-3335's bar: "
+              "0 with an import)" % (out["tiered"]["migrations"],
+                                     out["tiered"]["handoff_imports"],
+                                     out["tiered"][
+                                         "tokens_recomputed_at_migration"]))
+        t1 = time.monotonic()
+        out["f32_kill"] = _fleet_f32_drill(
+            torch, T, ServingEngine, ServingFleet, params, cfg, tmp,
+            verify_journal, format_diag, dev=dev)
+        t2 = time.monotonic()
+        out["rollout"] = _fleet_rollout(
+            torch, T, ServingEngine, ServingFleet, save_weights, params,
+            cfg, tmp, verify_journal, format_diag, dev=dev)
+        t3 = time.monotonic()
+        out["frontdoor"] = _fleet_frontdoor(
+            ServingFleet, params, cfg, tmp, verify_journal, format_diag,
+            dev=dev)
+        t4 = time.monotonic()
+        out["batch_lane"] = _fleet_batch_lane(
+            torch, T, ServingFleet, params, cfg, tmp, verify_journal,
+            format_diag, dev=dev)
+        out["seconds"] = dict(a=t1 - t0, a_f32=t2 - t1, b=t3 - t2,
+                              c=t4 - t3, d=time.monotonic() - t4)
+        out["flash_launches"] = {k: tfa.launches[k] - flash_before[k]
+                                 for k in tfa.launches}
+        check(not any(out["flash_launches"].values()),
+              "phase 42: the fleet launched flash kernels: %s"
+              % out["flash_launches"])
+        out["launches"] = {k: out[k]["launches"]
+                           for k in ("n1", "n3", "n3_kill", "tiered",
+                                     "n3_int8", "n3_fp8")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("  (a) tokens/s: N=1 %.1f, N=3 %.1f (N=3 / N=1 %.3f)"
+        % (out["n1"]["tokens_per_s"], out["n3"]["tokens_per_s"],
+           out["n3"]["tokens_per_s"] / out["n1"]["tokens_per_s"]))
+    return out
+
+
 def main():
     import torch
 
@@ -6890,6 +7514,14 @@ def main():
         fluid16_ms=legacy["resnet_fluid_program"]["ms_per_step"])
     log("  phase 41 took %.1f s" % (time.monotonic() - t0))
 
+    log("phase 42: the serving fleet at full width: failover, a tiered "
+        "fleet with KV handoff, quantized pools, an f32 kill drill, a "
+        "weight rollout with canaries, the front door, the batch lane")
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(torch, T, tpa, card=card)
+    log("  phase 42 took %.1f s" % (time.monotonic() - t0))
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -6934,6 +7566,8 @@ def main():
             "window_launches": {k: v[which] for k, v in
                                 window_launches().items()},
             "adapter_launches": adapters["launches"][which],
+            "fleet_launches": {k: fleet["launches"][k][which] for k in
+                               ("n1", "n3", "n3_kill", "tiered")},
             "max_abs_err": errs[(which, "bfloat16")],
             "max_abs_err_f32": errs[(which, "float32")],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -6960,6 +7594,7 @@ def main():
                 "launches": n,
                 "window_launches": {k: v[which] for k, v in
                                     window_launches(kvq).items()},
+                "fleet_launches": fleet["launches"]["n3_" + kvq][which],
                 "max_abs_err": qerrs[key + ("bfloat16",)],
                 "max_abs_err_f32": qerrs[key + ("float32",)],
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -6978,6 +7613,7 @@ def main():
             "launches": flash_launches[which],
             "fluid_launches": fluid_flash["launches"][which],
             "mesh_launches": mesh1["flash_launches"][which],
+            "fleet_launches": fleet["flash_launches"][which],
             "max_abs_err": flash_errs["bfloat16"][which],
             "max_abs_err_f32": flash_errs["float32"][which],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -7022,6 +7658,7 @@ def main():
                                       mesh_two_ranks=mesh2,
                                       legacy_trainer=legacy,
                                       data_plane=data_plane)))
+    log("fleet: %s" % json.dumps(fleet))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,26 @@ process per source, all started together, each waited for. nvcc's
 report (-Xptxas -v) is kept beside each library as `<library>.log`. The
 libraries are loaded with ctypes; callers declare argtypes/restype.
 
+A build is safe from several threads and several processes at once: a
+process-wide lock and a file lock in `_build/` serialise the builds, so
+a library is compiled once and every later caller finds it; each
+compiler writes a temporary file named by its process and thread, and
+an atomic rename publishes it.
+
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine with no nvcc.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Iterable
 
 __all__ = ["NVCC_FLAGS", "build", "compiler_output", "load"]
@@ -32,6 +41,24 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 # -Xptxas -v reports registers, shared memory and spills per kernel
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+# serialises builds within a process (the file lock below serialises
+# them across processes: flock is per open file, not per thread)
+_BUILD_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _locked():
+    """Hold the process-wide lock and the file lock `_build/.lock`."""
+    with _BUILD_LOCK:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, ".lock"), "a") as fh:
+            fcntl.flock(fh, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 def _nvcc() -> str:
@@ -62,21 +89,31 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     with the compiler's output when any build fails."""
     names = list(names)
     paths = {n: _lib_path(n) for n in names}
-    todo = [n for n in names if not os.path.exists(paths[n])]
-    if not todo:
+    if all(os.path.exists(p) for p in paths.values()):
         return paths
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    with _locked():
+        # another thread or process may have built them while this one
+        # waited for the locks
+        todo = [n for n in names if not os.path.exists(paths[n])]
+        if todo:
+            _compile(todo, paths)
+    return paths
+
+
+def _compile(todo, paths):
+    """Run one nvcc per source in `todo`, all at once (under the locks)."""
     nvcc = _nvcc()
     procs = {}
+    failed = []
     try:
         for n in todo:
-            tmp = "%s.%d.tmp" % (paths[n], os.getpid())
+            tmp = "%s.%d.%d.tmp" % (paths[n], os.getpid(),
+                                    threading.get_ident())
             cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
                    os.path.join(CSRC, n + ".cu")]
             procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT),
                         tmp)
-        failed = []
         for n, (p, tmp) in procs.items():
             log = p.communicate()[0].decode(errors="replace")
             if p.returncode != 0:
@@ -92,7 +129,6 @@ def build(names: Iterable[str]) -> Dict[str, str]:
                 p.wait()
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return paths
 
 
 def compiler_output(name: str) -> str:

@@ -1,8 +1,9 @@
-"""The diagnostic record of the program verifier (the port's own copy of
-the part of paddle_tpu/analysis/diagnostics.py that program_lint.py
-uses: `Diagnostic`, `ProgramVerifyError`, the P-codes, `make`,
-`format_diag`; the JAX package's AST linters and their baseline files
-are not part of the port).
+"""The diagnostic record of the program verifier and the journal
+verifier (the port's own copy of the part of
+paddle_tpu/analysis/diagnostics.py that program_lint.py and
+protocol_lint.py use: `Diagnostic`, `ProgramVerifyError`, the P- and
+J-codes, `make`, `format_diag`, `rel_path`; the JAX package's AST
+linters and their baseline files are not part of the port).
 
 The reference Fluid stack validated a ProgramDesc op-by-op in C++
 (framework/op_desc.cc CheckAttrs / InferShape, operator.cc:484 runtime
@@ -13,11 +14,12 @@ severity, an anchor, and a *fingerprint* without line numbers.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 __all__ = ["Diagnostic", "ProgramVerifyError", "CODES", "make",
-           "format_diag"]
+           "format_diag", "repo_root", "rel_path"]
 
 # code -> (short name, severity)
 CODES: Dict[str, Tuple[str, str]] = {
@@ -27,6 +29,19 @@ CODES: Dict[str, Tuple[str, str]] = {
     "P004": ("shape-mismatch", "error"),
     "P005": ("duplicate-parameter", "error"),
     "P006": ("unpaired-grad", "error"),
+    # journal state-machine verifier (protocol_lint.py), over
+    # RequestJournal files
+    "J001": ("orphan-record", "error"),
+    "J002": ("duplicate-terminal", "error"),
+    "J003": ("record-after-terminal", "error"),
+    "J004": ("stale-fence", "error"),
+    "J005": ("progress-terminal-mismatch", "error"),
+    "J006": ("unassigned-progress", "error"),
+    "J007": ("open-at-close", "error"),
+    "J008": ("malformed-journal", "error"),
+    "J009": ("version-fence", "error"),
+    "J010": ("taint-fence", "error"),
+    "J011": ("handoff-fence", "error"),
 }
 
 
@@ -75,3 +90,20 @@ def make(code: str, path: str, line: int, symbol: str, detail: str,
 def format_diag(d: Diagnostic) -> str:
     return "%s:%d: %s %s (%s) %s: %s" % (
         d.path, d.line, d.code, d.name, d.severity, d.symbol, d.message)
+
+
+def repo_root() -> str:
+    """The checkout holding the port (the parent of paddle_tpu_torch/)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.dirname(os.path.dirname(here))
+
+
+def rel_path(path: str) -> str:
+    """Repo-relative, forward-slash path for stable fingerprints; paths
+    outside the repo (journals in temporary directories) pass through as
+    given."""
+    root = repo_root()
+    ap = os.path.abspath(path)
+    if ap.startswith(root + os.sep):
+        return os.path.relpath(ap, root).replace(os.sep, "/")
+    return path.replace(os.sep, "/")

@@ -135,7 +135,7 @@ class RecordWriter(object):
 
 def read_records(path: str):
     """Synchronous record iterator. A torn tail or a record that fails
-    its CRC ends the stream before it."""
+    its CRC ends the stream before it; an empty record is a record."""
     L = lib()
     h = L.rio_open(path.encode())
     if not h:
@@ -143,9 +143,9 @@ def read_records(path: str):
     try:
         while True:
             n = L.rio_next(h)
-            if n <= 0:
+            if n < 0:
                 return
-            yield ctypes.string_at(L.rio_data(h), n)
+            yield ctypes.string_at(L.rio_data(h), n) if n else b""
     finally:
         L.rio_close(h)
 
@@ -169,10 +169,10 @@ class PrefetchReader(object):
         if not self._h:
             raise StopIteration
         n = self._L.pq_next(self._h)
-        if n <= 0:
+        if n < 0:
             self.close()
             raise StopIteration
-        return ctypes.string_at(self._L.pq_data(self._h), n)
+        return ctypes.string_at(self._L.pq_data(self._h), n) if n else b""
 
     def close(self):
         if self._h:

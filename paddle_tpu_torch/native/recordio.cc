@@ -135,15 +135,16 @@ void* rio_open(const char* path) {
   return new Reader{f, {}};
 }
 
-// returns payload length, 0 at EOF/corruption; payload via rio_data
+// returns the payload length (0 for an empty record), -1 at end of
+// file or at a torn or corrupt record; payload via rio_data
 int64_t rio_next(void* rp) {
   auto* r = static_cast<Reader*>(rp);
   uint32_t hdr[3];
-  if (fread(hdr, sizeof(uint32_t), 3, r->f) != 3) return 0;
-  if (hdr[0] != kMagic) return 0;
+  if (fread(hdr, sizeof(uint32_t), 3, r->f) != 3) return -1;
+  if (hdr[0] != kMagic) return -1;
   r->buf.resize(hdr[1]);
-  if (fread(r->buf.data(), 1, hdr[1], r->f) != hdr[1]) return 0;
-  if (crc32_of(r->buf.data(), r->buf.size()) != hdr[2]) return 0;
+  if (fread(r->buf.data(), 1, hdr[1], r->f) != hdr[1]) return -1;
+  if (crc32_of(r->buf.data(), r->buf.size()) != hdr[2]) return -1;
   return static_cast<int64_t>(hdr[1]);
 }
 
@@ -166,12 +167,13 @@ void* pq_open(const char** paths, int n_paths, int capacity) {
   return p;
 }
 
-// blocks for the next record; returns length, 0 at end of stream
+// blocks for the next record; returns its length (0 for an empty
+// record), -1 at the end of the stream
 int64_t pq_next(void* pp) {
   auto* p = static_cast<Prefetcher*>(pp);
   std::unique_lock<std::mutex> lk(p->mu);
   p->can_pop.wait(lk, [&] { return !p->q.empty() || p->done; });
-  if (p->q.empty()) return 0;
+  if (p->q.empty()) return -1;
   p->current = std::move(p->q.front());
   p->q.pop();
   p->can_push.notify_one();

@@ -30,11 +30,11 @@ P^T.g, dS to q's dtype before dS^T.Q and to k's dtype before dS.K.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from .kernel_utils import causal_fill, guarded_exp, on_cpu
+from .kernel_utils import (bind_once, causal_fill, count_launch,
+                           guarded_exp, on_cpu)
 
 __all__ = ["flash_attention", "flash_forward", "flash_backward",
            "flash_backward_kv", "flash_backward_q", "flash_attention_plain",
@@ -112,7 +112,7 @@ def flash_backward_plain(q, k, v, o, lse, g, scale, causal):
 # ---------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
+@bind_once
 def _kernels():
     """Build (first call only) and bind csrc/flash_attention.cu."""
     from .. import _build
@@ -191,7 +191,7 @@ def _call(name, ptrs, q, B, H, T, S, D, scale, causal):
     if err:
         raise RuntimeError("%s kernel launch failed: CUDA error %d"
                            % (name, err))
-    launches[name[len("flash_"):]] += 1
+    count_launch(launches, name[len("flash_"):])
 
 
 def _launch_forward(q, k, v, scale, causal):
@@ -312,7 +312,8 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     return _FlashAttention.apply(q, k, v, float(scale), bool(causal))
 
 
-# launch counters: one plain integer per kernel, bumped only where its
-# wrapper launches it (never on the CPU's plain version)
+# launch counters: one plain integer per kernel, bumped (under
+# count_launch's lock) only where its wrapper launches it (never on the
+# CPU's plain version)
 launches = {"forward": 0, "backward_kv": 0, "backward_q": 0}
 flash_attention.launches = launches

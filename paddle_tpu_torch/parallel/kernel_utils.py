@@ -12,9 +12,13 @@ and `causal_fill`'s mask.
 
 from __future__ import annotations
 
+import functools
+import threading
+
 import torch
 
-__all__ = ["NEG_INF", "guarded_exp", "causal_fill", "on_cpu", "raw_bytes"]
+__all__ = ["NEG_INF", "guarded_exp", "causal_fill", "on_cpu", "raw_bytes",
+           "bind_once", "count_launch"]
 
 # Finite -inf stand-in for score masking. Finite on purpose: the
 # online-softmax no-op guards (`p = where(s <= NEG_INF, 0, p)`,
@@ -72,3 +76,36 @@ def on_cpu(what, *ts) -> bool:
             "%s needs all tensors on one CUDA device or all on the CPU "
             "(got %s)" % (what, sorted(str(d) for d in devs)))
     return False
+
+
+def bind_once(fn):
+    """Memoise a no-argument binder (build + load + declare a kernel
+    library) so that it runs once per process even when several threads
+    make the first call together, as a fleet's replica threads do: the
+    others wait for the first and share its result. A binder that
+    raises is run again by the next caller."""
+    lock = threading.Lock()
+    box = []
+
+    @functools.wraps(fn)
+    def wrapper():
+        if not box:
+            with lock:
+                if not box:
+                    box.append(fn())
+        return box[0]
+
+    return wrapper
+
+
+# one lock for every launch counter: `+= 1` on a dict entry is a read,
+# an add and a write, and two threads that launch at once could lose a
+# count
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts, key):
+    """Add one to `counts[key]`, a kernel's entry in its module's dict
+    of launch counters, exactly under concurrent launches."""
+    with _COUNT_LOCK:
+        counts[key] += 1

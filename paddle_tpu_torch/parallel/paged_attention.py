@@ -17,8 +17,8 @@ Two numerics families, as in the JAX package:
 Each wrapper keeps the JAX argument order and layouts (without
 `interpret`: a CUDA kernel has no interpret mode). On a CUDA tensor it
 launches the Hopper kernels of csrc/paged_attention.cu (built by nvcc at
-first use, bound with ctypes) and counts the call in its `launches`
-attribute; on CPU tensors it runs `paged_attention_plain`, the plain
+first use, bound with ctypes) and counts the call in the module's
+`launches` dict (keys "decode", "verify", "prefill"); on CPU tensors it runs `paged_attention_plain`, the plain
 PyTorch version of the same function, which the CPU tests hold against
 the JAX package and chip_smoke.py holds the kernels against. There is
 no fallback: a CUDA tensor launches or raises.
@@ -47,7 +47,8 @@ import math
 
 import torch
 
-from .kernel_utils import NEG_INF, guarded_exp, on_cpu, raw_bytes
+from .kernel_utils import (NEG_INF, bind_once, count_launch, guarded_exp,
+                           on_cpu, raw_bytes)
 
 __all__ = ["paged_decode_attention", "paged_verify_attention",
            "paged_prefill_attention", "paged_attention_plain",
@@ -158,7 +159,7 @@ def paged_attention_split_plain(q, k_pool, v_pool, tables, base, *, scale,
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
+@bind_once
 def _kernels():
     """Build (first call only) and bind csrc/paged_attention.cu."""
     from .. import _build
@@ -304,7 +305,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
                                      **sc)[:, 0]
     out = _launch(q[:, None], k_pool, v_pool, tables, pos, scale=scale,
                   scale_in_q=False, **sc)
-    paged_decode_attention.launches += 1
+    count_launch(launches, "decode")
     return out[:, 0]
 
 
@@ -321,7 +322,7 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
                                      scale=scale, scale_in_q=True, **sc)
     out = _launch(q, k_pool, v_pool, tables, pos, scale=scale,
                   scale_in_q=True, **sc)
-    paged_verify_attention.launches += 1
+    count_launch(launches, "verify")
     return out
 
 
@@ -341,12 +342,11 @@ def paged_prefill_attention(q, k_pool, v_pool, table_row, start, *,
                                      scale_in_q=True, **sc)[0]
     out = _launch(q[None], k_pool, v_pool, table_row.reshape(1, -1), start,
                   scale=scale, scale_in_q=True, **sc)
-    paged_prefill_attention.launches += 1
+    count_launch(launches, "prefill")
     return out[0]
 
 
-# launch counters: one plain integer per wrapper, bumped only where the
-# wrapper launches the kernel (never on the CPU's plain version)
-paged_decode_attention.launches = 0
-paged_verify_attention.launches = 0
-paged_prefill_attention.launches = 0
+# launch counters: one plain integer per wrapper, bumped (under
+# count_launch's lock) only where the wrapper launches the kernel (never
+# on the CPU's plain version)
+launches = {"decode": 0, "verify": 0, "prefill": 0}

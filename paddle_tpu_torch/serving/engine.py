@@ -84,11 +84,14 @@ trace gives the same tokens per request, greedy and sampled, and the
 same prefix hits, copy-on-writes and block residency.
 
 Every constructor knob and `submit` argument of the reference is taken
-except four constructor arguments: `donate` (the reference donates its
+except two constructor arguments: `donate` (the reference donates its
 cache buffers to each compiled step; this cache is updated in place,
-so there is nothing to donate), `prefix_block_tokens` (the reference's
-older name for `kv_block_tokens`), and the fleet's `scheduler_hook`
-and `weights_version`, which wait for the port of serving/fleet.py.
+so there is nothing to donate) and `prefix_block_tokens` (the
+reference's older name for `kv_block_tokens`). The fleet's knobs are
+taken as there: `scheduler_hook` (a `serving.fleet.SchedulerHook`,
+called at the yield point "engine:<replica_id>:step" at the start of
+every `step()`) and `weights_version` (the int tag of the weight set
+these params came from, on the engine and in `metrics.report()`).
 """
 
 from __future__ import annotations
@@ -248,7 +251,8 @@ class ServingEngine(object):
     None or 1 with `async_dispatch=False` is the one-token step) and
     `async_dispatch`; `adapter_registry`, `adapter_slots` (pool slots,
     slot 0 the zero adapter) and `adapter_rank`; `kv_fingerprints`;
-    `kv_store` and `kv_store_warm`. `params` must already live on
+    `kv_store` and `kv_store_warm`; `scheduler_hook` and
+    `weights_version` (the fleet's). `params` must already live on
     `device` (CUDA by default)."""
 
     def __init__(self, params, cfg, max_slots=8, max_len=None,
@@ -262,7 +266,11 @@ class ServingEngine(object):
                  integrity_traps=True, kv_fingerprints=False,
                  integrity_spike_factor=None, kv_store=None,
                  kv_store_warm=False, decode_window=None,
-                 async_dispatch=False, device=None):
+                 async_dispatch=False, scheduler_hook=None,
+                 weights_version=None, device=None):
+        # the fleet's schedule-exploration seam: a controlled scheduler
+        # may park the driving thread at the start of every step
+        self._sched_hook = scheduler_hook
         if spec_draft_len is not None and int(spec_draft_len) < 0:
             raise ValueError("spec_draft_len must be >= 0 or None")
         # K < 2 means no drafts to verify: the plain decode step
@@ -347,6 +355,11 @@ class ServingEngine(object):
         self.metrics.spec = self.spec_draft_len is not None
         self.metrics.block_fp = self._fp
         self.metrics.kv_blocks_total = NB
+        # the weight version these params came from, fixed for the
+        # engine's life (a fleet swaps weights by building a new engine)
+        self.weights_version = (
+            None if weights_version is None else int(weights_version))
+        self.metrics.weights_version = self.weights_version
         itemsize = torch.empty((), dtype=cfg.dtype).element_size()
         self.kv_block_bytes = tlm.kv_block_bytes(
             cfg.layers, cfg.heads, cfg.dim // cfg.heads, Bt, kv_quant,
@@ -1384,7 +1397,11 @@ class ServingEngine(object):
         total), then ONE batched decode over every live slot. Returns
         False when there was nothing to do. Each call first ticks the
         fault injector; any failure aborts every pending handle and
-        latches the engine."""
+        latches the engine. With a `scheduler_hook`, the call first
+        passes the yield point "engine:<replica_id>:step"."""
+        if self._sched_hook is not None:
+            self._sched_hook.yield_point(
+                "engine:%s:step" % (self.replica_id or ""))
         if self._failed is not None:
             raise self._failed
         inj = self._injector

@@ -118,6 +118,9 @@ class ServingMetrics(object):
         self.kv_quant = None
         self.weight_quant = None
         self.spec = False
+        # gauge: the weight version the engine serves (None outside a
+        # versioned fleet)
+        self.weights_version = None
         # set by the engine when the adapter pool, KV fingerprints or a
         # KV store is on: report() surfaces their O(1) counters
         self.adapter_pool = None
@@ -224,6 +227,7 @@ class ServingMetrics(object):
             "paged_kernel": self.paged_kernel,
             "kv_quant": self.kv_quant,
             "weight_quant": self.weight_quant,
+            "weights_version": self.weights_version,
             "tokens_recomputed_at_migration":
                 self.tokens_recomputed_at_migration,
             "handoff_imports": self.handoff_imports,

@@ -82,15 +82,22 @@ def test_corrupt_record_stops_alike(tmp_path, writer, reader):
     assert len(got) < 10 and got == recs[:len(got)]
 
 
-def test_empty_record_ends_the_stream_in_both(tmp_path):
-    """A zero-length record reads as the end of the stream in both
-    packages (rio_next and pq_next return 0 for it; ROADMAP Queue C):
-    the records after it are not delivered, by either reader."""
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_empty_record_is_read_by_the_port(tmp_path, writer):
+    """A zero-length record is well formed (its header carries length 0
+    and the CRC of nothing): the port's readers deliver it and the
+    records after it, from a file either package wrote. The JAX
+    package's readers take it for the end of the stream (rio_next and
+    pq_next return 0 for both there): that fault of the reference is
+    pinned here, so a change to either side shows."""
     p = str(tmp_path / "e.rio")
-    _write(tnative, p, [b"a", b"", b"b"])
-    for native in SIDES.values():
-        assert list(native.read_records(p)) == [b"a"]
-        assert list(native.PrefetchReader([p])) == [b"a"]
+    _write(SIDES[writer], p, [b"a", b"", b"b"])
+    assert list(tnative.read_records(p)) == [b"a", b"", b"b"]
+    assert list(tnative.PrefetchReader([p])) == [b"a", b"", b"b"]
+    assert list(tnative.PrefetchReader([p, p], capacity=1)) == \
+        [b"a", b"", b"b"] * 2
+    assert list(jnative.read_records(p)) == [b"a"]
+    assert list(jnative.PrefetchReader([p])) == [b"a"]
 
 
 def test_prefetch_close_stops_the_native_thread(tmp_path):

@@ -29,7 +29,8 @@ def _modules():
 
 def test_importing_every_module_leaves_jax_out():
     mods = _modules()
-    for name in ("engine", "adapters", "kv_store", "integrity"):
+    for name in ("engine", "adapters", "kv_store", "integrity", "fleet",
+                 "tenancy", "wire", "frontdoor", "loadgen"):
         assert "paddle_tpu_torch.serving." + name in mods
     for name in ("executor", "core.lowering", "core.kernels_nn", "io",
                  "layers.nn", "optimizer", "core.kernels_sequence",
@@ -48,7 +49,8 @@ def test_importing_every_module_leaves_jax_out():
     for name in ("mesh", "collectives", "async_sgd", "embedding"):
         assert "paddle_tpu_torch.parallel." + name in mods
     for name in ("analysis", "analysis.program_lint",
-                 "analysis.diagnostics", "utils.flags"):
+                 "analysis.diagnostics", "analysis.protocol_lint",
+                 "analysis.sched_explore", "utils.flags"):
         assert "paddle_tpu_torch." + name in mods
     for name in ("resnet", "ocr_crnn", "ctr", "lenet", "vgg", "alexnet",
                  "googlenet", "mobilenet", "ssd"):

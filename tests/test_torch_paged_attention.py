@@ -123,18 +123,14 @@ def test_parked_row_reads_only_the_table():
 
 def test_cpu_takes_plain_version_and_counts_no_launch():
     k, v = _pools(9)
-    before = (tpa.paged_decode_attention.launches,
-              tpa.paged_verify_attention.launches,
-              tpa.paged_prefill_attention.launches)
+    before = dict(tpa.launches)
     tables = _t(np.array([[0, 1, -1, -1]], np.int32))
     q = torch.zeros(1, H, DH)
     tpa.paged_decode_attention(q, _t(k), _t(v), tables, _t(np.array([3])))
     tpa.paged_verify_attention(q[:, None], _t(k), _t(v), tables,
                                _t(np.array([3])))
     tpa.paged_prefill_attention(q, _t(k), _t(v), tables[0], 2)
-    assert (tpa.paged_decode_attention.launches,
-            tpa.paged_verify_attention.launches,
-            tpa.paged_prefill_attention.launches) == before
+    assert tpa.launches == before
 
 
 def test_refuses_quantized_pools_and_foreign_devices():
