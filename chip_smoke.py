@@ -309,7 +309,8 @@ Phases (any failure exits non-zero):
      from its known-good step;
  42. the serving fleet (paddle_tpu_torch.serving.fleet, .frontdoor,
      .tenancy, .loadgen; analysis.protocol_lint audits every journal
-     with expect_closed): phase 3's model in bf16 with the ENGINE
+     with expect_closed): phase 3's model at HALF_DEPTH (4 of its 8
+     layers) in bf16 with the ENGINE
      settings per replica over the POISSON trace (seed 0), every
      replica thread launching the paged kernels on the one card. (a)
      ServingFleet(n_replicas=1), n_replicas=3 with prefix affinity,
@@ -348,10 +349,40 @@ Phases (any failure exits non-zero):
      between 8 f32 LM requests: every fetch within 1e-5 of a direct
      Executor.run; the flash counters read before (a) and after (d)
      must not have moved (flash is not on the serving path);
+ 43. the LM's remaining paths at phase 3's width (8 layers), bf16 unless
+     stated, with two ranks of this script (--lm-worker RANK DIR) on
+     cuda:0 in a gloo group for (a)-(d): (a) {seq: 2}, B 2 x T 4096,
+     causal: forward with ring, zigzag and flash (Ulysses over the flash
+     kernels) within 2e-2 x the largest |logit| of this rank's
+     one-device flash forward (the absolute 2e-2 logged: under one bf16
+     step at |logit| 4-8), then 3 SGD steps through Ulysses + flash
+     with the flash counters zeroed just before and read just after
+     (forward, dK/dV and dQ launches = layers x steps in each rank), the
+     losses finite and equal across ranks; (b) the Switch LM (8 experts
+     every 2 blocks) over {expert: 2}, 8 x 1024 tokens: in f32 at
+     capacity factor 8 (nothing dropped) the loss within 1e-5 of the
+     one-device reference_moe loss, in bf16 at 1.25 3 steps finite with
+     each rank's dropped tokens read from its mesh's SyncStats; (c)
+     {model: 2}, f32, parameters laid out by param_specs: the loss
+     within 1e-5 of the one-device loss;
+     (d) {pipe: 2}, 8 microbatches of two GELU MLP stages 512 -> 2048 ->
+     512 at B 256, f32: forward and gradients within 1e-5 of
+     reference_pipeline; (e) in this process, the Switch LM: 10 SGD
+     steps through flash with the loss falling, f32 greedy generate
+     equal to the CPU port's, beam search (beam 1 = greedy, scores
+     sorted, LAST_DECODE_STATS), prefill_chunk in chunks of 128 over a
+     512-token prompt against prefill in f32 (within 1e-5; whether bit
+     for bit is logged: cuBLAS picks its f32 GEMM kernels by row count),
+     and the fused paged prefill and decode over 16 slots with MoE
+     blocks (launches = layers x chunks and layers x steps, the
+     launches over quantized pools counted apart; logits within 2e-2 of
+     the largest |logit| of the gather path's);
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases
- 13, 14 and 42, the flash entries their Fluid launches in phases 18 and
- 38 and their launches over phase 42 (which must be 0); no Hopper
+ 13, 14, 42 and 43, the flash entries their Fluid launches in phases 18
+ and 38, their launches over phase 42 (which must be 0) and in phase
+ 43 (per rank on the Ulysses path, and the Switch LM's; the dequant
+ entries their phase-43 launches over int8 and fp8 pools); no Hopper
  kernel lies on the path of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
  convolutions, CRF recursions and detection ops are cuDNN, cuBLAS and
@@ -406,13 +437,24 @@ FLASH_REPLACES = {
 FLASH_PRODUCTS = {"forward": 2, "backward_kv": 4, "backward_q": 3}
 
 FULL = dict(vocab=32000, dim=512, heads=8, layers=8, max_len=1024)
+# phase 42 (the host-bound serving fleet, every bar per layer) runs 4 of
+# FULL's 8 layers at its width: the room phase 43 needs within the
+# script's 700 s
+HALF_DEPTH = dict(FULL, layers=4)
 ENGINE = dict(max_slots=16, kv_block_tokens=16, prefill_chunk_tokens=128,
               prefix_cache_tokens=8192)
 # the repo's training configuration (bench.py:913-931): tokens [8, 1025]
 TRAIN = dict(batch=8, seq=1024, lr=1e-3)
 
 
+_START = time.monotonic()
+
+
 def log(*a):
+    """Print a line now; a phase's opening line also carries the seconds
+    since the script started."""
+    if a and str(a[0]).startswith("phase "):
+        a = a + ("[%.1f s]" % (time.monotonic() - _START),)
     print(*a, flush=True)
 
 
@@ -7276,6 +7318,618 @@ def phase_fleet(torch, T, tpa, card="cpu", dev="cuda", full=FULL):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 43: the LM's remaining paths (sequence, expert, tensor and
+# pipeline parallelism on two gloo ranks; the Switch LM on one rank)
+# ---------------------------------------------------------------------
+
+LM_PATHS = dict(
+    # (a) phase 3's model over {seq: 2}: 2,048 rows a rank
+    seq=dict(batch=2, seq=4096, steps=3, lr=1e-3),
+    # (b) the Switch LM over {expert: 2}: 8 x 1,024 tokens
+    moe=dict(experts=8, every=2, batch=8, seq=1024, cf_f32=8.0,
+             cf_bf16=1.25, steps=3, lr=1e-3),
+    # (c) phase 3's model in f32 over {model: 2}
+    tp=dict(batch=4, seq=1024),
+    # (d) two GELU MLP stages 512 -> 2048 -> 512 over {pipe: 2}
+    pipe=dict(micro=8, batch=256, width=512, hidden=2048),
+    # (e) the Switch LM on one rank
+    lm=dict(steps=10, lr=0.5, gen_batch=2, prompt=64, new=32, slots=16,
+            chunk=128, decode_steps=8, beam_batch=2, beam=4,
+            prefill_prompt=512, prefill_chunk=128))
+
+
+def _pattern_tokens(vocab, batch, seq, seed):
+    """[batch, seq + 1] rows counting up from a seeded start (next token
+    = token + 1 mod vocab): a pattern a few SGD steps learn."""
+    rng = np.random.RandomState(seed)
+    start = rng.randint(0, vocab, (batch, 1))
+    return (start + np.arange(seq + 1)) % vocab
+
+
+def _timed(torch, dev, fn):
+    """(result, host ms, device ms) of fn() ending in a sync; device ms
+    from CUDA events (None on the CPU)."""
+    if dev.type == "cuda":
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+    t0 = time.monotonic()
+    out = fn()
+    if dev.type == "cuda":
+        e1.record()
+        torch.cuda.synchronize()
+    host = (time.monotonic() - t0) * 1e3
+    return out, host, (e0.elapsed_time(e1) if dev.type == "cuda" else None)
+
+
+def _lm_seq(torch, T, tfa, make_mesh, all_reduce, dev, full,
+            cfg=LM_PATHS["seq"]):
+    """(a): forward with ring, zigzag and flash (Ulysses) over {seq: 2}
+    against this rank's one-device forward through the flash kernels,
+    then SGD steps through Ulysses + flash with the flash counters
+    zeroed just before and read just after."""
+    tcfg = T.TransformerConfig(dtype=torch.bfloat16,
+                               **dict(full, max_len=cfg["seq"]))
+    params = T.init_params(tcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    toks = torch.from_numpy(_pattern_tokens(
+        tcfg.vocab, cfg["batch"], cfg["seq"], 0)).to(dev)
+    inp = toks[:, :-1]
+    mesh = make_mesh({"seq": 2}, device=dev)
+    out = {}
+    # the group's first collective sets up gloo's transport: timed apart
+    _, host, _ = _timed(torch, dev, lambda: all_reduce(
+        torch.ones(1, device=dev), mesh.group("seq")))
+    out["first_collective_ms"] = host
+    with torch.no_grad():
+        T.forward(params, inp, tcfg, attn_impl="flash")  # warm
+        ref, host, devms = _timed(torch, dev, lambda: T.forward(
+            params, inp, tcfg, attn_impl="flash"))
+        scale = float(ref.float().abs().max())
+        out["one_rank_flash"] = dict(host_ms=host, device_ms=devms,
+                                     max_abs_logit=scale)
+        for impl in ("ring", "zigzag", "flash"):
+            got, host, devms = _timed(torch, dev, lambda: T.forward(
+                params, inp, tcfg, mesh=mesh, attn_impl=impl))
+            err = float((got.float() - ref.float()).abs().max())
+            # held at the bf16 bar of the flash checks, 2e-2 scaled by
+            # the largest |value|; the absolute 2e-2 is logged beside it
+            # (under one bf16 step, 2 ** -5, for |logit| in [4, 8))
+            out[impl] = dict(max_abs_err=err,
+                             within_2e_2=err <= 2e-2 * max(1.0, scale),
+                             within_2e_2_abs=err <= 2e-2,
+                             host_ms=host, device_ms=devms)
+            del got
+    del ref
+    step = T.make_train_step(tcfg, lr=cfg["lr"], mesh=mesh,
+                             attn_impl="flash")
+    mesh.sync_stats.reset()
+    for key in tfa.launches:
+        tfa.launches[key] = 0
+    losses, times = [], []
+    for _ in range(cfg["steps"]):
+        (_, loss), host, devms = _timed(torch, dev, lambda: step(params,
+                                                                 toks))
+        losses.append(float(loss))
+        times.append((host, devms))
+    out.update(losses=losses, step_host_ms=[t[0] for t in times],
+               step_device_ms=[t[1] for t in times],
+               launches=dict(tfa.launches),
+               exchanges=mesh.sync_stats.exchanges,
+               exchange_bytes=mesh.sync_stats.exchange_bytes,
+               grad_sync_bytes=mesh.sync_stats.bytes)
+    return out
+
+
+def _lm_moe(torch, T, make_mesh, dev, full, cfg=LM_PATHS["moe"]):
+    """(b): the Switch LM over {expert: 2}: in f32 with capacity factor
+    cf_f32 (nothing dropped) the loss against this rank's one-device
+    loss through reference_moe; then SGD steps in bf16 at cf_bf16. The
+    tokens of this rank's block that found no slot are read from the
+    mesh's SyncStats, reset just before each part."""
+    mesh = make_mesh({"expert": 2}, device=dev)
+    moe = dict(full, moe_experts=cfg["experts"], moe_every=cfg["every"])
+    toks = torch.from_numpy(_pattern_tokens(
+        full["vocab"], cfg["batch"], cfg["seq"], 1)).to(dev)
+    out = {}
+    c32 = T.TransformerConfig(moe_capacity_factor=cfg["cf_f32"], **moe)
+    p32 = T.init_params(c32, torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    with torch.no_grad():
+        ref, host1, dev1 = _timed(torch, dev, lambda: T.loss_fn(
+            p32, toks, c32))
+        mesh.sync_stats.reset()
+        got, host2, dev2 = _timed(torch, dev, lambda: T.loss_fn(
+            p32, toks, c32, mesh=mesh))
+    out["f32"] = dict(loss=float(got), one_rank_loss=float(ref),
+                      rel_err=abs(float(got) - float(ref)) / abs(float(ref)),
+                      dropped=int(mesh.sync_stats.dropped_tokens),
+                      one_rank_host_ms=host1, one_rank_device_ms=dev1,
+                      host_ms=host2, device_ms=dev2)
+    del p32
+    c16 = T.TransformerConfig(dtype=torch.bfloat16,
+                              moe_capacity_factor=cfg["cf_bf16"], **moe)
+    p16 = T.init_params(c16, torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    step = T.make_train_step(c16, lr=cfg["lr"], mesh=mesh)
+    mesh.sync_stats.reset()
+    losses, times = [], []
+    for _ in range(cfg["steps"]):
+        (_, loss), host, devms = _timed(torch, dev, lambda: step(p16, toks))
+        losses.append(float(loss))
+        times.append((host, devms))
+    # one MoE forward per MoE block per step, each over this rank's half
+    calls = cfg["steps"] * sum(map(c16.is_moe_block, range(c16.layers)))
+    out["bf16"] = dict(losses=losses,
+                       dropped=int(mesh.sync_stats.dropped_tokens),
+                       tokens_routed=cfg["batch"] * cfg["seq"] * calls // 2,
+                       moe_calls=calls,
+                       step_host_ms=[t[0] for t in times],
+                       step_device_ms=[t[1] for t in times],
+                       exchanges=mesh.sync_stats.exchanges)
+    return out
+
+
+def _lm_tp(torch, T, make_mesh, dev, full, cfg=LM_PATHS["tp"]):
+    """(c): phase 3's model in f32 with its parameters laid out by
+    param_specs over {model: 2} (each rank holds its blocks): the loss
+    against this rank's one-device loss."""
+    mesh = make_mesh({"model": 2}, device=dev)
+    tcfg = T.TransformerConfig(**full)
+    params = T.init_params(tcfg, torch.Generator(device=dev).manual_seed(3),
+                           device=dev)
+    toks = torch.from_numpy(_pattern_tokens(
+        tcfg.vocab, cfg["batch"], cfg["seq"], 2)).to(dev)
+    blocks = T.shard_params(params, tcfg, mesh)
+    held = sum(t.numel() for t in T._leaves(blocks))
+    whole = sum(t.numel() for t in T._leaves(params))
+    with torch.no_grad():
+        ref, host1, dev1 = _timed(torch, dev, lambda: T.loss_fn(
+            params, toks, tcfg))
+        got, host2, dev2 = _timed(torch, dev, lambda: T.loss_fn(
+            blocks, toks, tcfg, mesh=mesh))
+    return dict(loss=float(got), one_rank_loss=float(ref),
+                rel_err=abs(float(got) - float(ref)) / abs(float(ref)),
+                params_held=held, params_whole=whole,
+                one_rank_host_ms=host1, one_rank_device_ms=dev1,
+                host_ms=host2, device_ms=dev2)
+
+
+def _gelu_stage(p, h):
+    import torch.nn.functional as F
+
+    return F.gelu(h @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+
+def _lm_pipe(torch, make_mesh, gpipe_pipeline, reference_pipeline,
+             all_reduce, dev, rank, cfg=LM_PATHS["pipe"]):
+    """(d): two GELU MLP stages over {pipe: 2}, each rank holding its own
+    stage, f32: forward and the gradients of sum(y ** 2) (seeded 1 /
+    ranks, summed over the axis) against reference_pipeline's on this
+    rank; max |difference| over max |reference| per tensor."""
+    mesh = make_mesh({"pipe": 2}, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    W, Hd, B = cfg["width"], cfg["hidden"], cfg["batch"]
+    full = {"w1": torch.randn(2, W, Hd, generator=g, device=dev) / W ** 0.5,
+            "b1": torch.randn(2, Hd, generator=g, device=dev) * 0.1,
+            "w2": torch.randn(2, Hd, W, generator=g, device=dev) / Hd ** 0.5,
+            "b2": torch.randn(2, W, generator=g, device=dev) * 0.1}
+    x0 = torch.randn(B, W, generator=g, device=dev)
+
+    def grads(fn, params, ranks):
+        x = x0.clone().requires_grad_(True)
+        y = fn(params, x)
+        names = sorted(params)
+        gs = torch.autograd.grad(
+            (y.float() ** 2).sum(), [params[k] for k in names] + [x],
+            grad_outputs=torch.tensor(1.0 / ranks, device=dev))
+        return y.detach(), dict(zip(names + ["x"], gs))
+
+    def pipe_fn(p, x):
+        return gpipe_pipeline(_gelu_stage, p, x, mesh,
+                              n_microbatches=cfg["micro"], stage_local=True)
+
+    ref, rg = grads(lambda p, x: reference_pipeline(_gelu_stage, p, x),
+                    {k: v.clone().requires_grad_(True)
+                     for k, v in full.items()}, 1)
+    mine = {k: v[rank:rank + 1].clone().requires_grad_(True)
+            for k, v in full.items()}
+    (got, gg), host, devms = _timed(torch, dev,
+                                    lambda: grads(pipe_fn, mine, 2))
+    gx = all_reduce(gg["x"], mesh.group("pipe"))
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    errs = {"y": rel(got, ref), "x": rel(gx, rg["x"])}
+    for k in sorted(full):
+        errs[k] = rel(gg[k][0], rg[k][rank])
+    return dict(rel_err=errs, host_ms=host, device_ms=devms,
+                exchanges=mesh.sync_stats.exchanges)
+
+
+def lm_worker(rank, tmp, dev="cuda:0", full=None):
+    """One of phase 43's two ranks (`chip_smoke.py --lm-worker RANK
+    DIR`): a gloo group over a file store in DIR, both ranks on cuda:0
+    (NCCL refuses two ranks on one card: a test configuration, not a
+    fallback). Runs (a)-(d) and writes its numbers to
+    DIR/rank<RANK>.json."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.models import transformer as T
+    from paddle_tpu_torch.parallel import (gpipe_pipeline, make_mesh,
+                                           reference_pipeline)
+    from paddle_tpu_torch.parallel.collectives import all_reduce
+
+    tfa = importlib.import_module("paddle_tpu_torch.parallel.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    full = full or FULL
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), rank=rank, world_size=2)
+    out = {}
+    t0 = time.monotonic()
+    out["a"] = _lm_seq(torch, T, tfa, make_mesh, all_reduce, dev, full)
+    out["b"] = _lm_moe(torch, T, make_mesh, dev, full)
+    out["c"] = _lm_tp(torch, T, make_mesh, dev, full)
+    out["d"] = _lm_pipe(torch, make_mesh, gpipe_pipeline, reference_pipeline,
+                        all_reduce, dev, rank)
+    out["seconds"] = time.monotonic() - t0
+    with open(os.path.join(tmp, "rank%d.json" % rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(argv, tmp, timeout, label):
+    """Start two worker processes (argv + [rank, tmp]), wait for both,
+    fail the phase if either fails; their JSON results."""
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(argv + [str(r), tmp], cwd=os.path.dirname(here),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and any(
+                p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate() for p in procs]
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log("  rank %d exited %s; its stderr ends:\n%s"
+                % (r, p.returncode, se[-3000:]))
+        check(p.returncode == 0, "%s: rank %d failed" % (label, r))
+    res = []
+    for r in range(2):
+        with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+            res.append(json.load(f))
+    return res
+
+
+def _lm_switch(torch, T, tfa, tpa, dev, full, card, cfg=LM_PATHS["lm"]):
+    """(e): the Switch LM on one rank (bf16 unless stated): SGD steps
+    through the flash kernels with the loss falling; greedy generate in
+    f32 against the CPU port's; the fused paged decode and prefill over
+    16 slots with MoE blocks (counters zeroed just before and read just
+    after; logits against the gather path's); beam search (beam 1 =
+    greedy, scores sorted); prefill_chunk against prefill in f32."""
+    moe = dict(full, moe_experts=LM_PATHS["moe"]["experts"],
+               moe_every=LM_PATHS["moe"]["every"])
+    out = {}
+    c16 = T.TransformerConfig(dtype=torch.bfloat16, **moe)
+    params = T.init_params(c16, torch.Generator(device=dev).manual_seed(5),
+                           device=dev)
+    toks = torch.from_numpy(_pattern_tokens(
+        c16.vocab, TRAIN["batch"], TRAIN["seq"], 3)).to(dev)
+    step = T.make_train_step(c16, lr=cfg["lr"], attn_impl="flash")
+    for key in tfa.launches:
+        tfa.launches[key] = 0
+    losses = []
+    (_, host, devms) = _timed(torch, dev, lambda: [
+        losses.append(step(params, toks)[1]) for _ in range(cfg["steps"])])
+    losses = [float(x) for x in losses]
+    flash = dict(tfa.launches)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          "phase 43 (e): the Switch LM's loss did not fall: %s" % losses)
+    if dev.type == "cuda":
+        want = c16.layers * cfg["steps"]
+        check(all(n == want for n in flash.values()),
+              "phase 43 (e): flash launches %s != layers x steps %d"
+              % (flash, want))
+    out["train"] = dict(losses=losses, flash_launches=flash,
+                        ms_per_step_host=host / cfg["steps"],
+                        ms_per_step_device=(devms / cfg["steps"]
+                                            if devms else None))
+    del step
+
+    # greedy generate in f32, card vs the CPU port on the same weights
+    c32 = T.TransformerConfig(**moe)
+    p32 = _tree_map(lambda t: t.detach().float(), params)
+    rng = np.random.RandomState(6)
+    prompt = torch.from_numpy(rng.randint(
+        0, c32.vocab, (cfg["gen_batch"], cfg["prompt"]))).to(dev)
+    with torch.no_grad():
+        got, host, devms = _timed(torch, dev, lambda: T.generate(
+            p32, prompt, c32, cfg["new"]))
+        p_cpu = _tree_map(lambda t: t.cpu(), p32)
+        want = T.generate(p_cpu, prompt.cpu(), c32, cfg["new"])
+    same = bool(torch.equal(got.cpu(), want))
+    check(same, "phase 43 (e): f32 generate on the card != the CPU port's")
+    out["generate_f32"] = dict(tokens_equal_cpu=same, host_ms=host,
+                               device_ms=devms)
+    del p_cpu
+
+    # beam search (bf16): beam 1 is greedy, scores sorted
+    bprompt = prompt[:cfg["beam_batch"]]
+    with torch.no_grad():
+        greedy = T.generate(params, bprompt, c16, cfg["new"])
+        b1, _ = T.beam_search_generate(params, bprompt, c16, cfg["new"],
+                                       beam_size=1)
+        (beams, scores), host, devms = _timed(
+            torch, dev, lambda: T.beam_search_generate(
+                params, bprompt, c16, cfg["new"], beam_size=cfg["beam"]))
+    stats = dict(T.LAST_DECODE_STATS)
+    sorted_ok = bool((scores[:, 1:] <= scores[:, :-1]).all())
+    check(torch.equal(b1[:, 0], greedy), "phase 43 (e): beam 1 != greedy")
+    check(sorted_ok and bool(torch.isfinite(scores).all()),
+          "phase 43 (e): beam scores not finite and sorted")
+    out["beam"] = dict(beam1_equals_greedy=True, scores_sorted=sorted_ok,
+                       stats=stats, shape=list(beams.shape),
+                       host_ms=host, device_ms=devms)
+
+    # prefill_chunk in chunks vs prefill, f32, bit for bit
+    pp = torch.from_numpy(rng.randint(0, c32.vocab,
+                                      (1, cfg["prefill_prompt"]))).to(dev)
+    with torch.no_grad():
+        lm, mono = T.prefill(p32, pp, c32, max_len=cfg["prefill_prompt"])
+        cache = T.init_kv_cache(c32, 2, max_len=cfg["prefill_prompt"],
+                                device=dev)
+        C = cfg["prefill_chunk"]
+        for s0 in range(0, cfg["prefill_prompt"], C):
+            lc, cache = T.prefill_chunk(p32, cache, pp[0, s0:s0 + C], s0, 1,
+                                        c32)
+    # bit for bit on the CPU (tests/test_torch_generation.py); on the
+    # card cuBLAS picks its GEMM kernels by row count (a 128-row
+    # projection takes a split-K kernel the 512-row one does not), so
+    # the two orders of f32 reduction are held at 1e-5 of the largest
+    # value instead, and whether they were bit-equal is logged
+    pairs = [(lc, lm[0])] + [(a[b][1], m[b][0]) for a, m in
+                             zip(cache, mono) for b in ("k", "v")]
+    bit = all(bool(torch.equal(x, y)) for x, y in pairs)
+    rel = max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-30)
+              for x, y in pairs)
+    check(rel <= 1e-5, "phase 43 (e): chunked prefill left prefill by %.3e"
+          % rel)
+    # the cause on the card: is a C-row f32 GEMM the first rows of the
+    # 512-row one (the projections), and a batched one (the einsums)?
+    x = torch.randn(cfg["prefill_prompt"], c32.dim, device=dev)
+    w = torch.randn(c32.dim, c32.dim, device=dev)
+    rows_2d = bool(torch.equal((x @ w)[:C], x[:C] @ w))
+    xb = x.reshape(c32.heads, -1, c32.dim // c32.heads)
+    wb = w[:c32.dim // c32.heads].expand(c32.heads, -1, -1)
+    rows_bmm = bool(torch.equal(torch.bmm(xb, wb)[:, :C],
+                                torch.bmm(xb[:, :C], wb)))
+    out["prefill_chunk_f32"] = dict(bit_equal=bit, max_rel_err=rel,
+                                    chunks=cfg["prefill_prompt"] // C,
+                                    gemm_rows_stable=rows_2d,
+                                    bmm_rows_stable=rows_bmm)
+    del cache, mono, p32
+
+    # the fused paged decode and prefill with MoE blocks, 16 slots
+    S, Bt, C = cfg["slots"], 16, cfg["chunk"]
+    maxb = (C + cfg["decode_steps"]) // Bt + 1
+    NB = S * maxb
+    tables = torch.arange(NB, dtype=torch.int32, device=dev).reshape(S, maxb)
+    seqs = torch.from_numpy(rng.randint(
+        0, c16.vocab, (S, C + cfg["decode_steps"]))).to(dev)
+    caches = {k: T.init_paged_kv_cache(c16, NB, Bt, device=dev)
+              for k in ("fused", "gather")}
+    for counts in [tpa.launches] + list(tpa.quant_launches.values()):
+        for key in counts:
+            counts[key] = 0
+    last = {}
+    with torch.no_grad():
+        def run(kernel):
+            cache = caches[kernel]
+            for s in range(S):
+                T.paged_prefill_chunk(params, cache, seqs[s, :C], 0,
+                                      tables[s], c16, kernel=kernel)
+            for i in range(cfg["decode_steps"]):
+                pos = torch.full((S,), C + i, dtype=torch.int32, device=dev)
+                lg, _ = T.paged_decode_step(params, seqs[:, C + i], pos,
+                                            tables, cache, c16,
+                                            kernel=kernel)
+            return lg
+
+        last["fused"], host, devms = _timed(torch, dev, lambda: run("fused"))
+        counted = dict(tpa.launches)
+        counted_quant = {k: dict(v) for k, v in tpa.quant_launches.items()}
+        last["gather"] = run("gather")
+    err = float((last["fused"].float() - last["gather"].float()).abs().max())
+    scale = float(last["gather"].float().abs().max())
+    check(err <= 2e-2 * max(1.0, scale), "phase 43 (e): fused paged logits "
+          "vs gather %.3e (max |logit| %.3f)" % (err, scale))
+    if dev.type == "cuda":
+        check(counted["prefill"] == c16.layers * S and
+              counted["decode"] == c16.layers * cfg["decode_steps"],
+              "phase 43 (e): paged launches %s != layers x chunks %d / "
+              "layers x steps %d" % (counted, c16.layers * S,
+                                     c16.layers * cfg["decode_steps"]))
+    out["paged"] = dict(launches=counted, quant_launches=counted_quant,
+                        chunks=S,
+                        decode_steps=cfg["decode_steps"],
+                        max_abs_err_vs_gather=err, host_ms=host,
+                        device_ms=devms)
+    return out
+
+
+def phase_lm_paths(torch, T, tfa, tpa, card="cpu", dev="cuda:0",
+                   full=FULL, worker_argv=None, timeout=600):
+    """Phase 43: (a)-(d) in two ranks of this script (`--lm-worker`) on
+    the card in a gloo group, (e) in this process; each part's numbers
+    on a line of its own, device ms beside host ms. (`dev`, `full` and
+    `worker_argv` let a rehearsal run on the CPU at a small width.)"""
+    import tempfile
+
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    argv = worker_argv or [sys.executable, os.path.abspath(__file__),
+                           "--lm-worker"]
+    t0 = time.monotonic()
+    ranks = _run_ranks(argv, tmp, timeout, "phase 43")
+    ranks_s = time.monotonic() - t0
+    a, b, c, d = ([r[k] for r in ranks] for k in "abcd")
+    want = full["layers"] * LM_PATHS["seq"]["steps"]
+    _on_card(card, "(a) {seq: 2}, B %d x T %d, bf16: max |logits - one "
+             "rank's flash| ring %s, zigzag %s, flash (Ulysses) %s "
+             "(held: 2e-2 x max(1, max |logit| %.3f): %s; absolute 2e-2, "
+             "logged: %s); the first collective "
+             "%.1f ms; forward ms host/device: one rank "
+             "%s, ring %s, zigzag %s, ulysses %s; 3 steps Ulysses + flash: "
+             "losses %s / %s, ms host/device %s; flash launches per rank "
+             "%s (layers x steps = %d); exchanges %d (%d B), gradient sync "
+             "%d B" % (
+                 LM_PATHS["seq"]["batch"], LM_PATHS["seq"]["seq"],
+                 *["%.4f" % a[0][k]["max_abs_err"]
+                   for k in ("ring", "zigzag", "flash")],
+                 a[0]["one_rank_flash"]["max_abs_logit"],
+                 [a[0][k]["within_2e_2"] for k in ("ring", "zigzag",
+                                                   "flash")],
+                 [a[0][k]["within_2e_2_abs"] for k in ("ring", "zigzag",
+                                                       "flash")],
+                 a[0]["first_collective_ms"],
+                 *["%.1f/%s" % (a[0][k]["host_ms"], _fmt(a[0][k]["device_ms"]))
+                   for k in ("one_rank_flash", "ring", "zigzag", "flash")],
+                 a[0]["losses"], a[1]["losses"],
+                 ["%.1f/%s" % (h, _fmt(dm)) for h, dm in
+                  zip(a[0]["step_host_ms"], a[0]["step_device_ms"])],
+                 [r["launches"] for r in a], want, a[0]["exchanges"],
+                 a[0]["exchange_bytes"], a[0]["grad_sync_bytes"]))
+    for r in a:
+        check(all(r[k]["within_2e_2"] for k in ("ring", "zigzag", "flash")),
+              "phase 43 (a): a sequence-parallel forward left the one-rank "
+              "flash forward")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              "phase 43 (a): a loss is not finite")
+        if dev.type == "cuda":
+            check(all(n == want for n in r["launches"].values()),
+                  "phase 43 (a): flash launches %s != layers x steps %d"
+                  % (r["launches"], want))
+    check(a[0]["losses"] == a[1]["losses"],
+          "phase 43 (a): the ranks' losses differ")
+    _on_card(card, "(b) {expert: 2}, %d experts every %d blocks, %d x %d "
+             "tokens: f32 (capacity factor %.2f) loss %.6f vs one rank's "
+             "reference_moe %.6f, rel %.2e (1e-5), dropped %d; ms host/"
+             "device mesh %.1f/%s, one rank %.1f/%s; bf16 (factor %.2f) 3 "
+             "steps: losses %s / %s, tokens dropped by rank 0 / rank 1 "
+             "%d / %d, each of %d routed, ms host/device %s" % (
+                 LM_PATHS["moe"]["experts"], LM_PATHS["moe"]["every"],
+                 LM_PATHS["moe"]["batch"], LM_PATHS["moe"]["seq"],
+                 LM_PATHS["moe"]["cf_f32"], b[0]["f32"]["loss"],
+                 b[0]["f32"]["one_rank_loss"], b[0]["f32"]["rel_err"],
+                 b[0]["f32"]["dropped"], b[0]["f32"]["host_ms"],
+                 _fmt(b[0]["f32"]["device_ms"]),
+                 b[0]["f32"]["one_rank_host_ms"],
+                 _fmt(b[0]["f32"]["one_rank_device_ms"]),
+                 LM_PATHS["moe"]["cf_bf16"], b[0]["bf16"]["losses"],
+                 b[1]["bf16"]["losses"],
+                 b[0]["bf16"]["dropped"], b[1]["bf16"]["dropped"],
+                 b[0]["bf16"]["tokens_routed"],
+                 ["%.1f/%s" % (h, _fmt(dm)) for h, dm in zip(
+                     b[0]["bf16"]["step_host_ms"],
+                     b[0]["bf16"]["step_device_ms"])]))
+    for r in b:
+        check(r["f32"]["rel_err"] <= 1e-5 and r["f32"]["dropped"] == 0,
+              "phase 43 (b): the expert-parallel f32 loss left reference_moe")
+        check(all(math.isfinite(x) for x in r["bf16"]["losses"]),
+              "phase 43 (b): a bf16 loss is not finite")
+    check(b[0]["bf16"]["losses"] == b[1]["bf16"]["losses"],
+          "phase 43 (b): the ranks' losses differ")
+    _on_card(card, "(c) {model: 2}, f32, B %d x T %d, parameters laid out "
+             "by param_specs (%d of %d elements a rank): loss %.6f vs one "
+             "rank's %.6f, rel %.2e (1e-5); ms host/device mesh %.1f/%s, "
+             "one rank %.1f/%s" % (
+                 LM_PATHS["tp"]["batch"], LM_PATHS["tp"]["seq"],
+                 c[0]["params_held"], c[0]["params_whole"], c[0]["loss"],
+                 c[0]["one_rank_loss"], c[0]["rel_err"], c[0]["host_ms"],
+                 _fmt(c[0]["device_ms"]), c[0]["one_rank_host_ms"],
+                 _fmt(c[0]["one_rank_device_ms"])))
+    for r in c:
+        check(r["rel_err"] <= 1e-5 and r["params_held"] < r["params_whole"],
+              "phase 43 (c): the tensor-parallel loss left the one-rank loss")
+    _on_card(card, "(d) {pipe: 2}, %d microbatches, GELU MLP %d -> %d -> %d "
+             "stages at B %d, f32: max rel |gpipe - reference_pipeline| %s "
+             "(1e-5); forward + backward ms host/device %.1f/%s" % (
+                 LM_PATHS["pipe"]["micro"], LM_PATHS["pipe"]["width"],
+                 LM_PATHS["pipe"]["hidden"], LM_PATHS["pipe"]["width"],
+                 LM_PATHS["pipe"]["batch"],
+                 {k: "%.2e" % max(r["rel_err"][k] for r in d)
+                  for k in d[0]["rel_err"]},
+                 d[0]["host_ms"], _fmt(d[0]["device_ms"])))
+    for r in d:
+        check(max(r["rel_err"].values()) <= 1e-5,
+              "phase 43 (d): the pipeline left reference_pipeline")
+    t1 = time.monotonic()
+    e = _lm_switch(torch, T, tfa, tpa, dev, full, card)
+    e_s = time.monotonic() - t1
+    _on_card(card, "(e) the Switch LM (%d experts every %d blocks), one rank: "
+             "%d bf16 SGD steps through flash, losses %.4f -> %.4f, ms/step "
+             "host/device %.1f/%s, flash launches %s; f32 greedy generate "
+             "equals the CPU port's: %s; beam %d: beam 1 = greedy, scores "
+             "sorted, LAST_DECODE_STATS %s; prefill_chunk (%d chunks) vs "
+             "prefill in f32: bit-equal %s, max rel %.2e (1e-5; a %d-row f32 "
+             "GEMM equals the first rows of the %d-row one: %s, batched: "
+             "%s); paged fused over %d slots: "
+             "launches %s (layers x chunks %d, layers x steps %d), over "
+             "quantized pools %s, logits "
+             "vs gather %.4f; (e) took %.1f s, the ranks %.1f s" % (
+                 LM_PATHS["moe"]["experts"], LM_PATHS["moe"]["every"],
+                 LM_PATHS["lm"]["steps"], e["train"]["losses"][0],
+                 e["train"]["losses"][-1], e["train"]["ms_per_step_host"],
+                 _fmt(e["train"]["ms_per_step_device"]),
+                 e["train"]["flash_launches"],
+                 e["generate_f32"]["tokens_equal_cpu"],
+                 LM_PATHS["lm"]["beam"], e["beam"]["stats"],
+                 e["prefill_chunk_f32"]["chunks"],
+                 e["prefill_chunk_f32"]["bit_equal"],
+                 e["prefill_chunk_f32"]["max_rel_err"],
+                 LM_PATHS["lm"]["prefill_chunk"],
+                 LM_PATHS["lm"]["prefill_prompt"],
+                 e["prefill_chunk_f32"]["gemm_rows_stable"],
+                 e["prefill_chunk_f32"]["bmm_rows_stable"],
+                 LM_PATHS["lm"]["slots"], e["paged"]["launches"],
+                 full["layers"] * LM_PATHS["lm"]["slots"],
+                 full["layers"] * LM_PATHS["lm"]["decode_steps"],
+                 e["paged"]["quant_launches"],
+                 e["paged"]["max_abs_err_vs_gather"], e_s, ranks_s))
+    return dict(seq=a[0], moe=b[0], tp=c[0], pipe=d[0], switch=e,
+                ranks_s=ranks_s, switch_s=e_s,
+                flash_launches=a[0]["launches"],
+                switch_flash_launches=e["train"]["flash_launches"],
+                paged_launches=e["paged"]["launches"],
+                paged_quant_launches=e["paged"]["quant_launches"])
+
+
+def _fmt(ms):
+    return "n/a" if ms is None else "%.1f" % ms
+
+
 def main():
     import torch
 
@@ -7286,6 +7940,8 @@ def main():
         return mesh_worker(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--data-worker"]:
         return data_worker(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--lm-worker"]:
+        return lm_worker(int(sys.argv[2]), sys.argv[3])
     import importlib
 
     from paddle_tpu_torch import _build
@@ -7514,13 +8170,22 @@ def main():
         fluid16_ms=legacy["resnet_fluid_program"]["ms_per_step"])
     log("  phase 41 took %.1f s" % (time.monotonic() - t0))
 
-    log("phase 42: the serving fleet at full width: failover, a tiered "
-        "fleet with KV handoff, quantized pools, an f32 kill drill, a "
+    log("phase 42: the serving fleet at full width, 4 layers: failover, a "
+        "tiered fleet with KV handoff, quantized pools, an f32 kill drill, a "
         "weight rollout with canaries, the front door, the batch lane")
     t0 = time.monotonic()
     torch.cuda.empty_cache()
-    fleet = phase_fleet(torch, T, tpa, card=card)
+    fleet = phase_fleet(torch, T, tpa, card=card, full=HALF_DEPTH)
     log("  phase 42 took %.1f s" % (time.monotonic() - t0))
+
+    log("phase 43: the LM's remaining paths at full width: ring, zigzag "
+        "and Ulysses + flash over {seq: 2}, the Switch LM over {expert: "
+        "2}, {model: 2} parameters, the GPipe pipeline, and on one rank "
+        "the Switch LM's training, decoding, paged, beam and chunked "
+        "prefill paths")
+    t0 = time.monotonic()
+    lm_paths = phase_lm_paths(torch, T, tfa, tpa, card=card)
+    log("  phase 43 took %.1f s" % (time.monotonic() - t0))
 
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
@@ -7568,6 +8233,7 @@ def main():
             "adapter_launches": adapters["launches"][which],
             "fleet_launches": {k: fleet["launches"][k][which] for k in
                                ("n1", "n3", "n3_kill", "tiered")},
+            "lm_paths_launches": lm_paths["paged_launches"][which],
             "max_abs_err": errs[(which, "bfloat16")],
             "max_abs_err_f32": errs[(which, "float32")],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -7595,6 +8261,8 @@ def main():
                 "window_launches": {k: v[which] for k, v in
                                     window_launches(kvq).items()},
                 "fleet_launches": fleet["launches"]["n3_" + kvq][which],
+                "lm_paths_launches":
+                    lm_paths["paged_quant_launches"][kvq][which],
                 "max_abs_err": qerrs[key + ("bfloat16",)],
                 "max_abs_err_f32": qerrs[key + ("float32",)],
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -7614,6 +8282,9 @@ def main():
             "fluid_launches": fluid_flash["launches"][which],
             "mesh_launches": mesh1["flash_launches"][which],
             "fleet_launches": fleet["flash_launches"][which],
+            "lm_paths_launches": {
+                "ulysses_per_rank": lm_paths["flash_launches"][which],
+                "switch_lm": lm_paths["switch_flash_launches"][which]},
             "max_abs_err": flash_errs["bfloat16"][which],
             "max_abs_err_f32": flash_errs["float32"][which],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -7659,6 +8330,7 @@ def main():
                                       legacy_trainer=legacy,
                                       data_plane=data_plane)))
     log("fleet: %s" % json.dumps(fleet))
+    log("lm paths: %s" % json.dumps(lm_paths))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,9 +39,25 @@ The paged primitives take the reference's LoRA adapter pool
 (`adapters`, `adapter_idx`: per-slot q/v deltas, `_adapter_qv`).
 `decode_window_retire` is the decode window's in-loop retirement rule
 and `paged_block_fingerprint` the KV block checksum of the serving
-integrity layer. The MoE and mesh (sequence-parallel) branches of the
-reference are not ported yet and raise NotImplementedError when asked
-for.
+integrity layer. `prefill_chunk` extends one slot of a slotted cache
+chunk by chunk and `beam_search_generate` decodes beams over the cache
+(`LAST_DECODE_STATS` counts its steps).
+
+Switch-MoE: with `moe_experts > 0` every `moe_every`-th block's MLP is
+a top-1 MoE FFN (parallel/moe.py), its parameters under "moe"; on a
+mesh with an 'expert' axis of extent > 1 `forward` routes it through
+`expert_parallel_moe`, everywhere else through `reference_moe`.
+
+On a mesh (one process per rank, parallel/mesh.py) `forward` keeps the
+JAX package's global view: tokens and parameters are whole on every
+rank, or parameters laid out by `param_specs` (`shard_params` gives a
+rank its blocks) and gathered at use; the embedding is a row-sharded
+lookup over 'model', attention sequence-parallel over 'seq'
+(parallel/attention.py), MoE expert-parallel over 'expert', and every
+rank computes the same logits. `loss_and_grads` seeds the backward of
+that replicated loss with 1 / ranks and sums each gradient over the
+axes its parameter is not split over, so every rank ends with the
+global gradient (the Fluid mesh's rule, fluid/core/spmd.py).
 """
 
 from __future__ import annotations
@@ -54,32 +70,32 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..parallel import collectives
 from ..parallel.attention import sequence_parallel_attention
+from ..parallel.collectives import MeshAxis
 from ..parallel.kernel_utils import NEG_INF, raw_bytes
+from ..parallel.mesh import PartitionSpec as P
+from ..parallel.moe import expert_parallel_moe, reference_moe
 from ..parallel.paged_attention import paged_view
 from ..utils import prng
+from ..utils.tree import leaves as _leaves
 
 __all__ = ["TransformerConfig", "init_params", "params_from_numpy",
-           "forward", "loss_fn", "make_train_step", "init_kv_cache",
-           "decode_step", "prefill",
-           "generate", "init_paged_kv_cache", "kv_block_bytes",
+           "param_shapes", "param_specs", "shard_params", "forward",
+           "loss_fn", "loss_and_grads", "make_train_step", "init_kv_cache",
+           "decode_step", "prefill", "prefill_chunk",
+           "generate", "beam_search_generate", "LAST_DECODE_STATS",
+           "init_paged_kv_cache", "kv_block_bytes",
            "kv_storage_dtype",
            "paged_decode_step", "paged_prefill_chunk",
            "paged_verify_step", "logits_trap", "logit_amax",
            "decode_window_retire", "paged_block_fingerprint"]
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError("%s is not ported yet — ROADMAP: %s"
-                              % (what, item))
-
-
 class TransformerConfig:
     def __init__(self, vocab=256, dim=128, heads=4, layers=2, mlp_mult=4,
-                 max_len=1024, dtype=torch.float32, moe_experts=0):
-        if moe_experts:
-            _not_ported("the Switch-MoE FFN (moe_experts > 0)",
-                        "the parallel slice (expert-parallel MoE)")
+                 max_len=1024, dtype=torch.float32, moe_experts=0,
+                 moe_every=2, moe_capacity_factor=1.25):
         self.vocab = vocab
         self.dim = dim
         self.heads = heads
@@ -87,37 +103,146 @@ class TransformerConfig:
         self.mlp_mult = mlp_mult
         self.max_len = max_len
         self.dtype = dtype
+        # Switch-Transformer MoE: with moe_experts > 0, every
+        # `moe_every`-th block's MLP becomes a top-1 MoE FFN
+        self.moe_experts = moe_experts
+        self.moe_every = moe_every
+        self.moe_capacity_factor = moe_capacity_factor
+
+    def is_moe_block(self, i: int) -> bool:
+        return self.moe_experts > 0 and (i % self.moe_every
+                                         == self.moe_every - 1)
+
+
+def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The parameter tree's shapes as torch.Size leaves: {"embed",
+    "pos", "blocks", "ln_f"}, a block's MLP under "moe" ({gate_w, w1,
+    b1, w2, b2}) where `cfg.is_moe_block`."""
+    d, m, E = cfg.dim, cfg.mlp_mult * cfg.dim, cfg.moe_experts
+    S = torch.Size  # a leaf, where a plain tuple is a container
+    ln = {"g": S((d,)), "b": S((d,))}
+
+    def block(i):
+        b = {"ln1": dict(ln), "wq": S((d, d)), "wk": S((d, d)),
+             "wv": S((d, d)), "wo": S((d, d)), "ln2": dict(ln)}
+        if cfg.is_moe_block(i):
+            b["moe"] = {"gate_w": S((d, E)), "w1": S((E, d, m)),
+                        "b1": S((E, m)), "w2": S((E, m, d)),
+                        "b2": S((E, d))}
+        else:
+            b["w1"], b["w2"] = S((d, m)), S((m, d))
+        return b
+
+    return {"embed": S((cfg.vocab, d)), "pos": S((cfg.max_len, d)),
+            "blocks": [block(i) for i in range(cfg.layers)],
+            "ln_f": dict(ln)}
 
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and law (dense
-    weights N(0, 1) / sqrt(dim), LayerNorm gains 1 and biases 0), drawn
-    from `generator` on its own device and placed on `device` (CUDA by
-    default). The numbers differ from the JAX init of the same seed;
-    use `params_from_numpy` to carry JAX weights over."""
+    weights N(0, 1) / sqrt(dim), LayerNorm gains 1, LayerNorm and MoE
+    biases 0), drawn from `generator` on its own device and placed on
+    `device` (CUDA by default). The numbers differ from the JAX init of
+    the same seed; use `params_from_numpy` to carry JAX weights over."""
     dev = resolve_device(device)
-    d = cfg.dim
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(cfg.dim)
 
-    def dense(*shape):
+    def make(name, shape):
+        if name == "g":
+            return torch.ones(shape, device=dev, dtype=cfg.dtype)
+        if name in ("b", "b1", "b2"):
+            return torch.zeros(shape, device=dev, dtype=cfg.dtype)
         w = torch.randn(shape, generator=generator, device=generator.device)
         return (scale * w).to(device=dev, dtype=cfg.dtype)
 
-    def ln():
-        return {"g": torch.ones(d, device=dev, dtype=cfg.dtype),
-                "b": torch.zeros(d, device=dev, dtype=cfg.dtype)}
+    def walk(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return make(name, tree)
 
-    params = {"embed": dense(cfg.vocab, d), "pos": dense(cfg.max_len, d),
-              "blocks": [], "ln_f": ln()}
-    for _ in range(cfg.layers):
-        params["blocks"].append({
-            "ln1": ln(), "wq": dense(d, d), "wk": dense(d, d),
-            "wv": dense(d, d), "wo": dense(d, d), "ln2": ln(),
-            "w1": dense(d, cfg.mlp_mult * d),
-            "w2": dense(cfg.mlp_mult * d, d),
-        })
-    return params
+    return walk(param_shapes(cfg))
+
+
+def param_specs(cfg: TransformerConfig, mesh=None) -> Dict[str, Any]:
+    """PartitionSpecs for tensor parallelism over 'model' (Megatron
+    style: wq/wk/wv/w1 column-parallel, wo/w2 row-parallel, the
+    embedding split along its rows) and expert-sharded MoE FFNs over
+    'expert'. With `mesh`, axes the mesh does not have are dropped
+    (MoE parameters replicate on a mesh without an 'expert' axis)."""
+    rep = P()
+
+    def fit(spec):
+        if mesh is None:
+            return spec
+        return P(*(a if a in mesh.axis_names else None for a in spec))
+
+    def block(i):
+        b = {"ln1": {"g": rep, "b": rep}, "wq": fit(P(None, "model")),
+             "wk": fit(P(None, "model")), "wv": fit(P(None, "model")),
+             "wo": fit(P("model", None)), "ln2": {"g": rep, "b": rep}}
+        if cfg.is_moe_block(i):
+            b["moe"] = {"gate_w": rep, "w1": fit(P("expert", None, None)),
+                        "b1": fit(P("expert", None)),
+                        "w2": fit(P("expert", None, None)),
+                        "b2": fit(P("expert", None))}
+        else:
+            b["w1"] = fit(P(None, "model"))
+            b["w2"] = fit(P("model", None))
+        return b
+
+    return {"embed": fit(P("model", None)), "pos": rep,
+            "blocks": [block(i) for i in range(cfg.layers)],
+            "ln_f": {"g": rep, "b": rep}}
+
+
+def _zip_specs(params, specs, shapes, fn):
+    """`fn(leaf, spec, full_shape)` over the parameter tree."""
+    if isinstance(params, dict):
+        return {k: _zip_specs(params[k], specs[k], shapes[k], fn)
+                for k in params}
+    if isinstance(params, list):
+        return [_zip_specs(p, s, f, fn)
+                for p, s, f in zip(params, specs, shapes)]
+    return fn(params, specs, shapes)
+
+
+def _split_axes(leaf, spec, full, mesh):
+    """[(dim, axis)] along which `leaf` holds a block of its full shape
+    on `mesh` (a leaf given whole has none)."""
+    return [(dim, a) for dim, a in enumerate(spec)
+            if a is not None and mesh.shape[a] > 1
+            and leaf.shape[dim] != full[dim]]
+
+
+def shard_params(params, cfg: TransformerConfig, mesh):
+    """This rank's blocks of whole parameters laid out by
+    `param_specs(cfg, mesh)` (the port's counterpart of device_put with
+    NamedShardings): a leaf split over an axis keeps block `index` of
+    it along that dimension, the rest stay whole. Fresh leaf tensors."""
+    def block(leaf, spec, full):
+        for dim, a in enumerate(spec):
+            if a is not None and mesh.shape[a] > 1:
+                leaf = MeshAxis.of(mesh, a).block(leaf, dim)
+        return leaf.detach().clone()
+
+    return _zip_specs(params, param_specs(cfg, mesh), param_shapes(cfg),
+                      block)
+
+
+def _gather_params(params, cfg: TransformerConfig, mesh):
+    """The whole parameters on every rank: leaves laid out by
+    `param_specs` are gathered over their axes (differentiable: a
+    block's gradient is summed over the axis), whole leaves pass."""
+    def gather(leaf, spec, full):
+        for dim, a in _split_axes(leaf, spec, full, mesh):
+            leaf = MeshAxis.of(mesh, a).all_gather(leaf, dim)
+        return leaf
+
+    return _zip_specs(params, param_specs(cfg, mesh), param_shapes(cfg),
+                      gather)
 
 
 def params_from_numpy(tree, device=None, dtype=None):
@@ -148,9 +273,24 @@ def _ln(x, p):
     return (x - mu) * torch.rsqrt(var + 1e-5) * p["g"] + p["b"]
 
 
-def _mlp(x, blk):
+def _mlp(x, blk, mesh=None, capacity_factor=1.25):
+    """x plus the block's MLP of its LayerNorm: the GELU MLP, or the
+    Switch-MoE FFN where the block has one ("moe"), expert-parallel on
+    a mesh with an 'expert' axis of extent > 1 and `reference_moe`
+    everywhere else (the decode and serving paths pass no mesh)."""
     h = _ln(x, blk["ln2"])
-    return x + F.gelu(h @ blk["w1"], approximate="tanh") @ blk["w2"]
+    if "moe" not in blk:
+        return x + F.gelu(h @ blk["w1"], approximate="tanh") @ blk["w2"]
+    mp = blk["moe"]
+    flat = h.reshape(-1, h.shape[-1])
+    args = (flat, mp["gate_w"], mp["w1"], mp["b1"], mp["w2"], mp["b2"])
+    if mesh is not None and "expert" in mesh.axis_names and \
+            mesh.shape["expert"] > 1:
+        y = expert_parallel_moe(*args, mesh=mesh,
+                                capacity_factor=capacity_factor)
+    else:
+        y = reference_moe(*args)
+    return x + y.reshape(h.shape)
 
 
 def _pos_rows(params, positions):
@@ -170,14 +310,22 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
     final position with `last_only`, or of position `last_index`). With
     `kv_sink` (a list), each block appends its (k, v) [B, T, H, Dh].
     Attention goes through `sequence_parallel_attention`: without a
-    mesh, attn_impl="flash" runs the flash kernels and every other impl
-    the plain causal attention, as in the reference."""
+    mesh (and no default mesh), attn_impl="flash" runs the flash kernels
+    and every other impl the plain causal attention, as in the
+    reference. On a `mesh` every rank computes the same logits (the
+    module docstring)."""
     if mesh is not None:
-        _not_ported("mesh (sequence-parallel) attention",
-                    "the parallel slice")
+        params = _gather_params(params, cfg, mesh)
     B, T = tokens.shape
     H, dh = cfg.heads, cfg.dim // cfg.heads
-    x = params["embed"][tokens.long()] + params["pos"][:T][None]
+    if mesh is not None and "model" in mesh.axis_names:
+        from ..parallel.embedding import sharded_lookup
+
+        rows = MeshAxis.of(mesh, "model").block(params["embed"], 0)
+        x = sharded_lookup(rows, tokens, mesh, "model")
+    else:
+        x = params["embed"][tokens.long()]
+    x = x + params["pos"][:T][None]
     for blk in params["blocks"]:
         h = _ln(x, blk["ln1"])
         q = (h @ blk["wq"]).reshape(B, T, H, dh)
@@ -188,7 +336,7 @@ def forward(params, tokens, cfg: TransformerConfig, mesh=None,
         o = sequence_parallel_attention(q, k, v, mesh=mesh, axis="seq",
                                         impl=attn_impl, causal=True)
         x = x + o.reshape(B, T, cfg.dim) @ blk["wo"]
-        x = _mlp(x, blk)
+        x = _mlp(x, blk, mesh, cfg.moe_capacity_factor)
     if last_index is not None:
         x = x[:, min(max(int(last_index), 0), T - 1)]
     elif last_only:
@@ -208,35 +356,65 @@ def loss_fn(params, tokens, cfg: TransformerConfig, mesh=None,
     return nll.mean()
 
 
-def _leaves(tree):
-    """The tensors of a parameter tree, in jax.tree_util's leaf order
-    (dictionary keys sorted)."""
-    if isinstance(tree, dict):
-        return [t for key in sorted(tree) for t in _leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [t for x in tree for t in _leaves(x)]
-    return [tree]
+def _sync_mesh_grads(params, grads, cfg: TransformerConfig, mesh):
+    """Each gradient summed over the mesh axes its parameter is not
+    split over (a block's own axes were summed by its gather's
+    backward), one bucketed sync per set of axes."""
+    by_axes: Dict[tuple, dict] = {}
+    for i, (p, spec, full) in enumerate(zip(
+            _leaves(params), _leaves(param_specs(cfg, mesh)),
+            _leaves(param_shapes(cfg)))):
+        split = {a for _, a in _split_axes(p, spec, full, mesh)}
+        rest = tuple(a for a in mesh.axis_names if a not in split)
+        by_axes.setdefault(rest, {})[i] = grads[i]
+    out = list(grads)
+    for axes, part in by_axes.items():
+        if axes:
+            summed = collectives.sync_gradients(
+                {str(i): g for i, g in part.items()}, mesh.group(axes),
+                mesh.sync_stats)
+            for i in part:
+                out[i] = summed[str(i)]
+    return out
+
+
+def loss_and_grads(params, tokens, cfg: TransformerConfig, mesh=None,
+                   attn_impl: str = "ring"):
+    """(loss, gradients in `_leaves(params)` order) of `loss_fn` — the
+    port's jax.value_and_grad of it. It sets `requires_grad` on the
+    parameter tensors (leaf tensors, as `init_params`,
+    `params_from_numpy` and `shard_params` make them). On a mesh every
+    rank returns the global loss and the global gradient of its leaves:
+    the backward is seeded with 1 / ranks and each gradient summed over
+    the axes its parameter is not split over."""
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = loss_fn(params, tokens, cfg, mesh=mesh, attn_impl=attn_impl)
+    seed = torch.full_like(loss, 1.0 / (mesh.size if mesh is not None
+                                        else 1))
+    grads = torch.autograd.grad(loss, leaves, grad_outputs=seed)
+    if mesh is not None and mesh.size > 1:
+        grads = _sync_mesh_grads(params, grads, cfg, mesh)
+    return loss.detach(), list(grads)
 
 
 def make_train_step(cfg: TransformerConfig, lr=1e-2, mesh=None,
                     attn_impl: str = "ring"):
     """Plain SGD: step(params, tokens) -> (params, loss) with
-    p <- p - lr * g in the parameter dtype. Unlike the reference, which
-    returns a new pytree, the step UPDATES THE PARAMETER TENSORS IN
-    PLACE (under torch.no_grad) and returns the same dictionary. It
-    sets `requires_grad` on the tensors it is given (they must be leaf
-    tensors, as `init_params` and `params_from_numpy` make them)."""
+    p <- p - lr * g in the parameter dtype, g from `loss_and_grads` (on
+    a mesh, the global gradient: every rank's parameters stay equal to
+    the one-device step's). Unlike the reference, which returns a new
+    pytree, the step UPDATES THE PARAMETER TENSORS IN PLACE (under
+    torch.no_grad) and returns the same dictionary."""
 
     def step(params, tokens):
-        leaves = _leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = loss_fn(params, tokens, cfg, mesh=mesh, attn_impl=attn_impl)
-        grads = torch.autograd.grad(loss, leaves)
+        loss, grads = loss_and_grads(params, tokens, cfg, mesh=mesh,
+                                     attn_impl=attn_impl)
         with torch.no_grad():
-            for p, g in zip(leaves, grads):
+            for p, g in zip(_leaves(params), grads):
                 p.sub_(g * lr)  # lr * g rounds to p's dtype, as in JAX
-        return params, loss.detach()
+        return params, loss
 
     return step
 
@@ -328,6 +506,51 @@ def prefill(params, tokens, cfg: TransformerConfig, max_len=None):
     return logits, cache
 
 
+def prefill_chunk(params, cache, chunk, start_pos, slot,
+                  cfg: TransformerConfig, true_len=None):
+    """Multi-token incremental prefill of slot `slot` of a slotted cache
+    ([S, L, H, Dh] per layer): the [C]-token `chunk`'s first token sits
+    at position `start_pos` (tokens before it already cached). Each
+    chunk row attends cache[0:start_pos] plus the chunk's causal
+    prefix, with forward()'s numerics (reference_attention's scale
+    folded into q and NEG_INF mask, softmax in the score dtype), so a
+    prompt run chunk by chunk is the monolithic prefill. `chunk` may be
+    padded: `true_len` counts its real tokens, and padded rows park at
+    position L, where their writes are dropped. Returns (logits [vocab]
+    of the true last chunk row — meaningful on a prompt's final chunk —
+    and the cache, updated in place)."""
+    (C,) = chunk.shape
+    S, L, H, dh = cache[0]["k"].shape
+    dev = chunk.device
+    true_len = C if true_len is None else int(true_len)
+    scale = 1.0 / math.sqrt(dh)
+    offs = torch.arange(C, device=dev)
+    positions = offs + int(start_pos)  # [C] global rows of the chunk
+    live = offs < true_len  # padded rows park at L: nothing written
+    rows = positions[live & (positions < L)]
+    x = (params["embed"][chunk.long()][None]
+         + _pos_rows(params, positions)[None])
+    mask = torch.arange(L, device=dev)[None, :] <= positions[:, None]
+    for blk, kv in zip(params["blocks"], cache):
+        h = _ln(x, blk["ln1"])
+        q = (h @ blk["wq"]).reshape(1, C, H, dh)
+        k = (h @ blk["wk"]).reshape(1, C, H, dh)
+        v = (h @ blk["wv"]).reshape(1, C, H, dh)
+        n = rows.shape[0]
+        kv["k"][slot, rows] = k[0, :n].to(kv["k"].dtype)
+        kv["v"][slot, rows] = v[0, :n].to(kv["v"].dtype)
+        slot_k, slot_v = kv["k"][slot][None], kv["v"][slot][None]
+        s = torch.einsum("bthd,bshd->bhts", q * scale, slot_k)
+        s = s.masked_fill(~mask[None, None], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhts,bshd->bthd", p, slot_v)
+        x = x + o.reshape(1, C, cfg.dim) @ blk["wo"]
+        x = _mlp(x, blk)
+    xl = x[:, min(max(true_len - 1, 0), C - 1)]  # [1, dim]
+    xl = _ln(xl, params["ln_f"])
+    return (xl @ params["embed"].T)[0], cache
+
+
 def generate(params, prompt, cfg: TransformerConfig, max_new_tokens,
              temperature=0.0, key=None, max_len=None, eos_id=None):
     """Autoregressive generation: prefill the prompt [B, T0], then
@@ -364,6 +587,9 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens,
         out.append(tok)
         if i + 1 < max_new_tokens:
             logits, cache = decode_step(params, tok, T0 + i, cache, cfg)
+    if eos_id is not None:
+        LAST_DECODE_STATS["greedy_steps_executed"] = len(out)
+        LAST_DECODE_STATS["greedy_max_steps"] = int(max_new_tokens)
     gen = (torch.stack(out, dim=1) if out
            else prompt.new_zeros((B, 0)))
     if gen.shape[1] < max_new_tokens:  # early exit: the tail is eos
@@ -371,6 +597,82 @@ def generate(params, prompt, cfg: TransformerConfig, max_new_tokens,
                          dtype=prompt.dtype, device=prompt.device)
         gen = torch.cat([gen, pad], dim=1)
     return torch.cat([prompt, gen], dim=1)
+
+
+# diagnostics of the last beam_search_generate call (executed vs maximum
+# decode steps; the early exit stops once every beam has ended) and of
+# the last generate(eos_id=...) call (greedy_*)
+LAST_DECODE_STATS = {}
+
+
+def beam_search_generate(params, prompt, cfg: TransformerConfig,
+                         max_new_tokens, beam_size=4, alpha=0.0,
+                         max_len=None):
+    """Beam search over the KV cache. Beams live flattened on the batch
+    dim ([B*W, ...]) so every step is the cached decode_step greedy
+    uses; after each step's top-W of [B, W*V] candidates the caches and
+    histories are gathered by parent beam. A beam that emitted eos
+    (cfg.vocab - 1) is frozen: it re-emits eos at zero added cost. The
+    loop stops once no beam is alive (one host read a step, as the
+    reference's eager loop) and the skipped positions hold eos, exactly
+    what the full schedule writes. Ties break by index as lax.top_k and
+    jnp.argsort break them (stable sorts). Returns (tokens [B, W,
+    T0+max_new], scores [B, W]) sorted best first, scores divided by
+    the GNMT length penalty ((5 + len) / 6) ** alpha."""
+    from ..fluid.core.kernels_nn import stable_topk
+
+    B, T0 = prompt.shape
+    W = int(beam_size)
+    if max_new_tokens < 1:
+        raise ValueError("beam_search_generate needs max_new_tokens >= 1")
+    L = min(int(max_len or cfg.max_len), int(params["pos"].shape[0]))
+    if T0 + max_new_tokens > L:
+        raise ValueError(
+            "beam_search_generate needs T0+max_new <= max_len "
+            "(%d + %d > %d)" % (T0, max_new_tokens, L))
+    eos, V = cfg.vocab - 1, cfg.vocab
+    dev = prompt.device
+    logits, cache = prefill(params, prompt, cfg, max_len=L)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    scores, top_tok = stable_topk(logp, W)  # [B, W]
+    cache = [{k: t.repeat_interleave(W, dim=0) for k, t in kv.items()}
+             for kv in cache]
+    T_out = T0 + max_new_tokens
+    tokens = prompt.new_zeros((B, W, T_out))
+    tokens[:, :, :T0] = prompt[:, None]
+    tokens[:, :, T0] = top_tok.to(prompt.dtype)
+    alive = top_tok != eos
+    frozen = torch.full((V,), float("-inf"), device=dev)
+    frozen[eos] = 0.0
+    base = (torch.arange(B, device=dev) * W)[:, None]
+    steps = 0
+    while steps < max_new_tokens - 1 and bool(alive.any()):
+        pos = T0 + steps  # position of the newest written token
+        lg, cache = decode_step(params, tokens[:, :, pos].reshape(B * W),
+                                pos, cache, cfg)
+        lp = torch.log_softmax(lg.float(), dim=-1).reshape(B, W, V)
+        lp = torch.where(alive[..., None], lp, frozen)
+        cand = (scores[..., None] + lp).reshape(B, W * V)
+        scores, idx = stable_topk(cand, W)
+        parent, tok = idx // V, idx % V
+        tokens = torch.gather(tokens, 1,
+                              parent[..., None].expand(B, W, T_out))
+        tokens[:, :, pos + 1] = tok.to(prompt.dtype)
+        alive = torch.gather(alive, 1, parent) & (tok != eos)
+        flat = (parent + base).reshape(B * W)
+        cache = [{k: t.index_select(0, flat) for k, t in kv.items()}
+                 for kv in cache]
+        steps += 1
+    # the skipped all-dead steps would have written eos
+    fill = torch.arange(T_out, device=dev) > T0 + steps
+    tokens = tokens.masked_fill(fill, eos)
+    LAST_DECODE_STATS["steps_executed"] = steps
+    LAST_DECODE_STATS["max_steps"] = int(max_new_tokens - 1)
+    lens = (tokens[:, :, T0:] != eos).sum(-1) + 1
+    final = scores / torch.pow((5.0 + lens.float()) / 6.0, alpha)
+    order = torch.argsort(-final, dim=1, stable=True)
+    tokens = torch.gather(tokens, 1, order[..., None].expand(B, W, T_out))
+    return tokens, torch.gather(final, 1, order)
 
 
 # ---------------------------------------------------------------------

@@ -18,10 +18,12 @@ Each wrapper keeps the JAX argument order and layouts (without
 `interpret`: a CUDA kernel has no interpret mode). On a CUDA tensor it
 launches the Hopper kernels of csrc/paged_attention.cu (built by nvcc at
 first use, bound with ctypes) and counts the call in the module's
-`launches` dict (keys "decode", "verify", "prefill"); on CPU tensors it runs `paged_attention_plain`, the plain
-PyTorch version of the same function, which the CPU tests hold against
-the JAX package and chip_smoke.py holds the kernels against. There is
-no fallback: a CUDA tensor launches or raises.
+`launches` dict (keys "decode", "verify", "prefill"; launches over
+quantized pools also in `quant_launches["int8" | "fp8"]`); on CPU
+tensors it runs `paged_attention_plain`, the plain PyTorch version of
+the same function, which the CPU tests hold against the JAX package and
+chip_smoke.py holds the kernels against. There is no fallback: a CUDA
+tensor launches or raises.
 
 bf16 q runs the split-context kernel: the table walk is cut into
 `split_parts(S, R, H, Bt, MAXB)` partitions of contiguous table entries
@@ -305,7 +307,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
                                      **sc)[:, 0]
     out = _launch(q[:, None], k_pool, v_pool, tables, pos, scale=scale,
                   scale_in_q=False, **sc)
-    count_launch(launches, "decode")
+    _count("decode", k_pool)
     return out[:, 0]
 
 
@@ -322,7 +324,7 @@ def paged_verify_attention(q, k_pool, v_pool, tables, pos, *, k_scale=None,
                                      scale=scale, scale_in_q=True, **sc)
     out = _launch(q, k_pool, v_pool, tables, pos, scale=scale,
                   scale_in_q=True, **sc)
-    count_launch(launches, "verify")
+    _count("verify", k_pool)
     return out
 
 
@@ -342,11 +344,23 @@ def paged_prefill_attention(q, k_pool, v_pool, table_row, start, *,
                                      scale_in_q=True, **sc)[0]
     out = _launch(q[None], k_pool, v_pool, table_row.reshape(1, -1), start,
                   scale=scale, scale_in_q=True, **sc)
-    count_launch(launches, "prefill")
+    _count("prefill", k_pool)
     return out[0]
 
 
 # launch counters: one plain integer per wrapper, bumped (under
 # count_launch's lock) only where the wrapper launches the kernel (never
-# on the CPU's plain version)
+# on the CPU's plain version); the launches over int8 and float8_e4m3fn
+# pools count again in `quant_launches`, by pool
 launches = {"decode": 0, "verify": 0, "prefill": 0}
+quant_launches = {kvq: {"decode": 0, "verify": 0, "prefill": 0}
+                  for kvq in ("int8", "fp8")}
+_QUANT_POOLS = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+
+
+def _count(which, k_pool):
+    """Count one launch of the `which` wrapper, and apart by pool where
+    the pool is quantized."""
+    count_launch(launches, which)
+    if k_pool.dtype in _QUANT_POOLS:
+        count_launch(quant_launches[_QUANT_POOLS[k_pool.dtype]], which)

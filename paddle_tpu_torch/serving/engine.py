@@ -271,6 +271,14 @@ class ServingEngine(object):
         # the fleet's schedule-exploration seam: a controlled scheduler
         # may park the driving thread at the start of every step
         self._sched_hook = scheduler_hook
+        if getattr(cfg, "moe_experts", 0):
+            # reference_moe's capacity cutoff couples rows: padded chunk
+            # rows would compete with real rows for expert slots, so the
+            # reference engine refuses MoE configs and so does this one
+            raise ValueError(
+                "ServingEngine serves dense models only; MoE configs "
+                "(moe_experts > 0) are not bit-stable under "
+                "padded/chunked prefill")
         if spec_draft_len is not None and int(spec_draft_len) < 0:
             raise ValueError("spec_draft_len must be >= 0 or None")
         # K < 2 means no drafts to verify: the plain decode step

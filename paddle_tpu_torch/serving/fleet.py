@@ -174,7 +174,8 @@ import torch
 
 from .. import resolve_device
 from ..distributed.supervisor import restart_backoff_s as _backoff
-from ..models.transformer import _leaves
+from ..utils.tree import leaves as _leaves
+from ..utils.tree import rebuild as _tree_rebuild
 from .engine import EngineFailed, ServingEngine
 from .integrity import (CANARY_PROMPT, IntegrityError, fp_digest,
                         golden_trace)
@@ -1240,17 +1241,6 @@ def _flat_names(params):
     return ["w%05d" % k for k in range(len(leaves))], leaves
 
 
-def _rebuild(tree, leaves):
-    """`tree`'s nesting with its leaves replaced, in `_leaves` order, by
-    the items of the iterator `leaves`."""
-    if isinstance(tree, dict):
-        out = {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(x, leaves) for x in tree)
-    return next(leaves)
-
-
 def _leaf_like(arr, like):
     """One loaded host array as a tensor shaped, typed and placed like
     the construction leaf `like`. A bfloat16 leaf written by the JAX
@@ -1327,7 +1317,7 @@ def load_weights(like, ckpt_dir: str, step: int):
                                               tuple(np.shape(new)),
                                               tuple(old.shape)))
         new_leaves.append(_leaf_like(new, old))
-    out = _rebuild(like, iter(new_leaves))
+    out = _tree_rebuild(like, iter(new_leaves))
     for dev in {t.device for t in new_leaves}:
         if dev.type == "cuda":
             # the copies ran on this thread's current stream: finish

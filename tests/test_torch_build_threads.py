@@ -118,6 +118,34 @@ def test_launch_counters_stay_exact_under_threads(stub_launch, which):
     tpa.launches[which] = before
 
 
+@pytest.mark.parametrize("kvq,dtype", [("int8", torch.int8),
+                                       ("fp8", torch.float8_e4m3fn)])
+def test_quantized_launches_count_apart_by_pool(stub_launch, kvq, dtype):
+    q = torch.zeros(1, 1, 1, 1)
+    pool = torch.zeros(1, 1, 1, 1, dtype=dtype)
+    scale = torch.ones(1, 1)
+    table = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    sc = dict(k_scale=scale, v_scale=scale)
+    before = dict(tpa.launches)
+    before_q = {k: dict(v) for k, v in tpa.quant_launches.items()}
+    _together(4, lambda: [
+        (tpa.paged_decode_attention(q[:, 0], pool, pool, table, pos, **sc),
+         tpa.paged_prefill_attention(q[0], pool, pool, table[0], 0, **sc))
+        for _ in range(250)])
+    # an unquantized pool counts in `launches` only
+    tpa.paged_verify_attention(q, q, q, table, pos)
+    assert {k: tpa.launches[k] - before[k] for k in before} == {
+        "decode": 1000, "verify": 1, "prefill": 1000}
+    for name, counts in tpa.quant_launches.items():
+        n = 1000 if name == kvq else 0
+        assert {k: counts[k] - before_q[name][k] for k in counts} == {
+            "decode": n, "verify": 0, "prefill": n}
+    tpa.launches.update(before)
+    for name, counts in before_q.items():
+        tpa.quant_launches[name].update(counts)
+
+
 def test_flash_counters_stay_exact_under_threads():
     before = dict(tfa.launches)
     old = sys.getswitchinterval()

@@ -114,7 +114,9 @@ def test_from_recordio_through_the_ports_native(tmp_path, writer):
     shard through either package's from_recordio."""
     import paddle_tpu.native as jn
     import paddle_tpu_torch.native as tn
+    from torch_native_build import ensure_jax_native
 
+    ensure_jax_native()
     src = str(tmp_path / "n.rio")
     recs = [b"n%d" % i for i in range(10)]
     with {"jax": jn, "torch": tn}[writer].RecordWriter(src) as w:

@@ -316,9 +316,20 @@ def test_sequence_parallel_attention_dispatch():
                 causal=True), _FWD)
     with pytest.raises(ValueError, match="causal-only"):
         tat.sequence_parallel_attention(tq, tk, tv, impl="zigzag")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tat.sequence_parallel_attention(tq, tk, tv, mesh=object(),
-                                        impl="flash", causal=True)
+    # a mesh without the axis, or with it at extent 1, takes the
+    # one-device branch, as in the JAX package (mesh runs:
+    # tests/test_torch_seq_parallel.py)
+    import types
+
+    for mesh in (types.SimpleNamespace(axis_names=("data",),
+                                       shape={"data": 2}),
+                 types.SimpleNamespace(axis_names=("seq",), shape={"seq": 1})):
+        _close(tat.sequence_parallel_attention(tq, tk, tv, mesh=mesh,
+                                               impl="flash", causal=True),
+               _jflash(q, k, v, True), _FWD)
+        with pytest.raises(ValueError, match="causal-only"):
+            tat.sequence_parallel_attention(tq, tk, tv, mesh=mesh,
+                                            impl="zigzag")
 
 
 def test_kernel_argument_checks():

@@ -11,9 +11,17 @@ import pytest
 
 import paddle_tpu.native as jnative
 import paddle_tpu_torch.native as tnative
+from torch_native_build import ensure_jax_native
 
 SIDES = {"jax": jnative, "torch": tnative}
 DIRECTIONS = [("jax", "torch"), ("torch", "jax"), ("torch", "torch")]
+
+
+@pytest.fixture(autouse=True)
+def _jax_native_built():
+    """Every test here may load the JAX package's library: build it
+    first, once, safely beside other test processes."""
+    ensure_jax_native()
 
 
 def _records(seed, n=120):

@@ -46,11 +46,12 @@ def test_importing_every_module_leaves_jax_out():
                  "distribute_transpiler_simple", "distributed_spliter",
                  "core.spmd"):
         assert "paddle_tpu_torch.fluid." + name in mods
-    for name in ("mesh", "collectives", "async_sgd", "embedding"):
+    for name in ("mesh", "collectives", "async_sgd", "embedding",
+                 "attention", "moe", "pipeline"):
         assert "paddle_tpu_torch.parallel." + name in mods
     for name in ("analysis", "analysis.program_lint",
                  "analysis.diagnostics", "analysis.protocol_lint",
-                 "analysis.sched_explore", "utils.flags"):
+                 "analysis.sched_explore", "utils.flags", "utils.tree"):
         assert "paddle_tpu_torch." + name in mods
     for name in ("resnet", "ocr_crnn", "ctr", "lenet", "vgg", "alexnet",
                  "googlenet", "mobilenet", "ssd"):

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from torch_mesh import spawn
+from torch_native_build import ensure_jax_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH = os.path.join(ROOT, "benchmarks", "paddle")
@@ -297,6 +298,7 @@ def test_recordio_trains_alike_from_one_init(tmp_path, monkeypatch):
     import paddle_tpu_torch.native as tnative
     import paddle_tpu_torch.trainer as TT
 
+    ensure_jax_native()
     cfg = tmp_path / "cfg.py"
     cfg.write_text(SIMPLE.replace("batch_size=8", "batch_size=16"))
     _write_records(jnative, str(tmp_path / "a.rio"), n=32, seed=0)
@@ -333,6 +335,7 @@ def test_record_readers_yield_the_jax_readers_records(tmp_path):
     from paddle_tpu.v2.reader import creator as jcreator
     from paddle_tpu_torch.v2.reader import creator as tcreator
 
+    ensure_jax_native()
     rios = [str(tmp_path / ("p%d.rio" % k)) for k in range(3)]
     for k, p in enumerate(rios):
         _write_records(jnative, p, n=10, seed=k)

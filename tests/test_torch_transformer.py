@@ -295,17 +295,25 @@ def test_entry_points_refuse_missing_cuda_and_unported_branches():
             T.init_params(cfg, torch.Generator())
         with pytest.raises(RuntimeError, match="device='cpu'"):
             T.init_paged_kv_cache(cfg, 4, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.TransformerConfig(moe_experts=4)
+    # MoE configs build (the Switch LM is ported); the serving engine
+    # refuses them with the JAX engine's ValueError
+    from paddle_tpu.serving.engine import ServingEngine as JEngine
+    from paddle_tpu_torch.serving import ServingEngine
+
+    moe = T.TransformerConfig(vocab=50, dim=32, heads=4, layers=2,
+                              moe_experts=4)
+    jmoe = J.TransformerConfig(vocab=50, dim=32, heads=4, layers=2,
+                               moe_experts=4)
+    pm = T.init_params(moe, torch.Generator(), device="cpu")
+    assert "moe" in pm["blocks"][1] and "w1" in pm["blocks"][0]
+    with pytest.raises(ValueError, match="dense models only") as terr:
+        ServingEngine(pm, moe, device="cpu")
+    with pytest.raises(ValueError, match="dense models only") as jerr:
+        JEngine(J.init_params(jmoe, jax.random.PRNGKey(0)), jmoe)
+    assert str(terr.value) == str(jerr.value)
     with pytest.raises(ValueError, match="kv_quant"):
         T.init_paged_kv_cache(cfg, 4, 8, kv_quant="int4", device="cpu")
     p = T.init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.forward(p, torch.zeros(1, 8, dtype=torch.long), cfg,
-                  mesh=object(), attn_impl="flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.make_train_step(cfg, mesh=object())(
-            p, torch.zeros(1, 9, dtype=torch.long))
     with pytest.raises(ValueError):
         T.paged_decode_step(p, torch.tensor([1]), torch.tensor([0]),
                             torch.tensor([[0]]),
