@@ -377,13 +377,38 @@ Phases (any failure exits non-zero):
      blocks (launches = layers x chunks and layers x steps, the
      launches over quantized pools counted apart; logits within 2e-2 of
      the largest |logit| of the gather path's);
+ 44. the v2 book and the deploy path, with the datasets' cache in a
+     temporary directory and g++ building the native inference runner
+     (paddle_tpu_torch/native/inference.cc) beside the training: (a)
+     recognize_digits through the v2 API at LeNet's widths (conv 20@5x5,
+     pool 2; conv 50@5x5, pool 2; fc 10 softmax), mnist.fetch() writing
+     the IDX files the readers then decode, paddle.batch(paddle.reader
+     .shuffle(mnist.train(), 8192), 64), 2 passes of the book's
+     Momentum(0.1 / 128, 0.9) on the card: every cost finite, the last
+     pass's mean cost below the first's, trainer.test; paddle.infer on
+     the 128 test images on the card, then to_tar, merge_v2_model and
+     InferenceRunner on the host: probabilities within 1e-4 of the
+     card's, argmax equal on all 128; (b) understand_sentiment through
+     Fluid: imdb.train(imdb.word_dict()) through fluid.DataFeeder with
+     LoD, the book's stacked_lstm_net at its published widths (emb 128,
+     hid 512, 3 stacked, alternating is_reverse, max pooling), one pass
+     of Adam(0.002) at batch 32 on the card, save_inference_model, then
+     the runner with LoD offsets within 1e-4 of the card's Executor on
+     32 reviews; (c) fit_a_line on uci_housing (batch 32, 8 passes,
+     Momentum(0.9, 1e-3)): the last five costs' mean under 0.7 x the
+     first five's; (d) mnist.convert through the native RecordWriter,
+     read back by common.read_converted and v2.reader.creator: the same
+     640 samples in order. flowers, voc2012, v2.image and v2.plot are
+     left out (PIL and matplotlib; their parity runs in the CPU tests),
+     and the phase says which of PIL, matplotlib and scipy it found;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases
  13, 14, 42 and 43, the flash entries their Fluid launches in phases 18
  and 38, their launches over phase 42 (which must be 0) and in phase
  43 (per rank on the Ulysses path, and the Switch LM's; the dequant
  entries their phase-43 launches over int8 and fp8 pools); no Hopper
- kernel lies on the path of phases 20-32, whose recurrences, segment
+ kernel lies on the path of phase 44 (cuDNN and cuBLAS on the card, host
+ C++ in the runner) or of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
  convolutions, CRF recursions and detection ops are cuDNN, cuBLAS and
  plain torch ops), then the device line last.
@@ -6228,11 +6253,15 @@ DATA_PLANE = dict(batch=64, shape=[3, 224, 224], classes=1000, depth=50,
 # (b): smallnet's config_args (its defaults: 32x32x3, batch 128), 3 batches
 DATA_PLANE_SMALLNET = {}
 # (c): two LeNet workers over one coordinator queue; record =
-# [u32 id][u8 label][uint8 1x28x28]; lease and idle-grace deadlines sized
-# several times above a worker's start on the card (~8-10 s to a first
-# step) and a step (~0.1 s with its checkpoint)
+# [u32 id][u8 label][uint8 1x28x28]. A lease is held from the lease
+# through the decode lookahead to the ack, which waits for the sentinel's
+# promotion (promote_after checkpoints), so it must cover a restarted
+# worker's first steps: ~8-10 s on the card machine, and past 8 s on a
+# slower host, where an 8 s lease expired under its holder (LeaseLost,
+# and records delivered again). The idle grace exceeds the lease, so a
+# survivor outwaits a dead peer's requeue.
 DRILL = dict(shards=2, chunks_per_shard=8, records_per_chunk=64, batch=32,
-             seed=11, lease_s=8.0, idle_grace_s=10.0, promote_after=2,
+             seed=11, lease_s=20.0, idle_grace_s=25.0, promote_after=2,
              heartbeat_s=60.0, faults={"w0": "kill@5", "w1": "nanloss@7"},
              deadline_s=240.0)
 
@@ -7926,6 +7955,358 @@ def phase_lm_paths(torch, T, tfa, tpa, card="cpu", dev="cuda:0",
                 paged_quant_launches=e["paged"]["quant_launches"])
 
 
+# ---------------------------------------------------------------------
+# phase 44: the v2 book and the deploy path
+# ---------------------------------------------------------------------
+
+# phase 44's settings: recognize_digits at LeNet's widths
+# (paddle_tpu/models/lenet.py:14; the book's v2 convolutional net, its
+# Momentum(0.1 / 128, 0.9)), the book's stacked_lstm_net at its
+# published widths (emb 128, hid 512, 3 stacked; Adam(0.002)), fit_a_line
+# as tests/test_v2_api.py::test_v2_fit_a_line runs it, and the samples
+# the convert round trip must give back (mnist's 512 + 128)
+V2_BOOK = dict(digits=dict(batch=64, passes=2, shuffle=8192, infer=128),
+               sentiment=dict(emb=128, hid=512, stacked=3, batch=32,
+                              lr=0.002, served=32),
+               fit_a_line=dict(batch=32, passes=8, shuffle=500, lr=1e-3,
+                               momentum=0.9),
+               convert=dict(samples=640))
+
+
+def _v2_lenet(paddle):
+    """The book's v2 recognize_digits convolutional net: conv 20@5x5,
+    pool 2; conv 50@5x5, pool 2; fc 10 softmax."""
+    images = paddle.layer.data(name="pixel",
+                               type=paddle.data_type.dense_vector(784))
+    label = paddle.layer.data(name="label",
+                              type=paddle.data_type.integer_value(10))
+    conv_pool_1 = paddle.networks.simple_img_conv_pool(
+        input=images, filter_size=5, num_filters=20, num_channel=1,
+        pool_size=2, pool_stride=2, act=paddle.activation.Relu())
+    conv_pool_2 = paddle.networks.simple_img_conv_pool(
+        input=conv_pool_1, filter_size=5, num_filters=50, num_channel=20,
+        pool_size=2, pool_stride=2, act=paddle.activation.Relu())
+    predict = paddle.layer.fc(input=conv_pool_2, size=10,
+                              act=paddle.activation.Softmax())
+    cost = paddle.layer.classification_cost(input=predict, label=label)
+    return predict, cost
+
+
+def _pass_costs(paddle, trainer, reader, passes):
+    """Train, returning each pass's batch costs."""
+    costs = [[] for _ in range(passes)]
+
+    def handler(e):
+        if isinstance(e, paddle.event.EndIteration):
+            costs[e.pass_id].append(float(e.cost))
+
+    trainer.train(reader=reader, num_passes=passes, event_handler=handler)
+    return costs
+
+
+def _book_digits(torch, paddle, tmp, cfg, runner_built):
+    """(a) recognize_digits through the v2 API, then the deploy path."""
+    import io
+    import random
+
+    from paddle_tpu_torch.native import InferenceRunner
+    from paddle_tpu_torch.utils.merge_model import merge_v2_model
+
+    mnist = paddle.dataset.mnist
+    t0 = time.monotonic()
+    mnist.fetch()  # the IDX files: the readers below decode them
+    random.seed(0)  # paddle.reader.shuffle draws from Python's random
+    predict, cost = _v2_lenet(paddle)
+    params = paddle.parameters.create(cost)
+    trainer = paddle.trainer.SGD(
+        cost=cost, parameters=params,
+        update_equation=paddle.optimizer.Momentum(
+            learning_rate=0.1 / 128.0, momentum=0.9,
+            regularization=paddle.optimizer.L2Regularization(
+                rate=0.0005 * 128)))
+    costs = _pass_costs(paddle, trainer, paddle.batch(
+        paddle.reader.shuffle(mnist.train(), cfg["shuffle"]), cfg["batch"]),
+        cfg["passes"])
+    t1 = time.monotonic()
+    flat = [c for p in costs for c in p]
+    means = [float(np.mean(p)) for p in costs]
+    check(len(flat) == cfg["passes"] * (mnist.N_TRAIN // cfg["batch"])
+          and all(math.isfinite(c) for c in flat),
+          "recognize_digits: %d batch costs, not all finite: %s"
+          % (len(flat), flat))
+    check(means[-1] < means[0], "recognize_digits: the last pass's mean "
+          "cost %.4f is not below the first's %.4f" % (means[-1], means[0]))
+    result = trainer.test(reader=paddle.batch(mnist.test(), cfg["batch"]))
+    check(math.isfinite(result.cost), "recognize_digits: test cost %r"
+          % result.cost)
+    test = list(mnist.test()())[:cfg["infer"]]
+    imgs = np.stack([img for img, _ in test]).astype(np.float32)
+    card = np.asarray(paddle.infer(output_layer=predict, parameters=params,
+                                   input=[(img,) for img in imgs]),
+                      np.float32)
+    t2 = time.monotonic()
+    tar = io.BytesIO()
+    params.to_tar(tar)
+    tar.seek(0)
+    bundle = os.path.join(tmp, "digits_bundle")
+    merge_v2_model(predict, tar, bundle)
+    t3 = time.monotonic()
+    runner_built()
+    t4 = time.monotonic()
+    (host,) = InferenceRunner(bundle).run({"pixel": imgs})
+    t5 = time.monotonic()
+    err = float(np.abs(host - card).max())
+    same = int((host.argmax(1) == card.argmax(1)).sum())
+    log("  (a) recognize_digits: pass mean costs %s (batch %d, %d batches "
+        "a pass), test cost %.4f; %d test images: runner vs card max abs "
+        "err %.3e, argmax equal on %d; train %.2f s, infer %.2f s, merge "
+        "%.2f s, waiting for the runner's build %.2f s, runner %.3f s"
+        % (["%.4f" % m for m in means], cfg["batch"], len(costs[0]),
+           result.cost, len(imgs), err, same, t1 - t0, t2 - t1, t3 - t2,
+           t4 - t3, t5 - t4))
+    check(card.shape == host.shape == (cfg["infer"], 10),
+          "recognize_digits: probabilities %s vs %s" % (card.shape,
+                                                       host.shape))
+    check(err <= 1e-4, "recognize_digits: the runner's probabilities are "
+          "%.3e from the card's (bar 1e-4)" % err)
+    check(same == len(imgs), "recognize_digits: argmax differs on %d of "
+          "%d images" % (len(imgs) - same, len(imgs)))
+    return dict(pass_mean_costs=means, test_cost=float(result.cost),
+                test_metrics={k: float(v) for k, v in
+                              (result.evaluator or {}).items()},
+                runner_max_abs_err=err, argmax_equal=same,
+                images=len(imgs), seconds=dict(
+                    train=t1 - t0, infer=t2 - t1, merge=t3 - t2,
+                    build_wait=t4 - t3, runner=t5 - t4))
+
+
+def _stacked_lstm_net(fluid, data, label, input_dim, emb_dim, hid_dim,
+                      stacked_num, class_dim=2):
+    """The book's stacked_lstm_net (tests/test_understand_sentiment.py:52
+    runs it narrower): fc + dynamic_lstm, stacked, alternating
+    is_reverse, max pooling of the last fc and lstm, softmax."""
+    emb = fluid.layers.embedding(input=data, size=[input_dim, emb_dim])
+    fc1 = fluid.layers.fc(input=emb, size=hid_dim)
+    lstm1, _ = fluid.layers.dynamic_lstm(input=fc1, size=hid_dim)
+    inputs = [fc1, lstm1]
+    for i in range(2, stacked_num + 1):
+        fc = fluid.layers.fc(input=inputs, size=hid_dim)
+        lstm, _ = fluid.layers.dynamic_lstm(input=fc, size=hid_dim,
+                                            is_reverse=(i % 2) == 0)
+        inputs = [fc, lstm]
+    fc_last = fluid.layers.sequence_pool(input=inputs[0], pool_type="max")
+    lstm_last = fluid.layers.sequence_pool(input=inputs[1], pool_type="max")
+    prediction = fluid.layers.fc(input=[fc_last, lstm_last],
+                                 size=class_dim, act="softmax")
+    cost = fluid.layers.cross_entropy(input=prediction, label=label)
+    return fluid.layers.mean(x=cost), prediction
+
+
+def _book_sentiment(torch, paddle, tmp, cfg, place, runner_built):
+    """(b) understand_sentiment through Fluid, then the runner."""
+    from paddle_tpu_torch.native import InferenceRunner
+
+    fluid = paddle.fluid
+    imdb = paddle.dataset.imdb
+    t0 = time.monotonic()
+    imdb.fetch()
+    word_dict = imdb.word_dict()
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        data = fluid.layers.data(name="words", shape=[1], dtype="int64",
+                                 lod_level=1)
+        label = fluid.layers.data(name="label", shape=[1], dtype="int64")
+        avg_cost, prediction = _stacked_lstm_net(
+            fluid, data, label, len(word_dict), cfg["emb"], cfg["hid"],
+            cfg["stacked"])
+        infer = main.clone(for_test=True)
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(avg_cost)
+    exe = fluid.Executor(place)
+    feeder = fluid.DataFeeder(feed_list=[data, label], place=place)
+    scope = fluid.Scope()
+    costs = []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for batch in paddle.batch(imdb.train(word_dict), cfg["batch"])():
+            (c,) = exe.run(main, feed=feeder.feed(batch),
+                           fetch_list=[avg_cost])
+            costs.append(float(np.ravel(np.asarray(c))[0]))
+        t1 = time.monotonic()
+        check(costs and all(math.isfinite(c) for c in costs),
+              "understand_sentiment: costs %s" % costs)
+        served = list(imdb.test(word_dict)())[:cfg["served"]]
+        feed = feeder.feed([(w, 0) for w, _ in served])
+        (card,) = exe.run(infer, feed={"words": feed["words"]},
+                          fetch_list=[infer.global_block().var(
+                              prediction.name)])
+        card = np.asarray(card, np.float32)
+        bundle = os.path.join(tmp, "sentiment_bundle")
+        fluid.io.save_inference_model(bundle, ["words"], [prediction], exe,
+                                      main_program=main)
+    t2 = time.monotonic()
+    runner_built()
+    flat, (offsets,) = feed["words"]
+    (host,) = InferenceRunner(bundle).run(
+        {"words": flat}, lods={"words": np.asarray(offsets, np.int64)})
+    t3 = time.monotonic()
+    err = float(np.abs(host - card).max())
+    lens = np.diff(offsets)
+    log("  (b) understand_sentiment: stacked_lstm_net emb %d hid %d x %d "
+        "over %d words, %d Adam steps at batch %d, costs %.4f -> %.4f; %d "
+        "reviews (%d-%d words): runner vs card max abs err %.3e; train "
+        "%.2f s, infer + save %.2f s, runner %.3f s"
+        % (cfg["emb"], cfg["hid"], cfg["stacked"], len(word_dict),
+           len(costs), cfg["batch"], costs[0], costs[-1], len(served),
+           int(lens.min()), int(lens.max()), err, t1 - t0, t2 - t1,
+           t3 - t2))
+    check(card.shape == host.shape == (cfg["served"], 2),
+          "understand_sentiment: outputs %s vs %s" % (card.shape,
+                                                     host.shape))
+    check(err <= 1e-4, "understand_sentiment: the runner's outputs are "
+          "%.3e from the card's (bar 1e-4)" % err)
+    return dict(costs=costs, dict_size=len(word_dict), reviews=len(served),
+                runner_max_abs_err=err, seconds=dict(
+                    train=t1 - t0, infer_save=t2 - t1, runner=t3 - t2))
+
+
+def _book_fit_a_line(paddle, cfg):
+    """(c) fit_a_line on uci_housing (tests/test_v2_api.py:86's run)."""
+    import random
+
+    random.seed(0)
+    x = paddle.layer.data(name="x", type=paddle.data_type.dense_vector(13))
+    y_predict = paddle.layer.fc(input=x, size=1)
+    y = paddle.layer.data(name="y", type=paddle.data_type.dense_vector(1))
+    cost = paddle.layer.mse_cost(input=y_predict, label=y)
+    params = paddle.parameters.create(cost)
+    trainer = paddle.trainer.SGD(
+        cost=cost, parameters=params,
+        update_equation=paddle.optimizer.Momentum(
+            momentum=cfg["momentum"], learning_rate=cfg["lr"]))
+    t0 = time.monotonic()
+    costs = [c for p in _pass_costs(paddle, trainer, paddle.batch(
+        paddle.reader.shuffle(paddle.dataset.uci_housing.train(),
+                              cfg["shuffle"]), cfg["batch"]),
+        cfg["passes"]) for c in p]
+    result = trainer.test(reader=paddle.batch(
+        paddle.dataset.uci_housing.test(), cfg["batch"]))
+    first, last = float(np.mean(costs[:5])), float(np.mean(costs[-5:]))
+    log("  (c) fit_a_line: %d Momentum steps, first five costs' mean %.3f, "
+        "last five's %.3f (ratio %.3f, bar 0.7), test cost %.3f; %.2f s"
+        % (len(costs), first, last, last / first, result.cost,
+           time.monotonic() - t0))
+    check(costs and all(math.isfinite(c) for c in costs),
+          "fit_a_line: costs %s" % costs)
+    check(last < 0.7 * first, "fit_a_line: last five costs' mean %.4f is "
+          "not under 0.7 x the first five's %.4f" % (last, first))
+    check(math.isfinite(result.cost), "fit_a_line: test cost %r"
+          % result.cost)
+    return dict(first5_mean=first, last5_mean=last, ratio=last / first,
+                steps=len(costs), test_cost=float(result.cost),
+                seconds=time.monotonic() - t0)
+
+
+def _book_convert(paddle, tmp, cfg):
+    """(d) mnist.convert through the native RecordWriter, read back by
+    common.read_converted and v2.reader.creator: the same samples in
+    order."""
+    from paddle_tpu_torch.v2.reader import creator
+
+    mnist, common = paddle.dataset.mnist, paddle.dataset.common
+    t0 = time.monotonic()
+    out = os.path.join(tmp, "mnist_records")
+    mnist.convert(out)
+    want = list(mnist.train()()) + list(mnist.test()())
+    paths = [os.path.join(out, n) for n in sorted(os.listdir(out))]
+    paths = ([p for p in paths if "mnist_train" in p]
+             + [p for p in paths if "mnist_test" in p])
+    read = list(common.read_converted(paths)())
+    via_creator = list(creator.pickled_records(paths)())
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x[1] == y[1] and x[0].dtype == y[0].dtype
+            and x[0].tobytes() == y[0].tobytes() for x, y in zip(a, b))
+
+    log("  (d) mnist.convert: %d samples in %d record files, read back %d "
+        "(read_converted) and %d (reader.creator); %.2f s"
+        % (len(want), len(paths), len(read), len(via_creator),
+           time.monotonic() - t0))
+    check(len(want) == cfg["samples"], "convert: %d samples, not %d"
+          % (len(want), cfg["samples"]))
+    check(same(read, want), "convert: read_converted gave other samples")
+    check(same(via_creator, want), "convert: reader.creator gave other "
+          "samples")
+    return dict(samples=len(want), files=len(paths),
+                seconds=time.monotonic() - t0)
+
+
+def phase_v2_book(torch, card="cpu", use_gpu=True, cfg=V2_BOOK):
+    """Phase 44 (see the module docstring): the book's v2 and Fluid
+    scripts on the card from their own readers, deployed to the native
+    runner. `use_gpu=False` rehearses it on the CPU."""
+    import importlib.util
+    import shutil
+    import tempfile
+    import threading
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch import native
+
+    t_start = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="phase44_")
+    common = paddle.dataset.common
+    home = common.DATA_HOME
+    common.DATA_HOME = os.path.join(tmp, "data")
+    # g++ builds the runner while the card trains
+    built = {}
+
+    def build():
+        t0 = time.monotonic()
+        try:
+            built["path"] = native.infer_lib_path()
+        except Exception as e:  # raised again where the runner is needed
+            built["error"] = e
+        built["seconds"] = time.monotonic() - t0
+
+    build_thread = threading.Thread(target=build, daemon=True)
+    build_thread.start()
+
+    def runner_built():
+        build_thread.join()
+        if "error" in built:
+            raise built["error"]
+
+    place = paddle.fluid.CUDAPlace(0) if use_gpu else \
+        paddle.fluid.CPUPlace()
+    out = {"card": card}
+    try:
+        paddle.init(use_gpu=use_gpu, trainer_count=1)
+        out["recognize_digits"] = _book_digits(
+            torch, paddle, tmp, cfg["digits"], runner_built)
+        out["understand_sentiment"] = _book_sentiment(
+            torch, paddle, tmp, cfg["sentiment"], place, runner_built)
+        out["fit_a_line"] = _book_fit_a_line(paddle, cfg["fit_a_line"])
+        out["convert"] = _book_convert(paddle, tmp, cfg["convert"])
+    finally:
+        build_thread.join()
+        common.DATA_HOME = home
+        paddle.init()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["runner_build_seconds"] = built["seconds"]
+    out["seconds"] = time.monotonic() - t_start
+    out["installed"] = {m: importlib.util.find_spec(m) is not None
+                        for m in ("PIL", "matplotlib", "scipy")}
+    out["left_out"] = ("flowers, voc2012, v2.image and v2.plot: they decode "
+                       "images with PIL and draw with matplotlib; their "
+                       "parity runs in the CPU tests")
+    log("  phase 44: %.1f s (the runner's g++ build %.1f s, beside the "
+        "training); installed here: %s; left out: %s"
+        % (out["seconds"], built["seconds"], out["installed"],
+           out["left_out"]))
+    return out
+
+
 def _fmt(ms):
     return "n/a" if ms is None else "%.1f" % ms
 
@@ -8187,6 +8568,13 @@ def main():
     lm_paths = phase_lm_paths(torch, T, tfa, tpa, card=card)
     log("  phase 43 took %.1f s" % (time.monotonic() - t0))
 
+    log("phase 44: the v2 book and the deploy path: recognize_digits "
+        "(LeNet) through the v2 API from paddle.dataset.mnist, "
+        "understand_sentiment (stacked_lstm_net, emb 128, hid 512) through "
+        "Fluid from imdb, fit_a_line from uci_housing, mnist.convert; the "
+        "native runner and merge_v2_model on the host")
+    v2_book = phase_v2_book(torch, card=card)
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -8331,6 +8719,7 @@ def main():
                                       data_plane=data_plane)))
     log("fleet: %s" % json.dumps(fleet))
     log("lm paths: %s" % json.dumps(lm_paths))
+    log("v2 book: %s" % json.dumps(v2_book))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,20 +24,24 @@ import cycle when the DSL is imported first.
 
 `master` is the client of the coordinator's task queue
 (`distributed.coordinator`); `reader.creator`'s record readers read the
-JAX package's record files and shards. Not ported yet (ROADMAP Queue
-A): `dataset`, `image` and `plot`.
+JAX package's record files and shards. `dataset` holds the book's
+readers (`paddle.dataset.mnist.train()` and the rest), `image` the image
+transforms and `plot` the training-curve Ploter; PIL and matplotlib are
+imported only where an image is decoded or a curve drawn, never here.
 """
 
 import importlib
 
 from . import activation  # noqa: F401
 from . import data_type  # noqa: F401
+from . import dataset  # noqa: F401
 from . import evaluator  # noqa: F401
 from . import event  # noqa: F401
 from . import layer  # noqa: F401
 from . import master  # noqa: F401
 from . import minibatch  # noqa: F401
 from . import parameters  # noqa: F401
+from . import plot  # noqa: F401
 from . import reader  # noqa: F401
 from . import trainer  # noqa: F401
 from .minibatch import batch  # noqa: F401
@@ -52,8 +56,8 @@ from ..fluid import (  # noqa: F401
 
 __all__ = [
     "init", "batch", "infer", "layer", "activation", "data_type",
-    "evaluator", "event", "master", "minibatch", "optimizer", "parameters",
-    "reader",
+    "dataset", "evaluator", "event", "master", "minibatch", "optimizer",
+    "parameters", "plot", "reader",
     "trainer", "attr", "pooling", "networks",
     "default_main_program", "default_startup_program",
     "fluid",
@@ -73,15 +77,11 @@ def __getattr__(name):
 
 def init(use_gpu=None, trainer_count=1, **kwargs):
     """paddle.init: `use_gpu=False` runs the v2 API on the CPU; None or
-    True on the card (checked when something first runs). The v2 API
-    trains on one device: `trainer_count` above 1 raises (data-parallel
-    training is the trainer's, `run_config(trainer_count=)`). Log-level
-    and other reference flags are accepted and ignored."""
-    if int(trainer_count) > 1:
-        raise NotImplementedError(
-            "paddle.init(trainer_count=%d): the v2 API trains on one "
-            "device; run data-parallel through paddle_tpu_torch.trainer "
-            "under torchrun" % int(trainer_count))
+    True on the card (checked when something first runs).
+    `trainer_count`, log levels and the other reference flags are
+    accepted and ignored, as in the JAX package: SGD trains on the one
+    device `use_gpu` names whatever `trainer_count` says (data-parallel
+    training is the trainer's, `run_config(trainer_count=)`)."""
     _settings["use_gpu"] = use_gpu
 
 

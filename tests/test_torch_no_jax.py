@@ -81,8 +81,13 @@ def test_importing_every_module_leaves_jax_out():
                  "v2.master", "native", "data", "data.record_shard",
                  "data.dataset", "data.loader", "data.metrics",
                  "distributed.coordinator", "distributed.supervisor",
-                 "distributed.sentinel"):
+                 "distributed.sentinel", "v2.image", "v2.plot",
+                 "v2.dataset", "utils.merge_model"):
         assert "paddle_tpu_torch." + name in mods
+    for name in ("common", "mnist", "uci_housing", "cifar", "imdb",
+                 "imikolov", "sentiment", "movielens", "conll05", "wmt14",
+                 "wmt16", "mq2007", "criteo", "flowers", "voc2012"):
+        assert "paddle_tpu_torch.v2.dataset." + name in mods
     code = (
         "import importlib, sys\n"
         "for m in %r: importlib.import_module(m)\n"

@@ -226,18 +226,34 @@ def test_v2_runs_on_the_card_unless_init_says_cpu():
 
 
 def test_init_refuses_more_than_one_trainer():
-    """The v2 API trains on one device: trainer_count above 1 raises
-    instead of training on one device unasked."""
-    with pytest.raises(NotImplementedError, match="trainer_count=4"):
-        tpaddle.init(use_gpu=False, trainer_count=4)
-    tpaddle.init(use_gpu=False, trainer_count=1)
-    assert isinstance(tpaddle.place(), tpaddle.fluid.CPUPlace)
+    """paddle.init(trainer_count=4) is accepted and ignored, as the JAX
+    package's init is: both return None, `use_gpu=False` still places
+    the API on the CPU, and SGD then trains exactly as at
+    trainer_count=1 (the name is the test's from when the port
+    refused)."""
+    import paddle_tpu.v2 as jpaddle
+    from torch_legacy import fresh_names
+
+    assert jpaddle.init(use_gpu=False, trainer_count=4) is None
+    runs = {}
+    for n in (4, 1):
+        assert tpaddle.init(use_gpu=False, trainer_count=n) is None
+        assert isinstance(tpaddle.place(), tpaddle.fluid.CPUPlace)
+        with fresh_names():
+            tar0 = runs[4]["tar0"] if n == 1 else None
+            runs[n] = _side(tpaddle, fit_a_line, "line", 16, init_tar=tar0)
+    assert runs[1]["tar0"] == runs[4]["tar0"]
+    assert runs[1]["events"] == runs[4]["events"]
+    np.testing.assert_array_equal(runs[1]["infer"], runs[4]["infer"])
+    for k in runs[1]["params"]:
+        np.testing.assert_array_equal(runs[1]["params"][k],
+                                      runs[4]["params"][k])
 
 
 def test_surface_and_what_is_left_out():
     """The v2 modules the port has are there (the ones that share the
-    DSL's objects load at first use; master since the data plane);
-    dataset, image and plot are not ported yet."""
+    DSL's objects load at first use; master since the data plane;
+    dataset, image and plot since the datasets were ported)."""
     for name in ("activation", "attr", "data_type", "evaluator", "event",
                  "layer", "master", "minibatch", "networks", "op",
                  "optimizer", "parameters", "pooling", "reader", "trainer"):
@@ -246,7 +262,11 @@ def test_surface_and_what_is_left_out():
     assert tpaddle.attr.Param is tpaddle.attr.ParamAttr
     assert tpaddle.pooling.Max().name == "max"
     for name in ("dataset", "image", "plot"):
-        assert not hasattr(tpaddle, name)
+        assert getattr(tpaddle, name).__name__ == \
+            "paddle_tpu_torch.v2." + name
+    assert tpaddle.dataset.mnist.__name__ == \
+        "paddle_tpu_torch.v2.dataset.mnist"
+    assert tpaddle.plot.Ploter and tpaddle.image.simple_transform
     from paddle_tpu_torch.v2 import data_feeder, inference
 
     feeder = data_feeder.DataFeeder(
