@@ -401,14 +401,35 @@ Phases (any failure exits non-zero):
      640 samples in order. flowers, voc2012, v2.image and v2.plot are
      left out (PIL and matplotlib; their parity runs in the CPU tests),
      and the phase says which of PIL, matplotlib and scipy it found;
+ 45. the utils/ tools and the analyzers, in f32 with TF32 off:
+     ImageClassificationDatasetCreater turns 10 classes x 64 seeded 32x32
+     JPEGs (4 in 5 to train) into 4 batch files of 128 and a meta file
+     with the mean image; MultiProcessImageTransformer(procnum=4), a
+     spawn pool made inside this CUDA process, decodes one batch file
+     bit-equal to the in-process PILTransformer, then closes;
+     predefined_net.small_vgg (image_size 32, 10 classes, colour) with
+     training_settings() (batch 128) trains 4 batches on the card through
+     the legacy trainer (`run_config`, the provider
+     predefined_net.image_data names reading those batches): every cost
+     finite; dump_config prints small_vgg's conv ops and simple_conv_net's
+     conv and batch_norm ops, make_model_diagram writes a dot graph;
+     dump_v2_config writes the topology gzipped and show_pb prints it;
+     torch2paddle writes the trained tensors, on the card, to a v2 tar
+     that Parameters.from_tar reads back bit-equal; plotcurve.parse_log
+     reads the trainer's own "Pass= Batch= AvgCost=" lines (drawn only
+     where matplotlib is installed); `python -m paddle_tpu_torch.analysis
+     --all` runs in its own interpreter beside the rest and must exit 0,
+     its findings logged by code with the baselined count and each
+     `# sync-free` root beside the phase that runs it under
+     set_sync_debug_mode("error");
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases
  13, 14, 42 and 43, the flash entries their Fluid launches in phases 18
  and 38, their launches over phase 42 (which must be 0) and in phase
  43 (per rank on the Ulysses path, and the Switch LM's; the dequant
  entries their phase-43 launches over int8 and fp8 pools); no Hopper
- kernel lies on the path of phase 44 (cuDNN and cuBLAS on the card, host
- C++ in the runner) or of phases 20-32, whose recurrences, segment
+ kernel lies on the path of phases 44 and 45 (cuDNN and cuBLAS on the
+ card, host C++ in the runner, host tools) or of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
  convolutions, CRF recursions and detection ops are cuDNN, cuBLAS and
  plain torch ops), then the device line last.
@@ -457,6 +478,15 @@ FLASH_REPLACES = {
     "forward": "paddle_tpu/parallel/flash_attention.py:86",
     "backward_kv": "paddle_tpu/parallel/flash_attention.py:200",
     "backward_q": "paddle_tpu/parallel/flash_attention.py:245",
+}
+# the port's `# sync-free` roots (paddle_tpu_torch/analysis/trace_lint.py
+# lints them statically) and the phase that runs each on the card under
+# torch.cuda.set_sync_debug_mode("error")
+SYNC_FREE_ROOTS = {
+    "paddle_tpu_torch/serving/engine.py::ServingEngine._launch_window":
+        "phase 13 (_watch_steady_dispatch: every steady chained dispatch)",
+    "paddle_tpu_torch/fluid/core/kernels_rnn.py::_lstm":
+        "phase 20 (phase_lstm_sync: the lstm op forward and backward)",
 }
 # matrix products each flash kernel does per attended (q, k) pair
 FLASH_PRODUCTS = {"forward": 2, "backward_kv": 4, "backward_q": 3}
@@ -8307,6 +8337,288 @@ def phase_v2_book(torch, card="cpu", use_gpu=True, cfg=V2_BOOK):
     return out
 
 
+# ---------------------------------------------------------------------
+# phase 45: the image, config and conversion tools and the analyzers
+# ---------------------------------------------------------------------
+
+# phase 45's settings: small_vgg at its own dataset scale (CIFAR's 32x32
+# colour images, 10 classes; paddle_tpu/utils/predefined_net.py:173) with
+# training_settings()' batch 128; 64 seeded JPEGs a class, 4 in 5 of
+# them to train (4 batches of 128), the rest to test
+TOOLS = dict(classes=10, per_class=64, size=32, batch=128, batches=4,
+             procs=4, seed=45)
+
+_TOOLS_VGG_CONF = """\
+from paddle_tpu_torch.utils import predefined_net
+data_conf = predefined_net.image_data(get_config_arg("data_dir", str, "."),
+                                      %(size)d)
+predefined_net.training_settings(batch_size=%(batch)d)
+predefined_net.small_vgg(data_conf)
+"""
+
+_TOOLS_BN_CONF = """\
+from paddle_tpu_torch.utils import predefined_net
+data_conf = predefined_net.image_data(get_config_arg("data_dir", str, "."),
+                                      %(size)d)
+predefined_net.training_settings(batch_size=%(batch)d)
+predefined_net.simple_conv_net(data_conf, is_color=True)
+"""
+
+# the provider predefined_net.image_data names (module image_provider,
+# obj processData; the reference's image-classification demo): the
+# creater's pickled JPEG batches, decoded and mean-subtracted
+_TOOLS_PROVIDER = """\
+import pickle
+
+from paddle_tpu_torch.trainer.PyDataProvider2 import (dense_vector,
+                                                      integer_value,
+                                                      provider)
+from paddle_tpu_torch.utils import image_util
+from paddle_tpu_torch.utils.image_multiproc import PILTransformer
+
+
+def hook(settings, meta, mean_img_size, img_size, num_classes, use_jpeg,
+         color, **kwargs):
+    is_color = color == "color"
+    mean = image_util.load_meta(meta, mean_img_size, img_size, is_color)
+    settings.transformer = PILTransformer(crop_size=img_size,
+                                          is_train=False, mean=mean,
+                                          is_color=is_color)
+    settings.slots = [dense_vector(mean.size), integer_value(num_classes)]
+
+
+@provider(init_hook=hook)
+def processData(settings, file_list):
+    for path in file_list:
+        with open(path, "rb") as f:
+            batch = pickle.load(f)
+        for jpeg, label in zip(batch["images"], batch["labels"]):
+            img, label = settings.transformer(jpeg, label)
+            yield img.ravel(), int(label)
+"""
+
+
+def _tool_images(root, cfg):
+    """cfg["classes"] x cfg["per_class"] seeded JPEGs (smooth colour
+    fields plus noise, one hue a class) under root/{train,test}/<class>/:
+    every fifth image to test."""
+    from PIL import Image
+
+    rng = np.random.RandomState(cfg["seed"])
+    s = cfg["size"]
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32) / s
+    for c in range(cfg["classes"]):
+        hue = np.array([np.cos(c), np.sin(c), np.cos(2 * c)], np.float32)
+        for i in range(cfg["per_class"]):
+            base = 128 + 60 * hue[None, None, :] * (xx + yy)[..., None]
+            img = base + rng.randn(s, s, 3) * 30
+            split = "test" if (c * cfg["per_class"] + i) % 5 == 4 else "train"
+            d = os.path.join(root, split, "class%02d" % c)
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+                os.path.join(d, "img%03d.jpg" % i), quality=90)
+
+
+def _lint_report(proc_out):
+    """Findings per code and the baselined count, from the CLI's
+    lines."""
+    per_code, baselined = {}, 0
+    for line in proc_out.splitlines():
+        m = re.match(r"\S+:\d+: ([A-Z]\d{3}) ", line)
+        if m:
+            per_code[m.group(1)] = per_code.get(m.group(1), 0) + 1
+            baselined += line.endswith("[baselined]")
+    return per_code, baselined
+
+
+def phase_tools(torch, card="cpu", use_gpu=True, cfg=TOOLS):
+    """Phase 45 (see the module docstring): the utils/ tools and the
+    analyzers around one small_vgg training on the card. `use_gpu=False`
+    rehearses it on the CPU."""
+    import contextlib
+    import importlib.util
+    import io
+    import pickle
+    import random
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.trainer import build_topology, run_config
+    from paddle_tpu_torch.utils import (dump_config, dump_v2_config,
+                                        image_util, make_model_diagram,
+                                        plotcurve, show_pb, torch2paddle)
+    from paddle_tpu_torch.utils.image_multiproc import (
+        MultiProcessImageTransformer, PILTransformer)
+    from paddle_tpu_torch.utils.preprocess_img import \
+        ImageClassificationDatasetCreater
+    from paddle_tpu_torch.v2.parameters import Parameters
+
+    t_start = time.monotonic()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # the lint gate runs in its own interpreter beside the rest
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.analysis", "--all"],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    tmp = tempfile.mkdtemp(prefix="phase45_")
+    out, secs = {"card": card}, {}
+    try:
+        # 1. images to batches and a meta file with the mean image
+        t0 = time.monotonic()
+        data = os.path.join(tmp, "data")
+        _tool_images(data, cfg)
+        creater = ImageClassificationDatasetCreater(data, cfg["size"],
+                                                    color=True)
+        creater.num_per_batch = cfg["batch"]
+        random.seed(cfg["seed"])  # permute_by_key's shuffles
+        batches = creater.create_batches()
+        train_files = [l.strip() for l in open(os.path.join(
+            batches, "train.list")) if l.strip()]
+        meta_path = os.path.join(batches, "batches.meta")
+        with open(meta_path, "rb") as f:
+            meta = pickle.load(f)
+        check(len(train_files) == cfg["batches"]
+              and meta["num_classes"] == cfg["classes"]
+              and meta["data_mean"].size == 3 * cfg["size"] ** 2,
+              "the creater wrote %d train batches, meta %r"
+              % (len(train_files), sorted(meta)))
+        secs["images_and_batches"] = time.monotonic() - t0
+
+        # 2. one batch file decoded in a spawn pool inside this process
+        t0 = time.monotonic()
+        mean = image_util.load_meta(meta_path, cfg["size"], cfg["size"])
+        with open(train_files[0], "rb") as f:
+            b0 = pickle.load(f)
+        with MultiProcessImageTransformer(
+                procnum=cfg["procs"], crop_size=cfg["size"],
+                is_train=False, mean=mean) as pool:
+            pooled = list(pool.run(b0["images"], b0["labels"]))
+        local = PILTransformer(crop_size=cfg["size"], is_train=False,
+                               mean=mean)
+        same = all(
+            l == pl and img.dtype == pimg.dtype
+            and np.array_equal(img, pimg)
+            for (pimg, pl), (img, l) in zip(
+                pooled, (local(j, l) for j, l in zip(b0["images"],
+                                                     b0["labels"]))))
+        check(len(pooled) == cfg["batch"] and same,
+              "the pool's %d decoded images differ from the in-process "
+              "transformer's" % len(pooled))
+        secs["pool_decode"] = time.monotonic() - t0
+
+        # 3. train small_vgg through the legacy trainer on the card
+        t0 = time.monotonic()
+        conf = os.path.join(tmp, "vgg_conf.py")
+        with open(conf, "w") as f:
+            f.write(_TOOLS_VGG_CONF % cfg)
+        with open(os.path.join(tmp, "image_provider.py"), "w") as f:
+            f.write(_TOOLS_PROVIDER)
+        args = {"data_dir": data}
+        scope = fluid.executor.Scope()
+        log_lines = io.StringIO()
+        with contextlib.redirect_stdout(log_lines):
+            stats = run_config(conf, config_args=args, num_passes=1,
+                               log_period=1, use_gpu=use_gpu, scope=scope)
+        costs = stats["costs"]
+        check(stats["batches"] == cfg["batches"]
+              and all(np.isfinite(c) for c in costs),
+              "small_vgg trained %d batches, costs %r"
+              % (stats["batches"], costs))
+        secs["train"] = time.monotonic() - t0
+
+        # 4. the config's program and its diagram
+        t0 = time.monotonic()
+        vgg_code = dump_config.dump_config(conf, args)
+        bn_conf = os.path.join(tmp, "bn_conf.py")
+        with open(bn_conf, "w") as f:
+            f.write(_TOOLS_BN_CONF % cfg)
+        bn_code = dump_config.dump_config(bn_conf, args)
+        check(vgg_code.count("conv2d") >= 8 and "conv2d" in bn_code
+              and "batch_norm" in bn_code,
+              "dump_config printed no conv / batch_norm ops")
+        dot = os.path.join(tmp, "bn.dot")
+        make_model_diagram.make_diagram(bn_conf, dot, "data_dir=" + data)
+        dot_text = open(dot).read()
+        check("digraph" in dot_text and "batch_norm" in dot_text,
+              "make_model_diagram wrote no graph")
+
+        # 5. the topology to a file and back; the trained weights to a tar
+        _state, topo, _cost = build_topology(conf, args)
+        pb = os.path.join(tmp, "vgg.json.gz")
+        dump_v2_config.dump_v2_config(topo, pb, binary=True)
+        shown = io.StringIO()
+        show_pb.show_program(show_pb.read_program(pb), shown)
+        check("op conv2d" in shown.getvalue(), "show_pb printed no conv2d")
+        trained = {n: scope.get(n) for n in scope.keys()
+                   if isinstance(scope.get(n), torch.Tensor)
+                   and scope.get(n).is_floating_point()}
+        on_card = all(t.is_cuda for t in trained.values())
+        check(on_card or not use_gpu, "trained parameters not on the card")
+        tar = os.path.join(tmp, "vgg.tar")
+        written = torch2paddle.torch2paddle(
+            trained, {n: n for n in trained}, tar, transpose=())
+        with open(tar, "rb") as f:
+            back = Parameters.from_tar(f)
+        bit_equal = sorted(back.names()) == sorted(trained) and all(
+            np.array_equal(np.asarray(back.get(n)),
+                           trained[n].detach().cpu().numpy().reshape(
+                               np.asarray(back.get(n)).shape))
+            for n in trained)
+        check(bit_equal and written == sorted(trained),
+              "the torch2paddle tar did not read back bit-equal")
+        secs["dump_and_convert"] = time.monotonic() - t0
+
+        # 6. the trainer's own log lines through plotcurve
+        lines = [l for l in log_lines.getvalue().splitlines()
+                 if l.startswith("Pass=")]
+        x, _x_test = plotcurve.parse_log(["AvgCost"], lines)
+        check(x.shape == (cfg["batches"], 2) and np.allclose(
+            x[:, 1], costs, atol=5e-5),
+            "parse_log read %r from the trainer's log" % (x.tolist(),))
+        drawn = None
+        if importlib.util.find_spec("matplotlib") is not None:
+            png = os.path.join(tmp, "curve.png")
+            plotcurve.plot_paddle_curve(["AvgCost"], iter(lines), png)
+            drawn = os.path.getsize(png)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        # the gate's interpreter ends on its own in seconds: wait for it
+        # on every path, so no process outlives the phase
+        lint_out = lint.communicate(timeout=300)[0]
+
+    # 7. the lint gate over the port
+    per_code, baselined = _lint_report(lint_out)
+    check(lint.returncode == 0 and "0 new" in lint_out,
+          "python -m paddle_tpu_torch.analysis --all exited %d:\n%s"
+          % (lint.returncode, lint_out[-4000:]))
+    out.update(
+        images=cfg["classes"] * cfg["per_class"], train_batches=len(
+            train_files), pool_procs=cfg["procs"],
+        pool_bit_equal=same, costs=costs, trained_tensors=len(trained),
+        tensors_on_card=on_card, tar_bit_equal=bit_equal,
+        plot_bytes=drawn, lint_findings=per_code,
+        lint_baselined=baselined, lint_summary=lint_out.strip()
+        .splitlines()[-1], sync_free_roots=SYNC_FREE_ROOTS,
+        seconds_by_step=secs, seconds=time.monotonic() - t_start)
+    _on_card(card, "small_vgg %d batches of %d: costs %s; pool of %d "
+             "bit-equal on %d images; %d tensors to the tar and back "
+             "bit-equal; parse_log %d lines; plot %s"
+             % (stats["batches"], cfg["batch"],
+                ", ".join("%.4f" % c for c in costs), cfg["procs"],
+                len(pooled), len(trained), len(lines),
+                "%d bytes" % drawn if drawn else
+                "skipped (no matplotlib)"))
+    log("  lint gate: %s; findings by code %s, %d baselined"
+        % (out["lint_summary"], per_code, baselined))
+    for root, phase in sorted(SYNC_FREE_ROOTS.items()):
+        log("  # sync-free root %s: run under set_sync_debug_mode('error') "
+            "in %s" % (root, phase))
+    log("  phase 45: %.1f s (%s)" % (out["seconds"], ", ".join(
+        "%s %.1f s" % kv for kv in secs.items())))
+    return out
+
+
 def _fmt(ms):
     return "n/a" if ms is None else "%.1f" % ms
 
@@ -8575,6 +8887,13 @@ def main():
         "native runner and merge_v2_model on the host")
     v2_book = phase_v2_book(torch, card=card)
 
+    log("phase 45: the utils/ tools and the analyzers: images to batches, "
+        "a spawn decode pool, predefined_net.small_vgg trained through "
+        "the legacy trainer, dump_config, make_model_diagram, "
+        "dump_v2_config and show_pb, torch2paddle, plotcurve, the lint "
+        "gate")
+    tools = phase_tools(torch, card=card)
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -8720,6 +9039,7 @@ def main():
     log("fleet: %s" % json.dumps(fleet))
     log("lm paths: %s" % json.dumps(lm_paths))
     log("v2 book: %s" % json.dumps(v2_book))
+    log("tools: %s" % json.dumps(tools))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,15 +23,16 @@ silently.
 
 from __future__ import annotations
 
-import torch
-
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: CUDA by default, the CPU (or
     another device) only when the caller names it. Raises when CUDA is
     asked for — explicitly or by default — and none is available."""
+    import torch  # here, not at import: host-only modules (the image
+    # tools' spawn workers) load the package without torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

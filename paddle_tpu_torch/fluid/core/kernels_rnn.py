@@ -20,6 +20,8 @@ operators/lstmp_op.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -39,7 +41,7 @@ def _act(name):
     return _ACTS[name]
 
 
-def _seq_T(ctx, total, offsets=None):
+def _seq_T(ctx, total: int, offsets=None):
     """Time extent of a padded recurrence, from the host. Preference
     order (the JAX package's):
 
@@ -54,7 +56,8 @@ def _seq_T(ctx, total, offsets=None):
         d = np.diff(host)
         if d.size and int(d.max()) > 0:
             return int(d.max())
-    return int(ctx.seq_maxlen) if ctx.seq_maxlen else int(total)
+    maxlen: Optional[int] = ctx.seq_maxlen
+    return int(maxlen) if maxlen else int(total)
 
 
 def _full_steps(ctx, offsets):
@@ -66,7 +69,7 @@ def _full_steps(ctx, offsets):
     return int(np.diff(host).min())
 
 
-def packed_to_padded(x, offsets, T, reverse=False):
+def packed_to_padded(x, offsets, T: int, reverse: bool = False):
     """[total, ...] packed -> ([n, T, ...] padded, [n, T] bool mask).
 
     With reverse=True each sequence is time-flipped into the padded
@@ -85,7 +88,7 @@ def packed_to_padded(x, offsets, T, reverse=False):
     return x.index_select(0, idx).reshape((n, T) + tuple(x.shape[1:])), mask
 
 
-def padded_to_packed(h, offsets, total, reverse=False):
+def padded_to_packed(h, offsets, total: int, reverse: bool = False):
     """[n, T, ...] padded -> [total, ...] packed (inverse of the above)."""
     T = h.shape[1]
     s = seg_ids(offsets, total)  # [total]
@@ -103,7 +106,7 @@ def _time_major(x, offsets, T, reverse):
     return xp.transpose(0, 1), mask.transpose(0, 1)[..., None]
 
 
-def _peepholes(bias, H, peephole):
+def _peepholes(bias, H: int, peephole: bool):
     if peephole and bias is not None:
         return (bias[0, 4 * H:5 * H], bias[0, 5 * H:6 * H],
                 bias[0, 6 * H:7 * H])
@@ -130,7 +133,7 @@ def _lstm_cell(g, c, w_ic, w_fc, w_oc, gate_act, cell_act, cand_act):
 
 
 @register_op("lstm")
-def _lstm(ctx, ins, attrs):
+def _lstm(ctx, ins, attrs):  # sync-free
     x = ins["Input"][0]           # [total, 4H] (pre-projected by the fc)
     w = ins["Weight"][0]          # [H, 4H] recurrent weight
     bias = ins["Bias"][0] if ins.get("Bias") else None  # [1, 4H] or [1, 7H]

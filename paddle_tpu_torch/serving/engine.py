@@ -1566,7 +1566,7 @@ class ServingEngine(object):
                 s, p, min(p + horizon, int(self._limits[s]) - 1))
         return self._launch_window(prev, live)
 
-    def _launch_window(self, prev, live):
+    def _launch_window(self, prev, live: np.ndarray):  # sync-free
         """The window's device work once its blocks are in the tables:
         bands from the host (uploaded only if dirty) or, chained, from
         `prev`'s outputs. A steady chained launch uploads and reads back

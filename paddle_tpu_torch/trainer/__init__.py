@@ -388,8 +388,12 @@ def _write_gen_results(state, ids, lens, feed, config_dir,
 def run_config(config_path, job="train", config_args=None, trainer_count=1,
                num_passes=1, log_period=10, use_gpu=None, save_dir=None,
                recordio=None, init_model_path=None, saving_period=1,
-               gen_result_dir=None):
+               gen_result_dir=None, scope=None):
     """Programmatic entry (also used by tests). Returns summary dict.
+
+    `scope`: the fluid Scope to train in (a fresh one by default); the
+    caller's scope holds the trained parameters afterwards, on the
+    card when the run was.
 
     `use_gpu`: None or True runs on the card (CUDAPlace(0), or this
     rank's card on a mesh) and raises where there is none; False runs on
@@ -435,7 +439,7 @@ def run_config(config_path, job="train", config_args=None, trainer_count=1,
                     topo.main_program
                 )
 
-    scope = fluid.executor.Scope()
+    scope = fluid.executor.Scope() if scope is None else scope
     exe = fluid.Executor(place if mesh is None else None, mesh=mesh)
     with fluid.executor.scope_guard(scope):
         exe.run(topo.startup_program)

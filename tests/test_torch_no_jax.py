@@ -51,7 +51,16 @@ def test_importing_every_module_leaves_jax_out():
         assert "paddle_tpu_torch.parallel." + name in mods
     for name in ("analysis", "analysis.program_lint",
                  "analysis.diagnostics", "analysis.protocol_lint",
-                 "analysis.sched_explore", "utils.flags", "utils.tree"):
+                 "analysis.sched_explore", "utils.flags", "utils.tree",
+                 "analysis.__main__", "analysis.entries",
+                 "analysis.lock_lint", "analysis.band_lint",
+                 "analysis.trace_lint", "analysis.shard_lint",
+                 "utils.logging", "utils.stat", "utils.dump_config",
+                 "utils.dump_v2_config", "utils.make_model_diagram",
+                 "utils.show_pb", "utils.plotcurve", "utils.image_util",
+                 "utils.image_multiproc", "utils.preprocess_util",
+                 "utils.preprocess_img", "utils.predefined_net",
+                 "utils.torch2paddle"):
         assert "paddle_tpu_torch." + name in mods
     for name in ("resnet", "ocr_crnn", "ctr", "lenet", "vgg", "alexnet",
                  "googlenet", "mobilenet", "ssd"):
