@@ -422,12 +422,33 @@ Phases (any failure exits non-zero):
      its findings logged by code with the baselined count and each
      `# sync-free` root beside the phase that runs it under
      set_sync_debug_mode("error");
+ 46. the mesh executor's global forms, with ranks of this script
+     (--global-worker RANK WORLD DIR) on cuda:0 in gloo groups beside
+     this process's one-device runs of the same programs on the global
+     batch: two ranks on {data: 2} run, 3 SGD steps in f32 at a batch of
+     512, one program of the ops that mix the batch (the in-batch
+     two-tower loss: matmul of two batch-split towers, softmax over the
+     batch, cross-entropy; concat along the batch, shape,
+     fill_constant_batch_size_like over the features, precision_recall
+     on a classifier head, isfinite, a counter-bounded While over a
+     batch-split value): losses and parameters within 1e-5 relative,
+     counts, flag, shape and fill equal; then phase 18's Fluid flash
+     program on batch-split q/k/v, 3 bf16 steps within phase 18's bar
+     with each flash kernel launched once a step on each rank (counters
+     zeroed just before, read just after) and no paged launch; four
+     ranks on {data: 2, model: 2} train a weight split along both
+     dimensions (PartitionSpec('data', 'model')) 3 Adam steps: losses
+     within 1e-5, parameters within 1e-5 of the one-device steps taken
+     over each batch's two halves and within twice that floor of the
+     plain steps; one all-gather of a tower's block is timed beside a
+     softmax over it;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases
- 13, 14, 42 and 43, the flash entries their Fluid launches in phases 18
- and 38, their launches over phase 42 (which must be 0) and in phase
- 43 (per rank on the Ulysses path, and the Switch LM's; the dequant
- entries their phase-43 launches over int8 and fp8 pools); no Hopper
+ 13, 14, 42, 43 and 46, the flash entries their Fluid launches in
+ phases 18 and 38, their launches over phase 42 (which must be 0), in
+ phase 43 (per rank on the Ulysses path, and the Switch LM's) and in
+ phase 46 (per rank); the dequant entries their phase-43 launches over
+ int8 and fp8 pools); no Hopper
  kernel lies on the path of phases 44 and 45 (cuDNN and cuBLAS on the
  card, host C++ in the runner, host tools) or of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
@@ -457,6 +478,7 @@ training paths at rtol 1e-4 on losses and atol/rtol 1e-4 on parameters.
 """
 
 import functools
+import importlib
 import json
 import math
 import os
@@ -2407,13 +2429,11 @@ def phase_fluid_parity(torch, fluid, resnet, steps=3, place=None):
                 optimizer_state_abs_err=v_err)
 
 
-def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH,
-                      mesh=None):
-    """Phase 18: a Fluid program whose flash_attention op reaches the
-    Hopper kernels, forward and backward, through one bf16 SGD step of
-    the Executor (on the CPU, a rehearsal: the plain versions run and no
-    kernel launches; phase 38 runs it on `mesh`)."""
-    B, T, H, D = cfg["batch"], cfg["seq"], cfg["heads"], cfg["dim"]
+def fluid_flash_program(fluid, cfg):
+    """Phase 18's program: q through a bias-free fc, causal
+    flash_attention with k and v, the mean as the loss, SGD(0.1), bf16
+    AMP. Returns (main, startup, out, qp, loss)."""
+    T, H, D = cfg["seq"], cfg["heads"], cfg["dim"]
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         q, k, v = (fluid.layers.data(name=n, shape=[T, H, D],
@@ -2424,6 +2444,17 @@ def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH,
         loss = fluid.layers.mean(x=out)
         fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
     main.amp = True
+    return main, startup, out, qp, loss
+
+
+def phase_fluid_flash(torch, fluid, tfa, place=None, cfg=FLUID_FLASH,
+                      mesh=None):
+    """Phase 18: a Fluid program whose flash_attention op reaches the
+    Hopper kernels, forward and backward, through one bf16 SGD step of
+    the Executor (on the CPU, a rehearsal: the plain versions run and no
+    kernel launches; phase 38 runs it on `mesh`)."""
+    B, T, H, D = cfg["batch"], cfg["seq"], cfg["heads"], cfg["dim"]
+    main, startup, out, qp, loss = fluid_flash_program(fluid, cfg)
     w = main.global_block().all_parameters()[0].name
     scope = fluid.Scope()
     with fluid.scope_guard(scope):
@@ -8623,6 +8654,434 @@ def _fmt(ms):
     return "n/a" if ms is None else "%.1f" % ms
 
 
+# ---------------------------------------------------------------------
+# phase 46: the mesh executor's global forms on the card
+# ---------------------------------------------------------------------
+
+# phase 46's settings: the lifted ops at a retrieval batch of 512 rows
+# (the in-batch two-tower loss scores every pair: a [512, 512] softmax
+# over the batch), 3 SGD steps in f32; the Fluid flash program at phase
+# 18's shape (batch 8 x 1024 tokens, 8 heads of 64), 3 bf16 steps; a
+# weight split over {data: 2, model: 2} (PartitionSpec('data', 'model'))
+# at 256 -> 512, 3 Adam steps in f32
+MESH_GLOBAL = dict(batch=512, feat=64, tower=128, classes=10, hidden=32,
+                   trips=3, steps=3, lr=0.1)
+MESH_SPEC = dict(batch=256, feat=256, hidden=512, steps=3, lr=1e-3)
+
+
+def global_program(fluid, cfg=MESH_GLOBAL):
+    """The lifted ops in one f32 program: a classifier head on the
+    split features with precision_recall's counts, isfinite, the global
+    shape, fill_constant_batch_size_like over the feature dimension, a
+    counter-bounded While that accumulates a batch-split value, concat
+    along the batch, and the in-batch two-tower loss (matmul of the two
+    towers, softmax over the batch, cross-entropy against each row's own
+    partner). Returns (main, startup, loss, fetch list)."""
+    L = fluid.layers
+    B, F, C = cfg["batch"], cfg["feat"], cfg["classes"]
+
+    def param(name, seed):
+        return fluid.ParamAttr(name=name, initializer=fluid.initializer
+                               .Normal(scale=0.1, seed=seed))
+
+    def raw(op_type, x, dtype, slot="X"):
+        helper = fluid.layer_helper.LayerHelper(op_type)
+        out = helper.create_tmp_variable(dtype=dtype)
+        helper.append_op(type=op_type, inputs={slot: [x]},
+                         outputs={"Out": [out]}, attrs={})
+        return out
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        qa = L.data(name="qa", shape=[F], dtype="float32")
+        qb = L.data(name="qb", shape=[F], dtype="float32")
+        row = L.data(name="row", shape=[1], dtype="int64")
+        y = L.data(name="y", shape=[1], dtype="int64")
+        head = L.fc(input=qa, size=C, act="softmax",
+                    param_attr=param("g_head", 461))
+        cls = L.mean(L.cross_entropy(input=head, label=y))
+        _, idx = L.topk(head, k=1)
+        _, _, states = L.precision_recall(input=idx, label=y,
+                                          class_number=C)
+        finite = raw("isfinite", qa, "bool")
+        shape = raw("shape", qa, "int32", "Input")
+        ones = L.fill_constant_batch_size_like(
+            input=qa, shape=[-1, 4], dtype="float32", value=1.0,
+            input_dim_idx=1, output_dim_idx=0)
+        h = L.fc(input=qb, size=cfg["hidden"], act="tanh",
+                 param_attr=param("g_loop", 462))
+        lim = L.fill_constant(shape=[1], dtype="int64", value=cfg["trips"])
+        i = L.zeros(shape=[1], dtype="int64", force_cpu=True)
+        arr = L.create_array("float32")
+        L.array_write(h, i=i, array=arr)
+        cond = L.less_than(x=i, y=lim)
+        loop = L.While(cond=cond)
+        with loop.block():
+            prev = L.array_read(array=arr, i=i)
+            nxt = L.elementwise_add(x=prev, y=L.scale(x=h, scale=0.5))
+            L.increment(x=i, value=1, in_place=True)
+            L.array_write(nxt, i=i, array=arr)
+            L.less_than(x=i, y=lim, cond=cond)
+        looped = L.mean(L.square(L.array_read(array=arr, i=lim)))
+        a = L.fc(input=qa, size=cfg["tower"], param_attr=param("g_ta", 463),
+                 bias_attr=False)
+        b = L.fc(input=qb, size=cfg["tower"], param_attr=param("g_tb", 464),
+                 bias_attr=False)
+        both = L.reduce_mean(L.square(L.concat([a, b], axis=0)))
+        prob = L.softmax(L.matmul(a, b, transpose_y=True))
+        tower = L.mean(L.cross_entropy(input=prob, label=row))
+        loss = L.elementwise_add(
+            L.elementwise_add(tower, cls),
+            L.elementwise_add(L.scale(looped, scale=0.01),
+                              L.scale(both, scale=0.01)))
+        fluid.optimizer.SGD(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, loss, [loss, tower, states, finite, shape, ones]
+
+
+def global_feeds(torch, dev, cfg=MESH_GLOBAL):
+    """The seeded global batches of phase 46's lifted-op program."""
+    rng = np.random.RandomState(46)
+    B, F = cfg["batch"], cfg["feat"]
+    return [{"qa": torch.from_numpy(rng.randn(B, F).astype(np.float32))
+             .to(dev),
+             "qb": torch.from_numpy(rng.randn(B, F).astype(np.float32))
+             .to(dev),
+             "row": torch.arange(B, dtype=torch.int64, device=dev)[:, None],
+             "y": torch.from_numpy(rng.randint(0, cfg["classes"], (B, 1))
+                                   .astype(np.int64)).to(dev)}
+            for _ in range(cfg["steps"])]
+
+
+def flash_feeds(torch, dev, cfg=FLUID_FLASH, steps=3):
+    rng = np.random.RandomState(18)
+    B, T, H, D = cfg["batch"], cfg["seq"], cfg["heads"], cfg["dim"]
+    return [{n: torch.from_numpy(rng.randn(B, T, H, D).astype(np.float32))
+             .to(dev) for n in "qkv"} for _ in range(steps)]
+
+
+def spec_program(fluid, shard=None, cfg=MESH_SPEC):
+    """A tanh layer whose weight `s_w` [feat, hidden] may be split by
+    `shard`, a linear head, the mean squared error, Adam."""
+    L = fluid.layers
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        x = L.data(name="sx", shape=[cfg["feat"]], dtype="float32")
+        y = L.data(name="sy", shape=[1], dtype="float32")
+        h = L.fc(input=x, size=cfg["hidden"], act="tanh", bias_attr=False,
+                 param_attr=fluid.ParamAttr(
+                     name="s_w", initializer=fluid.initializer.Normal(
+                         scale=0.05, seed=465)))
+        pred = L.fc(input=h, size=1, param_attr=fluid.ParamAttr(
+            name="s_o", initializer=fluid.initializer.Normal(
+                scale=0.05, seed=466)))
+        loss = L.mean(L.square_error_cost(input=pred, label=y))
+        if shard is not None:
+            shard(main.global_block().var("s_w"))
+        fluid.optimizer.Adam(learning_rate=cfg["lr"]).minimize(loss)
+    return main, startup, loss
+
+
+def spec_feeds(torch, dev, cfg=MESH_SPEC):
+    rng = np.random.RandomState(47)
+    B = cfg["batch"]
+    return [{"sx": torch.from_numpy(rng.randn(B, cfg["feat"]).astype(
+                np.float32)).to(dev),
+             "sy": torch.from_numpy(rng.randn(B, 1).astype(np.float32))
+             .to(dev)} for _ in range(cfg["steps"])]
+
+
+def _global_runs(torch, fluid, main, startup, fetch, feeds, exe, dev):
+    """Startup, one run a feed (each timed on the device); (the fetches
+    of each run on the host, every parameter whole, ms a step)."""
+    scope = fluid.Scope()
+    runs, ms = [], []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for f in feeds:
+            _sync(torch, dev.type)
+            t0 = time.perf_counter()
+            got = exe.run(main, feed=f, fetch_list=fetch,
+                          return_numpy=False)
+            _sync(torch, dev.type)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            runs.append([g.detach().float().cpu().numpy()
+                         if g.is_floating_point() else g.cpu().numpy()
+                         for g in got])
+    return runs, _params_of(fluid, main, scope), ms
+
+
+def global_worker(rank, world, tmp, dev="cuda:0"):
+    """One rank of phase 46 (`chip_smoke.py --global-worker RANK WORLD
+    DIR`), on cuda:0 in a gloo group of WORLD ranks over a file store in
+    DIR (NCCL refuses two ranks on one card). Two ranks on {data: 2} run
+    the lifted-op program and the Fluid flash program, each on its half
+    of the global batch, with the flash and paged counters zeroed just
+    before those runs and read just after, then time one gather of a
+    tower's block against a softmax over the block; four ranks on
+    {data: 2, model: 2} run the 2-D spec program. Writes
+    DIR/rank<RANK>.npz."""
+    import torch
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import fluid, parallel
+    from paddle_tpu_torch.fluid.core.spmd import Split, SpmdContext
+    from paddle_tpu_torch.parallel import paged_attention as tpa
+    from paddle_tpu_torch.parallel.mesh import P
+
+    tfa = importlib.import_module("paddle_tpu_torch.parallel.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(
+        tmp, "store"), rank=rank, world_size=world)
+    out = {}
+    if world == 2:
+        mesh = parallel.make_mesh({"data": 2}, device=dev)
+        main, startup, _, fetch = global_program(fluid)
+        feeds = [_rows_of(f, rank, 2) for f in global_feeds(torch, dev)]
+        runs, params, ms = _global_runs(torch, fluid, main, startup, fetch,
+                                        feeds, fluid.Executor(mesh=mesh),
+                                        dev)
+        for s, r in enumerate(runs):
+            for k, v in enumerate(r):
+                out["g_s%d_f%d" % (s, k)] = v
+        for k, p in enumerate(params):
+            out["g_p%d" % k] = p
+        out["g_ms"] = np.asarray(ms)
+
+        main, startup, o, _, loss = fluid_flash_program(fluid, FLUID_FLASH)
+        feeds = [_rows_of(f, rank, 2) for f in flash_feeds(torch, dev)]
+        for key in tfa.launches:
+            tfa.launches[key] = 0
+        for key in tpa.launches:
+            tpa.launches[key] = 0
+        runs, params, ms = _global_runs(torch, fluid, main, startup,
+                                        [o, loss], feeds,
+                                        fluid.Executor(mesh=mesh), dev)
+        out["f_launches"] = np.asarray([tfa.launches[k] for k in (
+            "forward", "backward_kv", "backward_q")])
+        out["paged_launches"] = np.asarray(sum(tpa.launches.values()))
+        for s, r in enumerate(runs):
+            out["f_s%d_o" % s], out["f_s%d_loss" % s] = r
+        for k, p in enumerate(params):
+            out["f_p%d" % k] = p
+        out["f_ms"] = np.asarray(ms)
+
+        # what a gathered op costs beside the split path: one all-gather
+        # of a tower's block (the two-tower matmul reads both whole)
+        # against a softmax over the same block
+        spmd = SpmdContext(mesh, {})
+        block = torch.randn(MESH_GLOBAL["batch"] // 2, MESH_GLOBAL["tower"],
+                            device=dev)
+        for name, fn in (("gather", lambda: spmd.gather(block, Split(
+                0, ("data",)))), ("softmax", lambda: torch.softmax(
+                    block, dim=1))):
+            fn()
+            t = []
+            for _ in range(20):
+                _sync(torch, dev.type)
+                t0 = time.perf_counter()
+                fn()
+                _sync(torch, dev.type)
+                t.append(1e3 * (time.perf_counter() - t0))
+            out["cost_%s_ms" % name] = np.asarray(float(np.median(t)))
+    else:
+        mesh = parallel.make_mesh({"data": 2, "model": 2}, device=dev)
+        main, startup, loss = spec_program(
+            fluid, lambda v: parallel.shard_parameter(v, P("data", "model")))
+        i = mesh.index("data")
+        feeds = [_rows_of(f, i, 2) for f in spec_feeds(torch, dev)]
+        exe = fluid.Executor(mesh=mesh)
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            out["s_losses"] = np.asarray([float(np.ravel(exe.run(
+                main, feed=f, fetch_list=[loss])[0])[0]) for f in feeds])
+            out["s_here"] = np.asarray(scope.get("s_w").shape)
+        for k, p in enumerate(_params_of(fluid, main, scope)):
+            out["s_p%d" % k] = p
+    np.savez(os.path.join(tmp, "rank%d.npz" % rank), **out)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh_global(torch, fluid, tfa, card="cpu", timeout=240,
+                      dev="cuda:0", worker_argv=None):
+    """Phase 46: the global forms of the mesh executor on the card. This
+    process runs the three programs on one device over the global batch,
+    then two ranks of this script (`--global-worker`) on {data: 2} and
+    four on {data: 2, model: 2} run them on their blocks (see
+    global_worker). Bars: the lifted-op program's losses and parameters
+    within 1e-5 relative (max |difference| over max |reference|), its
+    precision_recall counts, isfinite flag, shape and
+    fill_constant_batch_size_like output equal; the flash program's
+    outputs of each step and its parameter after 3 steps within phase
+    18's bf16 bar, each flash kernel launched once a step on each rank,
+    the paged kernels not at all; the 2-D spec program's losses within
+    1e-5 relative and its parameters within 1e-5 or twice the noise
+    floor of Adam's normalized step (the one-device steps with each
+    gradient taken over the batch's two halves, run_grad_accum: cuBLAS
+    picks its f32 GEMM by row count; phase 39 (a) measures its floor
+    alike) and within 1e-5 of those half-batch steps, each rank holding
+    a quarter of the weight. (`dev` and `worker_argv` let a rehearsal run both sides on
+    the CPU.)"""
+    import tempfile
+
+    t_start = time.monotonic()
+    dev = torch.device(dev)
+    place = fluid.CUDAPlace(0) if dev.type == "cuda" else fluid.CPUPlace()
+    main, startup, _, fetch = global_program(fluid)
+    g_ref, g_params, g_ms = _global_runs(
+        torch, fluid, main, startup, fetch, global_feeds(torch, dev),
+        fluid.Executor(place), dev)
+    main, startup, o, _, loss = fluid_flash_program(fluid, FLUID_FLASH)
+    f_ref, f_params, f_ms = _global_runs(
+        torch, fluid, main, startup, [o, loss], flash_feeds(torch, dev),
+        fluid.Executor(place), dev)
+    main, startup, loss = spec_program(fluid)
+    feeds = spec_feeds(torch, dev)
+    s_ref = _train(torch, fluid, main, startup, loss, feeds,
+                   fluid.Executor(place))
+    # the noise floor of Adam's normalized step: the same one-device
+    # steps with each batch's gradient taken over its two halves
+    # (run_grad_accum: the GEMMs at a data rank's row count, which is
+    # all that moves, the loss being a mean)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        for f in feeds:
+            exe.run_grad_accum(main, feed=f, fetch_list=[loss],
+                               micro_batches=2)
+    s_halves = _params_of(fluid, main, scope)
+    s_floor = _rel_diff(s_halves, s_ref[1])
+    s_bar = max(1e-5, 2 * s_floor)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    here = os.path.abspath(__file__)
+    argv = worker_argv or [sys.executable, here, "--global-worker"]
+    groups = {w: tempfile.mkdtemp(prefix="chip_smoke_global%d_" % w)
+              for w in (2, 4)}
+    t0 = time.monotonic()
+    procs = [(w, r, subprocess.Popen(
+        argv + [str(r), str(w), tmp], cwd=os.path.dirname(here),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for w, tmp in groups.items() for r in range(w)]
+    try:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and any(
+                p.poll() is None for _, _, p in procs):
+            if any(p.poll() not in (None, 0) for _, _, p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate() for _, _, p in procs]
+    ranks_s = time.monotonic() - t0
+    for (w, r, p), (_, se) in zip(procs, outs):
+        if p.returncode != 0:
+            log("  rank %d of %d exited %s; its stderr ends:\n%s"
+                % (r, w, p.returncode, se[-3000:]))
+        check(p.returncode == 0, "phase 46: rank %d of %d failed" % (r, w))
+    got = {w: [dict(np.load(os.path.join(tmp, "rank%d.npz" % r)))
+               for r in range(w)] for w, tmp in groups.items()}
+
+    def stepped(o, pre, s, n):
+        return [o["%s_s%d_f%d" % (pre, s, k)] for k in range(n)]
+
+    def params(o, pre):
+        return [o["%s_p%d" % (pre, k)]
+                for k in range(sum(1 for k in o if k.startswith(pre + "_p")))]
+
+    worst = dict(g_loss=0.0, g_params=0.0, f_out=0.0, s_loss=0.0,
+                 s_params=0.0, s_halves=0.0)
+    counts_equal, flash_ok = True, True
+    for o in got[2]:
+        for s, ref in enumerate(g_ref):
+            run = stepped(o, "g", s, len(ref))
+            worst["g_loss"] = max(worst["g_loss"],
+                                  _rel_diff(run[:2], ref[:2]))
+            counts_equal &= all(np.array_equal(a, b)
+                                for a, b in zip(run[2:], ref[2:]))
+        worst["g_params"] = max(worst["g_params"],
+                                _rel_diff(params(o, "g"), g_params))
+        for s, (ro, rl) in enumerate(f_ref):
+            err, ok = _held(torch, torch.from_numpy(o["f_s%d_o" % s]),
+                            torch.from_numpy(ro), f32=False)
+            worst["f_out"] = max(worst["f_out"], err)
+            flash_ok &= ok and abs(float(o["f_s%d_loss" % s][0])
+                                   - float(rl[0])) <= 2e-2 * abs(
+                                       float(rl[0])) + 1e-4
+        for a, b in zip(params(o, "f"), f_params):
+            _, ok = _held(torch, torch.from_numpy(a), torch.from_numpy(b),
+                          f32=False)
+            flash_ok &= ok
+    launches = got[2][0]["f_launches"].tolist()
+    steps = MESH_GLOBAL["steps"]
+    launches_ok = all(o["f_launches"].tolist() == [steps] * 3
+                      and int(o["paged_launches"]) == 0 for o in got[2])
+    for o in got[4]:
+        worst["s_loss"] = max(worst["s_loss"], _rel_diff(
+            [o["s_losses"]], [np.asarray(s_ref[0])]))
+        worst["s_params"] = max(worst["s_params"],
+                                _rel_diff(params(o, "s"), s_ref[1]))
+        worst["s_halves"] = max(worst["s_halves"],
+                                _rel_diff(params(o, "s"), s_halves))
+    quarter = all(o["s_here"].tolist() == [MESH_SPEC["feat"] // 2,
+                                           MESH_SPEC["hidden"] // 2]
+                  for o in got[4])
+    r0 = got[2][0]
+    out = dict(worst, counts_equal=bool(counts_equal),
+               flash_ok=bool(flash_ok), flash_launches=dict(zip(
+                   ("forward", "backward_kv", "backward_q"), launches)),
+               paged_launches=int(r0["paged_launches"]),
+               spec_quarter=quarter, spec_floor_params=s_floor,
+               spec_bar_params=s_bar,
+               one_device_ms=g_ms, two_rank_ms=r0["g_ms"].tolist(),
+               flash_one_device_ms=f_ms, flash_two_rank_ms=r0["f_ms"]
+               .tolist(), gather_ms=float(r0["cost_gather_ms"]),
+               softmax_ms=float(r0["cost_softmax_ms"]),
+               ranks_s=ranks_s)
+    _on_card(card, "phase 46 on %s: lifted ops at batch %d, two ranks vs "
+             "one device: losses %.3e, params %.3e rel (1e-5), counts, "
+             "flag, shape and fill equal: %s; ms a step one device %s, "
+             "two ranks %s; one all-gather of a [%d, %d] f32 block %.3f ms "
+             "beside a softmax over it %.3f ms; the flash program bf16: "
+             "outputs max_abs_err %.3e, held %s, launches a rank %s "
+             "(paged %d); the 2-D spec {data: 2, model: 2} under Adam: "
+             "losses %.3e (1e-5), params %.3e rel (each: %s) against a "
+             "noise floor of %.3e (the one-device steps over each batch's "
+             "halves; bar 1e-5 or twice the floor), vs those steps %.3e; a "
+             "quarter a rank %s; ranks %.1f s"
+             % (dev, MESH_GLOBAL["batch"], worst["g_loss"],
+                worst["g_params"], counts_equal,
+                ["%.2f" % m for m in g_ms],
+                ["%.2f" % m for m in r0["g_ms"]], MESH_GLOBAL["batch"] // 2,
+                MESH_GLOBAL["tower"], out["gather_ms"], out["softmax_ms"],
+                worst["f_out"], flash_ok, launches,
+                out["paged_launches"], worst["s_loss"], worst["s_params"],
+                ["%.3e" % _rel_diff([a], [b]) for a, b in zip(
+                    params(got[4][0], "s"), s_ref[1])], s_floor,
+                worst["s_halves"], quarter, ranks_s))
+    check(worst["g_loss"] <= 1e-5 and worst["g_params"] <= 1e-5
+          and counts_equal,
+          "phase 46: the lifted ops on two ranks left the one-device run")
+    check(flash_ok and (dev.type != "cuda" or launches_ok),
+          "phase 46: the flash program on two ranks left the one-device "
+          "run or its launches (%s)" % launches)
+    check(worst["s_loss"] <= 1e-5 and worst["s_params"] <= s_bar
+          and worst["s_halves"] <= 1e-5 and quarter,
+          "phase 46: the 2-D spec on four ranks left the one-device run")
+    out["seconds"] = time.monotonic() - t_start
+    log("  phase 46: %.1f s" % out["seconds"])
+    return out
+
+
 def main():
     import torch
 
@@ -8635,7 +9094,8 @@ def main():
         return data_worker(*sys.argv[2:6])
     if sys.argv[1:2] == ["--lm-worker"]:
         return lm_worker(int(sys.argv[2]), sys.argv[3])
-    import importlib
+    if sys.argv[1:2] == ["--global-worker"]:
+        return global_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
 
     from paddle_tpu_torch import _build
     from paddle_tpu_torch.models import transformer as T
@@ -8894,6 +9354,13 @@ def main():
         "gate")
     tools = phase_tools(torch, card=card)
 
+    log("phase 46: the mesh executor's global forms: two ranks on {data: "
+        "2} run the lifted ops (the in-batch two-tower loss, concat, "
+        "shape, fill_constant_batch_size_like, precision_recall, "
+        "isfinite, a While) and the Fluid flash program, four ranks on "
+        "{data: 2, model: 2} a weight split along both dimensions")
+    mesh_global = phase_mesh_global(torch, fluid, tfa, card=card)
+
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
     phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
 
@@ -8941,6 +9408,7 @@ def main():
             "fleet_launches": {k: fleet["launches"][k][which] for k in
                                ("n1", "n3", "n3_kill", "tiered")},
             "lm_paths_launches": lm_paths["paged_launches"][which],
+            "mesh_global_launches_per_rank": mesh_global["paged_launches"],
             "max_abs_err": errs[(which, "bfloat16")],
             "max_abs_err_f32": errs[(which, "float32")],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -8970,6 +9438,8 @@ def main():
                 "fleet_launches": fleet["launches"]["n3_" + kvq][which],
                 "lm_paths_launches":
                     lm_paths["paged_quant_launches"][kvq][which],
+                "mesh_global_launches_per_rank":
+                    mesh_global["paged_launches"],
                 "max_abs_err": qerrs[key + ("bfloat16",)],
                 "max_abs_err_f32": qerrs[key + ("float32",)],
                 "ms": tm["ms"], "plain_ms": tm["plain_ms"],
@@ -8988,6 +9458,8 @@ def main():
             "launches": flash_launches[which],
             "fluid_launches": fluid_flash["launches"][which],
             "mesh_launches": mesh1["flash_launches"][which],
+            "mesh_global_launches_per_rank":
+                mesh_global["flash_launches"][which],
             "fleet_launches": fleet["flash_launches"][which],
             "lm_paths_launches": {
                 "ulysses_per_rank": lm_paths["flash_launches"][which],
@@ -9040,6 +9512,7 @@ def main():
     log("lm paths: %s" % json.dumps(lm_paths))
     log("v2 book: %s" % json.dumps(v2_book))
     log("tools: %s" % json.dumps(tools))
+    log("mesh global forms: %s" % json.dumps(mesh_global))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,16 +136,17 @@ def _snapshot(scope):
         info = shards.get(name)
         if info is not None:
             mesh, split = info
-            others = [a for a in mesh.axis_names if a not in split.axes]
+            others = [a for a in mesh.axis_names
+                      if a not in split.all_axes]
             if any(mesh.coords[a] != 0 for a in others):
                 continue  # another rank holds this same block
             arr = _host(val)
-            n, i = mesh.extent(split.axes), mesh.index(split.axes)
-            size = arr.shape[split.dim]
             gshape = list(arr.shape)
-            gshape[split.dim] = size * n
             index = [[0, d] for d in gshape]
-            index[split.dim] = [i * size, (i + 1) * size]
+            for d, axes in split.parts:  # the block's place along each
+                n, i = mesh.extent(axes), mesh.index(axes)
+                gshape[d] = arr.shape[d] * n
+                index[d] = [i * arr.shape[d], (i + 1) * arr.shape[d]]
             out[name] = ("shard", arr, index, gshape)
         elif not many or _process_index() == 0:
             out[name] = ("whole", _host(val))

@@ -255,6 +255,10 @@ def _precision_recall(ctx, ins, attrs):
     fn = _class_sum(weights, labels, C) - tp
     tn = weights.sum() - tp - fp - fn
     batch_states = torch.stack([tp, fp, tn, fn], dim=1)  # [C, 4]
+    sp = ctx.spmd and (ctx.spmd.input_split(ctx, "Indices")
+                       or ctx.spmd.input_split(ctx, "Labels"))
+    if sp:  # the global batch's counts: one sum over the ranks
+        batch_states = ctx.spmd.all_reduce(batch_states, sp.all_axes)
 
     def metrics(states):
         tp_, fp_, fn_ = states[:, 0], states[:, 1], states[:, 3]

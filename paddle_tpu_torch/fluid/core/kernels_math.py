@@ -128,8 +128,8 @@ def _mean(ctx, ins, attrs):
     sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
     if sp:
         # the global mean: the ranks' sums over the global count
-        total = ctx.spmd.all_reduce(torch.sum(x), sp.axes)
-        return {"Out": (total / (x.numel() * ctx.spmd.extent(sp.axes))
+        total = ctx.spmd.all_reduce(torch.sum(x), sp.all_axes)
+        return {"Out": (total / (x.numel() * ctx.spmd.extent(sp.all_axes))
                         ).reshape(1)}
     return {"Out": torch.mean(x).reshape(1)}
 
@@ -244,7 +244,7 @@ def _global_sum(ctx, slot, local):
     blocks lie on when that input is split (a shard's norm is its
     parameter's)."""
     sp = ctx.spmd and ctx.spmd.input_split(ctx, slot)
-    return ctx.spmd.all_reduce(local, sp.axes) if sp else local
+    return ctx.spmd.all_reduce(local, sp.all_axes) if sp else local
 
 
 @register_op("squared_l2_norm")
@@ -300,8 +300,24 @@ def _l2_normalize(ctx, ins, attrs):
 
 @register_op("isfinite")
 def _isfinite(ctx, ins, attrs):
-    ok = torch.stack([torch.isfinite(x).all() for x in ins["X"]]).all()
-    return {"Out": ok.reshape(1)}
+    bad = torch.stack([(~torch.isfinite(x)).sum() for x in ins["X"]]).sum()
+    axes = _split_axes(ctx, "X")
+    if axes:  # a count of non-finite values over the ranks' blocks
+        bad = ctx.spmd.all_reduce(bad, axes)
+    return {"Out": (bad == 0).reshape(1)}
+
+
+def _split_axes(ctx, slot):
+    """The union of the mesh axes that split the inputs of `slot`."""
+    spmd = ctx.spmd
+    if spmd is None or not spmd.split:
+        return ()
+    out = []
+    for n in ctx.op.inputs.get(slot, ()):
+        sp = spmd.split_of(n)
+        if sp is not None:
+            out.extend(a for a in sp.all_axes if a not in out)
+    return tuple(out)
 
 
 @register_op("cumsum")

@@ -446,10 +446,10 @@ def _dropout(ctx, ins, attrs):
 
 
 def _draw_offset(ctx, slot, shape):
-    """The flat offset of this rank's rows in a draw over the global
-    batch when input `slot` is split over the batch (0 off a mesh)."""
+    """Where this rank's block lies in the draw over the global value
+    when input `slot` is split (spmd.global_draw; 0 off a mesh)."""
     sp = ctx.spmd and ctx.spmd.input_split(ctx, slot)
-    return ctx.spmd.global_draw(shape, sp)[1] if sp else 0
+    return ctx.spmd.global_draw(shape, sp, ctx.device)[1] if sp else 0
 
 
 @register_op("gaussian_random_noise")

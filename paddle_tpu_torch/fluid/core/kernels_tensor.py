@@ -93,8 +93,12 @@ def _assign_value(ctx, ins, attrs):
 @register_op("shape")
 def _shape(ctx, ins, attrs):
     x = ins["Input"][0]
-    return {"Out": torch.tensor(tuple(x.shape), dtype=torch.int32,
-                                device=x.device)}
+    shape = list(x.shape)
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "Input")
+    if sp:  # the global shape: no collective
+        for d, axes in sp.parts:
+            shape[d] *= ctx.spmd.extent(axes)
+    return {"Out": torch.tensor(shape, dtype=torch.int32, device=x.device)}
 
 
 @register_op("concat")
@@ -316,7 +320,8 @@ def _sampling_id(ctx, ins, attrs):
     # on a mesh, this rank's rows of the draw over the global batch
     sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
     ids = prng.categorical(ctx.next_key(), logits, offset=ctx.spmd
-                           .global_draw(p.shape, sp)[1] if sp else 0)
+                           .global_draw(p.shape, sp, p.device)[1]
+                           if sp else 0)
     return {"Out": ids.to(torch.int32)}
 
 
@@ -391,9 +396,15 @@ def _select(ctx, ins, attrs):
 
 @register_op("is_empty")
 def _is_empty(ctx, ins, attrs):
-    """Out = [numel(X) == 0] (reference operators/is_empty_op.cc)."""
-    return {"Out": torch.tensor([ins["X"][0].numel() == 0],
-                                device=ctx.device)}
+    """Out = [numel(X) == 0] (reference operators/is_empty_op.cc); on a
+    mesh, of the global value (the ranks' counts summed)."""
+    x = ins["X"][0]
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
+    if not sp:
+        return {"Out": torch.tensor([x.numel() == 0], device=ctx.device)}
+    count = ctx.spmd.all_reduce(torch.tensor(
+        [x.numel()], dtype=torch.int64, device=ctx.device), sp.all_axes)
+    return {"Out": count == 0}
 
 
 @register_op("row_conv")

@@ -117,6 +117,8 @@ def run_op(ctx: LoweringContext, op, env: Dict[str, Any]):
     """Execute one op: gather named inputs from env, call the kernel, bind
     named outputs back into env."""
     kernel = get_kernel(op.type)
+    if ctx.spmd is not None:
+        ctx.spmd.globalize(op, env, ctx.block.program)
     ins = {}
     lazy = op.type in _ENV_OPS
     for slot, names in op.inputs.items():
@@ -218,6 +220,9 @@ def _run_op_f32(ctx: LoweringContext, op, env: Dict[str, Any]):
     """Run one deny-listed op in f32 inside a bf16 region: upcast bf16
     float inputs, run, downcast float outputs back to bf16 (not for the
     sticky loss-head ops)."""
+    # gather first: the split values saved for the casts are put back
+    if ctx.spmd is not None:
+        ctx.spmd.globalize(op, env, ctx.block.program)
     saved = {}
     for names in op.inputs.values():
         for n in names:

@@ -6,16 +6,27 @@ marks below keep the run's arithmetic the single-device arithmetic on
 the concatenated global batch:
 
 - A value is *split* when each rank holds one block of it along a
-  dimension, over some mesh axes (`Split(dim, axes)`): a dense feed along
-  dim 0 over the data-parallel axes (the batch mark), and a parameter
-  with a spec over its spec's axes (a shard). The marks travel from op
-  to op by name, as LoD side-bands do (`propagate`): an op's outputs
-  take its first split input's mark when they keep that dimension.
+  dimension, over some mesh axes (`Split(dim, axes)`, with one more
+  (dim, axes) pair per further dimension a spec splits): a dense feed
+  along dim 0 over the data-parallel axes (the batch mark), and a
+  parameter with a spec over its spec's axes (a shard). The marks
+  travel from op to op by name, as LoD side-bands do (`propagate`): an
+  op's outputs take its first split input's mark when they keep that
+  dimension.
 - An op that reduces over a split dimension ends in a collective: its
   kernel computes the global form (a `mean` loss, the batch-norm
-  statistics, `accuracy`, `auc`, dropout's mask, ...). An op that would
-  mix blocks and has no global form here raises, naming itself
-  (`RAISING_OPS`, `_MIXES`); it never computes a per-rank answer.
+  statistics, `accuracy`, `auc`, `precision_recall`'s counts,
+  `isfinite`'s flag, dropout's mask, ...); `shape` gives the global
+  shape with no collective.
+- Every other op that would mix the blocks of a split value
+  (`_WHOLE_OPS`, the true cases of `_MIXES`, control flow over split
+  values, an op that reads a gathered value beside a split one) reads
+  its split inputs whole before its kernel runs (`globalize`): the
+  differentiable all-gather, whose adjoint is exact, as XLA's
+  partitioner gathers an op's operands when it cannot partition it. The
+  kernel then computes the single-device arithmetic on the global
+  batch; its outputs are whole and marked *gathered*. No op refuses a
+  mesh; an op with no kernel raises as off a mesh.
 - A parameter with a spec is held as this rank's shard (1/n of it). The
   forward reads it gathered (`forward_reads`), so its gradient comes
   back reduce-scattered; a table row-sharded over an axis and read only
@@ -38,52 +49,92 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ...parallel import collectives
 from ...parallel.mesh import data_parallel_axes
 from .selected_rows import SelectedRows
 
-__all__ = ["Split", "SpmdContext", "spec_split", "RAISING_OPS",
+__all__ = ["Split", "SpmdContext", "spec_split", "gather_split",
            "TRACKED_OPS"]
 
 
 class Split(NamedTuple):
+    """This rank's block of a value: split along `dim` over mesh `axes`,
+    and along each further (dim, axes) pair of `more` (a spec that
+    splits several dimensions; dims ascending)."""
     dim: int
     axes: Tuple[str, ...]
+    more: Tuple[Tuple[int, Tuple[str, ...]], ...] = ()
+
+    @property
+    def parts(self):
+        return ((self.dim, self.axes),) + tuple(self.more)
+
+    @property
+    def all_axes(self) -> Tuple[str, ...]:
+        """The union of the axes of every split dimension."""
+        out = []
+        for _, axes in self.parts:
+            out.extend(a for a in axes if a not in out)
+        return tuple(out)
 
 
-def spec_split(spec) -> Optional[Split]:
-    """The Split of a PartitionSpec, or None for a replicated one. A spec
-    splits one dimension in this port."""
-    entries = [(d, e) for d, e in enumerate(tuple(spec)) if e is not None]
-    if not entries:
+def spec_split(spec, mesh=None) -> Optional[Split]:
+    """The Split of a PartitionSpec: one (dim, axes) per dimension it
+    splits, or None for a replicated one. On `mesh`, a dimension over
+    axes of extent 1 is not split."""
+    parts = []
+    for d, e in enumerate(tuple(spec)):
+        if e is None:
+            continue
+        axes = (e,) if isinstance(e, str) else tuple(e)
+        if mesh is None or mesh.extent(axes) > 1:
+            parts.append((d, axes))
+    if not parts:
         return None
-    if len(entries) > 1:
-        raise NotImplementedError(
-            "spec %r splits %d dimensions; the port's mesh executor splits "
-            "one (ROADMAP Queue A)" % (tuple(spec), len(entries)))
-    d, e = entries[0]
-    return Split(d, (e,) if isinstance(e, str) else tuple(e))
+    return Split(parts[0][0], parts[0][1], tuple(parts[1:]))
 
 
-# ops whose kernel computes the global form of a reduction over a split
-# dimension and marks its outputs itself; `dropout`,
-# `gaussian_random_noise`, `nce`, `sampling_id` and `clip_by_norm` have
-# global forms too (a slice of the global draw, a global norm) and keep
-# the row-wise marking of their outputs
+def gather_split(t, split: Split, mesh):
+    """The whole value of a block split by `split`, gathered one split
+    dimension after another; differentiable (backward: reduce-scatter)."""
+    for d, axes in split.parts:
+        t = collectives.all_gather(t, d, mesh.group(axes), mesh.index(axes),
+                                   mesh.extent(axes))
+    return t
+
+
+# ops whose kernel computes the global form over a split input and marks
+# its outputs itself (a reduction over a split dimension ends in a
+# collective; `shape`, `isfinite`, `is_empty` and `precision_recall`
+# give whole outputs: the global shape, a flag or counts summed over the
+# ranks); `dropout`, `gaussian_random_noise`, `nce`, `sampling_id` and
+# `clip_by_norm` have global forms too (a block of the global draw, a
+# global norm) and keep the row-wise marking of their outputs
 _MANAGED = frozenset([
     "mean", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
     "reduce_prod", "batch_norm", "accuracy", "auc", "squared_l2_norm",
-    "l1_norm", "lookup_table"])
+    "l1_norm", "lookup_table", "shape", "isfinite", "is_empty",
+    "precision_recall"])
 
-# ops that mix the rows of a split value and have no global form here
-RAISING_OPS = frozenset([
-    "chunk_eval", "precision_recall", "edit_distance", "detection_map",
+# of those, the ones whose kernel takes a value split along several
+# dimensions (a sum over all of it); the others read such a value whole
+_MANAGED_MULTI = frozenset(["mean", "squared_l2_norm", "l1_norm", "shape",
+                            "isfinite", "is_empty"])
+
+# ops that mix the rows of a split value: they read it whole. The
+# metrics among them see a split value only through a dense feed
+# (`chunk_eval`, `edit_distance` and `detection_map` read LoD side-bands,
+# and a ragged feed makes the whole run global); `pnpair_eval` pairs
+# rows across the ranks' blocks, so its counts are no sum of theirs
+_WHOLE_OPS = frozenset([
+    "chunk_eval", "edit_distance", "detection_map",
     "pnpair_eval", "lambda_rank", "ctc_align", "warpctc",
     "linear_chain_crf", "crf_decoding", "multiclass_nms",
     "ssd_multibox_loss", "bipartite_match", "prior_box", "box_coder",
-    "roi_pool", "scatter", "shape", "is_empty", "isfinite", "im2sequence",
+    "roi_pool", "scatter", "im2sequence",
     "row_conv", "lod_reset", "lod_rank_table", "max_sequence_len",
     "reorder_lod_tensor_by_rank", "lod_tensor_to_array",
     "array_to_lod_tensor", "shrink_rnn_memory", "split_lod_tensor",
@@ -134,8 +185,8 @@ _MIXES = {
     "matmul": lambda a, s, nd, sl: "Y" in sl and ("X" not in sl or nd < 3),
     "squeeze": lambda a, s, nd, sl: _in_dims(a, "axes", s, nd, []),
     "reshape": lambda a, s, nd, sl: s != 0,
-    "fill_constant_batch_size_like": lambda a, s, nd, sl:
-        a.get("input_dim_idx", 0) != s,
+    "sampling_id": lambda a, s, nd, sl: s == nd - 1,
+    "nce": lambda a, s, nd, sl: s != 0,
 }
 for _op in ("elementwise_add", "elementwise_sub", "elementwise_mul",
             "elementwise_div", "elementwise_max", "elementwise_min",
@@ -144,7 +195,8 @@ for _op in ("elementwise_add", "elementwise_sub", "elementwise_mul",
 
 
 def _moved(op, s, nd):
-    """The split dimension of op's outputs, given its input's `s`."""
+    """The split dimension of op's outputs, given its input's `s`; None
+    when its outputs do not depend on the split dimension's blocks."""
     t = op.type
     if t == "transpose":
         return list(op.attrs["axis"]).index(s)
@@ -159,13 +211,20 @@ def _moved(op, s, nd):
     if t == "reshape":
         return 0
     if t == "fill_constant_batch_size_like":
+        # the batch size of another dimension: the same on every rank
+        if _norm(int(op.attrs.get("input_dim_idx", 0)), nd) != s:
+            return None
         return op.attrs.get("output_dim_idx", 0)
     return s
 
 
 class SpmdContext(object):
     """The marks and collectives of one run on `mesh`; `specs` maps each
-    persistable with a spec to (its Split, its full shape)."""
+    persistable with a spec to (its Split, its full shape). `split`
+    maps each split value to its Split; `gathered` holds the values that
+    are whole but come from a split one (a gathered input and what was
+    computed from it): an op that reads one of those reads its split
+    inputs whole too."""
 
     def __init__(self, mesh, specs: Dict[str, tuple]):
         self.mesh = mesh
@@ -174,6 +233,7 @@ class SpmdContext(object):
         self.batch = Split(0, axes) if n > 1 else None
         self.specs = specs
         self.split: Dict[str, Split] = {}
+        self.gathered: set = set()
 
     # --- the mesh -------------------------------------------------------
     def extent(self, axes) -> int:
@@ -188,16 +248,14 @@ class SpmdContext(object):
 
     def gather(self, t, split: Split):
         """The whole value of a block split by `split`, differentiable."""
-        return collectives.all_gather(
-            t, split.dim, self.mesh.group(split.axes),
-            self.index(split.axes), self.extent(split.axes))
+        return gather_split(t, split, self.mesh)
 
     def shard(self, t, split: Split):
         """This rank's block of a whole value."""
-        n = self.extent(split.axes)
-        size = t.shape[split.dim] // n
-        return t.narrow(split.dim, self.index(split.axes) * size,
-                        size).clone()
+        for d, axes in split.parts:
+            size = t.shape[d] // self.extent(axes)
+            t = t.narrow(d, self.index(axes) * size, size)
+        return t.clone()
 
     def complement(self, axes):
         return tuple(a for a in self.mesh.axis_names if a not in axes)
@@ -216,57 +274,122 @@ class SpmdContext(object):
         else:
             self.split[name] = split
 
+    def _needs_whole(self, op, env, names) -> bool:
+        """Whether op must read its split inputs `names` whole: it mixes
+        their blocks, runs a sub-block, reads a gathered value beside a
+        split one, or cannot take a value split along several
+        dimensions."""
+        t = op.type
+        if t in _WHOLE_OPS or op.attrs.get("sub_block") is not None:
+            return True
+        if self.gathered and any(n not in self.specs for n in names) and \
+                any(n in self.gathered for n in op.input_arg_names):
+            return True
+        slots = {slot for slot, ns in op.inputs.items()
+                 if any(n in self.split for n in ns)}
+        check = _MIXES.get(t)
+        for n in names:
+            sp = self.split[n]
+            if sp.more and (t in TRACKED_OPS or (
+                    t in _MANAGED and t not in _MANAGED_MULTI)):
+                return True
+            if check is not None:
+                v = env.get(n)
+                nd = v.dim() if isinstance(v, torch.Tensor) else 0
+                if any(check(op.attrs, d, nd, slots) for d, _ in sp.parts):
+                    return True
+        return False
+
+    def globalize(self, op, env, program):
+        """Before op's kernel runs: when op needs whole values
+        (`_needs_whole`), replace each split value it reads (through
+        its sub-block too) by the whole value, gathered with the
+        differentiable all-gather, and mark it gathered. The kernel then
+        computes the single-device arithmetic on the global batch, as
+        XLA's partitioner does when it cannot partition an op. Outputs
+        the op writes anew lose their stale marks."""
+        if not self.split and not self.gathered:
+            return
+        inputs = set(op.input_arg_names)
+        for n in op.output_arg_names:
+            if n not in inputs:
+                self.split.pop(n, None)
+                self.gathered.discard(n)
+        if not self.split:
+            return
+        names = [n for n in op.input_arg_names if n in self.split]
+        if op.attrs.get("sub_block") is not None:
+            names += sorted(n for n in program._sub_block_outer_reads(op)
+                            if n in self.split and n not in inputs)
+        names = list(dict.fromkeys(names))
+        if not names or not self._needs_whole(op, env, names):
+            return
+        for n in names:
+            sp = self.split.pop(n)
+            v = env.get(n)
+            if isinstance(v, torch.Tensor):
+                env[n] = self.gather(v, sp)
+            self.gathered.add(n)
+
     def propagate(self, op, env):
-        """Mark op's outputs after it ran: each output that keeps the
-        split dimension of op's first split input takes its mark. Raises
-        for an op that mixes the split dimension's blocks."""
+        """Mark op's outputs after it ran: an op that read a gathered
+        value wrote gathered values; otherwise each output that keeps the
+        split dimension of op's first split input takes its mark."""
+        if self.gathered and any(n in self.gathered
+                                 for n in op.input_arg_names):
+            for n in op.output_arg_names:
+                self.split.pop(n, None)
+                self.gathered.add(n)
+            return
         if not self.split or op.type in _MANAGED:
             return
-        first, slots = None, set()
-        for slot, names in op.inputs.items():
+        first = None
+        for names in op.inputs.values():
             for n in names:
-                sp = self.split.get(n)
-                if sp is not None:
-                    slots.add(slot)
-                    if first is None:
-                        first = (n, sp)
+                if n in self.split:
+                    first = (n, self.split[n])
+                    break
+            if first is not None:
+                break
         if first is None:
             return
         name, sp = first
         src = env.get(name)
         nd = src.dim() if isinstance(src, torch.Tensor) else 0
-        check = _MIXES.get(op.type)
-        if op.type in RAISING_OPS or (
-                check is not None and check(op.attrs, sp.dim, nd, slots)):
-            raise NotImplementedError(
-                "op %r reads %r, split along dim %d over mesh axes %s, and "
-                "has no global form on a mesh in this port (ROADMAP Queue "
-                "A, the mesh's batch-axis ops): it would compute a "
-                "per-rank answer" % (op.type, name, sp.dim, sp.axes))
         d = _moved(op, sp.dim, nd)
+        if d is None:
+            return
         size = src.shape[sp.dim] if nd > sp.dim else None
+        mark = sp._replace(dim=d)
         for names in op.outputs.values():
             for n in names:
                 v = env.get(n)
                 if isinstance(v, torch.Tensor) and v.dim() > d and (
                         op.type in TRACKED_OPS or v.shape[d] == size):
-                    self.split[n] = Split(d, sp.axes)
+                    self.split[n] = mark
 
     # --- random ops over a split batch ----------------------------------
-    def global_draw(self, shape, split: Split):
-        """(global shape, flat offset of this rank's block) of a draw
-        whose local shape is `shape`, split along dim 0: the rank draws
-        its rows of the single-device draw over the global batch."""
-        if split.dim != 0:
-            raise NotImplementedError(
-                "a random draw split along dim %d (the port draws a "
-                "rank's rows of dim 0)" % split.dim)
-        n = self.extent(split.axes)
-        numel = 1
-        for s in shape:
-            numel *= int(s)
-        return (int(shape[0]) * n,) + tuple(shape[1:]), \
-            self.index(split.axes) * numel
+    def global_draw(self, shape, split: Split, device=None):
+        """(global shape, offset) of a draw whose local shape is `shape`
+        and which is split by `split`: the rank draws its block of the
+        single-device draw over the global shape, with the same bits.
+        The offset is the flat index of the block's first element for a
+        split along dim 0 alone, else the flat indices of the block's
+        elements in the global draw (an int64 tensor on `device`)."""
+        gshape = list(int(s) for s in shape)
+        for d, axes in split.parts:
+            gshape[d] *= self.extent(axes)
+        if not split.more and split.dim == 0:
+            numel = 1
+            for s in shape:
+                numel *= int(s)
+            return tuple(gshape), self.index(split.axes) * numel
+        idx = torch.arange(int(np.prod(gshape)), dtype=torch.int64,
+                           device=device).reshape(gshape)
+        for d, axes in split.parts:
+            idx = idx.narrow(d, self.index(axes) * int(shape[d]),
+                             int(shape[d]))
+        return tuple(gshape), idx.reshape(-1)
 
     # --- parameters with a spec -----------------------------------------
     def is_shard(self, name, value) -> bool:
@@ -284,8 +407,8 @@ class SpmdContext(object):
         """Bind, in `fenv`, every persistable with a spec that `ops` read:
         gathered whole (differentiable, so a leaf's gradient comes back
         reduce-scattered), or left a shard and marked when it is a table
-        split along its rows that only `lookup_table` reads (and every
-        table of the sparse-gradient path). Returns {name: bound}."""
+        split along its rows alone that only `lookup_table` reads (and
+        every table of the sparse-gradient path). Returns {name: bound}."""
         readers: Dict[str, list] = {}
         for op in ops:
             for n in op.input_arg_names:
@@ -297,7 +420,7 @@ class SpmdContext(object):
             if v is None:
                 continue
             split = self.specs[n][0]
-            kept = n in sparse or (split.dim == 0 and all(
+            kept = n in sparse or (split.dim == 0 and not split.more and all(
                 o.type == "lookup_table" and o.inputs.get("W") == [n]
                 for o in ops_r))
             if kept:
@@ -313,20 +436,23 @@ class SpmdContext(object):
         for n, (split, _full) in self.specs.items():
             if self.is_shard(n, env.get(n)):
                 self.mark(n, split)
+                self.gathered.discard(n)
                 g = (grad_names or {}).get(n)
                 if g is not None and isinstance(env.get(g), torch.Tensor):
                     self.mark(g, split)
+                    self.gathered.discard(g)
 
     # --- the backward ---------------------------------------------------
     def loss_seed(self, loss_name) -> float:
         """The upstream gradient of the loss on this rank: 1 / ranks for a
         loss every rank holds (times the extent of a split loss's axes)."""
         sp = self.split.get(loss_name)
-        return (self.extent(sp.axes) if sp else 1) / float(self.mesh.size)
+        return (self.extent(sp.all_axes) if sp else 1) / \
+            float(self.mesh.size)
 
     def _sync_axes(self, name):
         entry = self.specs.get(name)
-        return self.complement(entry[0].axes if entry else ())
+        return self.complement(entry[0].all_axes if entry else ())
 
     def sync_dense(self, grads: Dict[str, torch.Tensor]):
         """Each gradient summed over the axes its parameter is not split

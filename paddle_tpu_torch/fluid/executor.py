@@ -49,11 +49,16 @@ package's global-batch semantics (core/spmd.py has the arithmetic):
   shard), and the ranks of a data group must feed the same local shape;
   a ragged feed is gathered on the host into the exact global packed
   rows and offsets, which every rank then runs whole;
+- every op keeps its single-device meaning on the global batch: an op
+  that mixes the blocks of a split value (a softmax over the batch,
+  `concat` along it, a While over it, ...) reads that value whole,
+  gathered, and no op refuses a mesh;
 - fetches are global: a per-example value is gathered along the batch in
   rank order, a batch-reduced one is the global value, and a parameter
   with a spec comes back whole;
 - the scope holds the consensus values: a parameter with a spec (and its
-  optimizer slots) as this rank's shard, everything else whole.
+  optimizer slots) as this rank's shard, everything else whole. A spec
+  may split several dimensions (`P("data", "model")`).
   `fetch_var`, `scope_to_numpy` and `io.save_*` read a shard's whole
   value (a collective: every rank calls them together); `scope.get`
   returns the shard itself;
@@ -79,7 +84,7 @@ from .core.lowering import _backward_slice, run_accum, run_block
 from .core.program import Program, Variable
 from .core.registry import torch_dtype
 from .core.selected_rows import as_dense
-from .core.spmd import SpmdContext, spec_split
+from .core.spmd import SpmdContext, gather_split, spec_split
 
 __all__ = ["Executor", "Scope", "global_scope", "scope_guard", "switch_scope",
            "fetch_var", "as_numpy", "scope_from_numpy", "scope_to_numpy"]
@@ -158,12 +163,8 @@ class Scope(object):
         if info is None:
             return v
         mesh, split = info
-        from ..parallel import collectives
-
         with torch.no_grad():
-            return collectives.all_gather(
-                v, split.dim, mesh.group(split.axes), mesh.index(split.axes),
-                mesh.extent(split.axes))
+            return gather_split(v, split, mesh)
 
     def __contains__(self, name):
         return name in self._vars
@@ -713,16 +714,15 @@ def _mesh_specs(program, mesh):
                     specs[n] = specs[param]
     out = {}
     for name, spec in specs.items():
-        split = spec_split(spec)
-        if split is None or mesh.extent(split.axes) == 1 \
-                or not block.has_var(name):
+        split = spec_split(spec, mesh)
+        if split is None or not block.has_var(name):
             continue
         shape = tuple(int(d) for d in block.var(name).shape)
-        if shape[split.dim] % mesh.extent(split.axes):
-            raise ValueError(
-                "%r: dim %d (%d) does not divide over mesh axes %s (%d "
-                "ranks)" % (name, split.dim, shape[split.dim], split.axes,
-                            mesh.extent(split.axes)))
+        for d, axes in split.parts:
+            if shape[d] % mesh.extent(axes):
+                raise ValueError(
+                    "%r: dim %d (%d) does not divide over mesh axes %s (%d "
+                    "ranks)" % (name, d, shape[d], axes, mesh.extent(axes)))
         out[name] = (split, shape)
     return out
 

@@ -309,8 +309,8 @@ def shard_parameter(var, spec):
     parallelism). On a mesh the executor holds the variable as this
     rank's shard (1/n of it), gathers it where an op reads it and
     reduce-scatters its gradient; its optimizer slots inherit the spec
-    (fluid/optimizer.py _add_accumulator). A spec splits one dimension
-    in this port."""
+    (fluid/optimizer.py _add_accumulator). A spec may split several
+    dimensions (`P("data", "model")`, `P("model", ("dcn", "data"))`)."""
     program = var.block.program
     program.shardings[var.name] = PartitionSpec(*spec)
     return var

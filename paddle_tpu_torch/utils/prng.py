@@ -92,9 +92,14 @@ def _bits32(key, n: int, offset: int = 0):
     counter i is the uint64 (hi, lo) = (i >> 32, i & 0xffffffff)). With
     `offset`, the range starts at counter `offset`: elements offset ..
     offset + n - 1 of a larger draw, bit for bit (a rank's slice of a
-    draw over the global batch, fluid/core/spmd.py)."""
-    i = torch.arange(offset, offset + n, dtype=torch.int64,
-                     device=key.device)
+    draw over the global batch, fluid/core/spmd.py); an int64 tensor of
+    n counters picks those elements (a rank's block along another
+    dimension)."""
+    if isinstance(offset, torch.Tensor):
+        i = offset.to(key.device)
+    else:
+        i = torch.arange(offset, offset + n, dtype=torch.int64,
+                         device=key.device)
     b1, b2 = threefry2x32(key[..., 0:1], key[..., 1:2], i >> 32, i & _M)
     return b1 ^ b2
 

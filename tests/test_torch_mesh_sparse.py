@@ -4,8 +4,8 @@ JAX package: the row-sharded SelectedRows table
 (tests/test_async_local.py:53-158), the distribute transpiler with the
 ListenAndServ / Send shims (tests/test_distributed_services.py:365), a
 ragged LSTM over two ranks (tests/test_multihost.py:225, without its
-checkpoint), the gradient's scale over two ranks, and the refusal of a
-batch-axis op with no global form. Ranks are CPU processes in one gloo
+checkpoint), the gradient's scale over two ranks, and the global form of
+a batch-axis `concat` (it reads the batch whole, as the JAX mesh does). Ranks are CPU processes in one gloo
 group (tests/torch_mesh.py); jax stays in the pytest process."""
 
 import warnings
@@ -337,7 +337,7 @@ def _transpiler_worker(rank, world):
                     fetch_list=[cost])
         out["served"] = fluid.fetch_var("w_serv")
 
-    # a batch-axis op with no global form refuses, naming itself
+    # a batch-axis concat reads the batch whole: the global answer
     with fluid.program_guard(fluid.Program(), fluid.Program()), \
             fluid.scope_guard(fluid.Scope()):
         x = fluid.layers.data(name="x", shape=[4], dtype="float32")
@@ -345,12 +345,9 @@ def _transpiler_worker(rank, world):
         total = fluid.layers.reduce_sum(both)
         exe = fluid.Executor(mesh=parallel.make_mesh({"data": world},
                                                      device="cpu"))
-        try:
-            exe.run(feed={"x": np.ones((4, 4), np.float32)},
-                    fetch_list=[total])
-            out["refused"] = None
-        except NotImplementedError as e:
-            out["refused"] = str(e)
+        out["concat"] = exe.run(
+            feed={"x": np.full((4, 4), rank + 1, np.float32)},
+            fetch_list=[total, both])
     return out
 
 
@@ -403,7 +400,10 @@ def test_transpiler_pserver_shims_grad_scale_and_refusal(tmp_path):
         np.testing.assert_allclose(o["grad"], single[0][1], rtol=1e-5)
         assert o["async_warned"] >= 2
         np.testing.assert_allclose(o["served"], served, rtol=1e-5)
-        assert o["refused"] and "'concat'" in o["refused"]
+        # sum(concat([x, x], 0)) over the global x (rows of 1s then 2s)
+        assert float(o["concat"][0][0]) == 96.0
+        np.testing.assert_array_equal(o["concat"][1], np.concatenate(
+            [np.full((4, 4), 1.0), np.full((4, 4), 2.0)] * 2))
 
 
 # --- a ragged LSTM over two ranks ------------------------------------------

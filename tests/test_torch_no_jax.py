@@ -1,6 +1,8 @@
 """The port stands alone: importing every paddle_tpu_torch module pulls in
-neither jax nor the JAX package, and no source of the port (nor
-chip_smoke.py or chip_ab.py) names either in an import."""
+neither jax nor the JAX package, no source of the port (nor
+chip_smoke.py or chip_ab.py) names either in an import, and the mesh
+tests' spawned ranks (the `*_worker` functions and what importing their
+module loads) use the port alone."""
 
 import ast
 import os
@@ -134,3 +136,43 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         for n in names:
             assert n.split(".")[0] not in FORBIDDEN, (
                 "%s imports %s" % (os.path.relpath(path, ROOT), n))
+
+
+# the test modules whose functions run in the port's spawned ranks: a
+# rank imports the module by name, then runs one of its `*_worker`s
+RANK_MODULES = ("torch_mesh", "test_torch_mesh", "test_torch_mesh_fluid",
+                "test_torch_mesh_sparse", "test_torch_mesh_global",
+                "test_torch_mesh_drills")
+
+
+def _imported(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Import):
+            yield from (a.name for a in sub.names)
+        elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+            yield sub.module or ""
+
+
+@pytest.mark.parametrize("module", RANK_MODULES)
+def test_the_ranks_of_the_mesh_tests_import_the_port_alone(module):
+    path = os.path.join(ROOT, "tests", module + ".py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    top = [n for n in tree.body if isinstance(n, (ast.Import,
+                                                  ast.ImportFrom))]
+    workers = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+               and n.name.endswith("_worker")]
+    assert workers or module == "torch_mesh"
+    for node in top + workers:
+        for n in _imported(node):
+            assert n.split(".")[0] not in FORBIDDEN, (
+                "%s: %s imports %s" % (module, getattr(node, "name",
+                                                       "the module"), n))
+    # what a rank loads when it imports the module by name
+    code = ("import sys\nsys.path.insert(0, 'tests')\nimport %s\n"
+            "print(repr(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in %r)))\n" % (module, FORBIDDEN))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"

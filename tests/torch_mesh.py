@@ -10,10 +10,14 @@ list of what each rank returned (pickled through `tmp_path`). A rank
 that raises fails the test with its traceback; a group that outlives
 `timeout` is killed and fails it too. `fn` must be a module-level
 function of a test module, so the children can import it by name.
-`snapshot` / `load_snapshot` carry a JAX scope's arrays into a port
-scope by variable position.
+`start(fn, world, tmp_path, *args)` starts the same group without
+waiting (`collect` then waits for it, or `kill` ends it). `once(
+tmp_path_factory, key, compute)` runs a module's shared group once per
+test session, however many pytest workers hold the module's tests. `snapshot` / `load_snapshot`
+carry a JAX scope's arrays into a port scope by variable position.
 """
 
+import fcntl
 import multiprocessing as mp
 import os
 import pickle
@@ -47,7 +51,9 @@ def _entry(fn, rank, world, tmp, args, init):
         os._exit(1)
 
 
-def spawn(fn, world, tmp_path, *args, timeout=240, init=True):
+def start(fn, world, tmp_path, *args, init=True):
+    """The group's processes, started: `fn` reports through files of its
+    own (it may never return)."""
     tmp = str(tmp_path)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry, args=(fn, r, world, tmp, args,
@@ -55,6 +61,26 @@ def spawn(fn, world, tmp_path, *args, timeout=240, init=True):
              for r in range(world)]
     for p in procs:
         p.start()
+    return procs
+
+
+def kill(procs):
+    """SIGKILL every process of a group that is still alive: no goodbye."""
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+
+
+def spawn(fn, world, tmp_path, *args, timeout=240, init=True):
+    return collect(start(fn, world, tmp_path, *args, init=init), tmp_path,
+                   timeout)
+
+
+def collect(procs, tmp_path, timeout=240):
+    """What each rank of a started group returned, once all have."""
+    tmp = str(tmp_path)
+    world = len(procs)
     # a rank that fails leaves its peers waiting in a collective: stop
     # the group as soon as one exits with an error
     deadline = time.time() + timeout
@@ -83,6 +109,27 @@ def spawn(fn, world, tmp_path, *args, timeout=240, init=True):
         with open(os.path.join(tmp, "out_%d.pkl" % r), "rb") as f:
             outs.append(pickle.load(f))
     return outs
+
+
+def once(tmp_path_factory, key, compute):
+    """compute() run once in the session and its result shared: pytest-
+    xdist hands a module's tests to several workers, and each would
+    start the module's ranks again (the workers share the parent of
+    their base temporary directories)."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    path = os.path.join(str(root), key + ".pkl")
+    with open(os.path.join(str(root), key + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        out = compute()
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(out, f)
+        os.replace(path + ".tmp", path)
+        return out
 
 
 def snapshot(main, get):
