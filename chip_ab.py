@@ -37,8 +37,8 @@ for name, use in cs.ptxas_usage(
         _build.compiler_output("flash_attention")).items():
     if cs._kernel_label(name):
         report[cs._kernel_label(name)] = dict(use, tensor_core_ops=None)
-_, paged = cs.phase_kernels(torch, tpa)
-_, flash = cs.phase_flash(torch, tfa, report)
+paged = cs.phase_kernels(torch, tpa)[1]
+flash = cs.phase_flash(torch, tfa, report)[1]
 cfg = T.TransformerConfig(dtype=torch.bfloat16, **cs.FULL)
 params = T.init_params(
     cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")

@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
      bit-identical, and on a case where one slot's context lies in one
      partition and another's spans them all; time the kernels, the plain
      version and (bf16) the split plain version at each of the three
-     shapes with a cold L2, with the partition count;
+     shapes with a cold L2, with the partition count, for q in bf16 (the
+     split-context kernel) and in f32 (the single-pass kernel);
   3. serve a fixed-seed trace of 12 requests through ServingEngine at
      full width in bf16 (vocab 32000, dim 512, 8 heads, 8 layers,
      max_len 1024; 16 slots, 16-token blocks, 128-token chunks, an
@@ -46,10 +47,12 @@ Phases (any failure exits non-zero):
      the edges of the tensor-core tiles (D 40 and D 128, causal T 129,
      T 200 / S 72, B*H = 1); launch the bf16 forward, dK/dV and dQ twice
      on the training shape and require bit-identical outputs; time each
-     kernel at the training shape in bf16 with a cold L2 beside its
-     plain version, its bound and scaled_dot_product_attention (forward,
-     and its backward for dK/dV and dQ together), with its registers,
-     shared memory, spills and tensor-core instruction count;
+     kernel at the training shape in bf16 (the tensor-core kernels) and
+     in f32 (the CUDA-core kernels) with a cold L2 beside its plain
+     version, its bound and scaled_dot_product_attention in the same
+     dtype (forward, and its backward for dK/dV and dQ together), with
+     its registers, shared memory, spills and tensor-core instruction
+     count;
   6. train the repo's training configuration (bench.py:913-931: the
      model above, bf16, tokens [8, 1025], SGD lr 1e-3,
      attn_impl="flash"): 2 warm-up steps, then 10 timed steps on one
@@ -263,7 +266,11 @@ Phases (any failure exits non-zero):
      swapped), LeNet with its fc split over 'model' and with FSDP
      (1e-5), DeepFM at phase 27's width with both tables split along
      their rows (2e-5 absolute), run_async_local at sync_every 1 and 4
-     (1e-5); a failing rank fails the phase;
+     (1e-5); then the ResNet-50 program's clone(for_test=True) on the
+     trained weights on both ranks and, with rank 0's weights, on one
+     device: the global predictions [128, 1000] within 1e-4 and the
+     accuracy equal, the eval run's ms on each side; a failing rank
+     fails the phase;
  40. the legacy `paddle train` stack (paddle_tpu_torch.trainer, the
      configs of benchmarks/paddle as they stand): run_config(job="time")
      on resnet.py (ResNet-50, 224, batch 64), alexnet.py, googlenet.py
@@ -441,14 +448,20 @@ Phases (any failure exits non-zero):
      within 1e-5, parameters within 1e-5 of the one-device steps taken
      over each batch's two halves and within twice that floor of the
      plain steps; one all-gather of a tower's block is timed beside a
-     softmax over it;
+     softmax over it; two ranks run batch norm over a channel split (a
+     conv, transpose(perm=[1, 0, 2, 3]) so that the batch lies on the
+     channel axis, batch norm, the transpose back) at batch 512, 2
+     Momentum steps and the eval clone, within 1e-5 with the normalised
+     value whole;
  then print the kernels' JSON line (every kernel must have launched on
  a main path; the paged entries also carry their launches in phases
  13, 14, 42, 43 and 46, the flash entries their Fluid launches in
  phases 18 and 38, their launches over phase 42 (which must be 0), in
  phase 43 (per rank on the Ulysses path, and the Switch LM's) and in
  phase 46 (per rank); the dequant entries their phase-43 launches over
- int8 and fp8 pools); no Hopper
+ int8 and fp8 pools; the f32 entries, one a wrapper, time the kernels
+ q in f32 launches and count those launches over the phases that run
+ f32 alone: 4, 7, 10, 12, 42 (a') and 43 (c)); no Hopper
  kernel lies on the path of phases 44 and 45 (cuDNN and cuBLAS on the
  card, host C++ in the runner, host tools) or of phases 20-32, whose recurrences, segment
  ops, CTC, loops, beam search, sparse updates, sampled losses,
@@ -845,9 +858,14 @@ SPEC_SHAPES = dict(H=8, Dh=64, Bt=16, MAXB=64, NB=1024)
 
 
 def phase_kernels(torch, tpa):
+    """Phase 2: the three paged wrappers against their plain versions
+    for q in bf16 and f32 at the serving shapes and odd ones; each timed
+    at the serving shapes in both dtypes (bf16: the split-context
+    kernel; f32: the single-pass CUDA-core kernel). Returns (errors,
+    bf16 timings, f32 timings)."""
     rng = np.random.RandomState(0)
     shapes = SPEC_SHAPES
-    errs, timing = {}, {}
+    errs, timing, timing32 = {}, {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         cases = {
@@ -864,9 +882,11 @@ def phase_kernels(torch, tpa):
         check_case(torch, tpa, "verify", spans_case(
             np.random.RandomState(1), torch, dtype, 16, shapes),
             "verify %s one and all partitions" % name)
-        if dtype == torch.bfloat16:
-            for which, c in cases.items():
+        for which, c in cases.items():
+            if dtype == torch.bfloat16:
                 timing[which] = time_case(torch, tpa, which, c, "bf16")
+            else:
+                timing32[which] = time_case(torch, tpa, which, c, "f32")
     odd = dict(H=4, Dh=32, Bt=8, MAXB=16, NB=60)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
@@ -880,7 +900,7 @@ def phase_kernels(torch, tpa):
             rng, torch, dtype, S=1, R=13, base=[21], **odd),
             "prefill %s Dh=32 Bt=8 C=13" % name)
         check_wide(torch, tpa, np.random.RandomState(2), dtype)
-    return errs, timing
+    return errs, timing, timing32
 
 
 def phase_kernels_quant(torch, tpa):
@@ -1156,6 +1176,26 @@ def zero_launches(tpa):
 
 def read_launches(tpa):
     return dict(tpa.launches)
+
+
+def launches_of(tpa, tfa, fn):
+    """(fn(), the launches it made): each counter's change over the call,
+    so a phase that reads its own counters around it is undisturbed.
+    `paged` by wrapper over every pool, `paged_quant` the same over the
+    int8 and fp8 pools apart, `flash` by kernel."""
+    def read():
+        return dict(paged=dict(tpa.launches), flash=dict(tfa.launches),
+                    **{"paged_quant " + k: dict(v)
+                       for k, v in tpa.quant_launches.items()})
+
+    before = read()
+    out = fn()
+    after = read()
+    diff = {k: {w: after[k][w] - before[k][w] for w in after[k]}
+            for k in after}
+    diff["paged_quant"] = {k.split()[1]: diff.pop(k) for k in list(diff)
+                           if k.startswith("paged_quant ")}
+    return out, diff
 
 
 def check_served(hs, vocab):
@@ -1923,10 +1963,21 @@ FLASH_TRAIN_KERNEL = {
 }
 
 
+# the kernel instantiation each flash entry point launches for f32 at
+# the training shape's head width: PR 2's CUDA-core kernels
+FLASH_TRAIN_KERNEL_F32 = {
+    "forward": "flash_forward_kernel<f32, 64>",
+    "backward_kv": "flash_backward_kv_kernel<f32, 64>",
+    "backward_q": "flash_backward_q_kernel<f32, 64>",
+}
+
+
 def phase_flash(torch, tfa, build_report):
     """Phase 5: the three flash kernels vs their plain versions at the
     training shape (bf16 and f32, causal) and the JAX suite's odd shapes,
-    then bf16 timings at the training shape."""
+    then timings at the training shape in bf16 (the tensor-core kernels)
+    and in f32 (the CUDA-core kernels). Returns (errors, bf16 timings,
+    f32 timings)."""
     rng = np.random.RandomState(5)
     B, T, H, D = TRAIN["batch"], TRAIN["seq"], FULL["heads"], \
         FULL["dim"] // FULL["heads"]
@@ -1961,7 +2012,6 @@ def phase_flash(torch, tfa, build_report):
                         "%s %s B%d T%d S%d H%d D%d" % (
                             name, "causal" if causal else "cross", nb, t, s,
                             h, d))
-    del full["float32"]
     c = full["bfloat16"]
     o, lse, delta = flash_inputs(torch, tfa, c, True)
     # each output tile has one owner and no atomics: launches repeat
@@ -1974,29 +2024,37 @@ def phase_flash(torch, tfa, build_report):
         log("  %-11s bf16 twice on the training shape: bit-identical %s"
             % (which, same))
         check(same, "%s kernel is not deterministic" % which)
-    lib_fwd, lib_bwd = sdpa_ms(torch, c, True)
     timing = {}
-    for which in ("forward", "backward_kv", "backward_q"):
-        ms = time_ms(torch, lambda: run_flash(tfa, which, c, True, lse,
-                                              delta))
-        plain = time_ms(torch, lambda: run_flash(
-            tfa, which, c, True, lse, delta, plain=True), iters=10)
-        b, by = flash_bound_ms(which, B, T, T, H, D, 2, True, "bfloat16")
-        lib = lib_fwd if which == "forward" else lib_bwd
-        kern = FLASH_TRAIN_KERNEL[which]
-        res = dict(build_report[kern])
-        res["shared_bytes"] = tfa.shared_bytes(which, torch.bfloat16, D)
-        timing[which] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                             library_ms=lib, kernel=kern, resources=res)
-        log("  %-11s bf16: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
-            "(%s), SDPA %s %.4f ms; %s: %s registers, %d B shared, "
-            "spills %s B / %s B, %s tensor-core instructions"
-            % (which, ms, plain, b, by, "forward" if which == "forward"
-               else "backward (dq, dk, dv)", lib, kern,
-               res.get("registers"), res["shared_bytes"],
-               res.get("spill_stores"), res.get("spill_loads"),
-               res.get("tensor_core_ops")))
-    return errs, timing
+    for name, label, kernels in (("bfloat16", "bf16", FLASH_TRAIN_KERNEL),
+                                 ("float32", "f32", FLASH_TRAIN_KERNEL_F32)):
+        c = full.pop(name)
+        o, lse, delta = flash_inputs(torch, tfa, c, True)
+        lib_fwd, lib_bwd = sdpa_ms(torch, c, True)
+        timing[name] = {}
+        for which in ("forward", "backward_kv", "backward_q"):
+            ms = time_ms(torch, lambda: run_flash(tfa, which, c, True, lse,
+                                                  delta))
+            plain = time_ms(torch, lambda: run_flash(
+                tfa, which, c, True, lse, delta, plain=True), iters=10)
+            b, by = flash_bound_ms(which, B, T, T, H, D, c["q"].element_size(),
+                                   True, name)
+            lib = lib_fwd if which == "forward" else lib_bwd
+            kern = kernels[which]
+            res = dict(build_report[kern])
+            res["shared_bytes"] = tfa.shared_bytes(which, c["q"].dtype, D)
+            timing[name][which] = dict(
+                ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                library_ms=lib, kernel=kern, resources=res)
+            log("  %-11s %s: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
+                "(%s), SDPA %s %.4f ms; %s: %s registers, %d B shared, "
+                "spills %s B / %s B, %s tensor-core instructions"
+                % (which, label, ms, plain, b, by, "forward"
+                   if which == "forward" else "backward (dq, dk, dv)", lib,
+                   kern, res.get("registers"), res["shared_bytes"],
+                   res.get("spill_stores"), res.get("spill_loads"),
+                   res.get("tensor_core_ops")))
+        del c, o, lse, delta
+    return errs, timing["bfloat16"], timing["float32"]
 
 
 def _train_flops(B, T):
@@ -2203,9 +2261,11 @@ FLUID_PARITY = dict(batch=16, shape=[3, 32, 32], classes=10, depth=8)
 FLUID_FLASH = dict(batch=8, seq=1024, heads=8, dim=64)
 
 
-def fluid_image_program(fluid, model, shape, classes, amp):
+def fluid_image_program(fluid, model, shape, classes, amp, test=False):
     """bench.py's _build_image_workload with float32 images and int64
-    labels: model -> cross_entropy -> mean, Momentum(0.01, 0.9)."""
+    labels: model -> cross_entropy -> mean, Momentum(0.01, 0.9). With
+    `test`, also (the program's clone(for_test=True), taken before the
+    optimizer's ops, the predictions, their accuracy)."""
     main, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(main, startup):
         image = fluid.layers.data(name="image", shape=shape, dtype="float32")
@@ -2213,15 +2273,19 @@ def fluid_image_program(fluid, model, shape, classes, amp):
         predict = model(image, classes)
         avg = fluid.layers.mean(
             x=fluid.layers.cross_entropy(input=predict, label=label))
+        evals = ()
+        if test:
+            acc = fluid.layers.accuracy(input=predict, label=label)
+            evals = (main.clone(for_test=True), predict, acc)
         fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9).minimize(
             avg)
     main.amp = amp
-    return main, startup, avg
+    return (main, startup, avg) + evals
 
 
-def image_feed(torch, batch, shape, classes, dev):
+def image_feed(torch, batch, shape, classes, dev, seed=0):
     """bench.py:525-529's fixed synthetic batch, on `dev`."""
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     image = rng.rand(batch, *shape).astype(np.float32)
     label = rng.randint(0, classes, (batch, 1)).astype(np.int64)
     return {"image": torch.from_numpy(image).to(dev),
@@ -5775,9 +5839,12 @@ def _rows_of(feed, i, n):
 
 
 def _mesh_feeds(torch, dev):
-    """The seeded batches phase 39 trains on (both sides build them)."""
+    """The seeded batches phase 39 trains on (both sides build them),
+    then (e)'s eval batch."""
     res = image_feed(torch, FLUID_RESNET["batch"], FLUID_RESNET["shape"],
                      FLUID_RESNET["classes"], dev)
+    res_eval = image_feed(torch, FLUID_RESNET["batch"], FLUID_RESNET["shape"],
+                          FLUID_RESNET["classes"], dev, seed=39)
     lenet_feeds = [book_image_feed(torch, MESH_LENET, MESH_LENET["batch"],
                                    dev, seed=s)
                    for s in range(MESH_LENET["steps"])]
@@ -5785,14 +5852,56 @@ def _mesh_feeds(torch, dev):
                  for s in range(MESH_CTR["steps"])]
     async_feed = book_image_feed(torch, MESH_LENET, MESH_LENET["batch"]
                                  * MESH_ASYNC_STEPS, dev, seed=39)
-    return res, lenet_feeds, ctr_feeds, async_feed
+    return res, lenet_feeds, ctr_feeds, async_feed, res_eval
+
+
+def _resnet_program(fluid, resnet):
+    """(a)'s ResNet-50 in f32, with its eval clone (fluid_image_program's
+    `test`)."""
+    return fluid_image_program(
+        fluid, lambda x, c: resnet.resnet_imagenet(
+            x, c, depth=FLUID_RESNET["depth"]),
+        FLUID_RESNET["shape"], FLUID_RESNET["classes"], amp=False, test=True)
+
+
+def _eval_weights(test):
+    """(position, name) of each persistable the eval clone's ops read, by
+    position in its variables (two processes name them apart)."""
+    read = {n for op in test.global_block().ops for n in op.input_arg_names}
+    return [(i, v.name) for i, v in enumerate(
+        test.global_block().vars.values()) if v.persistable and v.name in read]
+
+
+def _eval_runs(torch, exe, test, feed, pred, acc, dev, rank=0, ranks=1,
+               n=3):
+    """The eval clone on the global batch `feed` (this rank's rows of
+    it): its predictions, which every rank fetches whole; then its
+    predictions and accuracy with every third row labelled with the class
+    predicted for it, so that the global batch's accuracy is about a
+    third and a count over one rank's rows would differ; then n more
+    runs timed (ms a run, each ending in a sync). Returns ([predictions,
+    accuracy], ms)."""
+    first = np.asarray(exe.run(test, feed=_rows_of(feed, rank, ranks),
+                               fetch_list=[pred])[0])
+    label = feed["label"].clone()
+    label[::3, 0] = torch.from_numpy(first.argmax(1)[::3]).to(label.device)
+    mine = _rows_of(dict(feed, label=label), rank, ranks)
+    got = exe.run(test, feed=mine, fetch_list=[pred, acc])
+    ms = []
+    for _ in range(n):
+        _sync(torch, dev.type)
+        t0 = time.perf_counter()
+        exe.run(test, feed=mine, fetch_list=[pred, acc])
+        _sync(torch, dev.type)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return [np.asarray(g) for g in got], ms
 
 
 def mesh_worker(rank, tmp, dev="cuda:0"):
     """One of phase 39's two ranks (`chip_smoke.py --mesh-worker RANK
     DIR`): a gloo group over a file store in DIR, both ranks on cuda:0
     (NCCL refuses two ranks on one card, so gloo is named: a test
-    configuration, not a fallback). Runs (a)-(d) and writes its results
+    configuration, not a fallback). Runs (a)-(e) and writes its results
     to DIR/rank<RANK>.npz."""
     import torch
     import torch.distributed as dist
@@ -5808,22 +5917,32 @@ def mesh_worker(rank, tmp, dev="cuda:0"):
         torch.cuda.set_device(dev)
     dist.init_process_group("gloo", init_method="file://" + os.path.join(
         tmp, "store"), rank=rank, world_size=2)
-    res, lenet_feeds, ctr_feeds, async_feed = _mesh_feeds(torch, dev)
+    res, lenet_feeds, ctr_feeds, async_feed, res_eval = _mesh_feeds(torch,
+                                                                    dev)
     out = {}
     dp = parallel.make_mesh({"data": 2}, device=dev)
     tp = parallel.make_mesh({"data": 1, "model": 2}, device=dev)
 
     # (a) ResNet-50 f32, 64 rows a rank of the global batch of 128
-    main, startup, avg = fluid_image_program(
-        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=50),
-        FLUID_RESNET["shape"], FLUID_RESNET["classes"], amp=False)
-    losses, params = _train(torch, fluid, main, startup, avg,
-                            [_rows_of(res, rank, 2)] * 2,
-                            fluid.Executor(mesh=dp))
-    out["a_losses"] = np.asarray(losses)
-    for i, p in enumerate(params):
+    main, startup, avg, test, pred, acc = _resnet_program(fluid, resnet)
+    scope = fluid.Scope()
+    exe = fluid.Executor(mesh=dp)
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        out["a_losses"] = np.asarray([float(np.ravel(exe.run(
+            main, feed=_rows_of(res, rank, 2), fetch_list=[avg])[0])[0])
+            for _ in range(2)])
+        # (e) the eval clone on the trained weights: the global batch's
+        # predictions and accuracy on every rank
+        (out["e_pred"], out["e_acc"]), ms = _eval_runs(
+            torch, exe, test, res_eval, pred, acc, dev, rank, 2)
+        out["e_ms"] = np.asarray(ms)
+        if rank == 0:  # the weights the one-device eval runs on
+            for i, n in _eval_weights(test):
+                out["e_w%d" % i] = scope.get(n).detach().cpu().numpy()
+    for i, p in enumerate(_params_of(fluid, main, scope)):
         out["a_p%d" % i] = p
-    del params
+    del scope
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
@@ -5920,19 +6039,24 @@ def phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr, card="cpu",
     at full width with both tables split along their rows over 'model',
     2 Adam steps, within 2e-5 absolute; (d) run_async_local on
     {'data': 2}: sync_every=1 equals the synchronous step, sync_every=4
-    equals two independent replicas averaged, within 1e-5. Relative:
-    max |difference| over max |reference| of each tensor. (`dev` and
-    `worker_argv` let a rehearsal run both sides on the CPU.)"""
+    equals two independent replicas averaged, within 1e-5; (e) (a)'s
+    program's clone(for_test=True) on its trained weights, on both ranks
+    and, with rank 0's weights, on one device: the global predictions
+    [128, 1000] on each rank within 1e-4 relative of one device's (cuDNN
+    may pick its convolution by batch size) and the accuracy equal, with
+    every third row labelled with its predicted class (_eval_runs).
+    Relative: max |difference| over max |reference| of each tensor.
+    (`dev` and `worker_argv` let a rehearsal run both sides on the
+    CPU.)"""
     import tempfile
 
     dev = torch.device(dev)
     place = fluid.CUDAPlace(0) if dev.type == "cuda" else fluid.CPUPlace()
-    res, lenet_feeds, ctr_feeds, async_feed = _mesh_feeds(torch, dev)
+    res, lenet_feeds, ctr_feeds, async_feed, res_eval = _mesh_feeds(torch,
+                                                                    dev)
     ref = {}
     t0 = time.monotonic()
-    main, startup, avg = fluid_image_program(
-        fluid, lambda x, c: resnet.resnet_imagenet(x, c, depth=50),
-        FLUID_RESNET["shape"], FLUID_RESNET["classes"], amp=False)
+    main, startup, avg, test, pred, acc = _resnet_program(fluid, resnet)
     ref["a"] = _train(torch, fluid, main, startup, avg, [res] * 2,
                       fluid.Executor(place))
     # the noise floor of (a): the same one-process steps on the batch
@@ -5994,6 +6118,14 @@ def phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr, card="cpu",
         return [o["%s_p%d" % (key, i)]
                 for i in range(sum(1 for k in o if k.startswith(key + "_p")))]
 
+    # (e)'s reference: the eval clone on one device with rank 0's weights
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        fluid.scope_from_numpy(scope, {n: got[0].pop("e_w%d" % i)
+                                       for i, n in _eval_weights(test)}, dev)
+        (e_pred, e_acc), e_ms = _eval_runs(torch, fluid.Executor(place),
+                                           test, res_eval, pred, acc, dev)
+    del scope
     out = dict(reference_s=ref_s, ranks_s=ranks_s)
     floor_loss = _rel_diff([np.asarray(ref["a_swapped"][0])],
                            [np.asarray(ref["a"][0])])
@@ -6013,10 +6145,16 @@ def phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr, card="cpu",
         d1 = max(_rel_diff([o["d_losses_1"]], [o["d_sync_losses"]]),
                  _rel_diff(params(o, "d1"), params(o, "dsync")))
         d4 = _rel_diff(params(o, "d%d" % MESH_ASYNC_STEPS), ref["d"])
+        check(o["e_pred"].shape == e_pred.shape,
+              "phase 39 (e): a rank fetched the eval predictions as %s, "
+              "one device as %s" % (o["e_pred"].shape, e_pred.shape))
         rows.append(dict(a_loss1=la1, a_loss=la, a_params=pa, b_loss=lb,
                          b_params=pb,
                          c_loss_abs=lc, c_params_abs=pc, d_sync1=d1,
-                         d_local4=d4))
+                         d_local4=d4,
+                         e_pred=_rel_diff([o["e_pred"]], [e_pred]),
+                         e_acc_diff=abs(float(o["e_acc"][0])
+                                        - float(e_acc[0]))))
     worst = {k: max(r[k] for r in rows) for k in rows[0]}
     fsdp = got[0]["b_fsdp_shapes"]
     halved = all(h[0] * h[1] * 2 == f[0] * f[1]
@@ -6051,7 +6189,18 @@ def phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr, card="cpu",
           "phase 39 (c): the row-split DeepFM left the one-process run")
     check(worst["d_sync1"] <= 1e-5 and worst["d_local4"] <= 1e-5,
           "phase 39 (d): local SGD left its references")
+    _on_card(card, "(e) ResNet-50's eval clone after (a), f32: global "
+             "predictions %s on each rank, %.3e rel of one device's (1e-4); "
+             "accuracy %.6f on one device, |difference| %.1e (equal); eval "
+             "ms a run one device %s, two ranks %s"
+             % (list(e_pred.shape), worst["e_pred"], float(e_acc[0]),
+                worst["e_acc_diff"], ["%.2f" % m for m in e_ms],
+                ["%.2f" % m for m in got[0]["e_ms"]]))
+    check(worst["e_pred"] <= 1e-4 and worst["e_acc_diff"] == 0.0,
+          "phase 39 (e): the eval clone on two ranks left one device's")
     out.update(worst)
+    out.update(e_accuracy=float(e_acc[0]), e_one_device_ms=e_ms,
+               e_two_rank_ms=got[0]["e_ms"].tolist())
     out.update(fsdp_half=halved, deepfm_rows_a_rank=rows_here[0],
                a_floor_loss=floor_loss, a_floor_params=floor_params)
     return out
@@ -7375,9 +7524,11 @@ def phase_fleet(torch, T, tpa, card="cpu", dev="cuda", full=FULL):
                                      out["tiered"][
                                          "tokens_recomputed_at_migration"]))
         t1 = time.monotonic()
-        out["f32_kill"] = _fleet_f32_drill(
-            torch, T, ServingEngine, ServingFleet, params, cfg, tmp,
-            verify_journal, format_diag, dev=dev)
+        out["f32_kill"], counts = launches_of(
+            tpa, tfa, lambda: _fleet_f32_drill(
+                torch, T, ServingEngine, ServingFleet, params, cfg, tmp,
+                verify_journal, format_diag, dev=dev))
+        out["f32_kill"]["launches"] = counts
         t2 = time.monotonic()
         out["rollout"] = _fleet_rollout(
             torch, T, ServingEngine, ServingFleet, save_weights, params,
@@ -7669,7 +7820,12 @@ def lm_worker(rank, tmp, dev="cuda:0", full=None):
     t0 = time.monotonic()
     out["a"] = _lm_seq(torch, T, tfa, make_mesh, all_reduce, dev, full)
     out["b"] = _lm_moe(torch, T, make_mesh, dev, full)
+    before = dict(tfa.launches)
     out["c"] = _lm_tp(torch, T, make_mesh, dev, full)
+    # f32 on {model: 2}: the flash kernels only if its attention reaches
+    # them (without a 'seq' axis it takes the plain attention)
+    out["c"]["flash_launches"] = {k: tfa.launches[k] - before[k]
+                                  for k in tfa.launches}
     out["d"] = _lm_pipe(torch, make_mesh, gpipe_pipeline, reference_pipeline,
                         all_reduce, dev, rank)
     out["seconds"] = time.monotonic() - t0
@@ -8013,7 +8169,8 @@ def phase_lm_paths(torch, T, tfa, tpa, card="cpu", dev="cuda:0",
                 flash_launches=a[0]["launches"],
                 switch_flash_launches=e["train"]["flash_launches"],
                 paged_launches=e["paged"]["launches"],
-                paged_quant_launches=e["paged"]["quant_launches"])
+                paged_quant_launches=e["paged"]["quant_launches"],
+                tp_flash_launches=c[0]["flash_launches"])
 
 
 # ---------------------------------------------------------------------
@@ -8738,6 +8895,62 @@ def global_program(fluid, cfg=MESH_GLOBAL):
     return main, startup, loss, [loss, tower, states, finite, shape, ones]
 
 
+def channel_program(fluid, cfg=MESH_GLOBAL):
+    """tests/test_torch_mesh_eval.py's channel-split program at phase
+    46's batch: a conv, then transpose(perm=[1, 0, 2, 3]) so that the
+    batch lies on batch norm's channel axis (each example normalised over
+    its (C, H, W); a batch-split value arrives split along that axis and
+    is read whole), the transpose back, pool, a softmax head,
+    Momentum(0.05, 0.9). Returns (main, startup, its clone(for_test=
+    True) taken before the optimizer's ops, fetch list [pred, loss, the
+    normalised value])."""
+    L = fluid.layers
+    B = cfg["batch"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        img = L.data(name="cimg", shape=[B, 3, 8, 8], dtype="float32",
+                     append_batch_size=False)
+        label = L.data(name="clabel", shape=[B, 1], dtype="int64",
+                       append_batch_size=False)
+        c = L.conv2d(input=img, num_filters=4, filter_size=3, padding=1)
+        t = L.batch_norm(input=L.transpose(c, perm=[1, 0, 2, 3]),
+                         act="relu")
+        c = L.pool2d(input=L.transpose(t, perm=[1, 0, 2, 3]), pool_size=2,
+                     pool_stride=2)
+        pred = L.fc(input=c, size=5, act="softmax")
+        loss = L.mean(x=L.cross_entropy(input=pred, label=label))
+        test = main.clone(for_test=True)
+        fluid.optimizer.Momentum(learning_rate=0.05,
+                                 momentum=0.9).minimize(loss)
+    return main, startup, test, [pred, loss, t]
+
+
+def channel_feeds(torch, dev, cfg=MESH_GLOBAL, steps=2):
+    """The channel-split program's seeded global batches: `steps` to
+    train on, then one to evaluate."""
+    rng = np.random.RandomState(48)
+    B = cfg["batch"]
+    return [{"cimg": torch.from_numpy(rng.randn(B, 3, 8, 8).astype(
+                np.float32)).to(dev),
+             "clabel": torch.from_numpy(rng.randint(0, 5, (B, 1)).astype(
+                 np.int64)).to(dev)} for _ in range(steps + 1)]
+
+
+def _channel_runs(fluid, exe, feeds):
+    """The channel-split program from its startup: a training run a feed
+    but the last, then the eval clone on the last; (the fetches of each
+    run, every parameter whole)."""
+    main, startup, test, fetch = channel_program(fluid)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        runs = [exe.run(prog, feed=f, fetch_list=fetch)
+                for prog, f in zip([main] * (len(feeds) - 1) + [test],
+                                   feeds)]
+    return ([[np.asarray(v) for v in r] for r in runs],
+            _params_of(fluid, main, scope))
+
+
 def global_feeds(torch, dev, cfg=MESH_GLOBAL):
     """The seeded global batches of phase 46's lifted-op program."""
     rng = np.random.RandomState(46)
@@ -8817,7 +9030,8 @@ def global_worker(rank, world, tmp, dev="cuda:0"):
     the lifted-op program and the Fluid flash program, each on its half
     of the global batch, with the flash and paged counters zeroed just
     before those runs and read just after, then time one gather of a
-    tower's block against a softmax over the block; four ranks on
+    tower's block against a softmax over the block, then run the
+    channel-split program (channel_program); four ranks on
     {data: 2, model: 2} run the 2-D spec program. Writes
     DIR/rank<RANK>.npz."""
     import torch
@@ -8868,6 +9082,15 @@ def global_worker(rank, world, tmp, dev="cuda:0"):
         for k, p in enumerate(params):
             out["f_p%d" % k] = p
         out["f_ms"] = np.asarray(ms)
+
+        runs, params = _channel_runs(
+            fluid, fluid.Executor(mesh=mesh),
+            [_rows_of(f, rank, 2) for f in channel_feeds(torch, dev)])
+        for s, r in enumerate(runs):
+            for k, v in enumerate(r):
+                out["c_s%d_f%d" % (s, k)] = v
+        for k, p in enumerate(params):
+            out["c_p%d" % k] = p
 
         # what a gathered op costs beside the split path: one all-gather
         # of a tower's block (the two-tower matmul reads both whole)
@@ -8925,8 +9148,11 @@ def phase_mesh_global(torch, fluid, tfa, card="cpu", timeout=240,
     gradient taken over the batch's two halves, run_grad_accum: cuBLAS
     picks its f32 GEMM by row count; phase 39 (a) measures its floor
     alike) and within 1e-5 of those half-batch steps, each rank holding
-    a quarter of the weight. (`dev` and `worker_argv` let a rehearsal run both sides on
-    the CPU.)"""
+    a quarter of the weight; the channel-split program's pred, loss and
+    normalised value in 2 training steps and its eval run, and its
+    parameters, within 1e-5 relative, the normalised value whole on each
+    rank. (`dev` and `worker_argv` let a rehearsal run both sides on the
+    CPU.)"""
     import tempfile
 
     t_start = time.monotonic()
@@ -8940,6 +9166,8 @@ def phase_mesh_global(torch, fluid, tfa, card="cpu", timeout=240,
     f_ref, f_params, f_ms = _global_runs(
         torch, fluid, main, startup, [o, loss], flash_feeds(torch, dev),
         fluid.Executor(place), dev)
+    c_ref, c_params = _channel_runs(fluid, fluid.Executor(place),
+                                    channel_feeds(torch, dev))
     main, startup, loss = spec_program(fluid)
     feeds = spec_feeds(torch, dev)
     s_ref = _train(torch, fluid, main, startup, loss, feeds,
@@ -8999,9 +9227,16 @@ def phase_mesh_global(torch, fluid, tfa, card="cpu", timeout=240,
                 for k in range(sum(1 for k in o if k.startswith(pre + "_p")))]
 
     worst = dict(g_loss=0.0, g_params=0.0, f_out=0.0, s_loss=0.0,
-                 s_params=0.0, s_halves=0.0)
-    counts_equal, flash_ok = True, True
+                 s_params=0.0, s_halves=0.0, c_fetch=0.0, c_params=0.0)
+    counts_equal, flash_ok, c_whole = True, True, True
     for o in got[2]:
+        for s, ref in enumerate(c_ref):
+            run = stepped(o, "c", s, len(ref))
+            worst["c_fetch"] = max(worst["c_fetch"],
+                                   _rel_diff(run, ref))
+            c_whole &= run[2].shape == ref[2].shape
+        worst["c_params"] = max(worst["c_params"],
+                                _rel_diff(params(o, "c"), c_params))
         for s, ref in enumerate(g_ref):
             run = stepped(o, "g", s, len(ref))
             worst["g_loss"] = max(worst["g_loss"],
@@ -9036,7 +9271,17 @@ def phase_mesh_global(torch, fluid, tfa, card="cpu", timeout=240,
                                            MESH_SPEC["hidden"] // 2]
                   for o in got[4])
     r0 = got[2][0]
-    out = dict(worst, counts_equal=bool(counts_equal),
+    _on_card(card, "phase 46: batch norm over a channel split (the batch "
+             "on dimension 1, read whole: %s a rank), batch %d: 2 "
+             "Momentum steps and the eval clone, pred, loss and the "
+             "normalised value %.3e, params %.3e rel of one device (1e-5)"
+             % (list(r0["c_s0_f2"].shape), MESH_GLOBAL["batch"],
+                worst["c_fetch"], worst["c_params"]))
+    check(worst["c_fetch"] <= 1e-5 and worst["c_params"] <= 1e-5
+          and c_whole, "phase 46: batch norm over a channel split on two "
+          "ranks left the one-device run")
+    out = dict(worst, counts_equal=bool(counts_equal), channel_whole=bool(
+               c_whole),
                flash_ok=bool(flash_ok), flash_launches=dict(zip(
                    ("forward", "backward_kv", "backward_q"), launches)),
                paged_launches=int(r0["paged_launches"]),
@@ -9121,7 +9366,7 @@ def main():
     flash_report = flash_build_report(_build)
 
     log("phase 2: kernel vs plain version")
-    errs, timing = phase_kernels(torch, tpa)
+    errs, timing, timing32 = phase_kernels(torch, tpa)
 
     log("phase 3: serve at full width, bf16")
     cfg = T.TransformerConfig(dtype=torch.bfloat16, **FULL)
@@ -9129,8 +9374,11 @@ def main():
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     launches, serve = phase_serve(torch, T, tpa, ServingEngine, params, cfg)
 
+    # the launches of every phase whose kernels see f32 q alone
+    f32_counts = {}
     log("phase 4: f32 engine vs generate()")
-    phase_generate(torch, T, ServingEngine, params, cfg)
+    _, f32_counts["phase 4"] = launches_of(tpa, tfa, lambda: phase_generate(
+        torch, T, ServingEngine, params, cfg))
 
     if "--profile" in sys.argv[1:]:
         log("profile: bf16 serving trace under torch.profiler")
@@ -9138,7 +9386,8 @@ def main():
     del params
 
     log("phase 5: flash kernels vs plain versions")
-    flash_errs, flash_timing = phase_flash(torch, tfa, flash_report)
+    flash_errs, flash_timing, flash_timing32 = phase_flash(torch, tfa,
+                                                           flash_report)
 
     log("phase 6: train at full width, bf16, attn_impl='flash'")
     flash_launches, train, (step, tparams, toks) = phase_train(torch, T, tfa)
@@ -9149,7 +9398,8 @@ def main():
     del step, tparams, toks
 
     log("phase 7: f32 train parity, flash kernels vs reference attention")
-    parity = phase_train_parity(torch, T)
+    parity, f32_counts["phase 7"] = launches_of(
+        tpa, tfa, lambda: phase_train_parity(torch, T))
 
     log("phase 8: the paged kernel's dequant branch vs plain version")
     qerrs, qtiming = phase_kernels_quant(torch, tpa)
@@ -9162,13 +9412,17 @@ def main():
     p32 = _tree_map(lambda t: t.float(), params)
     cfg32 = T.TransformerConfig(**FULL)
     log("phase 10: f32 quantized engines, kernel tokens vs gather tokens")
-    phase_quant_identity(torch, T, ServingEngine, p32, cfg32)
+    _, f32_counts["phase 10"] = launches_of(
+        tpa, tfa, lambda: phase_quant_identity(torch, T, ServingEngine, p32,
+                                               cfg32))
 
     log("phase 11: spec decoding at full width, bf16 (plain decode first)")
     spec = phase_spec(torch, T, tpa, ServingEngine, params, cfg)
 
     log("phase 12: f32 spec tokens vs plain tokens")
-    phase_spec_identity(torch, T, ServingEngine, p32, cfg32)
+    _, f32_counts["phase 12"] = launches_of(
+        tpa, tfa, lambda: phase_spec_identity(torch, T, ServingEngine, p32,
+                                              cfg32))
     if "--profile" in sys.argv[1:]:
         log("profile: bf16 serving_quant steps under torch.profiler")
         phase_profile_quant(torch, ServingEngine, params, cfg)
@@ -9301,8 +9555,9 @@ def main():
     t0 = time.monotonic()
     mesh1 = phase_mesh_world1(torch, fluid, resnet, tfa, fluid_resnet,
                               card=card)
-    log("phase 39: two ranks on the card (gloo): ResNet-50 f32, LeNet "
-        "tensor-parallel and FSDP, row-split DeepFM, local SGD")
+    log("phase 39: two ranks on the card (gloo): ResNet-50 f32 and its "
+        "eval clone, LeNet tensor-parallel and FSDP, row-split DeepFM, "
+        "local SGD")
     mesh2 = phase_mesh_two_ranks(torch, fluid, resnet, lenet, ctr,
                                  card=card)
     log("  phases 38-39 took %.1f s" % (time.monotonic() - t0))
@@ -9357,8 +9612,9 @@ def main():
     log("phase 46: the mesh executor's global forms: two ranks on {data: "
         "2} run the lifted ops (the in-batch two-tower loss, concat, "
         "shape, fill_constant_batch_size_like, precision_recall, "
-        "isfinite, a While) and the Fluid flash program, four ranks on "
-        "{data: 2, model: 2} a weight split along both dimensions")
+        "isfinite, a While), the Fluid flash program and batch norm over "
+        "a channel split, four ranks on {data: 2, model: 2} a weight "
+        "split along both dimensions")
     mesh_global = phase_mesh_global(torch, fluid, tfa, card=card)
 
     log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
@@ -9474,6 +9730,57 @@ def main():
                                " (backward: dq, dk, dv together)"),
             "design": ("tensor cores, mma.sync m16n8k16 bf16"
                        if "_mma_" in tm["kernel"] else "CUDA cores, f32 FMA"),
+            "kernel": tm["kernel"], "resources": tm["resources"],
+            "card": card,
+        })
+    # the f32 kernels (q in f32: the paged single-pass kernel, PR 1's;
+    # the flash CUDA-core kernels, PR 2's), launched on the phases that
+    # run f32 alone: 4, 7, 10, 12, 42 (a') and 43 (c)
+    f32_counts["phase 42 (a')"] = fleet["f32_kill"]["launches"]
+    f32_counts["phase 43 (c)"] = dict(flash=lm_paths["tp_flash_launches"])
+    for which in ("decode", "prefill", "verify"):
+        tm = timing32[which]
+        by_phase, quant_by_phase = {}, {}
+        for ph, n in f32_counts.items():
+            if "paged" not in n:
+                continue
+            quant = sum(q[which] for q in n["paged_quant"].values())
+            by_phase[ph] = n["paged"][which] - quant
+            quant_by_phase[ph] = quant
+        kern = "paged_attention_kernel<f32, f32>"
+        kernels.append({
+            "name": "paged_attention f32 q (%s, paged_%s_attention)"
+                    % (which, which),
+            "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "quant_pool_launches_by_phase": quant_by_phase,
+            "max_abs_err": errs[(which, "float32")],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": None, "library_note": paged_note,
+            "design": "single pass, CUDA cores, f32 math (PR 1's kernel)",
+            "cuda_kernels": [kern], "resources": {kern: paged_report.get(
+                kern)}, "card": card,
+        })
+    for which in ("forward", "backward_kv", "backward_q"):
+        tm = flash_timing32[which]
+        by_phase = {ph: n["flash"][which] for ph, n in f32_counts.items()}
+        kernels.append({
+            "name": "flash_attention f32 (%s, flash_%s)" % (which, which),
+            "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[which],
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
+            "max_abs_err": flash_errs["float32"][which],
+            "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "library_ms": tm["library_ms"],
+            "library_note": "scaled_dot_product_attention in f32, "
+                            "is_causal=True" + (
+                                " (forward)" if which == "forward" else
+                                " (backward: dq, dk, dv together)"),
+            "design": "CUDA cores, f32 FMA (PR 2's kernel)",
             "kernel": tm["kernel"], "resources": tm["resources"],
             "card": card,
         })

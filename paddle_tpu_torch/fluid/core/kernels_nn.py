@@ -190,6 +190,12 @@ def _batch_norm(ctx, ins, attrs):
     bshape = [1] * x.dim()
     bshape[c_axis] = x.shape[c_axis]
 
+    # on a mesh, X is split along a dimension other than its channel
+    # axis (spmd.py reads a channel split whole first): Y keeps the split
+    # in both modes
+    sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
+    if sp:
+        ctx.spmd.mark(ctx.op.outputs["Y"][0], sp)
     # statistics always in f32 (a bf16 E[x^2]-E[x]^2 loses mass
     # catastrophically); only the per-channel apply runs in x's dtype
     if is_test:
@@ -197,13 +203,9 @@ def _batch_norm(ctx, ins, attrs):
         mean_out, var_out = mean_in, var_in
     else:
         xs = x.float()
-        sp = ctx.spmd and ctx.spmd.input_split(ctx, "X")
         if sp:
             # the global batch's statistics: the ranks' per-channel sums
             # of x and x^2 summed (differentiable), over the global count
-            if sp.dim == c_axis:
-                raise NotImplementedError(
-                    "batch_norm over a tensor split along its channel axis")
             count = ctx.spmd.extent(sp.axes)
             for d in axes:
                 count *= x.shape[d]
@@ -212,7 +214,6 @@ def _batch_norm(ctx, ins, attrs):
                 torch.sum(torch.square(xs), dim=axes)]), sp.axes) / count
             mean = sums[0]
             var = sums[1] - torch.square(mean)
-            ctx.spmd.mark(ctx.op.outputs["Y"][0], sp)
         else:
             mean = torch.mean(xs, dim=axes)
             var = torch.mean(torch.square(xs), dim=axes) \

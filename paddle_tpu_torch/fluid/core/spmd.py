@@ -17,7 +17,10 @@ the concatenated global batch:
   kernel computes the global form (a `mean` loss, the batch-norm
   statistics, `accuracy`, `auc`, `precision_recall`'s counts,
   `isfinite`'s flag, dropout's mask, ...); `shape` gives the global
-  shape with no collective.
+  shape with no collective. `batch_norm` marks `Y` with its input's
+  split in both modes (eval reads the running statistics, with no
+  collective); an input split along its channel axis it reads whole
+  (`_MIXES`).
 - Every other op that would mix the blocks of a split value
   (`_WHOLE_OPS`, the true cases of `_MIXES`, control flow over split
   values, an op that reads a gathered value beside a split one) reads
@@ -107,10 +110,12 @@ def gather_split(t, split: Split, mesh):
 
 
 # ops whose kernel computes the global form over a split input and marks
-# its outputs itself (a reduction over a split dimension ends in a
-# collective; `shape`, `isfinite`, `is_empty` and `precision_recall`
-# give whole outputs: the global shape, a flag or counts summed over the
-# ranks); `dropout`, `gaussian_random_noise`, `nce`, `sampling_id` and
+# its outputs itself, on every branch (a reduction over a split dimension
+# ends in a collective; `batch_norm` marks `Y` in training and in eval,
+# and reads a split along its channel axis whole, through `_MIXES`;
+# `shape`, `isfinite`, `is_empty` and `precision_recall` give whole
+# outputs: the global shape, a flag or counts summed over the ranks);
+# `dropout`, `gaussian_random_noise`, `nce`, `sampling_id` and
 # `clip_by_norm` have global forms too (a block of the global draw, a
 # global norm) and keep the row-wise marking of their outputs
 _MANAGED = frozenset([
@@ -187,6 +192,8 @@ _MIXES = {
     "reshape": lambda a, s, nd, sl: s != 0,
     "sampling_id": lambda a, s, nd, sl: s == nd - 1,
     "nce": lambda a, s, nd, sl: s != 0,
+    "batch_norm": lambda a, s, nd, sl: s == (
+        1 if a.get("data_layout", "NCHW") == "NCHW" else nd - 1),
 }
 for _op in ("elementwise_add", "elementwise_sub", "elementwise_mul",
             "elementwise_div", "elementwise_max", "elementwise_min",

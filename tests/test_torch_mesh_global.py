@@ -455,7 +455,9 @@ MIXING = [
     ("gather", {}, ("X",)), ("mul", {}, ("Y",)), ("matmul", {}, ("Y",)),
     ("squeeze", {"axes": [0]}, ("X",)), ("reshape", {}, ("X",), 1),
     ("sampling_id", {}, ("X",), 1), ("nce", {}, ("Input",), 1),
-    ("elementwise_add", {}, ("Y",)), ("elementwise_mul", {}, ("Y",))]
+    ("elementwise_add", {}, ("Y",)), ("elementwise_mul", {}, ("Y",)),
+    ("batch_norm", {}, ("X",), 1),
+    ("batch_norm", {"data_layout": "NHWC"}, ("X",), 1)]
 MIXING = [m if len(m) == 4 else m + (0,) for m in MIXING]
 
 
@@ -485,13 +487,13 @@ class _Op(object):
         self.output_arg_names = ["out"]
 
 
-def _globalized(op, split_dim=0):
+def _globalized(op, split_dim=0, shape=(4, 3)):
     import torch
 
     from paddle_tpu_torch.fluid.core.spmd import Split, SpmdContext
 
     spmd = SpmdContext(_Mesh(), {})
-    env = {n: torch.ones(4, 3) for n in op.input_arg_names}
+    env = {n: torch.ones(shape) for n in op.input_arg_names}
     for slot, names in op.inputs.items():
         if slot in ("X", "Y", "Input") and names[0].startswith("s_"):
             spmd.mark(names[0], Split(split_dim, ("data",)))

@@ -142,7 +142,7 @@ def test_no_source_imports_jax_or_the_jax_package(path):
 # rank imports the module by name, then runs one of its `*_worker`s
 RANK_MODULES = ("torch_mesh", "test_torch_mesh", "test_torch_mesh_fluid",
                 "test_torch_mesh_sparse", "test_torch_mesh_global",
-                "test_torch_mesh_drills")
+                "test_torch_mesh_drills", "test_torch_mesh_eval")
 
 
 def _imported(node):
