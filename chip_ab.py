@@ -4,8 +4,10 @@
     python3 chip_ab.py PARENT_DIR [CHANGE_DIR]
 
 Runs chip_smoke.py's kernel timings (phase 2's paged shapes and phase
-5's flash kernels at the training shape), its serving phases (3, 9 and
-11) and its training step (phase 6) from each checkout, each run in a
+5's flash kernels at the training shape, q in bf16 and in f32, and the
+paged wrappers with q in f32 over int8 and e4m3 pools at phase 8's
+shapes), its serving phases (3, 9 and 11) and its training step (phase
+6) from each checkout, each run in a
 process of its own started in that checkout, in the order parent,
 change, change, parent: both sides see the same card and the same
 host. Each run's output is passed through and ends with one line
@@ -21,6 +23,7 @@ import sys
 
 RUN = r'''
 import importlib, json, sys
+import numpy as np
 import torch
 import chip_smoke as cs
 from paddle_tpu_torch import _build
@@ -37,8 +40,22 @@ for name, use in cs.ptxas_usage(
         _build.compiler_output("flash_attention")).items():
     if cs._kernel_label(name):
         report[cs._kernel_label(name)] = dict(use, tensor_core_ops=None)
-paged = cs.phase_kernels(torch, tpa)[1]
-flash = cs.phase_flash(torch, tfa, report)[1]
+_, paged, paged32 = cs.phase_kernels(torch, tpa)
+_, flash, flash32 = cs.phase_flash(torch, tfa, report)
+# q in f32 over int8 and e4m3 pools: decode and prefill at phase 8's
+# serving_quant shape, verify at the spec engine's
+rng = np.random.RandomState(3)
+qshapes = dict(H=8, Dh=64, Bt=32, MAXB=32, NB=1024)
+quant32 = {}
+for kvq in ("int8", "fp8"):
+    for which, R, S, base, shapes in (
+            ("decode", 1, 32, None, qshapes),
+            ("prefill", 128, 1, [256], qshapes),
+            ("verify", 4, 32, None, cs.SPEC_SHAPES)):
+        c = cs.make_case(rng, torch, torch.float32, S=S, R=R, base=base,
+                         parked=which != "prefill", kvq=kvq, **shapes)
+        quant32["%s %s" % (which, kvq)] = cs.time_case(
+            torch, tpa, which, c, "%s f32 q" % kvq)["ms"]
 cfg = T.TransformerConfig(dtype=torch.bfloat16, **cs.FULL)
 params = T.init_params(
     cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -50,7 +67,14 @@ _, train, _ = cs.phase_train(torch, T, tfa)
 print("AB %s %s" % (sys.argv[1], json.dumps(dict(
     card=cs.gpu_line(),
     paged_ms={k: v["ms"] for k, v in paged.items()},
+    paged_f32_ms={k: v["ms"] for k, v in paged32.items()},
+    paged_f32_q_quant_pool_ms=quant32,
     flash_ms={k: v["ms"] for k, v in flash.items()},
+    flash_f32_ms={k: v["ms"] for k, v in flash32.items()},
+    sdpa_f32_ms={k: flash32[k]["library_ms"] for k in ("forward",
+                                                        "backward_kv")},
+    flash_f32_kernels={k: [v["kernel"], v["resources"]]
+                       for k, v in flash32.items()},
     serve_tokens_per_s=serve["tokens_per_s"],
     quant_tokens_per_s={k: v["tokens_per_s"] for k, v in quant.items()},
     spec_tokens_per_s={k: v["tokens_per_s"] for k, v in spec.items()},

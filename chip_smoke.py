@@ -12,23 +12,25 @@ Phases (any failure exits non-zero):
      paddle_tpu_torch/csrc with nvcc (one process per source, in
      parallel); for every paged and flash kernel print the registers,
      stack and spill bytes nvcc reported, and for every flash kernel the
-     tensor-core instructions (HMMA/HGMMA) in its SASS (cuobjdump); the
-     nine bf16 flash kernels (forward, dK/dV, dQ at D 32/64/128) must
-     hold tensor-core instructions and spill nothing;
+     tensor-core instructions (HMMA/HGMMA) among all the instructions
+     in its SASS (cuobjdump); the
+     nine bf16 flash kernels (forward, dK/dV, dQ at D 32/64/128) and the
+     three f32 forwards in 3xTF32 (D 32/64/128) must hold tensor-core
+     instructions and spill nothing;
   2. hold the paged kernels against their plain PyTorch version through
      all three wrappers (decode, verify, prefill chunk) at the serving
      shapes (H=8, Dh=64, Bt=16, 16 slots, contexts up to 1024, a
      128-token chunk at start > 0, a 4-row verify window over 32 slots)
-     in bf16 and f32, at one odd shape (Dh=32, Bt=8, R=3) and at Dh 128
-     and 40 (WIDE), with -1 table tails (bit-identical to a full table)
-     and a parked row; bf16 (the
-     split-context kernel and its merge) also against the split plain
-     version at the partition count the library reports, relaunched
-     bit-identical, and on a case where one slot's context lies in one
-     partition and another's spans them all; time the kernels, the plain
-     version and (bf16) the split plain version at each of the three
-     shapes with a cold L2, with the partition count, for q in bf16 (the
-     split-context kernel) and in f32 (the single-pass kernel);
+     in bf16 and f32, at one odd shape (Dh=32, Bt=8, R=3), at Dh 128
+     and 40 (WIDE) and at one partition (64 slots over 256-token
+     contexts, no merge), with -1 table tails (bit-identical to a full table)
+     and a parked row; both dtypes run the split-context kernel and its
+     merge, held also against the split plain version at the partition
+     count the library reports, relaunched bit-identical, and on a case
+     where one slot's context lies in one partition and another's spans
+     them all; time the kernels, the plain version and the split plain
+     version at each of the three shapes with a cold L2, with the
+     partition count, for q in bf16 and in f32;
   3. serve a fixed-seed trace of 12 requests through ServingEngine at
      full width in bf16 (vocab 32000, dim 512, 8 heads, 8 layers,
      max_len 1024; 16 slots, 16-token blocks, 128-token chunks, an
@@ -45,14 +47,15 @@ Phases (any failure exits non-zero):
      causal) in bf16 and f32, at the JAX suite's odd shapes (cross
      attention T 128 / S 384 with D 32, causal T 100 and T 768) and at
      the edges of the tensor-core tiles (D 40 and D 128, causal T 129,
-     T 200 / S 72, B*H = 1); launch the bf16 forward, dK/dV and dQ twice
-     on the training shape and require bit-identical outputs; time each
-     kernel at the training shape in bf16 (the tensor-core kernels) and
-     in f32 (the CUDA-core kernels) with a cold L2 beside its plain
-     version, its bound and scaled_dot_product_attention in the same
-     dtype (forward, and its backward for dK/dV and dQ together), with
-     its registers, shared memory, spills and tensor-core instruction
-     count;
+     T 200 / S 72, B*H = 1); launch the bf16 forward, dK/dV and dQ and
+     the f32 forward twice on the training shape and require
+     bit-identical outputs; time each kernel at the training shape in
+     bf16 (the tensor-core kernels) and in f32 (the forward in 3xTF32 on
+     the tensor cores, the backward on the CUDA cores) with a cold L2
+     beside its plain version, its bound (the f32 forward's also at the
+     3xTF32 rate) and scaled_dot_product_attention in the same dtype
+     (forward, and its backward for dK/dV and dQ together), with its
+     registers, shared memory, spills and tensor-core instruction count;
   6. train the repo's training configuration (bench.py:913-931: the
      model above, bf16, tokens [8, 1025], SGD lr 1e-3,
      attn_impl="flash"): 2 warm-up steps, then 10 timed steps on one
@@ -67,10 +70,10 @@ Phases (any failure exits non-zero):
      Bt 32, 32 slots, contexts up to 1024, a 128-row chunk at start 256,
      a 4-row verify window), at phase 11's verify shape (Bt 16, 64
      table entries), at Dh 32, Bt 16, R 3 and at Dh 128, with -1 tails
-     (bit-identical) and a parked row, bf16 also against the split plain
-     version and relaunched as in phase 2; bf16 timings with a cold L2
-     beside the plain versions and the unquantized kernel at the same
-     shape;
+     (bit-identical) and a parked row, also against the split plain
+     version and relaunched as in phase 2; timings with a cold L2 for q
+     in bf16 and in f32 beside the plain versions, and (bf16) the
+     unquantized kernel at the same shape;
   9. the repo's serving_quant configuration (bench.py:1783-1808: the
      model above in bf16, 32 slots, 32-token blocks, 128-token chunks,
      an 8192-token prefix cache, one KV byte budget of (max_len // Bt)
@@ -135,7 +138,7 @@ Phases (any failure exits non-zero):
      backward_q each launched exactly once; the op's output held against
      flash_attention_plain at phase 5's bf16 tolerance;
  19. read the device time of each of the two CUDA kernels (split and
-     merge) of every bf16 paged call timed in phases 2 and 8
+     merge) of every paged call timed in phases 2 and 8 (bf16 and f32 q)
      (torch.profiler; run after phase 24, because a profiler window
      slows the host work of every later phase);
  20. the LSTM benchmark (bench.py:800-850, benchmark/paddle/rnn) through
@@ -506,6 +509,9 @@ import numpy as np
 # bf16 tensor-core FLOP/s; float32 outside the tensor cores
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# dense TF32 on the tensor cores (the data sheet's 989 TFLOP/s with
+# sparsity, halved): the f32 forward's three TF32 products run at it
+TF32_FLOPS = 494.7e12
 TPU_KERNEL = "paddle_tpu/parallel/paged_attention.py:79"
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -689,14 +695,14 @@ def case_parts(tpa, which, c):
 
 
 def check_case(torch, tpa, which, c, label):
-    """The wrapper vs the plain version (and for bf16 q, the split
+    """The wrapper vs the plain version (and on the card, the split
     kernel vs the split plain version at its partition count, and a
     relaunch bit-identical); a -1 table tail bit-identical to a full
     table."""
     tol = 1e-4 if c["q"].dtype == torch.float32 else 2e-2
     got = run_wrapper(tpa, which, c, c["part"])
     got_full = run_wrapper(tpa, which, c, c["full"])
-    split = c["q"].dtype == torch.bfloat16 and got.is_cuda
+    split = got.is_cuda
     if split:
         again = run_wrapper(tpa, which, c, c["part"])
     if got.is_cuda:
@@ -801,9 +807,9 @@ def kernel_device_ms(torch, fn, names, n=20):
 
 def time_case(torch, tpa, which, c, label):
     """Kernel and plain-version device ms with a cold L2, and the bound;
-    for bf16 q also the split plain version's time and the partition
-    count, and the call itself (`call`) for phase 19, which reads each of
-    its two kernels' device time."""
+    also the split plain version's time and the partition count, and the
+    call itself (`call`) for phase 19, which reads each of its two
+    kernels' device time."""
     R, Bt, MAXB = c["q"].shape[1], c["k"].shape[1], c["part"].shape[1]
     ms = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"]))
     plain = time_ms(torch, lambda: run_wrapper(tpa, which, c, c["part"],
@@ -811,18 +817,16 @@ def time_case(torch, tpa, which, c, label):
     b, by = bound_ms(c, attended_tokens(c, R, Bt, MAXB),
                      str(c["q"].dtype).split(".")[-1])
     res = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
-    note = ""
-    if c["q"].dtype == torch.bfloat16:
-        parts = case_parts(tpa, which, c)
-        res["partitions"] = parts
-        res["shared_bytes"] = tpa.split_shared_bytes(c["k"].dtype, R,
-                                                     c["q"].shape[3])
-        res["split_plain_ms"] = time_ms(torch, lambda: run_wrapper(
-            tpa, which, c, c["part"], plain=True, parts=parts), iters=10)
-        res["label"] = "%s %s" % (which, label)
-        res["call"] = lambda: run_wrapper(tpa, which, c, c["part"])
-        note = "; %d partitions, %d B shared, split plain %.4f ms" % (
-            parts, res["shared_bytes"], res["split_plain_ms"])
+    parts = case_parts(tpa, which, c)
+    res["partitions"] = parts
+    res["shared_bytes"] = tpa.split_shared_bytes(c["k"].dtype, R,
+                                                 c["q"].shape[3])
+    res["split_plain_ms"] = time_ms(torch, lambda: run_wrapper(
+        tpa, which, c, c["part"], plain=True, parts=parts), iters=10)
+    res["label"] = "%s %s" % (which, label)
+    res["call"] = lambda: run_wrapper(tpa, which, c, c["part"])
+    note = "; %d partitions, %d B shared, split plain %.4f ms" % (
+        parts, res["shared_bytes"], res["split_plain_ms"])
     log("  %-8s %-10s kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s)%s; "
         "no single PyTorch call computes paged attention"
         % (which, label, ms, plain, b, by, note))
@@ -834,8 +838,8 @@ PAGED_KERNELS = ("paged_split_kernel", "paged_merge_kernel")
 
 
 def phase_split_times(torch, records):
-    """Phase 13: the split and merge kernels' device time (torch.profiler,
-    warm L2) of every bf16 call time_case timed, into its record. A
+    """Phase 19: the split and merge kernels' device time (torch.profiler,
+    warm L2) of every call time_case timed, into its record. A
     profiler window slows the host work of every later phase, so this
     runs once the other phases are done."""
     for res in records:
@@ -860,9 +864,8 @@ SPEC_SHAPES = dict(H=8, Dh=64, Bt=16, MAXB=64, NB=1024)
 def phase_kernels(torch, tpa):
     """Phase 2: the three paged wrappers against their plain versions
     for q in bf16 and f32 at the serving shapes and odd ones; each timed
-    at the serving shapes in both dtypes (bf16: the split-context
-    kernel; f32: the single-pass CUDA-core kernel). Returns (errors,
-    bf16 timings, f32 timings)."""
+    at the serving shapes in both dtypes (the split-context kernel).
+    Returns (errors, bf16 timings, f32 timings)."""
     rng = np.random.RandomState(0)
     shapes = SPEC_SHAPES
     errs, timing, timing32 = {}, {}, {}
@@ -900,6 +903,18 @@ def phase_kernels(torch, tpa):
             rng, torch, dtype, S=1, R=13, base=[21], **odd),
             "prefill %s Dh=32 Bt=8 C=13" % name)
         check_wide(torch, tpa, np.random.RandomState(2), dtype)
+    # 64 slots over 256-token contexts fill two waves of CTAs with one
+    # partition: the split kernel writes the output itself, no merge
+    rng = np.random.RandomState(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kvq in (None, "int8"):
+            c = make_case(rng, torch, dtype, S=64, R=1, parked=True,
+                          kvq=kvq, H=8, Dh=64, Bt=16, MAXB=16, NB=1024)
+            if c["q"].is_cuda:
+                check(case_parts(tpa, "decode", c) == 1,
+                      "expected one partition at 64 slots x 256 tokens")
+            check_case(torch, tpa, "decode", c, "decode %s %s one partition"
+                       % (kvq or "none", str(dtype).split(".")[-1]))
     return errs, timing, timing32
 
 
@@ -909,15 +924,16 @@ def phase_kernels_quant(torch, tpa):
     slots, contexts up to 1024, a 128-row chunk at start 256, a 4-row
     verify window), at one odd shape (Dh 32, Bt 16, R 3), at Dh 128 and
     on a verify case whose slots' contexts lie in one partition and span
-    them all; then bf16 timings with a cold L2 of every wrapper over
-    int8, fp8 and (the unquantized kernel at the same shape) bf16 pools.
-    Last, the verify wrapper over int8 and fp8 pools at the spec
-    engine's shape (Bt 16, 64 table entries, a parked row), where phase
-    11 launches it, checked in bf16 and f32 and timed in bf16."""
+    them all; then timings with a cold L2 of every wrapper over int8,
+    fp8 and (the unquantized kernel at the same shape, bf16 q) bf16
+    pools, q in bf16 and in f32. Last, the verify wrapper over int8 and
+    fp8 pools at the spec engine's shape (Bt 16, 64 table entries, a
+    parked row), where phases 11 and 12 launch it, checked and timed in
+    bf16 and f32. Returns (errors, bf16 timings, f32 timings)."""
     rng = np.random.RandomState(3)
     shapes = dict(H=8, Dh=64, Bt=32, MAXB=32, NB=1024)
     odd = dict(H=4, Dh=32, Bt=16, MAXB=16, NB=60)
-    errs, timing = {}, {}
+    errs, timing, timing32 = {}, {}, {}
     for kvq in (None, "int8", "fp8"):
         kname = kvq or "none"
         for dtype in (torch.bfloat16, torch.float32):
@@ -949,10 +965,13 @@ def phase_kernels_quant(torch, tpa):
                     % (kname, name))
                 check_wide(torch, tpa, np.random.RandomState(6), dtype,
                            kvq=kvq)
-            if dtype == torch.bfloat16:
-                for which, c in cases.items():
+            for which, c in cases.items():
+                if dtype == torch.bfloat16:
                     timing[(which, kname)] = time_case(
                         torch, tpa, which, c, "%s pool" % kname)
+                elif kvq is not None:
+                    timing32[(which, kvq)] = time_case(
+                        torch, tpa, which, c, "%s f32 q" % kname)
     # the verify launches run under spec decoding at SPEC_ENGINE's shape
     # (Bt 16, MAXB 64): phase 2's verify case for the unquantized pool
     for kvq in ("int8", "fp8"):
@@ -963,10 +982,10 @@ def phase_kernels_quant(torch, tpa):
             errs[("verify_spec", kvq, name)] = check_case(
                 torch, tpa, "verify", c, "verify %s q %s Bt=16 (spec)"
                 % (kvq, name))
-            if dtype == torch.bfloat16:
-                timing[("verify_spec", kvq)] = time_case(
-                    torch, tpa, "verify", c, "%s Bt16" % kvq)
-    return errs, timing
+            (timing if dtype == torch.bfloat16 else timing32)[
+                ("verify_spec", kvq)] = time_case(
+                    torch, tpa, "verify", c, "%s Bt16 %s" % (kvq, name))
+    return errs, timing, timing32
 
 
 # ---------------------------------------------------------------------
@@ -1791,10 +1810,13 @@ def check_flash(torch, tfa, c, causal, label):
     return errs
 
 
-def flash_bound_ms(which, B, T, S, H, D, esize, causal, dtype_name):
+def flash_bound_ms(which, B, T, S, H, D, esize, causal, dtype_name,
+                   tf32x3=False):
     """Least time for one flash kernel's work: every input read once and
     every output written once over the HBM rate, vs 2*D flops per
-    attended (q, k) pair per matrix product at the peak rate."""
+    attended (q, k) pair per matrix product at the peak rate of
+    `dtype_name`, or with `tf32x3` three times those flops (three TF32
+    products an f32 product) at the dense TF32 rate."""
     pairs = B * H * (T * (T + 1) // 2 if causal else T * S)
     flops = 2 * D * pairs * FLASH_PRODUCTS[which]
     qs, ks, rows = B * T * H * D * esize, B * S * H * D * esize, B * H * T * 4
@@ -1803,7 +1825,8 @@ def flash_bound_ms(which, B, T, S, H, D, esize, causal, dtype_name):
               "backward_q": 3 * qs + 2 * ks + 2 * rows,   # q g k v lse d -> dq
               }[which]
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_ops = (3 * flops / TF32_FLOPS if tf32x3 else
+             flops / PEAK_FLOPS[dtype_name]) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations")
 
@@ -1847,8 +1870,9 @@ def ptxas_usage(text):
 
 
 def sass_tensor_ops(lib_path, nvcc):
-    """{mangled kernel name: count of tensor-core instructions (HMMA,
-    HGMMA)} in the library's SASS, by cuobjdump beside nvcc."""
+    """{mangled kernel name: (count of tensor-core instructions (HMMA,
+    HGMMA), count of all instructions)} in the library's SASS, by
+    cuobjdump beside nvcc."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib_path],
                           capture_output=True, text=True, timeout=300,
@@ -1857,28 +1881,31 @@ def sass_tensor_ops(lib_path, nvcc):
     for line in text.splitlines():
         if "Function :" in line:
             cur = line.split("Function :", 1)[1].strip()
-            counts[cur] = 0
-        elif cur is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[cur] += 1
+            counts[cur] = [0, 0]
+        elif cur is not None and re.match(r"\s*/\*[0-9a-f]+\*/\s+\S", line):
+            counts[cur][1] += 1
+            if "HMMA" in line or "HGMMA" in line:
+                counts[cur][0] += 1
     return counts
 
 
 def _kernel_label(mangled):
-    """flash_forward_mma_kernel<bf16, 64> and the like, from a mangled
-    name (None for anything else)."""
-    m = re.search(r"(flash_[a-z_]+_kernel)I(13__nv_bfloat16|f)?Li(\d+)E",
-                  mangled)
+    """flash_forward_mma_kernel<bf16, 64>, flash_forward_tf32x3_kernel<f32,
+    64> and the like, from a mangled name (None for anything else)."""
+    m = re.search(r"(flash_[a-z_]+(?:tf32x3)?_kernel)I(13__nv_bfloat16|f)?"
+                  r"Li(\d+)E", mangled)
     if m is None:
         return None
-    dtype = "f32" if m[2] == "f" else "bf16"
+    dtype = "f32" if m[2] == "f" or "_tf32x3_" in m[1] else "bf16"
     return "%s<%s, %s>" % (m[1], dtype, m[3])
 
 
 def flash_build_report(_build):
     """Phase 1's report of every flash kernel instantiation: registers,
     stack and spills (nvcc) and tensor-core instructions (SASS). Gate:
-    each of the nine tensor-core kernels (three passes x D 32/64/128)
-    holds HMMA/HGMMA and spills 0 bytes."""
+    each of the twelve tensor-core kernels (three bf16 passes and the
+    f32 forward in 3xTF32, x D 32/64/128) holds HMMA/HGMMA and spills 0
+    bytes."""
     usage = ptxas_usage(_build.compiler_output("flash_attention"))
     lib = _build.build(["flash_attention"])["flash_attention"]
     ops = sass_tensor_ops(lib, _build._nvcc())
@@ -1887,16 +1914,19 @@ def flash_build_report(_build):
         label = _kernel_label(name)
         if label is None:
             continue
-        u = dict(u, tensor_core_ops=ops.get(name, 0))
+        tensor, total = ops.get(name, (0, 0))
+        u = dict(u, tensor_core_ops=tensor, sass_instructions=total)
         report[label] = u
         log("  %-38s %3d registers, stack %d B, spills %d B stored / %d B "
-            "loaded, %d tensor-core instructions (HMMA/HGMMA) in SASS"
-            % (label, u.get("registers", -1), u.get("stack", -1),
-               u.get("spill_stores", -1), u.get("spill_loads", -1),
-               u["tensor_core_ops"]))
-    mma = {k: u for k, u in report.items() if "_mma_kernel" in k}
-    check(len(mma) == 9, "expected the bf16 forward, dK/dV and dQ "
-          "tensor-core kernels at D 32, 64 and 128, found %s" % sorted(mma))
+            "loaded, %d tensor-core instructions (HMMA/HGMMA) of %d in "
+            "SASS" % (label, u.get("registers", -1), u.get("stack", -1),
+                      u.get("spill_stores", -1), u.get("spill_loads", -1),
+                      u["tensor_core_ops"], total))
+    mma = {k: u for k, u in report.items()
+           if "_mma_kernel" in k or "_tf32x3_kernel" in k}
+    check(len(mma) == 12, "expected the bf16 forward, dK/dV and dQ and "
+          "the f32 forward tensor-core kernels at D 32, 64 and 128, found "
+          "%s" % sorted(mma))
     for k, u in mma.items():
         check(u["tensor_core_ops"] > 0, "%s has no tensor-core instruction"
               % k)
@@ -1910,12 +1940,14 @@ _TYPE_CODES = (("13__nv_bfloat16", "bf16"), ("13__nv_fp8_e4m3", "e4m3"),
 
 
 def _paged_label(mangled):
-    """paged_split_kernel<bf16, 1, 2> and the like, from a mangled name
-    (None for anything else)."""
+    """paged_split_kernel<bf16, e4m3, 1, 2> and the like, from a mangled
+    name (None for anything else). A named type met again is mangled as
+    a substitution, S<n>_ for the (n+1)-th named type (S_ is the
+    template's own name)."""
     m = re.search(r"(paged_[a-z_]+_kernel)", mangled)
     if m is None:
         return None
-    rest, args = mangled[m.end():], []
+    rest, args, named = mangled[m.end():], [], []
     if rest.startswith("I"):
         rest = rest[1:]
         while rest and not rest.startswith("E"):
@@ -1924,9 +1956,19 @@ def _paged_label(mangled):
                 args.append(n[1])
                 rest = rest[n.end():]
                 continue
+            n = re.match(r"S([0-9A-Z]+)_", rest)
+            if n:
+                i = int(n[1], 36)
+                if i >= len(named):
+                    return None
+                args.append(named[i])
+                rest = rest[n.end():]
+                continue
             for code, name in _TYPE_CODES:
                 if rest.startswith(code):
                     args.append(name)
+                    if code[0].isdigit():
+                        named.append(name)
                     rest = rest[len(code):]
                     break
             else:
@@ -1948,7 +1990,7 @@ def paged_build_report(_build):
             "loaded" % (label, u.get("registers", -1), u.get("stack", -1),
                         u.get("spill_stores", -1), u.get("spill_loads", -1)))
     check(any(k.startswith("paged_split_kernel") for k in report)
-          and "paged_merge_kernel" in report,
+          and any(k.startswith("paged_merge_kernel") for k in report),
           "the split and merge kernels are missing from the build: %s"
           % sorted(report))
     return report
@@ -1964,9 +2006,10 @@ FLASH_TRAIN_KERNEL = {
 
 
 # the kernel instantiation each flash entry point launches for f32 at
-# the training shape's head width: PR 2's CUDA-core kernels
+# the training shape's head width: the forward in 3xTF32 on the tensor
+# cores, the CUDA-core kernels for the backward
 FLASH_TRAIN_KERNEL_F32 = {
-    "forward": "flash_forward_kernel<f32, 64>",
+    "forward": "flash_forward_tf32x3_kernel<f32, 64>",
     "backward_kv": "flash_backward_kv_kernel<f32, 64>",
     "backward_q": "flash_backward_q_kernel<f32, 64>",
 }
@@ -1976,8 +2019,8 @@ def phase_flash(torch, tfa, build_report):
     """Phase 5: the three flash kernels vs their plain versions at the
     training shape (bf16 and f32, causal) and the JAX suite's odd shapes,
     then timings at the training shape in bf16 (the tensor-core kernels)
-    and in f32 (the CUDA-core kernels). Returns (errors, bf16 timings,
-    f32 timings)."""
+    and in f32 (the forward in 3xTF32, the CUDA-core backward). Returns
+    (errors, bf16 timings, f32 timings)."""
     rng = np.random.RandomState(5)
     B, T, H, D = TRAIN["batch"], TRAIN["seq"], FULL["heads"], \
         FULL["dim"] // FULL["heads"]
@@ -2024,6 +2067,13 @@ def phase_flash(torch, tfa, build_report):
         log("  %-11s bf16 twice on the training shape: bit-identical %s"
             % (which, same))
         check(same, "%s kernel is not deterministic" % which)
+    first = run_flash(tfa, "forward", full["float32"], True)
+    again = run_flash(tfa, "forward", full["float32"], True)
+    same = all(torch.equal(x, y) for x, y in zip(first, again))
+    log("  forward     f32 (3xTF32) twice on the training shape: "
+        "bit-identical %s" % same)
+    check(same, "the f32 forward kernel is not deterministic")
+    del first, again
     timing = {}
     for name, label, kernels in (("bfloat16", "bf16", FLASH_TRAIN_KERNEL),
                                  ("float32", "f32", FLASH_TRAIN_KERNEL_F32)):
@@ -2045,10 +2095,21 @@ def phase_flash(torch, tfa, build_report):
             timing[name][which] = dict(
                 ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
                 library_ms=lib, kernel=kern, resources=res)
+            note = ""
+            if "_tf32x3_" in kern:
+                # the f32 FMA bound above, and the operations this kernel
+                # does: three TF32 products an f32 product
+                b3, by3 = flash_bound_ms(which, B, T, T, H, D,
+                                         c["q"].element_size(), True, name,
+                                         tf32x3=True)
+                timing[name][which].update(bound_f32_fma_ms=b,
+                                           bound_tf32x3_ms=b3,
+                                           bound_tf32x3_by=by3)
+                note = ", 3xTF32 bound %.4f ms (%s)" % (b3, by3)
             log("  %-11s %s: kernel %.4f ms, plain %.4f ms, bound %.4f ms "
-                "(%s), SDPA %s %.4f ms; %s: %s registers, %d B shared, "
+                "(%s)%s, SDPA %s %.4f ms; %s: %s registers, %d B shared, "
                 "spills %s B / %s B, %s tensor-core instructions"
-                % (which, label, ms, plain, b, by, "forward"
+                % (which, label, ms, plain, b, by, note, "forward"
                    if which == "forward" else "backward (dq, dk, dv)", lib,
                    kern, res.get("registers"), res["shared_bytes"],
                    res.get("spill_stores"), res.get("spill_loads"),
@@ -9402,7 +9463,7 @@ def main():
         tpa, tfa, lambda: phase_train_parity(torch, T))
 
     log("phase 8: the paged kernel's dequant branch vs plain version")
-    qerrs, qtiming = phase_kernels_quant(torch, tpa)
+    qerrs, qtiming, qtiming32 = phase_kernels_quant(torch, tpa)
 
     params = T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
@@ -9617,19 +9678,22 @@ def main():
         "split along both dimensions")
     mesh_global = phase_mesh_global(torch, fluid, tfa, card=card)
 
-    log("phase 19: the bf16 paged calls' two kernels under torch.profiler")
-    phase_split_times(torch, list(timing.values()) + list(qtiming.values()))
+    log("phase 19: the paged calls' two kernels under torch.profiler")
+    phase_split_times(torch, [*timing.values(), *qtiming.values(),
+                              *timing32.values(), *qtiming32.values()])
 
     kernels = []
     paged_note = "no single PyTorch call computes paged attention"
 
-    def paged_fields(which, pool, tm):
-        """The two CUDA kernels a bf16 call of this wrapper launches (Dh
-        64), their resources and device times, and the partitions."""
-        split = "paged_split_kernel<%s, %d, 2>" % (
-            pool, {"decode": 1, "verify": 4, "prefill": 16}[which])
+    def paged_fields(which, tq, pool, tm):
+        """The two CUDA kernels a call of this wrapper launches (q in
+        `tq`, Dh 64), their resources and device times, and the
+        partitions."""
+        split = "paged_split_kernel<%s, %s, %d, 2, 2>" % (
+            tq, pool, {"decode": 1, "verify": 4, "prefill": 16}[which])
+        merge = "paged_merge_kernel<%s>" % tq
         return {
-            "cuda_kernels": [split, "paged_merge_kernel"],
+            "cuda_kernels": [split, merge],
             "partitions": tm["partitions"],
             "split_kernel_ms": tm["split_kernel_ms"],
             "merge_kernel_ms": tm["merge_kernel_ms"],
@@ -9637,8 +9701,7 @@ def main():
             "design": "split context over %d partitions, CUDA cores, f32 "
                       "math, cp.async ring per warp" % tm["partitions"],
             "resources": dict(
-                {k: paged_report.get(k) for k in
-                 (split, "paged_merge_kernel")},
+                {k: paged_report.get(k) for k in (split, merge)},
                 split_shared_bytes=tm["shared_bytes"]),
         }
 
@@ -9670,7 +9733,7 @@ def main():
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
             "library_ms": None, "library_note": paged_note, "card": card,
-        }, **paged_fields(which, "bf16", tm)))
+        }, **paged_fields(which, "bf16", "bf16", tm)))
     for kvq in ("int8", "fp8"):
         for which in ("decode", "prefill", "verify"):
             # each entry's numbers come from the shape its launches ran
@@ -9703,8 +9766,8 @@ def main():
                 "unquantized_ms_same_shape": unq,
                 "library_ms": None, "library_note": paged_note,
                 "card": card,
-            }, **paged_fields(which, "int8" if kvq == "int8" else "e4m3",
-                              tm)))
+            }, **paged_fields(which, "bf16",
+                              "int8" if kvq == "int8" else "e4m3", tm)))
     for which in ("forward", "backward_kv", "backward_q"):
         tm = flash_timing[which]
         kernels.append({
@@ -9733,9 +9796,10 @@ def main():
             "kernel": tm["kernel"], "resources": tm["resources"],
             "card": card,
         })
-    # the f32 kernels (q in f32: the paged single-pass kernel, PR 1's;
-    # the flash CUDA-core kernels, PR 2's), launched on the phases that
-    # run f32 alone: 4, 7, 10, 12, 42 (a') and 43 (c)
+    # the f32 kernels (q in f32: the paged split kernel over f32, int8
+    # and e4m3 pools; the flash forward in 3xTF32 and the CUDA-core
+    # backward), launched on the phases that run f32 alone: 4, 7, 10,
+    # 12, 42 (a') and 43 (c)
     f32_counts["phase 42 (a')"] = fleet["f32_kill"]["launches"]
     f32_counts["phase 43 (c)"] = dict(flash=lm_paths["tp_flash_launches"])
     for which in ("decode", "prefill", "verify"):
@@ -9747,8 +9811,7 @@ def main():
             quant = sum(q[which] for q in n["paged_quant"].values())
             by_phase[ph] = n["paged"][which] - quant
             quant_by_phase[ph] = quant
-        kern = "paged_attention_kernel<f32, f32>"
-        kernels.append({
+        kernels.append(dict({
             "name": "paged_attention f32 q (%s, paged_%s_attention)"
                     % (which, which),
             "route": "cuda", "source": SOURCE, "replaces": TPU_KERNEL,
@@ -9758,15 +9821,37 @@ def main():
             "max_abs_err": errs[(which, "float32")],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
             "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-            "library_ms": None, "library_note": paged_note,
-            "design": "single pass, CUDA cores, f32 math (PR 1's kernel)",
-            "cuda_kernels": [kern], "resources": {kern: paged_report.get(
-                kern)}, "card": card,
-        })
+            "library_ms": None, "library_note": paged_note, "card": card,
+        }, **paged_fields(which, "f32", "f32", tm)))
+    for kvq in ("int8", "fp8"):
+        for which in ("decode", "prefill", "verify"):
+            if (kvq, which) == ("fp8", "verify"):
+                continue  # phase 12's f32 spec runs over none and int8 only
+            # as the bf16 dequant entries: decode and prefill at phase 9's
+            # shape (Bt 32), verify at phase 11's (Bt 16)
+            key = ("verify_spec", kvq) if which == "verify" else (which,
+                                                                  kvq)
+            tm = qtiming32[key]
+            by_phase = {ph: n["paged_quant"][kvq][which]
+                        for ph, n in f32_counts.items() if "paged" in n}
+            kernels.append(dict({
+                "name": "paged_attention dequant f32 q (%s, %s pool, "
+                        "paged_%s_attention)" % (which, kvq, which),
+                "route": "cuda", "source": SOURCE,
+                "replaces": TPU_KERNEL + " (quant=True branch)",
+                "launches": sum(by_phase.values()),
+                "launches_by_phase": by_phase,
+                "max_abs_err": qerrs[key + ("float32",)],
+                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
+                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+                "library_ms": None, "library_note": paged_note,
+                "card": card,
+            }, **paged_fields(which, "f32",
+                              "int8" if kvq == "int8" else "e4m3", tm)))
     for which in ("forward", "backward_kv", "backward_q"):
         tm = flash_timing32[which]
         by_phase = {ph: n["flash"][which] for ph, n in f32_counts.items()}
-        kernels.append({
+        entry = {
             "name": "flash_attention f32 (%s, flash_%s)" % (which, which),
             "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[which],
@@ -9783,7 +9868,17 @@ def main():
             "design": "CUDA cores, f32 FMA (PR 2's kernel)",
             "kernel": tm["kernel"], "resources": tm["resources"],
             "card": card,
-        })
+        }
+        if "bound_tf32x3_ms" in tm:
+            # the least time for the operations this kernel does (three
+            # TF32 products an f32 product); the f32 FMA bound beside it
+            entry.update(
+                bound_ms=tm["bound_tf32x3_ms"],
+                bound_by=tm["bound_tf32x3_by"],
+                bound_f32_fma_ms=tm["bound_f32_fma_ms"],
+                design="tensor cores, 3xTF32: mma.sync m16n8k8 .tf32 "
+                       "three times a product, f32 accumulators")
+        kernels.append(entry)
     log("kernels: " + ", ".join("%s launches=%d" % (k["name"], k["launches"])
                                 for k in kernels))
     idle = [k["name"] for k in kernels if not k["launches"]]

@@ -13,7 +13,7 @@
 // the input dtype before P.V and P^T.g, dS = P * (g.V^T - delta) * scale
 // rounded to the input dtype before dS^T.Q and dS.K.
 //
-// Two designs share the entry points:
+// Three designs share the entry points:
 //
 // bf16 (all three passes): FlashAttention-2's structure on the tensor
 // cores (`flash_forward_mma_kernel`, `flash_backward_kv_mma_kernel`,
@@ -57,30 +57,55 @@
 //   two mma) are the next limit. wgmma, TMA and warp specialisation are
 //   the step after this one.
 //
-// f32 (all three passes): the CUDA-core design, the f32 parity path,
-// equal to the reference attention to the last bit in the losses;
-// tensor cores in TF32 would change those numbers.
+// f32 forward: the same structure on the tensor cores in 3xTF32
+// (`flash_forward_tf32x3_kernel`). An f32 operand x is split into two
+// TF32 values, hi = rna(x) and lo = rna(x - hi) (cvt.rna's rounding, in
+// integer ops), and each product of
+// tiles a.b is three mma.sync m16n8k8 .tf32 products accumulated in
+// f32, the small terms first: a_lo.b_hi + a_hi.b_lo + a_hi.b_hi. That
+// holds f32's accuracy (about 2^-22 of each product; one TF32 product
+// alone keeps about 2^-11) at several times the CUDA cores' FMA rate.
+//   * Q.K^T and P.V both take the split; P stays f32 (the TPU kernel's
+//     astype(f32) is the identity) and is split like any operand;
+//   * Q and K fragments come from ldmatrix (b16 x4 over f32 rows: lane
+//     i gets word i % 4 of row i / 4, the tf32 A and B layouts); V has
+//     no 32-bit transposing load, so its B fragments are 32-bit shared
+//     loads. The m16n8 accumulator holds keys 2t, 2t + 1 of a row where
+//     the A fragment wants columns t, t + 4, so keys are permuted
+//     within each group of eight (column t is key 2t, t + 4 is 2t + 1)
+//     and V is read with the same permutation: P never leaves its lane;
+//   * tiles are [rows][D + 4] f32: ldmatrix's rows and the V loads are
+//     free of bank conflicts. The CTA's Q tile stays in shared memory
+//     (its fragments split at each use) beside the two-stage K/V ring:
+//     104,448 B at D 64, two CTAs an SM;
+//   * numerics and edges as the bf16 forward: scale after QK^T, the
+//     NEG_INF fill with its exact guards, lse = m + log(max(l, 1e-30)),
+//     ragged T and S, D padded to the 32/64/128 bucket; one owner per
+//     output tile, deterministic.
+//   What bounds it: the tensor cores at three TF32 products per f32
+//   product (3 x 8.6 GFLOP at the training shape over 494.7 TFLOP/s
+//   dense TF32), and ahead of them the splits (two integer ops, a
+//   subtract and two more per operand element at each use) on the ALUs.
+//
+// f32 backward (dK/dV and dQ): the CUDA-core design, f32 FMA.
 //   * each output tile is owned by one CTA; the TPU's sequential grid
 //     axis becomes a loop inside it, so no sums cross CTAs — no atomics,
 //     deterministic results:
-//       forward  — one CTA per (b*h, 64-row q tile), looping k tiles;
 //       dK/dV    — one CTA per (b*h, 64-row k tile), looping q tiles;
 //       dQ       — one CTA per (b*h, 64-row q tile), looping k tiles;
-//   * the causal skip is a loop bound, not a predicate: forward and dQ
-//     stop at the diagonal tile, dK/dV starts at it; q tiles are issued
-//     longest first so the causal triangle's tail does not idle SMs;
+//   * the causal skip is a loop bound, not a predicate: dQ stops at the
+//     diagonal tile, dK/dV starts at it; q tiles are issued longest
+//     first so the causal triangle's tail does not idle SMs;
 //   * tiles are staged in shared memory as f32 with 16-byte global
 //     loads (each row's D values are one contiguous segment); rows are
 //     padded to D+1 words so both operand walks are bank-conflict free;
 //   * 256 threads as a 16x16 grid, each owning a 4x4 micro-tile of the
-//     64x64 score tile (rows ty+16i, cols tx+16j) and 4 x D/16 outputs:
-//     per shared load ~2 FMAs, row statistics reduced with half-warp
-//     shuffles (a row's 16 owners sit in one half-warp);
+//     64x64 score tile (rows ty+16i, cols tx+16j) and 4 x D/16 outputs;
 //   * ragged edges (T = 100, S = 384, ...) are masked in the kernel:
 //     rows past T or S load as zeros, their probabilities are forced to
 //     0 and they are never written.
-//   What bounds it: f32 math on the CUDA cores, compute-bound at the
-//   67 TFLOP/s f32 peak at best.
+//   What bounds them: f32 math on the CUDA cores, compute-bound at the
+//   67 TFLOP/s f32 peak at best. They read the 3xTF32 forward's lse.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,19 +136,6 @@ __device__ __forceinline__ void unpack16<float>(const uint4& u, float* dst) {
   dst[1] = __uint_as_float(u.y);
   dst[2] = __uint_as_float(u.z);
   dst[3] = __uint_as_float(u.w);
-}
-
-// reductions over the 16 lanes of a half-warp (one row's owners)
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // Stage rows [r0, r0 + 64) of one (b, h) slice into dst [64][ld] as f32;
@@ -173,116 +185,6 @@ __device__ __forceinline__ void row_dot(const float* A, const float* B,
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// CUDA cores, f32: o and lse for one (b*h, q tile)
-// ---------------------------------------------------------------------
-template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_forward_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int Tq, int S, int D,
-                     float scale, int causal) {
-  constexpr int NJ = DM / 16;
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;
-  float* sK = sQ + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sP = sV + kTile * ld;  // [64][kLdP]
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const size_t rs = (size_t)H * D;
-  const T* qb = q + ((size_t)b * Tq * H + h) * D;
-  const T* kb = k + ((size_t)b * S * H + h) * D;
-  const T* vb = v + ((size_t)b * S * H + h) * D;
-
-  load_tile<T>(sQ, qb, q0, Tq, rs, D, ld);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-  int nk = (S + kTile - 1) / kTile;
-  if (causal) nk = min(nk, (q0 + kTile - 1) / kTile + 1);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous step is done with sK, sV, sP
-    load_tile<T>(sK, kb, k0, S, rs, D, ld);
-    load_tile<T>(sV, vb, k0, S, rs, D, ld);
-    __syncthreads();
-
-    float s[4][4];
-    row_dot(sQ, sK, ld, D, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      float mc = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const bool keep = c < S && (!causal || r >= c);
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
-        mc = fmaxf(mc, s[i][j]);
-      }
-      mc = half_max(mc);
-      const float m_new = fmaxf(m[i], mc);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // exact guard: a masked score contributes exactly 0
-        const float p = s[i][j] <= kNegInf ? 0.f : expf(s[i][j] - m_new);
-        sum += p;
-        sP[(ty + 16 * i) * kLdP + tx + 16 * j] = round_to<T>(p);
-      }
-      sum = half_sum(sum);
-      const float alpha = m[i] <= kNegInf ? 0.f : expf(m[i] - m_new);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P.V over this k tile (only its real rows)
-    const int kv_rows = min(kTile, S - k0);
-    for (int c = 0; c < kv_rows; ++c) {
-      float pv[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * kLdP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        vv[j] = tx + 16 * j < D ? sV[c * ld + tx + 16 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Tq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)(b * Tq + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(orow + d, acc[i][j] / denom);
-    }
-    if (tx == 0) lse[(size_t)bh * Tq + r] = m[i] + logf(denom);
   }
 }
 
@@ -1183,6 +1085,279 @@ flash_backward_q_mma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// f32 forward on the tensor cores in 3xTF32: o and lse for one (b*h,
+// 128-row q tile), the bf16 forward's structure over f32 tiles; warp w
+// owns q rows 16w..16w+15, each 64-key stage is taken as two 32-key
+// halves, each a full online-softmax update.
+// ---------------------------------------------------------------------
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite value: to
+// nearest, ties away from zero, the low 13 bits cleared. Adding half a
+// TF32 ulp to the magnitude bits carries into the exponent where it
+// should. ptxas expands cvt.rna into a sequence that also screens NaN
+// and Inf (about five instructions where this takes two); the operands
+// here are finite, and on them the two are bit-identical.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo, each a TF32; x - hi is exact in f32, so hi + lo holds x
+// to about 2^-22 of its size
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a.b over one m16n8k8 tile: tf32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in 3xTF32, the small terms first: a_lo.b_hi, a_hi.b_lo, then
+// a_hi.b_hi; a_lo.b_lo (about 2^-22 of the product) is left out
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// Shared memory of the 3xTF32 forward: a two-stage ring, each stage a K
+// then a V tile [kStep][P] f32, then the CTA's Q tile [kRows][P]. P = DM
+// + 4 words: a row is an odd number of 16-byte units, so ldmatrix's
+// eight rows fall on distinct banks, and P = 4 (mod 32), so the 32-bit V
+// loads of a warp (keys 2t and 2t + 1, head dims gr) are free of
+// conflicts too.
+template <int DM>
+struct Tf32Layout {
+  static constexpr int P = DM + 4;
+  static constexpr uint32_t kKV = kStep * P * sizeof(float);  // K or V
+  static constexpr uint32_t kQ = 4 * kKV;                      // Q's offset
+  static constexpr uint32_t kBytes = kQ + kRows * P * sizeof(float);
+};
+
+// ldmatrix x4 lane addresses into a row-major [rows][P] f32 tile, as byte
+// offsets from the tile's shared address. An 8x8 b16 matrix is 8 rows of
+// 4 f32 and lane i receives word i % 4 of row i / 4: the tf32 fragment.
+//   a — the A fragment of the 16x8 block at (r, c): a0 rows r.. columns
+//       c.., a1 rows r + 8.., a2 columns c + 4.., a3 both;
+//   b — {b0, b1} of n-tiles r and r + 8 (tile rows are n, the 8 columns
+//       from c are k).
+template <int P>
+struct Frag32 {
+  uint32_t a, b;
+  __device__ explicit Frag32(int lane)
+      : a(4 * ((lane & 15) * P + (lane >> 4) * 4)),
+        b(4 * (((lane & 7) + (lane >> 4) * 8) * P + ((lane >> 3) & 1) * 4)) {
+  }
+  __device__ static constexpr uint32_t blk(int r, int c) {
+    return 4 * (r * P + c);
+  }
+};
+
+// Queue the copy of rows [r0, r0 + ROWS) of one (b, h) f32 slice into the
+// [ROWS][P] tile at shared address `dst`, 16 bytes (4 floats) a copy;
+// rows at or past `len` and columns at or past D are zero-filled.
+template <int ROWS, int DM>
+__device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* src,
+                                            int r0, int len, int rs, int D) {
+  constexpr int kChunks = DM / 4;  // per row
+  constexpr int P = Tf32Layout<DM>::P;
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kMmaThreads) {
+    const int r = c / kChunks;
+    const int part = c % kChunks;
+    const bool in = r0 + r < len && part * 4 < D;
+    cp_async16(dst + 4 * (r * P + part * 4),
+               in ? src + (size_t)(r0 + r) * rs + part * 4 : src, in);
+  }
+}
+
+template <int DM>
+__global__ void __launch_bounds__(kMmaThreads, DM <= 64 ? 2 : 1)
+flash_forward_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ o, float* __restrict__ lse,
+                            int H, int Tq, int S, int D, float scale,
+                            int causal) {
+  using L = Tf32Layout<DM>;
+  constexpr int P = L::P;
+  constexpr int KD = DM / 8;  // k-steps of Q.K^T over the head dim
+  constexpr int NO = DM / 8;  // n-tiles of o
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = smem_addr(smem_raw);
+  const uint32_t sQ = ring + L::kQ;
+  const Frag32<P> fr(threadIdx.x & 31);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // accumulator rows gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2tc, 2tc + 1
+  const int qw = q0 + 16 * warp;
+  const int rs = H * D;  // row stride, elements
+  const float* qb = q + ((size_t)b * Tq * H + h) * D;
+  const float* kb = k + ((size_t)b * S * H + h) * D;
+  const float* vb = v + ((size_t)b * S * H + h) * D;
+
+  cp_tile_f32<kRows, DM>(sQ, qb, q0, Tq, rs, D);
+  cp_tile_f32<kStep, DM>(ring, kb, 0, S, rs, D);
+  cp_tile_f32<kStep, DM>(ring + L::kKV, vb, 0, S, rs, D);
+  cp_commit();
+  int nk = (S + kStep - 1) / kStep;
+  if (causal) nk = min(nk, (q0 + kRows - 1) / kStep + 1);
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kStep;
+    cp_wait<0>();
+    // step kt's tiles are visible to all, and every warp is done with
+    // step kt - 1, whose stage the next copy refills
+    __syncthreads();
+    if (kt + 1 < nk) {
+      const uint32_t nx = ring + ((kt + 1) & 1) * 2 * L::kKV;
+      cp_tile_f32<kStep, DM>(nx, kb, k0 + kStep, S, rs, D);
+      cp_tile_f32<kStep, DM>(nx + L::kKV, vb, k0 + kStep, S, rs, D);
+      cp_commit();
+    }
+    const uint32_t sK = ring + (kt & 1) * 2 * L::kKV;
+    const float* sV = reinterpret_cast<const float*>(
+        smem_raw + (kt & 1) * 2 * L::kKV + L::kKV);
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int kh = k0 + kHalf * hf;
+      if (causal && kh > qw + 15) continue;  // no row of this warp attends
+
+      // S = Q.K^T: 16 rows x 32 keys, n-tile j = keys kh + 8j..; Q's
+      // fragments are read from shared memory and split at each use
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qf[4], ah[4], al[4];
+        ldsm4(qf, sQ + fr.a + fr.blk(16 * warp, 8 * kd));
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(qf[i]), ah[i], al[i]);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t kf[4], bhi[4], blo[4];
+          ldsm4(kf, sK + fr.b + fr.blk(kHalf * hf + 16 * np, 8 * kd));
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_tf32(__uint_as_float(kf[i]), bhi[i], blo[i]);
+          mma3(s[2 * np], ah, al, bhi[0], bhi[1], blo[0], blo[1]);
+          mma3(s[2 * np + 1], ah, al, bhi[2], bhi[3], blo[2], blo[3]);
+        }
+      }
+
+      // scale after the product; mask only where a key can be out of
+      // reach (the ragged end of S, the causal diagonal)
+      const bool edge = kh + kHalf > S || (causal && kh + kHalf - 1 > qw);
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * scale;
+          if (edge) {
+            const int c = kh + 8 * j + 2 * tc + (e & 1);
+            const int r = qw + gr + 8 * (e >> 1);
+            if (!(c < S && (!causal || r >= c))) x = kNegInf;
+          }
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_new = fmaxf(m[i], quad_max(mx[i]));
+        alpha[i] = m[i] <= kNegInf ? 0.f : expf(m[i] - m_new);
+        m[i] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // exact guard: a masked score contributes exactly 0
+          const float x = s[j][e];
+          s[j][e] = x <= kNegInf ? 0.f : expf(x - m[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      // acc += P.V, k-step j = keys kh + 8j... P's accumulator holds keys
+      // 2tc and 2tc + 1 of a row, so the keys are permuted within the
+      // eight: A column t is key 2t and column t + 4 key 2t + 1, and V's
+      // B fragment is read with the same permutation. The sum over keys
+      // is unchanged and no shuffle moves P between lanes.
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);  // row gr,     key 2tc
+        split_tf32(s[j][2], ph[1], pl[1]);  // row gr + 8, key 2tc
+        split_tf32(s[j][1], ph[2], pl[2]);  // row gr,     key 2tc + 1
+        split_tf32(s[j][3], ph[3], pl[3]);  // row gr + 8, key 2tc + 1
+        const float* vr = sV + (kHalf * hf + 8 * j + 2 * tc) * P + gr;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          uint32_t vh0, vl0, vh1, vl1;
+          split_tf32(vr[8 * n], vh0, vl0);      // key 2tc, head dim 8n + gr
+          split_tf32(vr[P + 8 * n], vh1, vl1);  // key 2tc + 1
+          mma3(acc[n], ph, pl, vh0, vh1, vl0, vl1);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    if (r >= Tq) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    float* orow = o + ((size_t)(b * Tq + r) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * tc;
+      if (c < D)
+        *reinterpret_cast<float2*>(orow + c) =
+            make_float2(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
+    }
+    if (tc == 0) lse[(size_t)bh * Tq + r] = m[i] + logf(denom);
+  }
+}
+
+// ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
 
@@ -1197,15 +1372,15 @@ bool valid(const Shape& s, int elem) {
          s.D <= 128 && s.D % (16 / elem) == 0 && s.B * s.H <= 65535;
 }
 
-// Dynamic shared bytes per CTA of kernel `which` (0 forward, 1 dK/dV,
-// 2 dQ). CUDA cores: [64][D+1] tiles, [64][65] P/dS tiles and 64-float
-// rows; tensor cores: the forward's two-stage K/V ring, KvLayout.
+// Dynamic shared bytes per CTA of the CUDA-core f32 kernel `which` (1
+// dK/dV, 2 dQ): [64][D+1] tiles, [64][65] P/dS tiles and 64-float rows
 size_t fma_shared(int which, int D) {
-  constexpr int kParts[3][3] = {{3, 1, 0}, {4, 2, 2}, {4, 1, 2}};
-  return sizeof(float) * ((size_t)kParts[which][0] * kTile * (D + 1) +
-                          (size_t)kParts[which][1] * kTile * kLdP +
-                          (size_t)kParts[which][2] * kTile);
+  constexpr int kParts[2][3] = {{4, 2, 2}, {4, 1, 2}};
+  const int* n = kParts[which - 1];
+  return sizeof(float) * ((size_t)n[0] * kTile * (D + 1) +
+                          (size_t)n[1] * kTile * kLdP + (size_t)n[2] * kTile);
 }
+// tensor cores: the forward's two-stage K/V ring, KvLayout, QLayout
 template <int DM>
 size_t mma_shared(int which) {
   return which == 0   ? 4 * kStep * (DM + 8) * sizeof(bf16)
@@ -1269,17 +1444,18 @@ cudaError_t backward_q_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DM>
-cudaError_t forward(const void* q, const void* k, const void* v, void* o,
-                    float* lse, const Shape& s, cudaStream_t st) {
-  const size_t smem = fma_shared(0, s.D);
-  cudaError_t e = allow_smem(flash_forward_kernel<T, DM>, smem);
+template <int DM>
+cudaError_t forward_tf32x3(const void* q, const void* k, const void* v,
+                           void* o, float* lse, const Shape& s,
+                           cudaStream_t st) {
+  const size_t smem = Tf32Layout<DM>::kBytes;
+  cudaError_t e = allow_smem(flash_forward_tf32x3_kernel<DM>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.Tq + kTile - 1) / kTile, s.B * s.H);
-  flash_forward_kernel<T, DM><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, s.H, s.Tq, s.S, s.D,
-      s.scale, s.causal);
+  const dim3 grid(s.B * s.H, (s.Tq + kRows - 1) / kRows);
+  flash_forward_tf32x3_kernel<DM><<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, s.H, s.Tq,
+      s.S, s.D, s.scale, s.causal);
   return cudaGetLastError();
 }
 
@@ -1326,7 +1502,8 @@ cudaError_t backward_q(const void* q, const void* k, const void* v,
 // dq are [B, T, H, D]; k, v, dk, dv [B, S, H, D], all contiguous in the
 // input dtype (bf16 or f32); lse and delta [B, H, T] f32. Each returns
 // the cudaError_t of its launch (0 = launched) on `stream`. bf16 runs on
-// the tensor cores, f32 on the CUDA cores.
+// the tensor cores; the f32 forward in 3xTF32 on the tensor cores, the
+// f32 backward on the CUDA cores.
 extern "C" int flash_forward(const void* q, const void* k, const void* v,
                              void* o, void* lse, int is_bf16, int B, int H,
                              int T, int S, int D, float scale, int causal,
@@ -1338,10 +1515,10 @@ extern "C" int flash_forward(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
 #define MMA(DM) forward_mma<DM>(q, k, v, o, l, s, st)
-#define FMA(TT, DM) forward<TT, DM>(q, k, v, o, l, s, st)
-  e = is_bf16 ? MMA_DISPATCH(D, MMA) : FMA_DISPATCH(float, D, FMA);
+#define TF32(DM) forward_tf32x3<DM>(q, k, v, o, l, s, st)
+  e = is_bf16 ? MMA_DISPATCH(D, MMA) : MMA_DISPATCH(D, TF32);
 #undef MMA
-#undef FMA
+#undef TF32
   return (int)e;
 }
 
@@ -1371,7 +1548,10 @@ extern "C" int flash_backward_kv(const void* q, const void* k, const void* v,
 extern "C" int flash_shared_bytes(int which, int is_bf16, int D) {
   if (which < 0 || which > 2 || D <= 0 || D > 128) return -1;
 #define MMA(DM) mma_shared<DM>(which)
-  return (int)(is_bf16 ? MMA_DISPATCH(D, MMA) : fma_shared(which, D));
+#define TF32(DM) Tf32Layout<DM>::kBytes
+  if (is_bf16) return (int)MMA_DISPATCH(D, MMA);
+  return (int)(which == 0 ? MMA_DISPATCH(D, TF32) : fma_shared(which, D));
+#undef TF32
 #undef MMA
 }
 

@@ -27,14 +27,16 @@
 // (a decode step moves ~10-20 MB), so what the kernel must beat is
 // latency: enough CTAs in flight, and loads overlapped with math.
 //
-// bf16 q (over bf16, int8 or e4m3 pools): the split-context design
-// (flash-decoding), `paged_split_kernel` and `paged_merge_kernel`.
+// One design for q in bf16 and in f32 (over pools of q's dtype, int8 or
+// e4m3): split context (flash-decoding), `paged_split_kernel<TQ, TP, MR,
+// NDV, ST>` and `paged_merge_kernel<TQ>`, TQ the type of q and out, TP the
+// pools'.
 //   * the grid is (partition, row tile x head, slot): each CTA takes a
 //     contiguous range of about 256 tokens' table entries for up to 16
 //     window rows (1 for decode, 4 for a verify window) and writes its
 //     partial (m, l, acc[rows, Dh]) in f32 to a workspace; a second small
 //     kernel merges the partitions in partition order (weight exactly 0
-//     for an empty one) and writes acc / max(l, 1e-30) in bf16. With one
+//     for an empty one) and writes acc / max(l, 1e-30) in TQ. With one
 //     partition the first kernel writes the output itself. The partition
 //     count comes from the shapes alone (S, R, H, Bt, MAXB; at least two
 //     waves of CTAs on 132 SMs where the context allows), never from
@@ -50,27 +52,20 @@
 //     two-stage ring, the next group in flight while this one is
 //     computed, one warp barrier per step; rows are padded to an odd
 //     number of 16-byte chunks so a lane per row reads without bank
-//     conflicts. Conversion and dequantization happen in f32 at use;
+//     conflicts. Where two stages would pass the 227 KB a CTA may take
+//     (f32 pools at Dh 128: 528-byte rows), the ring has one stage and a
+//     warp issues its next group once it is done with the current one
+//     (the other warps' copies still overlap its math). Conversion and
+//     dequantization happen in f32 at use;
 //   * scores: a lane dots its token's K row with every q row (q staged
 //     once in f32, the verify/prefill scale folded in); P stays f32 and
 //     P.V runs token by token, each lane owning 2 or 4 head dims. No
-//     tensor cores: the TPU kernel computes in f32 throughout.
-//
-// f32 q: the single-pass design (`paged_attention_kernel<float, TP>`),
-// the f32 parity path the token-identity checks run on:
-//   * one CTA per (slot, head, tile of up to 16 window rows); the loop
-//     over table entries inside the CTA replaces the TPU's sequential
-//     grid axis, and stops at the deepest entry any row of the tile can
-//     attend (min(ceil((base+R)/Bt), MAXB)) — decode never touches
-//     blocks past a slot's position;
-//   * the CTA reads the block table itself and stages G table entries
-//     (G*Bt ~ 64 tokens) of K and V per step in shared memory with
-//     16-byte loads: each token's [Dh] head slice is a contiguous
-//     segment, so a warp's loads coalesce;
-//   * scores, the online (m, l, acc) update and the P.V product run
-//     from shared memory in f32 on the CUDA cores; acc lives in
-//     registers. A -1 (unallocated) entry clamps to block 0 and is
-//     excluded by the position mask, contributing exactly 0.
+//     tensor cores: the TPU kernel computes in f32 throughout, so f32 q
+//     and bf16 q run the same math and differ only in q's load and the
+//     output's store.
+//   * f32 pools double the bytes of a staged row (272 B at Dh 64): a
+//     CTA takes about 139 KB of shared memory there, one CTA an SM,
+//     against two for bf16 pools.
 // Left for later work: TMA loads in place of cp.async, and CUDA-graph
 // capture of the decode step around the kernels.
 
@@ -83,16 +78,10 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 16;     // window rows per CTA
-constexpr int kTileTokens = 64;  // target tokens staged per step
 constexpr int kMaxDh = 128;
-constexpr int kMaxAcc = kMaxRows * kMaxDh / kThreads;  // accumulators / thread
 constexpr float kNegInf = -1e30f;  // parallel/kernel_utils.py NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+// the most dynamic shared memory a CTA may take on sm_90 (227 KB)
+constexpr int kMaxShared = 232448;
 
 // one 16-byte chunk -> 16 / sizeof(T) floats
 template <typename T>
@@ -149,263 +138,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// TQ: q and out (float or bf16); TP: the pools (TQ, or int8 / e4m3 codes,
-// which come with the per-(block, head) scales k_scale / v_scale [NB, H])
-template <typename TQ, typename TP>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
-                       const TP* __restrict__ v_pool,
-                       const float* __restrict__ k_scale,
-                       const float* __restrict__ v_scale,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ base_arr, int base_scalar,
-                       TQ* __restrict__ out, int R, int H, int Dh, int NB,
-                       int Bt, int MAXB, int rt, int G, float scale,
-                       int scale_in_q) {
-  constexpr bool kQuant = sizeof(TP) == 1;
-  extern __shared__ float smem[];
-  const int TT = G * Bt;
-  float* sQ = smem;                   // [rt, Dh]
-  float* sK = sQ + rt * Dh;           // [TT, Dh + 1] (padded: no bank conflicts)
-  float* sV = sK + TT * (Dh + 1);     // [TT, Dh]
-  float* sP = sV + TT * Dh;           // [rt, TT] scores, then probabilities
-  float* sM = sP + rt * TT;           // [rt] running max
-  float* sL = sM + rt;                // [rt] running sum
-  float* sA = sL + rt;                // [rt] this step's rescale factor
-  float* sKS = sA + rt;               // [G] this step's K scales (quant)
-  float* sVS = sKS + G;               // [G] this step's V scales (quant)
-  int* sPB = reinterpret_cast<int*>(sVS + G);  // [G] physical blocks (quant)
-
-  const int s = blockIdx.z;
-  const int h = blockIdx.y;
-  const int r0 = blockIdx.x * rt;
-  const int nrows = min(rt, R - r0);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int base = base_arr != nullptr ? base_arr[s] : base_scalar;
-
-  // table entries any row of this tile can attend: depth <= base + r
-  const long long last = (long long)base + r0 + nrows - 1;
-  const long long reach = last < 0 ? 0 : last / Bt + 1;
-  const int nb = reach < MAXB ? (int)reach : MAXB;
-  const int n_steps = (nb + G - 1) / G;
-
-  for (int i = tid; i < rt * Dh; i += kThreads) {
-    const int r = i / Dh;
-    const int d = i - r * Dh;
-    float x = 0.f;
-    if (r < nrows) {
-      x = to_f32(q[(((size_t)s * R + r0 + r) * H + h) * Dh + d]);
-      if (scale_in_q) x *= scale;  // chunk family: scale folded into q
-    }
-    sQ[i] = x;
-  }
-  for (int r = tid; r < rt; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) acc[a] = 0.f;
-
-  constexpr int epc = 16 / sizeof(TP);  // elements per 16-byte chunk
-  const int cpr = Dh / epc;             // chunks per token row
-  const int* trow = tables + (size_t)s * MAXB;
-  __syncthreads();
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int j0 = step * G;
-    // -1 (unallocated) table entries clamp to block 0, masked by position
-    // below. A quantized pool reads the step's entries and their two
-    // scales once into shared memory; an unquantized pool reads its entry
-    // inline while staging and pays no extra barrier
-    if constexpr (kQuant) {
-      for (int jb = tid; jb < G; jb += kThreads) {
-        const int j = j0 + jb;
-        const int pb = j < nb ? min(max(trow[j], 0), NB - 1) : 0;
-        sPB[jb] = pb;
-        sKS[jb] = k_scale[(size_t)pb * H + h];
-        sVS[jb] = v_scale[(size_t)pb * H + h];
-      }
-      __syncthreads();
-    }
-    // stage G table entries of K and V for head h in shared memory
-    for (int c = tid; c < TT * cpr; c += kThreads) {
-      const int t = c / cpr;
-      const int part = c - t * cpr;
-      const int jb = t / Bt;
-      float kf[epc];
-      float vf[epc];
-      if (j0 + jb < nb) {
-        const int pb = kQuant ? sPB[jb]
-                              : min(max(trow[j0 + jb], 0), NB - 1);
-        const size_t off =
-            (((size_t)pb * Bt + (t - jb * Bt)) * H + h) * Dh + part * epc;
-        const uint4 ku = *reinterpret_cast<const uint4*>(k_pool + off);
-        const uint4 vu = *reinterpret_cast<const uint4*>(v_pool + off);
-        unpack16<TP>(ku, kf);
-        unpack16<TP>(vu, vf);
-        if constexpr (kQuant) {  // dequantize in f32, before the dot
-          const float ks = sKS[jb];
-          const float vs = sVS[jb];
-#pragma unroll
-          for (int e = 0; e < epc; ++e) {
-            kf[e] *= ks;
-            vf[e] *= vs;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < epc; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < epc; ++e) {
-        sK[t * (Dh + 1) + part * epc + e] = kf[e];
-        sV[t * Dh + part * epc + e] = vf[e];
-      }
-    }
-    __syncthreads();
-
-    // scores: row r (global position base + r0 + r) attends depth
-    // <= its position; everything deeper contributes exactly 0
-    for (int i = tid; i < rt * TT; i += kThreads) {
-      const int r = i / TT;
-      const int t = i - r * TT;
-      const int depth = j0 * Bt + t;
-      float sc = kNegInf;
-      if (r < nrows && j0 + t / Bt < nb && depth <= (long long)base + r0 + r) {
-        const float* qr = sQ + r * Dh;
-        const float* kr = sK + t * (Dh + 1);
-        float dot = 0.f;
-        for (int d = 0; d < Dh; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = scale_in_q ? dot : dot * scale;  // decode: scale after QK^T
-      }
-      sP[i] = sc;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per row; the NEG_INF guards make a
-    // fully-masked step an exact no-op on (m, l, acc)
-    for (int r = warp; r < rt; r += kWarps) {
-      float* pr = sP + r * TT;
-      float mc = kNegInf;
-      for (int t = lane; t < TT; t += 32) mc = fmaxf(mc, pr[t]);
-      mc = warp_max(mc);
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mc);
-      float sum = 0.f;
-      for (int t = lane; t < TT; t += 32) {
-        const float x = pr[t];
-        const float p = x <= kNegInf ? 0.f : expf(x - m_new);
-        pr[t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = m_prev <= kNegInf ? 0.f : expf(m_prev - m_new);
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P.V, each thread owning fixed (row, d) slots
-#pragma unroll
-    for (int a = 0; a < kMaxAcc; ++a) {
-      const int i = tid + a * kThreads;
-      if (i < rt * Dh) {
-        const int r = i / Dh;
-        const int d = i - r * Dh;
-        const float* pr = sP + r * TT;
-        float pv = 0.f;
-        for (int t = 0; t < TT; ++t) pv = fmaf(pr[t], sV[t * Dh + d], pv);
-        acc[a] = acc[a] * sA[r] + pv;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int a = 0; a < kMaxAcc; ++a) {
-    const int i = tid + a * kThreads;
-    if (i < rt * Dh) {
-      const int r = i / Dh;
-      const int d = i - r * Dh;
-      if (r < nrows) {
-        store(out + (((size_t)s * R + r0 + r) * H + h) * Dh + d,
-              acc[a] / fmaxf(sL[r], 1e-30f));
-      }
-    }
-  }
-}
-
-template <typename TQ, typename TP>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const float* k_scale, const float* v_scale,
-                   const int* tables, const int* base, int base_scalar,
-                   void* out, int S, int R, int H, int Dh, int NB, int Bt,
-                   int MAXB, float scale, int scale_in_q,
-                   cudaStream_t stream) {
-  constexpr bool kQuant = sizeof(TP) == 1;
-  if (Dh < 1 || Dh > kMaxDh || Dh % (16 / (int)sizeof(TP)) != 0 || Bt < 1 ||
-      MAXB < 1 || NB < 1 || (kQuant && (k_scale == nullptr ||
-                                        v_scale == nullptr)))
-    return cudaErrorInvalidValue;
-  const int rt = R < kMaxRows ? R : kMaxRows;
-  const int G = Bt >= kTileTokens ? 1 : kTileTokens / Bt;
-  const int TT = G * Bt;
-  const size_t smem =
-      sizeof(float) * ((size_t)rt * Dh + (size_t)TT * (Dh + 1) +
-                       (size_t)TT * Dh + (size_t)rt * TT + 3 * (size_t)rt +
-                       3 * (size_t)G);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<TQ, TP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid((R + rt - 1) / rt, H, S);
-  paged_attention_kernel<TQ, TP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
-      static_cast<const TP*>(v_pool), k_scale, v_scale, tables, base,
-      base_scalar, static_cast<TQ*>(out), R, H, Dh, NB, Bt, MAXB, rt, G,
-      scale, scale_in_q);
-  return cudaGetLastError();
-}
-
-// pool_type: 0 = the pools hold TQ, 1 = int8 codes, 2 = e4m3 codes
-template <typename TQ>
-cudaError_t launch_pool(int pool_type, const void* q, const void* k_pool,
-                        const void* v_pool, const float* k_scale,
-                        const float* v_scale, const int* tables,
-                        const int* base, int base_scalar, void* out, int S,
-                        int R, int H, int Dh, int NB, int Bt, int MAXB,
-                        float scale, int scale_in_q, cudaStream_t stream) {
-  switch (pool_type) {
-    case 0:
-      return launch<TQ, TQ>(q, k_pool, v_pool, nullptr, nullptr, tables, base,
-                            base_scalar, out, S, R, H, Dh, NB, Bt, MAXB,
-                            scale, scale_in_q, stream);
-    case 1:
-      return launch<TQ, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                                base, base_scalar, out, S, R, H, Dh, NB, Bt,
-                                MAXB, scale, scale_in_q, stream);
-    case 2:
-      return launch<TQ, __nv_fp8_e4m3>(q, k_pool, v_pool, k_scale, v_scale,
-                                       tables, base, base_scalar, out, S, R,
-                                       H, Dh, NB, Bt, MAXB, scale, scale_in_q,
-                                       stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // ---------------------------------------------------------------------
-// bf16 q: the split-context kernel (flash-decoding) and its merge
+// the split-context kernel (flash-decoding) and its merge
 // ---------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
@@ -427,20 +163,27 @@ __host__ __device__ constexpr int split_row_bytes(int Dh, int esize) {
 }
 
 // Shared memory of the split kernel: q [MR][Dh] f32, then per warp a
-// two-stage ring of K and V rows [kGroup][rb] in the pool's storage type,
-// the stages' per-token K and V scales [2][2][kGroup] f32, and the step's
-// probabilities [kGroup][PS] f32 (token-major, padded past 4 rows so the
-// float4 stores of 32 lanes do not collide). After its last step a warp
-// leaves its (m, l, acc) there for the CTA's merge.
+// ring of `stages` stages of K and V rows [kGroup][rb] in the pool's
+// storage type, the stages' per-token K and V scales [stages][2][kGroup]
+// f32, and the step's probabilities [kGroup][PS] f32 (token-major, padded
+// past 4 rows so the float4 stores of 32 lanes do not collide). After its
+// last step a warp leaves its (m, l, acc) there for the CTA's merge. Two
+// stages where they fit in a CTA's shared memory, else one.
 template <int MR>
 struct SplitLayout {
   static constexpr int PS = MR <= 4 ? MR : MR + 4;
-  int rb, ring, per_warp, q_bytes;
+  int rb, q_bytes, stages, ring, sc, per_warp;
   __host__ __device__ SplitLayout(int Dh, int esize)
-      : rb(split_row_bytes(Dh, esize)),
-        ring(4 * kGroup * rb),
-        per_warp(ring + 4 * kGroup * 4 + kGroup * PS * 4),
-        q_bytes(MR * Dh * 4) {}
+      : rb(split_row_bytes(Dh, esize)), q_bytes(MR * Dh * 4) {
+    set(2);
+    if (bytes() > kMaxShared) set(1);
+  }
+  __host__ __device__ void set(int n) {
+    stages = n;
+    ring = n * 2 * kGroup * rb;
+    sc = n * 2 * kGroup * 4;
+    per_warp = ring + sc + kGroup * PS * 4;
+  }
   __host__ __device__ int bytes() const {
     return q_bytes + kSplitWarps * per_warp;
   }
@@ -465,7 +208,7 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// N consecutive elements of a staged row (2, 4 or 8 bytes) as f32
+// N consecutive elements of a staged row (2, 4, 8 or 16 bytes) as f32
 template <int B>
 struct Raw;
 template <>
@@ -480,6 +223,11 @@ template <>
 struct Raw<8> {
   using T = uint2;
 };
+template <>
+struct Raw<16> {
+  using T = uint4;
+};
+__device__ __forceinline__ float code_f32(float x) { return x; }
 __device__ __forceinline__ float code_f32(bf16 x) {
   return __bfloat162float(x);
 }
@@ -489,6 +237,17 @@ __device__ __forceinline__ float code_f32(int8_t x) {
 __device__ __forceinline__ float code_f32(__nv_fp8_e4m3 x) {
   // exact: every e4m3 value is a half, every half a float
   return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.__x, __NV_E4M3)));
+}
+// f32 -> q's type (out is written in it)
+template <typename TQ>
+__device__ TQ from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16(x);
 }
 template <typename TP, int N>
 __device__ __forceinline__ void load_n(const unsigned char* p, float (&f)[N]) {
@@ -500,21 +259,23 @@ __device__ __forceinline__ void load_n(const unsigned char* p, float (&f)[N]) {
   for (int i = 0; i < N; ++i) f[i] = code_f32(x[i]);
 }
 
-// TP: the pools (bf16, or int8 / e4m3 codes with scales [NB, H]); MR:
-// rows of q a CTA takes (split_rows); NDV: head dims a lane accumulates
-// (consecutive, Dh <= 32 * NDV). One CTA per (partition, row tile x
-// head, slot); partition p takes table entries [p * epp, (p + 1) * epp).
-// With parts == 1 it writes `out`; otherwise its (m, l, acc) go to the
-// workspace for paged_merge_kernel.
-template <typename TP, int MR, int NDV>
+// TQ: q and out (bf16 or f32); TP: the pools (TQ, or int8 / e4m3 codes
+// with scales [NB, H]); MR: rows of q a CTA takes (split_rows); NDV: head
+// dims a lane accumulates (consecutive, Dh <= 32 * NDV); ST: the ring's
+// stages, SplitLayout's choice at these shapes (1 only for f32 pools past
+// Dh 100). One CTA per (partition, row tile x head, slot); partition p
+// takes table entries [p * epp, (p + 1) * epp). With parts == 1 it
+// writes `out`; otherwise its (m, l, acc) go to the workspace for
+// paged_merge_kernel.
+template <typename TQ, typename TP, int MR, int NDV, int ST>
 __global__ void __launch_bounds__(kSplitThreads)
-paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
+paged_split_kernel(const TQ* __restrict__ q, const TP* __restrict__ k_pool,
                    const TP* __restrict__ v_pool,
                    const float* __restrict__ k_scale,
                    const float* __restrict__ v_scale,
                    const int* __restrict__ tables,
                    const int* __restrict__ base_arr, int base_scalar,
-                   bf16* __restrict__ out, float* __restrict__ ws, int R,
+                   TQ* __restrict__ out, float* __restrict__ ws, int R,
                    int H, int Dh, int NB, int Bt, int MAXB, int parts,
                    int epp, float scale, int scale_in_q) {
   constexpr bool kQuant = sizeof(TP) == 1;
@@ -535,15 +296,15 @@ paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
   const int base = base_arr != nullptr ? base_arr[s] : base_scalar;
   unsigned char* wmem = smem_raw + lay.q_bytes + warp * lay.per_warp;
   const uint32_t ring = smem_addr(wmem);
-  float* sSc = reinterpret_cast<float*>(wmem + lay.ring);  // [2][2][32]
-  float* sP = sSc + 4 * kGroup;                            // [32][PS]
+  // [stages][2][32] scales, then [32][PS] probabilities
+  float* sSc = reinterpret_cast<float*>(wmem + lay.ring);
+  float* sP = reinterpret_cast<float*>(wmem + lay.ring + lay.sc);
 
   for (int i = threadIdx.x; i < MR * Dh; i += kSplitThreads) {
     const int r = i / Dh;
     float x = 0.f;
     if (r < nrows) {
-      x = __bfloat162float(q[(((size_t)s * R + r0 + r) * H + h) * Dh + i -
-                             r * Dh]);
+      x = code_f32(q[(((size_t)s * R + r0 + r) * H + h) * Dh + i - r * Dh]);
       if (scale_in_q) x *= scale;  // chunk family: scale folded into q
     }
     sQ[i] = x;
@@ -623,10 +384,11 @@ paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
   const int dl = lane * NDV;  // this lane's first head dim of acc
   __syncthreads();            // q is staged
 
+  constexpr bool two = ST == 2;
   if (nk > 0) issue(0, 0);
   for (int kk = 0; kk < nk; ++kk) {
-    const int st = kk & 1;
-    if (kk + 1 < nk) {
+    const int st = two ? kk & 1 : 0;
+    if (two && kk + 1 < nk) {
       issue(kk + 1, st ^ 1);
       cp_wait<1>();
     } else {
@@ -725,6 +487,7 @@ paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
       }
     }
     __syncwarp();  // done with this stage before it is refilled
+    if (!two && kk + 1 < nk) issue(kk + 1, 0);
   }
 
   // the warp's state into its own region, then the CTA merges its four
@@ -752,7 +515,7 @@ paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
 #pragma unroll
     for (int w = 0; w < kSplitWarps; ++w) {
       const float* wp = reinterpret_cast<const float*>(
-          smem_raw + lay.q_bytes + w * lay.per_warp + lay.ring + 16 * kGroup);
+          smem_raw + lay.q_bytes + w * lay.per_warp + lay.ring + lay.sc);
       mw[w] = wp[r];
       M = fmaxf(M, mw[w]);
     }
@@ -761,13 +524,12 @@ paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
     for (int w = 0; w < kSplitWarps; ++w) {
       const unsigned char* wb = smem_raw + lay.q_bytes + w * lay.per_warp;
       const float wt = mw[w] <= kNegInf ? 0.f : expf(mw[w] - M);
-      L += wt * reinterpret_cast<const float*>(wb + lay.ring +
-                                               16 * kGroup)[MR + r];
+      L += wt * reinterpret_cast<const float*>(wb + lay.ring + lay.sc)[MR + r];
       a += wt * reinterpret_cast<const float*>(wb)[r * Dh + d];
     }
     const size_t row = ((size_t)s * R + r0 + r) * H + h;
     if (parts == 1) {
-      out[row * Dh + d] = __float2bfloat16(a / fmaxf(L, 1e-30f));
+      out[row * Dh + d] = from_f32<TQ>(a / fmaxf(L, 1e-30f));
     } else {
       ws[(row * parts + part) * Dh + d] = a;
       if (d == 0) {
@@ -781,9 +543,10 @@ paged_split_kernel(const bf16* __restrict__ q, const TP* __restrict__ k_pool,
 
 // The partitions of each (slot, row, head) merged in partition order:
 // weight exp(m_p - M) (exactly 0 for an empty partition), out = acc /
-// max(l, 1e-30) in bf16. One warp a row.
+// max(l, 1e-30) in q's type. One warp a row.
+template <typename TQ>
 __global__ void __launch_bounds__(kSplitThreads)
-paged_merge_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
+paged_merge_kernel(const float* __restrict__ ws, TQ* __restrict__ out,
                    int rows, int parts, int Dh) {
   const int row = blockIdx.x * kSplitWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -801,7 +564,7 @@ paged_merge_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
     float a = 0.f;
     for (int p = 0; p < parts; ++p)
       a += (pm[p] <= kNegInf ? 0.f : expf(pm[p] - M)) * pa[(size_t)p * Dh + d];
-    out[(size_t)row * Dh + d] = __float2bfloat16(a / den);
+    out[(size_t)row * Dh + d] = from_f32<TQ>(a / den);
   }
 }
 
@@ -824,48 +587,74 @@ int split_parts(int S, int R, int H, int Bt, int MAXB) {
   return (MAXB + epp - 1) / epp;
 }
 
-template <typename TP, int MR, int NDV>
+template <typename TQ, typename TP, int MR, int NDV, int ST>
+cudaError_t split_launch_stages(const void* q, const void* k_pool,
+                                const void* v_pool, const float* k_scale,
+                                const float* v_scale, const int* tables,
+                                const int* base, int base_scalar, void* out,
+                                float* ws, int parts, int S, int R, int H,
+                                int Dh, int NB, int Bt, int MAXB, float scale,
+                                int scale_in_q, cudaStream_t stream) {
+  const SplitLayout<MR> lay(Dh, sizeof(TP));
+  if (lay.stages != ST) return cudaErrorInvalidValue;
+  const int smem = lay.bytes();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_split_kernel<TQ, TP, MR, NDV, ST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int epp = (MAXB + parts - 1) / parts;
+  const dim3 grid(parts, ((R + MR - 1) / MR) * H, S);
+  paged_split_kernel<TQ, TP, MR, NDV, ST>
+      <<<grid, kSplitThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TP*>(k_pool),
+      static_cast<const TP*>(v_pool), k_scale, v_scale, tables, base,
+      base_scalar, static_cast<TQ*>(out), ws, R, H, Dh, NB, Bt, MAXB, parts,
+      epp, scale, scale_in_q);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || parts == 1) return e;
+  const int rows = S * R * H;
+  paged_merge_kernel<TQ><<<(rows + kSplitWarps - 1) / kSplitWarps,
+                           kSplitThreads, 0, stream>>>(
+      ws, static_cast<TQ*>(out), rows, parts, Dh);
+  return cudaGetLastError();
+}
+
+// the ring's stages as a template argument: one only where two would
+// not fit, which only f32 pools past Dh 64 can reach
+template <typename TQ, typename TP, int MR, int NDV>
 cudaError_t split_launch(const void* q, const void* k_pool, const void* v_pool,
                          const float* k_scale, const float* v_scale,
                          const int* tables, const int* base, int base_scalar,
                          void* out, float* ws, int parts, int S, int R, int H,
                          int Dh, int NB, int Bt, int MAXB, float scale,
                          int scale_in_q, cudaStream_t stream) {
-  const int smem = SplitLayout<MR>(Dh, sizeof(TP)).bytes();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_split_kernel<TP, MR, NDV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
+#define STAGES(ST)                                                          \
+  split_launch_stages<TQ, TP, MR, NDV, ST>(                                 \
+      q, k_pool, v_pool, k_scale, v_scale, tables, base, base_scalar, out, \
+      ws, parts, S, R, H, Dh, NB, Bt, MAXB, scale, scale_in_q, stream)
+  if constexpr (sizeof(TP) == 4 && NDV == 4) {
+    if (SplitLayout<MR>(Dh, sizeof(TP)).stages == 1) return STAGES(1);
   }
-  const int epp = (MAXB + parts - 1) / parts;
-  const dim3 grid(parts, ((R + MR - 1) / MR) * H, S);
-  paged_split_kernel<TP, MR, NDV><<<grid, kSplitThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const TP*>(k_pool),
-      static_cast<const TP*>(v_pool), k_scale, v_scale, tables, base,
-      base_scalar, static_cast<bf16*>(out), ws, R, H, Dh, NB, Bt, MAXB, parts,
-      epp, scale, scale_in_q);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || parts == 1) return e;
-  const int rows = S * R * H;
-  paged_merge_kernel<<<(rows + kSplitWarps - 1) / kSplitWarps, kSplitThreads,
-                       0, stream>>>(ws, static_cast<bf16*>(out), rows, parts,
-                                    Dh);
-  return cudaGetLastError();
+  return STAGES(2);
+#undef STAGES
 }
 
-template <typename TP>
-cudaError_t split_rows_dims(const void* q, const void* k_pool,
-                            const void* v_pool, const float* k_scale,
-                            const float* v_scale, const int* tables,
-                            const int* base, int base_scalar, void* out,
-                            float* ws, int parts, int S, int R, int H, int Dh,
-                            int NB, int Bt, int MAXB, float scale,
-                            int scale_in_q, cudaStream_t stream) {
-#define SPLIT(MR, NDV)                                                    \
-  split_launch<TP, MR, NDV>(q, k_pool, v_pool, k_scale, v_scale, tables,  \
-                            base, base_scalar, out, ws, parts, S, R, H,   \
-                            Dh, NB, Bt, MAXB, scale, scale_in_q, stream)
+// the arguments every launch below passes on
+#define SPLIT_PARAMS                                                        \
+  const void *q, const void *k_pool, const void *v_pool,                    \
+      const float *k_scale, const float *v_scale, const int *tables,        \
+      const int *base, int base_scalar, void *out, float *ws, int parts,    \
+      int S, int R, int H, int Dh, int NB, int Bt, int MAXB, float scale,   \
+      int scale_in_q, cudaStream_t stream
+#define SPLIT_ARGS                                                          \
+  q, k_pool, v_pool, k_scale, v_scale, tables, base, base_scalar, out, ws, \
+      parts, S, R, H, Dh, NB, Bt, MAXB, scale, scale_in_q, stream
+
+template <typename TQ, typename TP>
+cudaError_t split_rows_dims(SPLIT_PARAMS) {
+#define SPLIT(MR, NDV) split_launch<TQ, TP, MR, NDV>(SPLIT_ARGS)
 #define SPLIT_DIMS(MR) (Dh <= 64 ? SPLIT(MR, 2) : SPLIT(MR, 4))
   switch (split_rows(R)) {
     case 1:
@@ -879,34 +668,32 @@ cudaError_t split_rows_dims(const void* q, const void* k_pool,
 #undef SPLIT
 }
 
+// pool_type: 0 = the pools hold TQ, 1 = int8 codes, 2 = e4m3 codes; a
+// 16-byte copy must hold whole elements of a row
+template <typename TQ>
+cudaError_t split_pools(int pool_type, SPLIT_PARAMS) {
+  switch (pool_type) {
+    case 0:
+      return Dh % (16 / (int)sizeof(TQ)) ? cudaErrorInvalidValue
+                                          : split_rows_dims<TQ, TQ>(SPLIT_ARGS);
+    case 1:
+      return Dh % 16 ? cudaErrorInvalidValue
+                     : split_rows_dims<TQ, int8_t>(SPLIT_ARGS);
+    case 2:
+      return Dh % 16 ? cudaErrorInvalidValue
+                     : split_rows_dims<TQ, __nv_fp8_e4m3>(SPLIT_ARGS);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // C interface bound with ctypes (parallel/paged_attention.py). Pointers
 // and the stream come from torch; `base` may be null, in which case
 // every slot's window starts at `base_scalar` (the one-slot prefill
-// chunk). The pools hold q's type (`pool_type` 0, scales null) or int8
-// (1) / e4m3 (2) codes with f32 scales [NB, H]. Each returns the
-// cudaError_t of its launch (0 = launched).
-
-// f32 q and out (`is_bf16` must be 0: bf16 q launches through
-// paged_attention_split_launch)
-extern "C" int paged_attention_launch(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* k_scale, const void* v_scale, const void* tables,
-    const void* base, int base_scalar, void* out, int is_bf16, int pool_type,
-    int S, int R, int H, int Dh, int NB, int Bt, int MAXB, float scale,
-    int scale_in_q, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  if (is_bf16) return (int)cudaErrorInvalidValue;
-  if (S == 0 || R == 0 || H == 0) return 0;
-  e = launch_pool<float>(pool_type, q, k_pool, v_pool,
-                         static_cast<const float*>(k_scale),
-                         static_cast<const float*>(v_scale),
-                         static_cast<const int*>(tables),
-                         static_cast<const int*>(base), base_scalar, out, S,
-                         R, H, Dh, NB, Bt, MAXB, scale, scale_in_q,
-                         static_cast<cudaStream_t>(stream));
-  return (int)e;
-}
+// chunk). q and out are bf16 (`is_bf16` 1) or f32 (0); the pools hold
+// q's type (`pool_type` 0, scales null) or int8 (1) / e4m3 (2) codes
+// with f32 scales [NB, H]. Each returns the cudaError_t of its launch
+// (0 = launched).
 
 // The number of context partitions the split kernel takes at these
 // shapes (set by the shapes alone, never by positions or table contents).
@@ -916,11 +703,15 @@ extern "C" int paged_split_parts(int S, int R, int H, int Bt, int MAXB) {
 }
 
 // Dynamic shared memory (bytes per CTA) the split kernel requests for R
-// window rows of head width Dh over pools of `pool_type`.
-extern "C" int paged_split_shared_bytes(int pool_type, int R, int Dh) {
+// window rows of head width Dh over pools of `pool_type` with q in bf16
+// (`is_bf16` 1) or f32 (0).
+extern "C" int paged_split_shared_bytes(int is_bf16, int pool_type, int R,
+                                        int Dh) {
   if (pool_type < 0 || pool_type > 2 || R < 1 || Dh < 1 || Dh > kMaxDh)
     return -1;
-  const int esize = pool_type == 0 ? (int)sizeof(bf16) : 1;
+  const int esize = pool_type != 0 ? 1
+                    : is_bf16      ? (int)sizeof(bf16)
+                                   : (int)sizeof(float);
   switch (split_rows(R)) {
     case 1:
       return SplitLayout<1>(Dh, esize).bytes();
@@ -931,15 +722,15 @@ extern "C" int paged_split_shared_bytes(int pool_type, int R, int Dh) {
   }
 }
 
-// bf16 q and out through the split kernel and, with more than one
-// partition, the merge. `parts` is paged_split_parts(S, R, H, Bt, MAXB);
-// with parts > 1, `workspace` holds S * R * H * parts * (Dh + 2) f32.
+// q and out through the split kernel and, with more than one partition,
+// the merge. `parts` is paged_split_parts(S, R, H, Bt, MAXB); with parts
+// > 1, `workspace` holds S * R * H * parts * (Dh + 2) f32.
 extern "C" int paged_attention_split_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
     const void* base, int base_scalar, void* out, void* workspace, int parts,
-    int pool_type, int S, int R, int H, int Dh, int NB, int Bt, int MAXB,
-    float scale, int scale_in_q, int device, void* stream) {
+    int is_bf16, int pool_type, int S, int R, int H, int Dh, int NB, int Bt,
+    int MAXB, float scale, int scale_in_q, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (S == 0 || R == 0 || H == 0) return 0;
@@ -956,22 +747,11 @@ extern "C" int paged_attention_split_launch(
   const int* bs = static_cast<const int*>(base);
   float* ws = static_cast<float*>(workspace);
 #define ARGS                                                                 \
-  q, k_pool, v_pool, ksc, vsc, tbl, bs, base_scalar, out, ws, parts, S, R, H, \
-      Dh, NB, Bt, MAXB, scale, scale_in_q, st
-  switch (pool_type) {
-    case 0:
-      e = Dh % 8 ? cudaErrorInvalidValue : split_rows_dims<bf16>(ARGS);
-      break;
-    case 1:
-      e = Dh % 16 ? cudaErrorInvalidValue : split_rows_dims<int8_t>(ARGS);
-      break;
-    case 2:
-      e = Dh % 16 ? cudaErrorInvalidValue
-                  : split_rows_dims<__nv_fp8_e4m3>(ARGS);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
-  }
+  pool_type, q, k_pool, v_pool, ksc, vsc, tbl, bs, base_scalar, out, ws,      \
+      parts, S, R, H, Dh, NB, Bt, MAXB, scale, scale_in_q, st
+  e = is_bf16 ? split_pools<bf16>(ARGS) : split_pools<float>(ARGS);
 #undef ARGS
   return (int)e;
 }
+#undef SPLIT_ARGS
+#undef SPLIT_PARAMS

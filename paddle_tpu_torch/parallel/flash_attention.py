@@ -9,8 +9,10 @@ kernel has no interpret mode), layout [B, T, H, D] and argument checks.
 VMEM tiles; the Hopper kernels use their own tiles (128 rows a CTA on
 the tensor cores, 64 on the CUDA cores) and mask the ragged edge
 themselves, so a length such as 100 or 768 runs unpadded. All three
-bf16 passes run on the tensor cores (mma.sync); every f32 pass runs on
-the CUDA cores.
+bf16 passes run on the tensor cores (mma.sync); the f32 forward runs on
+the tensor cores in 3xTF32 (each f32 operand split into two TF32 values,
+three TF32 products a product: about f32's accuracy), the two f32
+backward passes on the CUDA cores.
 
 The custom VJP is `_FlashAttention`: the forward saves (q, k, v, o,
 lse); the backward computes delta = rowsum(g * o) in f32 with torch

@@ -25,13 +25,13 @@ the same function, which the CPU tests hold against the JAX package and
 chip_smoke.py holds the kernels against. There is no fallback: a CUDA
 tensor launches or raises.
 
-bf16 q runs the split-context kernel: the table walk is cut into
-`split_parts(S, R, H, Bt, MAXB)` partitions of contiguous table entries
-(set by the shapes alone), each CTA writes its partition's (m, l, acc)
-to a workspace, and a second kernel merges them in partition order.
-`paged_attention_split_plain` is the plain version of exactly that
-computation; the CPU tests hold it against `paged_attention_plain` and
-the JAX package. f32 q runs the single-pass kernel.
+q in bf16 and in f32 runs the split-context kernel: the table walk is
+cut into `split_parts(S, R, H, Bt, MAXB)` partitions of contiguous table
+entries (set by the shapes alone), each CTA writes its partition's (m,
+l, acc) to a workspace, and a second kernel merges them in partition
+order. `paged_attention_split_plain` is the plain version of exactly
+that computation; the CPU tests hold it against `paged_attention_plain`
+and the JAX package.
 
 Quantized pools: with `k_scale`/`v_scale` [NB, H] f32 (both or
 neither) the pools hold int8 or float8_e4m3fn codes, and each staged
@@ -170,15 +170,13 @@ def _kernels():
     tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
     head = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-    fns = {"single": lib.paged_attention_launch,
-           "split": lib.paged_attention_split_launch,
+    fns = {"split": lib.paged_attention_split_launch,
            "parts": lib.paged_split_parts,
            "shared": lib.paged_split_shared_bytes}
-    fns["single"].argtypes = head + [ctypes.c_int] * 2 + tail
-    fns["split"].argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+    fns["split"].argtypes = head + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
         + tail
     fns["parts"].argtypes = [ctypes.c_int] * 5
-    fns["shared"].argtypes = [ctypes.c_int] * 3
+    fns["shared"].argtypes = [ctypes.c_int] * 4
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
@@ -203,9 +201,13 @@ _POOL_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
 def split_shared_bytes(pool_dtype, R, Dh):
     """Dynamic shared memory per CTA (bytes) that the split kernel
     requests for R window rows of head width Dh over pools of
-    `pool_dtype` (bfloat16, int8 or float8_e4m3fn; builds the library on
-    first use)."""
-    n = _kernels()["shared"](_POOL_CODES.get(pool_dtype, 0), R, Dh)
+    `pool_dtype` (bfloat16, float32, int8 or float8_e4m3fn; builds the
+    library on first use)."""
+    if pool_dtype not in (torch.bfloat16, torch.float32) and \
+            pool_dtype not in _POOL_CODES:
+        raise TypeError("no split kernel for pools of %s" % pool_dtype)
+    n = _kernels()["shared"](int(pool_dtype != torch.float32),
+                             _POOL_CODES.get(pool_dtype, 0), R, Dh)
     if n < 0:
         raise ValueError("no split kernel for R=%d, Dh=%d" % (R, Dh))
     return n
@@ -213,9 +215,9 @@ def split_shared_bytes(pool_dtype, R, Dh):
 
 def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q,
             k_scale=None, v_scale=None):
-    """Launch the Hopper kernels on the current stream: bf16 q through
-    the split kernel (and the merge, with a workspace allocated here),
-    f32 q through the single-pass kernel. `base` is an int32 CUDA tensor
+    """Launch the Hopper kernels on the current stream: q (bf16 or f32)
+    through the split kernel and, with more than one partition, the
+    merge, with a workspace allocated here. `base` is an int32 CUDA tensor
     [S] or a Python int shared by every slot. Pools are q's dtype, or
     int8 / float8_e4m3fn codes with f32 scales [NB, H]."""
     quant = _check_scales(k_scale, v_scale)
@@ -276,14 +278,12 @@ def _launch(q, k_pool, v_pool, tables, base, *, scale, scale_in_q,
             else torch.cuda.current_device(),
             torch.cuda.current_stream(q.device).cuda_stream)
     pool = _POOL_CODES.get(k_pool.dtype, 0)
-    if q.dtype == torch.bfloat16:
-        parts = split_parts(S, R, H, Bt, MAXB) if S * R * H else 1
-        ws = (torch.empty(S * R * H * parts * (dh + 2), dtype=torch.float32,
-                          device=q.device) if parts > 1 else None)
-        err = _kernels()["split"](*head, None if ws is None
-                                  else ws.data_ptr(), parts, pool, *tail)
-    else:
-        err = _kernels()["single"](*head, 0, pool, *tail)
+    parts = split_parts(S, R, H, Bt, MAXB) if S * R * H else 1
+    ws = (torch.empty(S * R * H * parts * (dh + 2), dtype=torch.float32,
+                      device=q.device) if parts > 1 else None)
+    err = _kernels()["split"](*head, None if ws is None else ws.data_ptr(),
+                              parts, int(q.dtype == torch.bfloat16), pool,
+                              *tail)
     if err:
         raise RuntimeError("paged_attention kernel launch failed: CUDA "
                            "error %d" % err)

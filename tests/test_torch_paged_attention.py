@@ -9,9 +9,10 @@ suite's own pinned bar (atol/rtol 2e-5, tests/test_paged_kernel.py:
 the two sides differ only in reduction order — one-shot softmax here,
 online (max, sum, acc) in the Pallas kernel). The garbage-row
 invariant (a -1 table tail changes nothing) is checked bit for bit.
-The split plain version (the function of the bf16 split-context
-kernel, partition by partition) is held to the same bars at 1, 2, 3
-and MAXB partitions.
+The split plain version (the function of the split-context kernel,
+which q in bf16 and in f32 runs, partition by partition) is held to the
+same bars at 1, 2, 3 and MAXB partitions, over f32 pools and, with q in
+f32, over int8 and float8_e4m3fn pools.
 """
 
 import functools
@@ -147,7 +148,7 @@ def test_refuses_quantized_pools_and_foreign_devices():
 
 
 # ---------------------------------------------------------------------
-# the split plain version: the bf16 kernel's computation, partition by
+# the split plain version: the split kernel's computation, partition by
 # partition, against the unsplit plain version (atol/rtol 1e-6: the
 # partitions only regroup one f32 softmax, a few ulps) and against the
 # JAX kernel (its bar)
@@ -235,3 +236,60 @@ def test_split_plain_parked_row_gets_unsplit_result(parts):
     split, plain = _both_plain("decode", q, k, v, tables, pos, parts)
     assert torch.isfinite(split).all()
     torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-6)
+
+
+def _quant_pools(kvq):
+    """int8 or float8_e4m3fn codes of the split cases' pools and their
+    per-(block, head) scales [NB, H]: (torch pools, JAX pools, k_scale,
+    v_scale)."""
+    rng = np.random.RandomState(13)
+    codes = [rng.randint(-100, 100, (NB, BT, H, DH)).astype(np.int8)
+             for _ in range(2)]
+    ks, vs = ((0.5 + rng.rand(NB, H)).astype(np.float32) / 40
+              for _ in range(2))
+    tdt = torch.int8 if kvq == "int8" else torch.float8_e4m3fn
+    jdt = jnp.int8 if kvq == "int8" else jnp.float8_e4m3fn
+    return ([torch.from_numpy(c).to(tdt) for c in codes],
+            [jnp.asarray(c).astype(jdt) for c in codes], ks, vs)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_quant_window(kvq, which):
+    """The JAX kernel's quantized branch (interpret mode) with f32 q on a
+    window shape, as [S, R, H, Dh]."""
+    q, _, _, tables, base = _split_case(which)
+    _, (jk, jv), ks, vs = _quant_pools(kvq)
+    sc = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs),
+              interpret=True)
+    if which == "decode":
+        return np.asarray(jpa.paged_decode_attention(
+            jnp.asarray(q[:, 0]), jk, jv, jnp.asarray(tables),
+            jnp.asarray(base), **sc))[:, None]
+    if which == "verify":
+        return np.asarray(jpa.paged_verify_attention(
+            jnp.asarray(q), jk, jv, jnp.asarray(tables), jnp.asarray(base),
+            **sc))
+    return np.asarray(jpa.paged_prefill_attention(
+        jnp.asarray(q[0]), jk, jv, jnp.asarray(tables[0]), int(base[0]),
+        **sc))[None]
+
+
+@pytest.mark.parametrize("parts", PARTS)
+@pytest.mark.parametrize("which", ["decode", "verify", "prefill"])
+@pytest.mark.parametrize("kvq", ["int8", "fp8"])
+def test_split_plain_f32_q_over_quant_pools_matches_jax_kernel(kvq, which,
+                                                              parts):
+    """q in f32 over int8 and e4m3 pools, as the split kernel takes it
+    on the card: the split plain version within 1e-6 of the unsplit one
+    and at the JAX kernel's bar of its quantized branch."""
+    q, _, _, tables, base = _split_case(which)
+    (k, v), _, ks, vs = _quant_pools(kvq)
+    kw = dict(scale=1.0 / np.sqrt(DH), scale_in_q=which != "decode",
+              k_scale=_t(ks), v_scale=_t(vs))
+    args = (_t(q), k, v, _t(tables), _t(base))
+    split = tpa.paged_attention_split_plain(*args, parts=parts, **kw)
+    plain = tpa.paged_attention_plain(*args, **kw)
+    assert split.dtype == torch.float32 and split.shape == q.shape
+    torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(split.numpy(), _jax_quant_window(kvq, which),
+                               rtol=_RTOL, atol=_ATOL)

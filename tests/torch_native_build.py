@@ -21,6 +21,7 @@ the file lock held, so parallel workers compile it once.
 import fcntl
 import os
 import subprocess
+import sys
 import threading
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,16 +61,33 @@ def _ensure(src, so):
     return so
 
 
+def _clear_stuck(error, loaded):
+    """Drop the build error `error` that the imported paddle_tpu.native
+    keeps while its `loaded` handle is still None: the library is in
+    place now, so its next load reads the file."""
+    mod = sys.modules.get("paddle_tpu.native")
+    if mod is None:
+        return
+    with mod._lock:
+        if getattr(mod, loaded) is None and getattr(mod, error) is not None:
+            setattr(mod, error, None)
+
+
 def ensure_jax_native() -> str:
     """The path of the up-to-date record library, built here if need
-    be."""
-    return _ensure(SRC, SO)
+    be; a stuck build error in paddle_tpu.native is cleared."""
+    so = _ensure(SRC, SO)
+    _clear_stuck("_build_error", "_lib")
+    return so
 
 
 def ensure_jax_infer() -> str:
     """The path of the JAX package's up-to-date inference runner, built
-    here if need be."""
-    return _ensure(INFER_SRC, INFER_SO)
+    here if need be; a stuck build error in paddle_tpu.native is
+    cleared."""
+    so = _ensure(INFER_SRC, INFER_SO)
+    _clear_stuck("_infer_error", "_infer_lib")
+    return so
 
 
 def ensure_port_infer() -> str:
