@@ -6,8 +6,9 @@
 Runs chip_smoke.py's kernel timings (phase 2's paged shapes and phase
 5's flash kernels at the training shape, q in bf16 and in f32, and the
 paged wrappers with q in f32 over int8 and e4m3 pools at phase 8's
-shapes), its serving phases (3, 9 and 11) and its training step (phase
-6) from each checkout, each run in a
+shapes), its serving phases (3, 9 and 11), its training step (phase
+6) and the same step in f32 (from the port's public API, so that any
+checkout runs it) from each checkout, each run in a
 process of its own started in that checkout, in the order parent,
 change, change, parent: both sides see the same card and the same
 host. Each run's output is passed through and ends with one line
@@ -22,7 +23,7 @@ import subprocess
 import sys
 
 RUN = r'''
-import importlib, json, sys
+import importlib, json, sys, time
 import numpy as np
 import torch
 import chip_smoke as cs
@@ -64,6 +65,21 @@ quant = cs.phase_serve_quant(torch, T, tpa, ServingEngine, params, cfg)
 spec = cs.phase_spec(torch, T, tpa, ServingEngine, params, cfg)
 del params
 _, train, _ = cs.phase_train(torch, T, tfa)
+# the f32 training step: 2 warm-up steps, then 5 timed ones
+cfg32 = T.TransformerConfig(dtype=torch.float32, **cs.FULL)
+p32 = T.init_params(
+    cfg32, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+toks = torch.from_numpy(cs.train_tokens(cfg32.vocab)).to("cuda")
+step = T.make_train_step(cfg32, lr=cs.TRAIN["lr"], attn_impl="flash")
+for _ in range(2):
+    step(p32, toks)
+torch.cuda.synchronize()
+t0 = time.monotonic()
+for _ in range(5):
+    step(p32, toks)
+torch.cuda.synchronize()
+train32_ms = (time.monotonic() - t0) / 5 * 1e3
+del p32, step
 print("AB %s %s" % (sys.argv[1], json.dumps(dict(
     card=cs.gpu_line(),
     paged_ms={k: v["ms"] for k, v in paged.items()},
@@ -79,7 +95,8 @@ print("AB %s %s" % (sys.argv[1], json.dumps(dict(
     quant_tokens_per_s={k: v["tokens_per_s"] for k, v in quant.items()},
     spec_tokens_per_s={k: v["tokens_per_s"] for k, v in spec.items()},
     train_ms_per_step=train["ms_per_step"],
-    train_tokens_per_s=train["tokens_per_s"]))), flush=True)
+    train_tokens_per_s=train["tokens_per_s"],
+    train_f32_ms_per_step=train32_ms))), flush=True)
 '''
 
 

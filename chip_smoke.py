@@ -47,13 +47,12 @@ Phases (any failure exits non-zero):
      causal) in bf16 and f32, at the JAX suite's odd shapes (cross
      attention T 128 / S 384 with D 32, causal T 100 and T 768) and at
      the edges of the tensor-core tiles (D 40 and D 128, causal T 129,
-     T 200 / S 72, B*H = 1); launch the bf16 forward, dK/dV and dQ and
-     the f32 forward twice on the training shape and require
-     bit-identical outputs; time each kernel at the training shape in
-     bf16 (the tensor-core kernels) and in f32 (the forward in 3xTF32 on
-     the tensor cores, the backward on the CUDA cores) with a cold L2
-     beside its plain version, its bound (the f32 forward's also at the
-     3xTF32 rate) and scaled_dot_product_attention in the same dtype
+     T 200 / S 72, B*H = 1); launch the forward, dK/dV and dQ twice on
+     the training shape in bf16 and in f32 and require bit-identical
+     outputs; time each kernel at the training shape in bf16 and in f32
+     (all on the tensor cores, f32 in 3xTF32) with a cold L2 beside its
+     plain version, its bound (the f32 kernels' also at the 3xTF32 rate)
+     and scaled_dot_product_attention in the same dtype
      (forward, and its backward for dK/dV and dQ together), with its
      registers, shared memory, spills and tensor-core instruction count;
   6. train the repo's training configuration (bench.py:913-931: the
@@ -61,7 +60,9 @@ Phases (any failure exits non-zero):
      attn_impl="flash"): 2 warm-up steps, then 10 timed steps on one
      fixed batch with the flash counters zeroed just before and read
      just after; every loss finite, each counter = layers x steps;
-     tokens/s, ms/step and bench.py's FLOP share of 989 TFLOP/s;
+     tokens/s, ms/step and bench.py's FLOP share of 989 TFLOP/s; then
+     the same in f32 (2 warm-up steps, 5 timed ones, the share of the
+     67 TFLOP/s f32 rate);
   7. f32 parity: 3 SGD steps (lr 1e-2) from the same weights and batch
      through attn_impl="flash" and attn_impl="reference" agree;
   8. the paged kernel's dequant branch: all three wrappers over int8 and
@@ -1810,6 +1811,39 @@ def check_flash(torch, tfa, c, causal, label):
     return errs
 
 
+def check_flash_f64(torch, tfa, c, label, bar=5e-5):
+    """Hold the f32 backward kernels on one causal case (T == S) against
+    an f64 reference built from the same f32 inputs, lse and delta, at a
+    max abs error of `bar`. mma.sync truncates as it accumulates: running
+    sums over a long sequence drift from f32's result, and where the
+    outputs are large `_held`'s rtol of 1e-4 hides it; the plain f32
+    version reads about 1e-5 from f64 on such a case."""
+    _, lse, delta = flash_inputs(torch, tfa, c, True)
+    dk, dv = run_flash(tfa, "backward_kv", c, True, lse, delta)
+    dq = run_flash(tfa, "backward_q", c, True, lse, delta)
+    q, k, v, g = (c[n].double() for n in "qkvg")
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bthd,bshd->bhts", q, k) * scale
+    keep = torch.ones(s.shape[-2:], dtype=torch.bool,
+                      device=s.device).tril()
+    p = torch.where(keep, torch.exp(s - lse.double()[..., None]),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    del s
+    ds = p * (torch.einsum("bthd,bshd->bhts", g, v)
+              - delta.double()[..., None]) * scale
+    want = dict(dk=torch.einsum("bhts,bthd->bshd", ds, q),
+                dv=torch.einsum("bhts,bthd->bshd", p, g),
+                dq=torch.einsum("bhts,bshd->bthd", ds, k))
+    errs = {n: float((got.double() - want[n]).abs().max())
+            for n, got in (("dk", dk), ("dv", dv), ("dq", dq))}
+    ok = all(e <= bar for e in errs.values())
+    log("  %-40s from f64: dk %.3e dv %.3e dq %.3e (bar %.0e) %s"
+        % (label, errs["dk"], errs["dv"], errs["dq"], bar,
+           "ok" if ok else "FAIL"))
+    check(ok, "f32 flash backward drifts from f64: " + label)
+    return errs
+
+
 def flash_bound_ms(which, B, T, S, H, D, esize, causal, dtype_name,
                    tf32x3=False):
     """Least time for one flash kernel's work: every input read once and
@@ -1903,9 +1937,9 @@ def _kernel_label(mangled):
 def flash_build_report(_build):
     """Phase 1's report of every flash kernel instantiation: registers,
     stack and spills (nvcc) and tensor-core instructions (SASS). Gate:
-    each of the twelve tensor-core kernels (three bf16 passes and the
-    f32 forward in 3xTF32, x D 32/64/128) holds HMMA/HGMMA and spills 0
-    bytes."""
+    each of the eighteen tensor-core kernels (the three bf16 passes and
+    the three f32 passes in 3xTF32, x D 32/64/128) holds HMMA/HGMMA and
+    spills 0 bytes."""
     usage = ptxas_usage(_build.compiler_output("flash_attention"))
     lib = _build.build(["flash_attention"])["flash_attention"]
     ops = sass_tensor_ops(lib, _build._nvcc())
@@ -1924,9 +1958,9 @@ def flash_build_report(_build):
                       u["tensor_core_ops"], total))
     mma = {k: u for k, u in report.items()
            if "_mma_kernel" in k or "_tf32x3_kernel" in k}
-    check(len(mma) == 12, "expected the bf16 forward, dK/dV and dQ and "
-          "the f32 forward tensor-core kernels at D 32, 64 and 128, found "
-          "%s" % sorted(mma))
+    check(len(mma) == 18, "expected the forward, dK/dV and dQ "
+          "tensor-core kernels in bf16 and in f32 at D 32, 64 and 128, "
+          "found %s" % sorted(mma))
     for k, u in mma.items():
         check(u["tensor_core_ops"] > 0, "%s has no tensor-core instruction"
               % k)
@@ -2006,21 +2040,21 @@ FLASH_TRAIN_KERNEL = {
 
 
 # the kernel instantiation each flash entry point launches for f32 at
-# the training shape's head width: the forward in 3xTF32 on the tensor
-# cores, the CUDA-core kernels for the backward
+# the training shape's head width: all three in 3xTF32 on the tensor
+# cores
 FLASH_TRAIN_KERNEL_F32 = {
     "forward": "flash_forward_tf32x3_kernel<f32, 64>",
-    "backward_kv": "flash_backward_kv_kernel<f32, 64>",
-    "backward_q": "flash_backward_q_kernel<f32, 64>",
+    "backward_kv": "flash_backward_kv_tf32x3_kernel<f32, 64>",
+    "backward_q": "flash_backward_q_tf32x3_kernel<f32, 64>",
 }
 
 
 def phase_flash(torch, tfa, build_report):
     """Phase 5: the three flash kernels vs their plain versions at the
     training shape (bf16 and f32, causal) and the JAX suite's odd shapes,
-    then timings at the training shape in bf16 (the tensor-core kernels)
-    and in f32 (the forward in 3xTF32, the CUDA-core backward). Returns
-    (errors, bf16 timings, f32 timings)."""
+    then timings at the training shape in bf16 and in f32 (all on the
+    tensor cores, f32 in 3xTF32). Returns (errors, bf16 timings, f32
+    timings)."""
     rng = np.random.RandomState(5)
     B, T, H, D = TRAIN["batch"], TRAIN["seq"], FULL["heads"], \
         FULL["dim"] // FULL["heads"]
@@ -2055,25 +2089,27 @@ def phase_flash(torch, tfa, build_report):
                         "%s %s B%d T%d S%d H%d D%d" % (
                             name, "causal" if causal else "cross", nb, t, s,
                             h, d))
-    c = full["bfloat16"]
-    o, lse, delta = flash_inputs(torch, tfa, c, True)
+    # a long sequence in f32: mma.sync truncates as it accumulates, so
+    # the 3xTF32 kernels' running sums must not drift as T grows
+    for d in (64, 128):
+        c = flash_case(rng, torch, torch.float32, 1, 4096, 4096, 2, d)
+        label = "float32 causal B1 T4096 H2 D%d" % d
+        check_flash(torch, tfa, c, True, label)
+        check_flash_f64(torch, tfa, c, label)
     # each output tile has one owner and no atomics: launches repeat
-    for which in ("forward", "backward_kv", "backward_q"):
-        first = run_flash(tfa, which, c, True, lse, delta)
-        again = run_flash(tfa, which, c, True, lse, delta)
-        if which == "backward_q":
-            first, again = (first,), (again,)
-        same = all(torch.equal(x, y) for x, y in zip(first, again))
-        log("  %-11s bf16 twice on the training shape: bit-identical %s"
-            % (which, same))
-        check(same, "%s kernel is not deterministic" % which)
-    first = run_flash(tfa, "forward", full["float32"], True)
-    again = run_flash(tfa, "forward", full["float32"], True)
-    same = all(torch.equal(x, y) for x, y in zip(first, again))
-    log("  forward     f32 (3xTF32) twice on the training shape: "
-        "bit-identical %s" % same)
-    check(same, "the f32 forward kernel is not deterministic")
-    del first, again
+    for name, label in (("bfloat16", "bf16"), ("float32", "f32 (3xTF32)")):
+        c = full[name]
+        o, lse, delta = flash_inputs(torch, tfa, c, True)
+        for which in ("forward", "backward_kv", "backward_q"):
+            first = run_flash(tfa, which, c, True, lse, delta)
+            again = run_flash(tfa, which, c, True, lse, delta)
+            if which == "backward_q":
+                first, again = (first,), (again,)
+            same = all(torch.equal(x, y) for x, y in zip(first, again))
+            log("  %-11s %s twice on the training shape: bit-identical %s"
+                % (which, label, same))
+            check(same, "%s %s kernel is not deterministic" % (label, which))
+    del c, o, lse, delta, first, again
     timing = {}
     for name, label, kernels in (("bfloat16", "bf16", FLASH_TRAIN_KERNEL),
                                  ("float32", "f32", FLASH_TRAIN_KERNEL_F32)):
@@ -2131,12 +2167,15 @@ def train_tokens(vocab, seed=0):
     return rng.randint(0, vocab, (TRAIN["batch"], TRAIN["seq"] + 1))
 
 
-def phase_train(torch, T, tfa, steps=10, warm=2, dev="cuda", full=FULL):
-    """Phase 6: the training configuration in bf16 through
-    make_train_step(attn_impl="flash"): warm-up steps, then `steps`
-    timed steps on one fixed batch with the flash counters zeroed just
-    before and read just after."""
-    cfg = T.TransformerConfig(dtype=torch.bfloat16, **full)
+def phase_train(torch, T, tfa, steps=10, warm=2, dev="cuda", full=FULL,
+                dtype=None):
+    """Phase 6: the training configuration in `dtype` (bf16 by default)
+    through make_train_step(attn_impl="flash"): warm-up steps, then
+    `steps` timed steps on one fixed batch with the flash counters zeroed
+    just before and read just after. The FLOP share is of the peak of
+    `dtype`'s GEMMs (f32: the 67 TFLOP/s f32 rate, TF32 being off)."""
+    dtype = dtype or torch.bfloat16
+    cfg = T.TransformerConfig(dtype=dtype, **full)
     gen = torch.Generator(device=dev).manual_seed(1)
     params = T.init_params(cfg, gen, device=dev)
     toks = torch.from_numpy(train_tokens(cfg.vocab)).to(dev)
@@ -2161,11 +2200,13 @@ def phase_train(torch, T, tfa, steps=10, warm=2, dev="cuda", full=FULL):
               "flash kernel launches != layers x steps")
     B, Tn = toks.shape[0], toks.shape[1] - 1
     dt = wall / steps
-    flop_share = 3.0 * _train_flops(B, Tn) / dt / PEAK_FLOPS["bfloat16"]
+    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
+    flop_share = 3.0 * _train_flops(B, Tn) / dt / peak
     log("  losses %s" % ", ".join("%.4f" % x for x in losses))
-    log("  %d steps of [%d, %d] tokens: %.3f ms/step, %.1f tokens/s, "
-        "FLOP share %.4f of 989 TFLOP/s (bench.py's count)"
-        % (steps, B, Tn + 1, dt * 1e3, B * Tn / dt, flop_share))
+    log("  %d steps of [%d, %d] tokens in %s: %.3f ms/step, %.1f tokens/s, "
+        "FLOP share %.4f of %g TFLOP/s (bench.py's count)"
+        % (steps, B, Tn + 1, str(dtype).split(".")[-1], dt * 1e3,
+           B * Tn / dt, flop_share, peak / 1e12))
     return launches, dict(ms_per_step=dt * 1e3, tokens_per_s=B * Tn / dt,
                           flop_share=flop_share, losses=losses), \
         (step, params, toks)
@@ -9452,6 +9493,13 @@ def main():
 
     log("phase 6: train at full width, bf16, attn_impl='flash'")
     flash_launches, train, (step, tparams, toks) = phase_train(torch, T, tfa)
+    log("phase 6: train at full width, f32, attn_impl='flash'")
+    launches32, train["f32"], _ = phase_train(torch, T, tfa, steps=5,
+                                              dtype=torch.float32)
+    f32_counts["phase 6"] = dict(flash=launches32)
+    log("  ms/step bf16 %.3f, f32 %.3f; tokens/s bf16 %.1f, f32 %.1f"
+        % (train["ms_per_step"], train["f32"]["ms_per_step"],
+           train["tokens_per_s"], train["f32"]["tokens_per_s"]))
     if "--profile" in sys.argv[1:]:
         log("profile: bf16 train steps under torch.profiler")
         _profile_window(torch, lambda: step(tparams, toks), 3,
@@ -9791,15 +9839,14 @@ def main():
             "library_note": "scaled_dot_product_attention, is_causal=True"
                             + (" (forward)" if which == "forward" else
                                " (backward: dq, dk, dv together)"),
-            "design": ("tensor cores, mma.sync m16n8k16 bf16"
-                       if "_mma_" in tm["kernel"] else "CUDA cores, f32 FMA"),
+            "design": "tensor cores, mma.sync m16n8k16 bf16",
             "kernel": tm["kernel"], "resources": tm["resources"],
             "card": card,
         })
     # the f32 kernels (q in f32: the paged split kernel over f32, int8
-    # and e4m3 pools; the flash forward in 3xTF32 and the CUDA-core
-    # backward), launched on the phases that run f32 alone: 4, 7, 10,
-    # 12, 42 (a') and 43 (c)
+    # and e4m3 pools; the three flash passes in 3xTF32), launched on the
+    # phases that run f32 alone: 4, 6 (its f32 steps), 7, 10, 12, 42 (a')
+    # and 43 (c)
     f32_counts["phase 42 (a')"] = fleet["f32_kill"]["launches"]
     f32_counts["phase 43 (c)"] = dict(flash=lm_paths["tp_flash_launches"])
     for which in ("decode", "prefill", "verify"):
@@ -9851,7 +9898,7 @@ def main():
     for which in ("forward", "backward_kv", "backward_q"):
         tm = flash_timing32[which]
         by_phase = {ph: n["flash"][which] for ph, n in f32_counts.items()}
-        entry = {
+        kernels.append({
             "name": "flash_attention f32 (%s, flash_%s)" % (which, which),
             "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[which],
@@ -9859,26 +9906,21 @@ def main():
             "launches_by_phase": by_phase,
             "max_abs_err": flash_errs["float32"][which],
             "ms": tm["ms"], "plain_ms": tm["plain_ms"],
-            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            # the least time for the operations this kernel does (three
+            # TF32 products an f32 product); the f32 FMA bound beside it
+            "bound_ms": tm["bound_tf32x3_ms"],
+            "bound_by": tm["bound_tf32x3_by"],
+            "bound_f32_fma_ms": tm["bound_f32_fma_ms"],
             "library_ms": tm["library_ms"],
             "library_note": "scaled_dot_product_attention in f32, "
                             "is_causal=True" + (
                                 " (forward)" if which == "forward" else
                                 " (backward: dq, dk, dv together)"),
-            "design": "CUDA cores, f32 FMA (PR 2's kernel)",
+            "design": "tensor cores, 3xTF32: mma.sync m16n8k8 .tf32 "
+                      "three times a product, f32 accumulators",
             "kernel": tm["kernel"], "resources": tm["resources"],
             "card": card,
-        }
-        if "bound_tf32x3_ms" in tm:
-            # the least time for the operations this kernel does (three
-            # TF32 products an f32 product); the f32 FMA bound beside it
-            entry.update(
-                bound_ms=tm["bound_tf32x3_ms"],
-                bound_by=tm["bound_tf32x3_by"],
-                bound_f32_fma_ms=tm["bound_f32_fma_ms"],
-                design="tensor cores, 3xTF32: mma.sync m16n8k8 .tf32 "
-                       "three times a product, f32 accumulators")
-        kernels.append(entry)
+        })
     log("kernels: " + ", ".join("%s launches=%d" % (k["name"], k["launches"])
                                 for k in kernels))
     idle = [k["name"] for k in kernels if not k["launches"]]

@@ -87,25 +87,43 @@
 //   dense TF32), and ahead of them the splits (two integer ops, a
 //   subtract and two more per operand element at each use) on the ALUs.
 //
-// f32 backward (dK/dV and dQ): the CUDA-core design, f32 FMA.
-//   * each output tile is owned by one CTA; the TPU's sequential grid
-//     axis becomes a loop inside it, so no sums cross CTAs — no atomics,
-//     deterministic results:
-//       dK/dV    — one CTA per (b*h, 64-row k tile), looping q tiles;
-//       dQ       — one CTA per (b*h, 64-row q tile), looping k tiles;
-//   * the causal skip is a loop bound, not a predicate: dQ stops at the
-//     diagonal tile, dK/dV starts at it; q tiles are issued longest
-//     first so the causal triangle's tail does not idle SMs;
-//   * tiles are staged in shared memory as f32 with 16-byte global
-//     loads (each row's D values are one contiguous segment); rows are
-//     padded to D+1 words so both operand walks are bank-conflict free;
-//   * 256 threads as a 16x16 grid, each owning a 4x4 micro-tile of the
-//     64x64 score tile (rows ty+16i, cols tx+16j) and 4 x D/16 outputs;
-//   * ragged edges (T = 100, S = 384, ...) are masked in the kernel:
-//     rows past T or S load as zeros, their probabilities are forced to
-//     0 and they are never written.
-//   What bounds them: f32 math on the CUDA cores, compute-bound at the
-//   67 TFLOP/s f32 peak at best. They read the 3xTF32 forward's lse.
+// f32 backward (dK/dV and dQ): the bf16 backward kernels' structure on
+// the tensor cores in 3xTF32 (`flash_backward_kv_tf32x3_kernel`,
+// `flash_backward_q_tf32x3_kernel`), every product split as in the f32
+// forward.
+//   * dK/dV computes S^T = K.Q^T and dP^T = V.g^T with K and V as the A
+//     fragments (ldmatrix, as the forward's Q) and Q and g as the B
+//     fragments (ldmatrix, as the forward's K); dQ computes S = Q.K^T and
+//     dP = g.V^T as the forward computes S;
+//   * P^T and dS^T (dK/dV) and dS (dQ) never leave their lanes: with the
+//     q rows (or keys) permuted within each eight, as the forward's
+//     keys are, the accumulators are the A fragments of dV += P^T.g,
+//     dK += dS^T.Q and dQ += dS.K, and g, Q and K are read by 32-bit
+//     shared loads under the same permutation, as the forward's V. No
+//     transposing load is needed, and on [rows][D + 4] tiles a warp's
+//     32 loads fall on 32 distinct banks;
+//   * a CTA owns 16 rows a warp of keys (dK/dV) or of q (dQ): 4 warps
+//     up to D 64, 8 at D 128; the streamed tiles come through a
+//     cp.async ring whose stage count is a template argument: two
+//     stages where they fit in a CTA's 227 KB, one where they do not
+//     (both at D 128). At D 64 dK/dV takes 105,472 B and dQ 104,448 B,
+//     two CTAs an SM;
+//   * numerics and edges as the TPU kernels': the scale after the
+//     product, P = exp(S * scale - lse), exactly 0 where masked (only
+//     edge and diagonal tiles evaluate the mask), dS = P * (dP - delta)
+//     * scale, the rounding points the identity in f32; one owner per
+//     output tile and no atomics, so launches repeat bit for bit; the
+//     causal skip and the longest-first issue as in bf16. The products
+//     go to fresh sums that are added to the running ones in f32: dK/dV
+//     a 16-row q slice's, one n-tile at a time (four registers, so D
+//     128 fits too), dQ a streamed tile's. mma.sync's accumulation
+//     truncates, and over a long sequence running sums drifted from f64
+//     by ten times as much without this.
+//   What bounds them: the tensor cores at three TF32 products an f32
+//   product (3 x 17.2 GFLOP for dK/dV and 3 x 12.9 for dQ at the
+//   training shape over 494.7 TFLOP/s dense TF32), and ahead of them
+//   the splits on the ALUs: every warp splits the streamed tile again,
+//   and K and V (dK/dV) or Q and g (dQ) at each use.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,318 +132,7 @@
 
 namespace {
 
-constexpr int kTile = 64;          // rows of a q or k tile
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kLdP = kTile + 1;    // padded row of a [64, 64] f32 tile
 constexpr float kNegInf = -1e30f;  // parallel/kernel_utils.py NEG_INF
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-// x rounded to T's precision, as astype(T) does (f32: unchanged)
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-
-template <typename T>
-__device__ void unpack16(const uint4& u, float* dst);
-template <>
-__device__ __forceinline__ void unpack16<float>(const uint4& u, float* dst) {
-  dst[0] = __uint_as_float(u.x);
-  dst[1] = __uint_as_float(u.y);
-  dst[2] = __uint_as_float(u.z);
-  dst[3] = __uint_as_float(u.w);
-}
-
-// Stage rows [r0, r0 + 64) of one (b, h) slice into dst [64][ld] as f32;
-// rows at or past `len` are zeros. `src` points at (b, row 0, h, 0) and
-// consecutive rows are `rs` elements apart.
-template <typename T>
-__device__ void load_tile(float* dst, const T* __restrict__ src, int r0,
-                          int len, size_t rs, int D, int ld) {
-  constexpr int epc = 16 / sizeof(T);  // elements per 16-byte chunk
-  const int cpr = D / epc;             // chunks per row
-  for (int c = threadIdx.x; c < kTile * cpr; c += kThreads) {
-    const int t = c / cpr;
-    const int part = c - t * cpr;
-    float f[8];
-    if (r0 + t < len) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          src + (size_t)(r0 + t) * rs + part * epc);
-      unpack16<T>(u, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < epc; ++e) dst[t * ld + part * epc + e] = f[e];
-  }
-}
-
-// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d] over two staged
-// [64][ld] tiles: one 4x4 micro-tile of a 64x64 product A.B^T
-__device__ __forceinline__ void row_dot(const float* A, const float* B,
-                                        int ld, int D, int ty, int tx,
-                                        float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const float* a = A + ty * ld;
-  const float* b = B + tx * ld;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[16 * i * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[16 * j * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// backward, shared: P and dS for one (q tile, k tile) pair, micro-tile
-// rows q0 + ty + 16i, cols k0 + tx + 16j
-// ---------------------------------------------------------------------
-__device__ __forceinline__ void probs_and_ds(
-    const float* sQ, const float* sG, const float* sK, const float* sV,
-    const float* sL, const float* sD, int ld, int D, int ty, int tx, int q0,
-    int k0, int Tq, int S, float scale, int causal, float p[4][4],
-    float ds[4][4]) {
-  float dp[4][4];
-  row_dot(sQ, sK, ld, D, ty, tx, p);
-  row_dot(sG, sV, ld, D, ty, tx, dp);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    const float lse_r = sL[ty + 16 * i];
-    const float delta_r = sD[ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = k0 + tx + 16 * j;
-      const bool keep = r < Tq && c < S && (!causal || r >= c);
-      // exp(NEG_INF - lse) is exactly 0: masked taps drop out
-      p[i][j] = keep ? expf(p[i][j] * scale - lse_r) : 0.f;
-      ds[i][j] = p[i][j] * (dp[i][j] - delta_r) * scale;
-    }
-  }
-}
-
-// lse / delta rows [r0, r0 + 64) of slice bh into shared (0 past Tq)
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int Tq) {
-  for (int t = threadIdx.x; t < kTile; t += kThreads)
-    dst[t] = r0 + t < Tq ? src[r0 + t] : 0.f;
-}
-
-// ---------------------------------------------------------------------
-// CUDA cores, f32: dK/dV for one (b*h, k tile), looping q tiles from the
-// diagonal
-// ---------------------------------------------------------------------
-template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_backward_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ g,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int H,
-                         int Tq, int S, int D, float scale, int causal) {
-  constexpr int NJ = DM / 16;
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sK = smem;
-  float* sV = sK + kTile * ld;
-  float* sQ = sV + kTile * ld;
-  float* sG = sQ + kTile * ld;
-  float* sP = sG + kTile * ld;   // [64 q][kLdP]
-  float* sS = sP + kTile * kLdP;  // dS, [64 q][kLdP]
-  float* sL = sS + kTile * kLdP;
-  float* sD = sL + kTile;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.x * kTile;  // causal: low k tiles are longest
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const size_t rs = (size_t)H * D;
-  const T* qb = q + ((size_t)b * Tq * H + h) * D;
-  const T* gb = g + ((size_t)b * Tq * H + h) * D;
-  const T* kb = k + ((size_t)b * S * H + h) * D;
-  const T* vb = v + ((size_t)b * S * H + h) * D;
-  const float* lb = lse + (size_t)bh * Tq;
-  const float* db = delta + (size_t)bh * Tq;
-
-  load_tile<T>(sK, kb, k0, S, rs, D, ld);
-  load_tile<T>(sV, vb, k0, S, rs, D, ld);
-  float dka[4][NJ], dva[4][NJ];  // rows k0 + ty + 16i, cols tx + 16j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  const int nq = (Tq + kTile - 1) / kTile;
-  const int q_first = causal ? k0 / kTile : 0;
-  for (int qt = q_first; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();
-    load_tile<T>(sQ, qb, q0, Tq, rs, D, ld);
-    load_tile<T>(sG, gb, q0, Tq, rs, D, ld);
-    load_rows(sL, lb, q0, Tq);
-    load_rows(sD, db, q0, Tq);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    probs_and_ds(sQ, sG, sK, sV, sL, sD, ld, D, ty, tx, q0, k0, Tq, S, scale,
-                 causal, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int at = (ty + 16 * i) * kLdP + tx + 16 * j;
-        sP[at] = round_to<T>(p[i][j]);
-        sS[at] = round_to<T>(ds[i][j]);
-      }
-    __syncthreads();
-
-    // dV += P^T g and dK += dS^T Q over this q tile's real rows
-    const int q_rows = min(kTile, Tq - q0);
-    for (int r = 0; r < q_rows; ++r) {
-      float pv[4], sv[4], gv[NJ], qv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[r * kLdP + ty + 16 * i];
-        sv[i] = sS[r * kLdP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const bool in = tx + 16 * j < D;
-        gv[j] = in ? sG[r * ld + tx + 16 * j] : 0.f;
-        qv[j] = in ? sQ[r * ld + tx + 16 * j] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dva[i][j] = fmaf(pv[i], gv[j], dva[i][j]);
-          dka[i][j] = fmaf(sv[i], qv[j], dka[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c >= S) continue;
-    const size_t row = ((size_t)(b * S + c) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) {
-        store(dk + row + d, dka[i][j]);
-        store(dv + row + d, dva[i][j]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------
-// CUDA cores, f32: dQ for one (b*h, q tile), looping k tiles up
-// to the diagonal
-// ---------------------------------------------------------------------
-template <typename T, int DM>
-__global__ void __launch_bounds__(kThreads)
-flash_backward_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta,
-                        T* __restrict__ dq, int H, int Tq, int S, int D,
-                        float scale, int causal) {
-  constexpr int NJ = DM / 16;
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;
-  float* sG = sQ + kTile * ld;
-  float* sK = sG + kTile * ld;
-  float* sV = sK + kTile * ld;
-  float* sS = sV + kTile * ld;  // dS, [64 q][kLdP]
-  float* sL = sS + kTile * kLdP;
-  float* sD = sL + kTile;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // longest first
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const size_t rs = (size_t)H * D;
-  const T* qb = q + ((size_t)b * Tq * H + h) * D;
-  const T* gb = g + ((size_t)b * Tq * H + h) * D;
-  const T* kb = k + ((size_t)b * S * H + h) * D;
-  const T* vb = v + ((size_t)b * S * H + h) * D;
-
-  load_tile<T>(sQ, qb, q0, Tq, rs, D, ld);
-  load_tile<T>(sG, gb, q0, Tq, rs, D, ld);
-  load_rows(sL, lse + (size_t)bh * Tq, q0, Tq);
-  load_rows(sD, delta + (size_t)bh * Tq, q0, Tq);
-  float dqa[4][NJ];  // rows q0 + ty + 16i, cols tx + 16j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dqa[i][j] = 0.f;
-
-  int nk = (S + kTile - 1) / kTile;
-  if (causal) nk = min(nk, (q0 + kTile - 1) / kTile + 1);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T>(sK, kb, k0, S, rs, D, ld);
-    load_tile<T>(sV, vb, k0, S, rs, D, ld);
-    __syncthreads();
-
-    float p[4][4], ds[4][4];
-    probs_and_ds(sQ, sG, sK, sV, sL, sD, ld, D, ty, tx, q0, k0, Tq, S, scale,
-                 causal, p, ds);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sS[(ty + 16 * i) * kLdP + tx + 16 * j] = round_to<T>(ds[i][j]);
-    __syncthreads();
-
-    // dQ += dS K over this k tile's real rows
-    const int kv_rows = min(kTile, S - k0);
-    for (int c = 0; c < kv_rows; ++c) {
-      float sv[4], kv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = sS[(ty + 16 * i) * kLdP + c];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        kv[j] = tx + 16 * j < D ? sK[c * ld + tx + 16 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dqa[i][j] = fmaf(sv[i], kv[j], dqa[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Tq) continue;
-    T* row = dq + ((size_t)(b * Tq + r) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = tx + 16 * j;
-      if (d < D) store(row + d, dqa[i][j]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------
 // bf16 on the tensor cores: mma.sync helpers
@@ -1129,6 +836,78 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma_tf32(c, ah, bh0, bh1);
 }
 
+// An m16n8 accumulator tile (rows r, columns k = 2t, 2t + 1 in lane
+// (r % 8) * 4 + t) as the A fragment of the next product, split into
+// TF32 hi and lo. The columns are permuted within the eight (A column t
+// is k = 2t, t + 4 is 2t + 1), so the accumulator's registers are the A
+// fragment as they lie; the B operand is read with the same permutation.
+__device__ __forceinline__ void split_acc_a(const float (&a)[4],
+                                            uint32_t (&ah)[4],
+                                            uint32_t (&al)[4]) {
+  split_tf32(a[0], ah[0], al[0]);  // row r,     k 2t
+  split_tf32(a[2], ah[1], al[1]);  // row r + 8, k 2t
+  split_tf32(a[1], ah[2], al[2]);  // row r,     k 2t + 1
+  split_tf32(a[3], ah[3], al[3]);  // row r + 8, k 2t + 1
+}
+
+// c[n] += a.b over one k-step where a is an accumulator tile (split_acc_a)
+// and b's rows k are `bp` and `bp + P` in shared memory, column n at
+// `bp[8n]`: rows 2t and 2t + 1, read by 32-bit loads and split.
+template <int P, int NO>
+__device__ __forceinline__ void mma3_acc_rows(float (&c)[NO][4],
+                                              const float (&a)[4],
+                                              const float* bp) {
+  uint32_t ah[4], al[4];
+  split_acc_a(a, ah, al);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    uint32_t h0, l0, h1, l1;
+    split_tf32(bp[8 * n], h0, l0);      // k 2t, column 8n + r % 8
+    split_tf32(bp[P + 8 * n], h1, l1);  // k 2t + 1
+    mma3(c[n], ah, al, h0, h1, l0, l1);
+  }
+}
+
+// As mma3_acc_rows over J k-steps (a[j]'s b rows at `bp + 8jP`), each
+// n-tile's J steps summed from zero and the sum added to c[n] in f32.
+// mma.sync truncates as it accumulates: products summed straight into a
+// running c over a long range drift from f32's sum, and fresh sums of a
+// few k-steps, each added with f32 rounding, do not. The sum takes four
+// registers whatever NO.
+template <int P, int NO, int J>
+__device__ __forceinline__ void mma3_add_rows(float (&c)[NO][4],
+                                              const float (&a)[J][4],
+                                              const float* bp) {
+  uint32_t ah[J][4], al[J][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j) split_acc_a(a[j], ah[j], al[j]);
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float* b = bp + 8 * j * P + 8 * n;
+      uint32_t h0, l0, h1, l1;
+      split_tf32(b[0], h0, l0);
+      split_tf32(b[P], h1, l1);
+      mma3(t, ah[j], al[j], h0, h1, l0, l1);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] += t[e];
+  }
+}
+
+// One k-step's A fragment, or the B fragments of two n-tiles, by
+// ldmatrix x4 at `addr` (Frag32's a or b), split into TF32 hi and lo
+__device__ __forceinline__ void ldsm4_split(uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4],
+                                            uint32_t addr) {
+  uint32_t f[4];
+  ldsm4(f, addr);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(f[i]), hi[i], lo[i]);
+}
+
 // Shared memory of the 3xTF32 forward: a two-stage ring, each stage a K
 // then a V tile [kStep][P] f32, then the CTA's Q tile [kRows][P]. P = DM
 // + 4 words: a row is an odd number of 16-byte units, so ldmatrix's
@@ -1163,14 +942,15 @@ struct Frag32 {
 };
 
 // Queue the copy of rows [r0, r0 + ROWS) of one (b, h) f32 slice into the
-// [ROWS][P] tile at shared address `dst`, 16 bytes (4 floats) a copy;
-// rows at or past `len` and columns at or past D are zero-filled.
-template <int ROWS, int DM>
+// [ROWS][P] tile at shared address `dst`, 16 bytes (4 floats) a copy,
+// by a CTA of THREADS threads; rows at or past `len` and columns at or
+// past D are zero-filled.
+template <int ROWS, int DM, int THREADS = kMmaThreads>
 __device__ __forceinline__ void cp_tile_f32(uint32_t dst, const float* src,
                                             int r0, int len, int rs, int D) {
   constexpr int kChunks = DM / 4;  // per row
   constexpr int P = Tf32Layout<DM>::P;
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kMmaThreads) {
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += THREADS) {
     const int r = c / kChunks;
     const int part = c % kChunks;
     const bool in = r0 + r < len && part * 4 < D;
@@ -1255,18 +1035,13 @@ flash_forward_tf32x3_kernel(const float* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
       for (int kd = 0; kd < KD; ++kd) {
-        uint32_t qf[4], ah[4], al[4];
-        ldsm4(qf, sQ + fr.a + fr.blk(16 * warp, 8 * kd));
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(__uint_as_float(qf[i]), ah[i], al[i]);
+        uint32_t ah[4], al[4];
+        ldsm4_split(ah, al, sQ + fr.a + fr.blk(16 * warp, 8 * kd));
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
-          uint32_t kf[4], bhi[4], blo[4];
-          ldsm4(kf, sK + fr.b + fr.blk(kHalf * hf + 16 * np, 8 * kd));
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            split_tf32(__uint_as_float(kf[i]), bhi[i], blo[i]);
+          uint32_t bhi[4], blo[4];
+          ldsm4_split(bhi, blo,
+                      sK + fr.b + fr.blk(kHalf * hf + 16 * np, 8 * kd));
           mma3(s[2 * np], ah, al, bhi[0], bhi[1], blo[0], blo[1]);
           mma3(s[2 * np + 1], ah, al, bhi[2], bhi[3], blo[2], blo[3]);
         }
@@ -1318,25 +1093,12 @@ flash_forward_tf32x3_kernel(const float* __restrict__ q,
 
       // acc += P.V, k-step j = keys kh + 8j... P's accumulator holds keys
       // 2tc and 2tc + 1 of a row, so the keys are permuted within the
-      // eight: A column t is key 2t and column t + 4 key 2t + 1, and V's
-      // B fragment is read with the same permutation. The sum over keys
-      // is unchanged and no shuffle moves P between lanes.
+      // eight and V is read at those keys, head dim 8n + gr. The sum over
+      // keys is unchanged and no shuffle moves P between lanes.
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        uint32_t ph[4], pl[4];
-        split_tf32(s[j][0], ph[0], pl[0]);  // row gr,     key 2tc
-        split_tf32(s[j][2], ph[1], pl[1]);  // row gr + 8, key 2tc
-        split_tf32(s[j][1], ph[2], pl[2]);  // row gr,     key 2tc + 1
-        split_tf32(s[j][3], ph[3], pl[3]);  // row gr + 8, key 2tc + 1
-        const float* vr = sV + (kHalf * hf + 8 * j + 2 * tc) * P + gr;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          uint32_t vh0, vl0, vh1, vl1;
-          split_tf32(vr[8 * n], vh0, vl0);      // key 2tc, head dim 8n + gr
-          split_tf32(vr[P + 8 * n], vh1, vl1);  // key 2tc + 1
-          mma3(acc[n], ph, pl, vh0, vh1, vl0, vl1);
-        }
-      }
+      for (int j = 0; j < 4; ++j)
+        mma3_acc_rows<P, NO>(acc, s[j],
+                             sV + (kHalf * hf + 8 * j + 2 * tc) * P + gr);
     }
   }
 
@@ -1358,6 +1120,399 @@ flash_forward_tf32x3_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// f32 backward in 3xTF32: warps a CTA and its shared memory
+// ---------------------------------------------------------------------
+// Warps a CTA of either pass runs, each owning 16 rows (keys for dK/dV,
+// q rows for dQ): on an H100, 4 (two CTAs an SM) ran both faster at D
+// 64, and 8 (one CTA an SM, each streamed tile read half as often) ran
+// both faster at D 128
+template <int DM>
+constexpr int kBwdWarps = DM <= 64 ? 4 : 8;
+template <int DM>
+constexpr int kBwdRows = 16 * kBwdWarps<DM>;  // rows a CTA owns
+// A CTA's dynamic shared memory at most (227 KB)
+constexpr uint32_t kMaxShared = 232448;
+
+// ---------------------------------------------------------------------
+// f32 dK/dV on the tensor cores in 3xTF32: one (b*h, kBwdRows-key tile),
+// stepping 64-row q tiles from the diagonal in 16-row slices; warp w
+// owns key rows 16w..16w+15.
+// ---------------------------------------------------------------------
+// Shared memory: ST ring stages, each the q and g tiles [kStep][P] f32
+// then 64 lse and 64 delta floats, followed by the CTA's K and V tiles
+// [kBwdRows][P]. At D 64, 105,472 B: two CTAs an SM.
+template <int DM, int ST>
+struct KvLayout32 {
+  static constexpr int P = DM + 4;
+  static constexpr uint32_t kTile = kStep * P * sizeof(float);  // q or g
+  static constexpr uint32_t kStage = 2 * kTile + 2 * kStep * sizeof(float);
+  static constexpr uint32_t kKV = kBwdRows<DM> * P * sizeof(float);  // K/V
+  static constexpr uint32_t kK = ST * kStage;                    // K's offset
+  static constexpr uint32_t kBytes = kK + 2 * kKV;
+};
+// two ring stages where they fit, else one
+template <int DM>
+constexpr int kv_stages() {
+  return KvLayout32<DM, 2>::kBytes <= kMaxShared ? 2 : 1;
+}
+
+template <int DM, int ST>
+__global__ void __launch_bounds__(32 * kBwdWarps<DM>, 8 / kBwdWarps<DM>)
+flash_backward_kv_tf32x3_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ g,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk, float* __restrict__ dv,
+                                int H, int Tq, int S, int D, float scale,
+                                int causal) {
+  using L = KvLayout32<DM, ST>;
+  constexpr int P = L::P;
+  constexpr int KD = DM / 8;  // k-steps of K.Q^T over the head dim
+  constexpr int NO = DM / 8;  // n-tiles of dk and dv
+  constexpr int kThr = 32 * kBwdWarps<DM>;
+  constexpr int kCta = kBwdRows<DM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_addr(smem_raw);
+  const uint32_t sK = base + L::kK;
+  const uint32_t sV = sK + L::kKV;
+  const Frag32<P> fr(threadIdx.x & 31);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * kCta;  // causal: low k tiles are longest
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // accumulator rows (keys) gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2tc, 2tc + 1
+  const int kw = k0 + 16 * warp;
+  const int rs = H * D;  // row stride, elements
+  const float* qb = q + ((size_t)b * Tq * H + h) * D;
+  const float* gb = g + ((size_t)b * Tq * H + h) * D;
+  const float* kb = k + ((size_t)b * S * H + h) * D;
+  const float* vb = v + ((size_t)b * S * H + h) * D;
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+
+  // q tile qt (rows 64qt..) with its lse and delta into ring stage st
+  auto issue = [&](int qt, int st) {
+    const int r0 = qt * kStep;
+    const uint32_t at = base + st * L::kStage;
+    cp_tile_f32<kStep, DM, kThr>(at, qb, r0, Tq, rs, D);
+    cp_tile_f32<kStep, DM, kThr>(at + L::kTile, gb, r0, Tq, rs, D);
+    const int t = threadIdx.x & (kStep - 1);
+    const bool in = r0 + t < Tq;
+    const uint32_t row = at + 2 * L::kTile + 4 * t;
+    if (threadIdx.x < kStep)
+      cp_async4(row, in ? lb + r0 + t : lb, in);
+    else if (threadIdx.x < 2 * kStep)
+      cp_async4(row + 4 * kStep, in ? db + r0 + t : db, in);
+    cp_commit();
+  };
+
+  cp_tile_f32<kCta, DM, kThr>(sK, kb, k0, S, rs, D);
+  cp_tile_f32<kCta, DM, kThr>(sV, vb, k0, S, rs, D);
+  cp_commit();
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  const int nq = (Tq + kStep - 1) / kStep;
+  const int qt0 = causal ? k0 / kStep : 0;
+  if (qt0 < nq) issue(qt0, 0);
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = ST == 1 ? 0 : (qt - qt0) & 1;
+    cp_wait<0>();
+    // step qt's tiles are visible to all, and every warp is done with
+    // the stage the next copy refills
+    __syncthreads();
+    if (ST > 1 && qt + 1 < nq) issue(qt + 1, st ^ 1);
+    const int q0 = qt * kStep;
+    if (!causal || q0 + kStep - 1 >= kw) {  // some q row reaches a key
+      const uint32_t sQ = base + st * L::kStage;
+      const uint32_t sG = sQ + L::kTile;
+      const float* fQ =
+          reinterpret_cast<const float*>(smem_raw + st * L::kStage);
+      const float* fG = fQ + kStep * P;
+      const float* sL = fG + kStep * P;
+      const float* sD = sL + kStep;
+      const bool edge =
+          q0 + kStep > Tq || kw + 16 > S || (causal && q0 < kw + 15);
+
+      // one slice at a time: unrolled, the four slices' registers spilled
+      // at D 128, and the kernel ran 1.5x slower at D 128, 1.09x at D 64
+      // on an H100
+#pragma unroll 1
+      for (int sub = 0; sub < kStep / 16; ++sub) {
+        const int qs = 16 * sub;  // this 16-row slice of the q tile
+        if (causal && q0 + qs + 15 < kw) continue;
+        // S^T = K.Q^T and dP^T = V.g^T: 16 keys x 16 q rows, n-tile j =
+        // q rows qs + 8j..; K and V are the A fragments, split at each use
+        float sp[2][4], dp[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+          uint32_t kh[4], kl[4], vh[4], vl[4], qh[4], ql[4], gh[4], gl[4];
+          ldsm4_split(kh, kl, sK + fr.a + fr.blk(16 * warp, 8 * kd));
+          ldsm4_split(qh, ql, sQ + fr.b + fr.blk(qs, 8 * kd));
+          mma3(sp[0], kh, kl, qh[0], qh[1], ql[0], ql[1]);
+          mma3(sp[1], kh, kl, qh[2], qh[3], ql[2], ql[3]);
+          ldsm4_split(vh, vl, sV + fr.a + fr.blk(16 * warp, 8 * kd));
+          ldsm4_split(gh, gl, sG + fr.b + fr.blk(qs, 8 * kd));
+          mma3(dp[0], vh, vl, gh[0], gh[1], gl[0], gl[1]);
+          mma3(dp[1], vh, vl, gh[2], gh[3], gl[2], gl[3]);
+        }
+        // P^T = exp(S^T * scale - lse) (exactly 0 where masked) and
+        // dS^T = P^T * (dP^T - delta) * scale, per q column
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int qc = qs + 8 * j + 2 * tc;
+          const float2 lq = *reinterpret_cast<const float2*>(sL + qc);
+          const float2 dq = *reinterpret_cast<const float2*>(sD + qc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            bool keep = true;
+            if (edge) {
+              const int qr = q0 + qc + (e & 1);
+              const int kc = kw + gr + 8 * (e >> 1);
+              keep = qr < Tq && kc < S && (!causal || qr >= kc);
+            }
+            const float p =
+                keep ? expf(sp[j][e] * scale - ((e & 1) ? lq.y : lq.x))
+                     : 0.f;
+            sp[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - ((e & 1) ? dq.y : dq.x)) * scale;
+          }
+        }
+        // dV += P^T.g and dK += dS^T.Q over the slice, k-step j = q rows
+        // qs + 8j..: the accumulators hold q rows 2tc and 2tc + 1 of the
+        // eight, so g and Q are read at those rows, head dim 8n + gr. The
+        // slice's sums start from zero and are added to dva and dka in
+        // f32 (summed straight into them, dK/dV drifted 6e-5 to 1.8e-4
+        // from f64 at T 1024 to 4096 on an H100)
+        const int at = (qs + 2 * tc) * P + gr;
+        mma3_add_rows<P, NO, 2>(dva, sp, fG + at);
+        mma3_add_rows<P, NO, 2>(dka, dp, fQ + at);
+      }
+    }
+    if (ST == 1 && qt + 1 < nq) {
+      __syncthreads();  // every warp is done with the one stage
+      issue(qt + 1, 0);
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = kw + gr + 8 * i;
+    if (c >= S) continue;
+    const size_t row = ((size_t)(b * S + c) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = 8 * n + 2 * tc;
+      if (d < D) {
+        *reinterpret_cast<float2*>(dk + row + d) =
+            make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(dv + row + d) =
+            make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// f32 dQ on the tensor cores in 3xTF32: one (b*h, kBwdRows-row q tile),
+// stepping 64-key K/V tiles up to the diagonal, each as two 32-key
+// halves; warp w owns q rows 16w..16w+15. The lse and delta of a warp's
+// two accumulator rows stay in registers.
+// ---------------------------------------------------------------------
+// Shared memory: ST ring stages, each a K then a V tile [kStep][P] f32,
+// then the CTA's Q and g tiles [kBwdRows][P]. At D 64, 104,448 B: two
+// CTAs an SM.
+template <int DM, int ST>
+struct QLayout32 {
+  static constexpr int P = DM + 4;
+  static constexpr uint32_t kKV = kStep * P * sizeof(float);     // K or V
+  static constexpr uint32_t kRowsB = kBwdRows<DM> * P * sizeof(float);  // Q/g
+  static constexpr uint32_t kQ = ST * 2 * kKV;                     // Q's offset
+  static constexpr uint32_t kG = kQ + kRowsB;
+  static constexpr uint32_t kBytes = kG + kRowsB;
+};
+template <int DM>
+constexpr int q_stages() {
+  return QLayout32<DM, 2>::kBytes <= kMaxShared ? 2 : 1;
+}
+
+template <int DM, int ST>
+__global__ void __launch_bounds__(32 * kBwdWarps<DM>, 8 / kBwdWarps<DM>)
+flash_backward_q_tf32x3_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ g,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dq, int H, int Tq, int S,
+                               int D, float scale, int causal) {
+  using L = QLayout32<DM, ST>;
+  constexpr int P = L::P;
+  constexpr int KD = DM / 8;  // k-steps of Q.K^T and g.V^T over D
+  constexpr int NO = DM / 8;  // n-tiles of dq
+  constexpr int kThr = 32 * kBwdWarps<DM>;
+  constexpr int kCta = kBwdRows<DM>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t ring = smem_addr(smem_raw);
+  const uint32_t sQ = ring + L::kQ;
+  const uint32_t sG = ring + L::kG;
+  const Frag32<P> fr(threadIdx.x & 31);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kCta;  // longest first
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gr = lane >> 2;  // accumulator rows gr and gr + 8
+  const int tc = lane & 3;   // accumulator columns 2tc, 2tc + 1
+  const int qw = q0 + 16 * warp;
+  const int rs = H * D;  // row stride, elements
+  const float* qb = q + ((size_t)b * Tq * H + h) * D;
+  const float* gb = g + ((size_t)b * Tq * H + h) * D;
+  const float* kb = k + ((size_t)b * S * H + h) * D;
+  const float* vb = v + ((size_t)b * S * H + h) * D;
+
+  // K and V of 64-key tile kt into ring stage st
+  auto issue = [&](int kt, int st) {
+    const uint32_t at = ring + st * 2 * L::kKV;
+    cp_tile_f32<kStep, DM, kThr>(at, kb, kt * kStep, S, rs, D);
+    cp_tile_f32<kStep, DM, kThr>(at + L::kKV, vb, kt * kStep, S, rs, D);
+    cp_commit();
+  };
+
+  cp_tile_f32<kCta, DM, kThr>(sQ, qb, q0, Tq, rs, D);
+  cp_tile_f32<kCta, DM, kThr>(sG, gb, q0, Tq, rs, D);
+  issue(0, 0);
+  int nk = (S + kStep - 1) / kStep;
+  if (causal) nk = min(nk, (q0 + kCta - 1) / kStep + 1);
+
+  // lse and delta of rows gr and gr + 8 (rows past Tq: zero, never
+  // stored; their Q and g rows are zero-filled)
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    lr[i] = r < Tq ? lse[(size_t)bh * Tq + r] : 0.f;
+    dr[i] = r < Tq ? delta[(size_t)bh * Tq + r] : 0.f;
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kStep;
+    const int st = ST == 1 ? 0 : kt & 1;
+    cp_wait<0>();
+    // step kt's tiles (and Q, g) are visible to all, and every warp is
+    // done with the stage the next copy refills
+    __syncthreads();
+    if (ST > 1 && kt + 1 < nk) issue(kt + 1, st ^ 1);
+    const uint32_t sK = ring + st * 2 * L::kKV;
+    const uint32_t sV = sK + L::kKV;
+    const float* fK =
+        reinterpret_cast<const float*>(smem_raw + st * 2 * L::kKV);
+    // this tile's sums, added to acc in f32 (as dK/dV's, against
+    // mma.sync's truncating accumulation)
+    float ta[NO][4] = {};
+
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int kh = k0 + kHalf * hf;
+      if (causal && kh > qw + 15) continue;  // no row of this warp attends
+
+      // S = Q.K^T and dP = g.V^T: 16 rows x 32 keys, n-tile j = keys
+      // kh + 8j..; Q and g are the A fragments, split at each use
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t qh[4], ql[4], gh[4], gl[4];
+        ldsm4_split(qh, ql, sQ + fr.a + fr.blk(16 * warp, 8 * kd));
+        ldsm4_split(gh, gl, sG + fr.a + fr.blk(16 * warp, 8 * kd));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const uint32_t at = fr.b + fr.blk(kHalf * hf + 16 * np, 8 * kd);
+          uint32_t xh[4], xl[4];
+          ldsm4_split(xh, xl, sK + at);
+          mma3(s[2 * np], qh, ql, xh[0], xh[1], xl[0], xl[1]);
+          mma3(s[2 * np + 1], qh, ql, xh[2], xh[3], xl[2], xl[3]);
+          ldsm4_split(xh, xl, sV + at);
+          mma3(dp[2 * np], gh, gl, xh[0], xh[1], xl[0], xl[1]);
+          mma3(dp[2 * np + 1], gh, gl, xh[2], xh[3], xl[2], xl[3]);
+        }
+      }
+
+      // P = exp(S * scale - lse), exactly 0 where masked (only edge and
+      // diagonal tiles evaluate the mask); dS = P * (dP - delta) * scale
+      const bool edge = kh + kHalf > S || (causal && kh + kHalf - 1 > qw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool keep = true;
+          if (edge) {
+            const int c = kh + 8 * j + 2 * tc + (e & 1);
+            const int r = qw + gr + 8 * (e >> 1);
+            keep = c < S && (!causal || r >= c);
+          }
+          const float p = keep ? expf(s[j][e] * scale - lr[e >> 1]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dr[e >> 1]) * scale;
+        }
+
+      // dQ += dS.K, k-step j = keys kh + 8j..: dS's accumulator holds
+      // keys 2tc and 2tc + 1 of the eight, so K is read at those keys,
+      // head dim 8n + gr
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3_acc_rows<P, NO>(ta, s[j],
+                             fK + (kHalf * hf + 8 * j + 2 * tc) * P + gr);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += ta[n][e];
+    if (ST == 1 && kt + 1 < nk) {
+      __syncthreads();  // every warp is done with the one stage
+      issue(kt + 1, 0);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + gr + 8 * i;
+    if (r >= Tq) continue;
+    float* row = dq + ((size_t)(b * Tq + r) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int c = 8 * n + 2 * tc;
+      if (c < D)
+        *reinterpret_cast<float2*>(row + c) =
+            make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------
 
@@ -1372,14 +1527,6 @@ bool valid(const Shape& s, int elem) {
          s.D <= 128 && s.D % (16 / elem) == 0 && s.B * s.H <= 65535;
 }
 
-// Dynamic shared bytes per CTA of the CUDA-core f32 kernel `which` (1
-// dK/dV, 2 dQ): [64][D+1] tiles, [64][65] P/dS tiles and 64-float rows
-size_t fma_shared(int which, int D) {
-  constexpr int kParts[2][3] = {{4, 2, 2}, {4, 1, 2}};
-  const int* n = kParts[which - 1];
-  return sizeof(float) * ((size_t)n[0] * kTile * (D + 1) +
-                          (size_t)n[1] * kTile * kLdP + (size_t)n[2] * kTile);
-}
 // tensor cores: the forward's two-stage K/V ring, KvLayout, QLayout
 template <int DM>
 size_t mma_shared(int which) {
@@ -1459,51 +1606,63 @@ cudaError_t forward_tf32x3(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int DM>
-cudaError_t backward_kv(const void* q, const void* k, const void* v,
-                        const void* g, const float* lse, const float* delta,
-                        void* dk, void* dv, const Shape& s, cudaStream_t st) {
-  const size_t smem = fma_shared(1, s.D);
-  cudaError_t e = allow_smem(flash_backward_kv_kernel<T, DM>, smem);
+template <int DM>
+cudaError_t backward_kv_tf32x3(const void* q, const void* k, const void* v,
+                               const void* g, const float* lse,
+                               const float* delta, void* dk, void* dv,
+                               const Shape& s, cudaStream_t st) {
+  constexpr int ST = kv_stages<DM>();
+  const size_t smem = KvLayout32<DM, ST>::kBytes;
+  cudaError_t e = allow_smem(flash_backward_kv_tf32x3_kernel<DM, ST>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.S + kTile - 1) / kTile, s.B * s.H);
-  flash_backward_kv_kernel<T, DM><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), s.H, s.Tq, s.S, s.D, s.scale,
-      s.causal);
+  const dim3 grid(s.B * s.H, (s.S + kBwdRows<DM> - 1) / kBwdRows<DM>);
+  flash_backward_kv_tf32x3_kernel<DM, ST>
+      <<<grid, 32 * kBwdWarps<DM>, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), s.H, s.Tq, s.S, s.D,
+      s.scale, s.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DM>
-cudaError_t backward_q(const void* q, const void* k, const void* v,
-                       const void* g, const float* lse, const float* delta,
-                       void* dq, const Shape& s, cudaStream_t st) {
-  const size_t smem = fma_shared(2, s.D);
-  cudaError_t e = allow_smem(flash_backward_q_kernel<T, DM>, smem);
+template <int DM>
+cudaError_t backward_q_tf32x3(const void* q, const void* k, const void* v,
+                              const void* g, const float* lse,
+                              const float* delta, void* dq, const Shape& s,
+                              cudaStream_t st) {
+  constexpr int ST = q_stages<DM>();
+  const size_t smem = QLayout32<DM, ST>::kBytes;
+  cudaError_t e = allow_smem(flash_backward_q_tf32x3_kernel<DM, ST>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((s.Tq + kTile - 1) / kTile, s.B * s.H);
-  flash_backward_q_kernel<T, DM><<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-      static_cast<T*>(dq), s.H, s.Tq, s.S, s.D, s.scale, s.causal);
+  const dim3 grid(s.B * s.H, (s.Tq + kBwdRows<DM> - 1) / kBwdRows<DM>);
+  flash_backward_q_tf32x3_kernel<DM, ST>
+      <<<grid, 32 * kBwdWarps<DM>, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
+      static_cast<float*>(dq), s.H, s.Tq, s.S, s.D, s.scale, s.causal);
   return cudaGetLastError();
 }
 
-// D-bucket dispatch: the bucket sizes the register accumulators and, on
-// the tensor cores, the zero-padded tiles; D itself stays a runtime value
+// f32 shared bytes of kernel `which` (0 forward, 1 dK/dV, 2 dQ)
+template <int DM>
+size_t tf32x3_shared(int which) {
+  return which == 0   ? Tf32Layout<DM>::kBytes
+         : which == 1 ? KvLayout32<DM, kv_stages<DM>()>::kBytes
+                      : QLayout32<DM, q_stages<DM>()>::kBytes;
+}
+
+// D-bucket dispatch: the bucket sizes the register accumulators and the
+// zero-padded tiles; D itself stays a runtime value
 #define MMA_DISPATCH(D, CALL) \
   ((D) <= 32 ? CALL(32) : (D) <= 64 ? CALL(64) : CALL(128))
-#define FMA_DISPATCH(T, D, CALL) ((D) <= 64 ? CALL(T, 64) : CALL(T, 128))
 
 }  // namespace
 
 // C interface bound with ctypes (parallel/flash_attention.py). q, g, o,
 // dq are [B, T, H, D]; k, v, dk, dv [B, S, H, D], all contiguous in the
 // input dtype (bf16 or f32); lse and delta [B, H, T] f32. Each returns
-// the cudaError_t of its launch (0 = launched) on `stream`. bf16 runs on
-// the tensor cores; the f32 forward in 3xTF32 on the tensor cores, the
-// f32 backward on the CUDA cores.
+// the cudaError_t of its launch (0 = launched) on `stream`. Every pass
+// runs on the tensor cores: bf16 in m16n8k16 bf16, f32 in 3xTF32.
 extern "C" int flash_forward(const void* q, const void* k, const void* v,
                              void* o, void* lse, int is_bf16, int B, int H,
                              int T, int S, int D, float scale, int causal,
@@ -1536,10 +1695,10 @@ extern "C" int flash_backward_kv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
 #define MMA(DM) backward_kv_mma<DM>(q, k, v, g, l, dl, dk, dv, s, st)
-#define FMA(TT, DM) backward_kv<TT, DM>(q, k, v, g, l, dl, dk, dv, s, st)
-  e = is_bf16 ? MMA_DISPATCH(D, MMA) : FMA_DISPATCH(float, D, FMA);
+#define TF32(DM) backward_kv_tf32x3<DM>(q, k, v, g, l, dl, dk, dv, s, st)
+  e = is_bf16 ? MMA_DISPATCH(D, MMA) : MMA_DISPATCH(D, TF32);
 #undef MMA
-#undef FMA
+#undef TF32
   return (int)e;
 }
 
@@ -1548,9 +1707,8 @@ extern "C" int flash_backward_kv(const void* q, const void* k, const void* v,
 extern "C" int flash_shared_bytes(int which, int is_bf16, int D) {
   if (which < 0 || which > 2 || D <= 0 || D > 128) return -1;
 #define MMA(DM) mma_shared<DM>(which)
-#define TF32(DM) Tf32Layout<DM>::kBytes
-  if (is_bf16) return (int)MMA_DISPATCH(D, MMA);
-  return (int)(which == 0 ? MMA_DISPATCH(D, TF32) : fma_shared(which, D));
+#define TF32(DM) tf32x3_shared<DM>(which)
+  return (int)(is_bf16 ? MMA_DISPATCH(D, MMA) : MMA_DISPATCH(D, TF32));
 #undef TF32
 #undef MMA
 }
@@ -1569,9 +1727,9 @@ extern "C" int flash_backward_q(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
 #define MMA(DM) backward_q_mma<DM>(q, k, v, g, l, dl, dq, s, st)
-#define FMA(TT, DM) backward_q<TT, DM>(q, k, v, g, l, dl, dq, s, st)
-  e = is_bf16 ? MMA_DISPATCH(D, MMA) : FMA_DISPATCH(float, D, FMA);
+#define TF32(DM) backward_q_tf32x3<DM>(q, k, v, g, l, dl, dq, s, st)
+  e = is_bf16 ? MMA_DISPATCH(D, MMA) : MMA_DISPATCH(D, TF32);
 #undef MMA
-#undef FMA
+#undef TF32
   return (int)e;
 }

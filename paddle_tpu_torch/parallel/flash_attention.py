@@ -6,13 +6,11 @@ paddle_tpu/parallel/flash_attention.py).
 `flash_attention` keeps the JAX signature (without `interpret`: a CUDA
 kernel has no interpret mode), layout [B, T, H, D] and argument checks.
 `block_q`/`block_k` only drive those checks — they are the TPU kernel's
-VMEM tiles; the Hopper kernels use their own tiles (128 rows a CTA on
-the tensor cores, 64 on the CUDA cores) and mask the ragged edge
-themselves, so a length such as 100 or 768 runs unpadded. All three
-bf16 passes run on the tensor cores (mma.sync); the f32 forward runs on
-the tensor cores in 3xTF32 (each f32 operand split into two TF32 values,
-three TF32 products a product: about f32's accuracy), the two f32
-backward passes on the CUDA cores.
+VMEM tiles; the Hopper kernels use their own tiles (128 rows a CTA, 64
+for the f32 dQ) and mask the ragged edge themselves, so a length such
+as 100 or 768 runs unpadded. Every pass runs on the tensor cores
+(mma.sync): bf16 directly, f32 in 3xTF32 (each f32 operand split into
+two TF32 values, three TF32 products a product: about f32's accuracy).
 
 The custom VJP is `_FlashAttention`: the forward saves (q, k, v, o,
 lse); the backward computes delta = rowsum(g * o) in f32 with torch

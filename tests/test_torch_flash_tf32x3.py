@@ -24,39 +24,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tf32x3_emulation import _c_frag, _ldsm4, _mma, _mma_lanes, _rna, _split
+
 jfa_mod = importlib.import_module("paddle_tpu.parallel.flash_attention")
 
 NEG_INF = -1e30  # paddle_tpu/parallel/kernel_utils.py NEG_INF
 _BAR = 1e-4
-
-
-def _rna(x):
-    """x (f32) rounded to TF32 as cvt.rna.tf32.f32 does: the low 13
-    mantissa bits cleared, to nearest, ties away from zero."""
-    bits = np.asarray(x, np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
-        np.float32)
-
-
-def _split(x):
-    hi = _rna(x)
-    return hi, _rna(np.float32(x) - hi)
-
-
-def _mma(a, b, products):
-    """a [M, K] . b [K, N] as the kernel takes it: k-steps of 8, each
-    step's TF32 products summed exactly and added to an f32
-    accumulator; `products` 3 (lo.hi, hi.lo, hi.hi) or 1 (hi.hi)."""
-    ah, al = _split(a)
-    bh, bl = _split(b)
-    terms = [(al, bh), (ah, bl), (ah, bh)] if products == 3 else [(ah, bh)]
-    c = np.zeros((a.shape[0], b.shape[1]), np.float32)
-    for k0 in range(0, a.shape[1], 8):
-        for x, y in terms:
-            step = x[:, k0:k0 + 8].astype(np.float64) @ \
-                y[k0:k0 + 8].astype(np.float64)
-            c = (c + step).astype(np.float32)
-    return c
 
 
 def _forward(q, k, v, causal, products=3, block=32):
@@ -140,39 +113,6 @@ def test_tf32x3_forward_matches_jax_forward(T, S, causal, D):
     np.testing.assert_allclose(o3, want_o, atol=_BAR, rtol=_BAR)
     np.testing.assert_allclose(lse3, want_lse, atol=_BAR, rtol=_BAR)
     assert err1 > err3
-
-
-def _c_frag(c):
-    """m16n8 accumulator [16, 8] -> per-lane registers [32, 4]."""
-    return np.array([[c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t],
-                      c[g + 8, 2 * t + 1]]
-                     for g, t in ((ln >> 2, ln & 3) for ln in range(32))])
-
-
-def _mma_lanes(c, a, b):
-    """mma.sync m16n8k8 .tf32 on per-lane registers (PTX's layouts):
-    a [32, 4], b [32, 2], c [32, 4] -> d [32, 4]."""
-    A, B, C = np.zeros((16, 8)), np.zeros((8, 8)), np.zeros((16, 8))
-    for ln in range(32):
-        g, t = ln >> 2, ln & 3
-        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a[ln]
-        B[t, g], B[t + 4, g] = b[ln]
-        C[g, 2 * t], C[g, 2 * t + 1], C[g + 8, 2 * t], \
-            C[g + 8, 2 * t + 1] = c[ln]
-    return _c_frag(C + A @ B)
-
-
-def _ldsm4(tile, P, offsets):
-    """ldmatrix .x4 .b16 over an f32 tile of P words a row: lane 8i + r
-    gives row r's byte offset of matrix i; lane j receives word j % 4 of
-    row j / 4 of each matrix."""
-    flat = tile.reshape(-1)
-    out = np.zeros((32, 4))
-    for i in range(4):
-        for r in range(8):
-            base = offsets[8 * i + r] // 4
-            out[4 * r:4 * r + 4, i] = flat[base:base + 4]
-    return out
 
 
 def test_fragment_lane_maps_reproduce_the_products():
